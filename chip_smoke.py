@@ -1,16 +1,26 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # the full run: 4 views at 512x512
+    python3 chip_smoke.py              # the full run: 4 views at 512x512, 38 training steps
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, drives the port's main path
-(Stage2Trainer.render_full, the stage-2 surface render with the comp
-renderer, at the full default SDF width, random weights from a seed) and
-shows that the path launched every kernel, checks the render against the
-same render through the plain versions, holds every kernel against its plain
-version again on the very inputs the main path gives it, times each kernel
-beside its plain version and its bound, and prints:
+against its plain PyTorch version on the card, and drives the port's two
+main paths at the full default SDF width with random weights from a seed:
+
+  * the stage-2 surface render (Stage2Trainer.render_full, comp renderer):
+    it shows that the render launched every kernel of its path, checks the
+    render against the same render through the plain versions, and holds
+    every kernel against its plain version again on the very inputs the
+    render gives it;
+  * the stage-2 training step at the bench configuration (synthetic sphere,
+    4 views at 256x256, 128x128 crops, comp): one step through the kernels
+    against the same step through the plain versions (loss and every
+    gradient), K3-bwd against its plain version on the inputs that step
+    gives it, then 8 + 30 steps of Stage2Trainer.run with every kernel
+    launched at every step, finite and falling losses, and no plain version
+    reached by a CUDA tensor;
+
+then times each kernel beside its plain version and its bound, and prints:
 
   * the card's name and power limit (nvidia-smi);
   * one JSON line {"kernels": [...]} on the kernels of the path;
@@ -103,6 +113,21 @@ def sdf_work(sdf_cfg) -> dict:
             "transc": 2 * units + 2 * sdf_cfg.multires * sdf_cfg.d_in}
 
 
+def bwd_work(sdf_cfg) -> dict:
+    """What K3-bwd needs a point, on the unpadded chain of `sdf_cfg`: the
+    hidden forward and the u-chain recomputed (2 H MACs, H the hidden
+    layers' MACs), the adjoint of the u-chain (bar_u_l = bar_vh_l W_l and
+    dW_l += bar_vh_l^T u_l: 2 H, plus the final layer's sdf column), and the
+    adjoint of the primal chain through every layer (dW_l += a_l^T bz_l and
+    bar_a_l = bz_l W_l^T: 2 (H + F), F the final layer's MACs);
+    transcendentals as sdf_work counts them."""
+    w = sdf_work(sdf_cfg)
+    hidden = w["value"] - sdf_cfg.dims[-2]
+    final = sdf_cfg.dims[-2] * sdf_cfg.dims[-1]
+    return {"macs": 6 * hidden + 2 * final + sdf_cfg.dims[-2], "transc": w["transc"],
+            "weights_all": w["weights_all"]}
+
+
 def ring_cameras(n: int, res: int, dist: float = 3.0):
     """n cameras on a ring at `dist`, slightly raised, looking at the origin
     (OpenCV axes: x right, y down, z forward)."""
@@ -163,7 +188,9 @@ def main(argv=None) -> int:
     ap.add_argument("--res", type=int, default=512, help="render resolution (square)")
     ap.add_argument("--views", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--no-timing", action="store_true", help="skip phase 7")
+    ap.add_argument("--train-steps", type=int, default=30,
+                    help="timed training steps after the 8 warm-up steps (at least 10)")
+    ap.add_argument("--no-timing", action="store_true", help="skip phase 9")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "iron_tpu_torch", "kernels", "csrc")):
@@ -342,7 +369,8 @@ def main(argv=None) -> int:
     assert int(conv_r.sum()) > 50 and len(dips) <= 5 and all(-1.2e-2 < d < 0 for d in dips)
     assert d_err <= 2e-3 and root <= tc.sdf_threshold * 1.01
 
-    # ---- 6. the slice: render_full of every view at full width ----
+    # ---- 6. the render path: render_full of every view at full width ----
+    calls_of_render = ("coarse_march", "sdf_only_bf16", "sdf_value_feat_grad")
     kernels.reset_launch_counts()
     render_s = []
     outs = []
@@ -351,10 +379,11 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         outs.append(trainer.render_full(i))
         render_s.append(time.perf_counter() - t0)
-    launches = kernels.launch_counts()
+    render_launches = kernels.launch_counts()
     log(f"render_full x{args.views} at {args.res}x{args.res}: "
-        + ", ".join(f"{s:.2f} s" for s in render_s) + f"; launches {launches}")
-    assert all(n > 0 for n in launches.values()), launches
+        + ", ".join(f"{s:.2f} s" for s in render_s) + f"; launches {render_launches}")
+    assert all(render_launches[k] > 0 for k in calls_of_render), render_launches
+    assert render_launches["sdf_value_feat_grad_bwd"] == 0, render_launches
     for i, o in enumerate(outs):
         for k in ("color", "normal", "depth"):
             assert np.isfinite(o[k]).all(), (i, k)
@@ -458,7 +487,7 @@ def main(argv=None) -> int:
     # kernel call (the counted run above is over; these launches are not
     # counted).
     fns = build_stage2_fns(trainer.params, trainer.mat_cfgs, cfg)
-    calls = {name: [] for name in kernels.KERNELS}
+    calls = {name: [] for name in calls_of_render}
 
     def recorded(name, fn):
         def call(*a):
@@ -480,7 +509,219 @@ def main(argv=None) -> int:
     for i, (x,) in enumerate(calls["sdf_value_feat_grad"]):
         check_k3(x, f"main-path call {i}")
 
-    # ---- 7. timings at the slice's shapes ----
+    # ---- 7. K3-bwd against its plain version on random points ----
+    def check_k3_bwd(w, x, cots, what: str) -> None:
+        """K3-bwd against its plain version: every output within 1e-4 of its
+        largest entry (f32 sums over up to 65,536 points, and across blocks,
+        in another order), and two launches bit for bit the same (the
+        per-block partials are summed in a fixed order)."""
+        got = K3.sdf_value_feat_grad_bwd(w, x, *cots)
+        again = K3.sdf_value_feat_grad_bwd(w, x, *cots)
+        torch.cuda.synchronize()
+        ref = K3.sdf_value_feat_grad_bwd_plain(w, x, *cots)
+        flat = lambda r: [r[2]] + list(r[0]) + list(r[1])
+        rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(flat(got), flat(ref))]
+        same = all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
+        err = max(float((a - b).abs().max()) for a, b in zip(flat(got), flat(ref)))
+        log(f"K3-bwd {what} ({x.numel() // 3} points): max |K3-bwd - plain| / max |plain| over "
+            f"dx, {len(got[0])} matrices and {len(got[1])} biases {max(rel):.3e} (tol 1e-4), "
+            f"max abs err {err:.3e}, deterministic {same}")
+        assert max(rel) <= 1e-4 and same
+        for t in flat(got):
+            assert torch.isfinite(t).all()
+        max_err["sdf_value_feat_grad_bwd"] = max(max_err.get("sdf_value_feat_grad_bwd", 0.0), err)
+
+    def random_cots(n: int, w):
+        c = [rng.normal(size=s).astype(np.float32) for s in ((n,), (n, w.d_out - 1), (n, 3))]
+        return [torch.as_tensor(t, device=dev) for t in c]
+
+    w3g = K3.prepare_grad_weights(net)
+    for n in (4096, 65536):
+        xb = torch.as_tensor((rng.normal(size=(n, 3)) * 0.4).astype(np.float32), device=dev)
+        check_k3_bwd(w3g, xb, random_cots(n, w3g), "on random points")
+
+    # ---- 8. the training step at the bench configuration ----
+    from iron_tpu_torch.data.synthetic import render_synthetic_dataset
+    from iron_tpu_torch.surface.render import SurfaceRenderConfig
+    from iron_tpu_torch.train.stage2 import stage2_loss
+
+    t0 = time.perf_counter()
+    data = render_synthetic_dataset("sphere", n_views=4, H=256, W=256, light=30.0, device=dev)
+    tcfg = Stage2Config(renderer_name="comp", patch_size=128,
+                        surface=SurfaceRenderConfig(edge_budget=1024, interior_budget=4096))
+    gen_t = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    tr = Stage2Trainer(tcfg, data["images"], data["Ks"], data["W2Cs"], generator=gen_t,
+                       device=dev)
+    log(f"training data: sphere, 4 views at 256x256, coverage "
+        f"{[round(float(m.mean()), 4) for m in data['masks']]} ({time.perf_counter() - t0:.1f} s)")
+
+    class PlainCore(torch.autograd.Function):
+        """The fused core with the plain versions as forward and backward."""
+        @staticmethod
+        def forward(ctx, w, x, *params):
+            ctx.w = w
+            ctx.save_for_backward(x)
+            return K3.sdf_value_feat_grad_plain(w, x)
+
+        @staticmethod
+        def backward(ctx, dv, df, dg):
+            (x,) = ctx.saved_tensors
+            dW, db, dx = K3.sdf_value_feat_grad_bwd_plain(ctx.w, x, dv, df, dg)
+            return (None, dx, *dW, *db)
+
+    def plain_fns(all_plain: bool) -> dict:
+        f = build_stage2_fns(tr.params, tr.mat_cfgs, tcfg)
+        wg = K3.prepare_grad_weights(tr.params["sdf"], differentiable=True)
+        f["sdf_all_fn"] = lambda x: PlainCore.apply(wg, x, *wg.mats, *wg.biases)
+        if all_plain:
+            wb = K12.prepare_bf16_weights(tr.params["sdf"])
+            f["coarse_sdf_fn"] = lambda p: K12.sdf_only_bf16_plain(wb, p)
+            f["coarse_march_fn"] = lambda *a: K12.coarse_march_plain(wb, *a, thr)
+        return f
+
+    g0 = np.random.default_rng((args.seed + 1) * 1_000_003)   # run()'s first crop
+    crop = (int(g0.integers(0, 4)), int(g0.integers(0, 128)), int(g0.integers(0, 128)))
+    eik = torch.rand((128 * 128 // 2, 3), generator=torch.Generator(device=dev).manual_seed(5),
+                     device=dev) * 2 - 1
+    named = [(n, p) for n, p in tr.params.named_parameters()]
+
+    def one_step(fns=None):
+        """loss, metrics and every gradient of one step on `crop` (no update)."""
+        cam, gt, _ = tr.crop(*crop)
+        for _, p in named:
+            p.grad = None
+        loss, m = stage2_loss(tr.params, tr.mat_cfgs, tcfg, cam, gt, eik, fns=fns)
+        loss.backward()
+        grads = {n: (p.grad.clone() if p.grad is not None else torch.zeros_like(p))
+                 for n, p in named}
+        return float(loss.detach()), {k: float(v.detach()) for k, v in m.items()}, grads
+
+    bwd_calls = []
+    kernels.reset_launch_counts()
+    K3._FusedSdfCore.record = bwd_calls
+    try:
+        loss_k, m_k, g_k = one_step()
+    finally:
+        K3._FusedSdfCore.record = None
+    step_launches = kernels.launch_counts()
+    loss_p3, m_p3, g_p3 = one_step(plain_fns(all_plain=False))
+    loss_pa, m_pa, g_pa = one_step(plain_fns(all_plain=True))
+    log(f"training step on crop {crop} (view, col, row): loss {loss_k:.6f} through the "
+        f"kernels, {loss_p3:.6f} with K3 plain, {loss_pa:.6f} all plain; launches {step_launches}; "
+        f"mask_frac {m_k['mask_frac']:.4f}, edge pixels {m_k['edge_pixel_count']:.0f}; "
+        f"K3 calls {[tuple(c[1].shape[:-1]) for c in bwd_calls]}")
+    assert all(v >= 1 for v in step_launches.values()), step_launches
+    assert len(bwd_calls) == step_launches["sdf_value_feat_grad_bwd"]
+
+    g_scale = max(float(g.abs().max()) for g in g_k.values())
+
+    def leaf_errs(ga, gb, rel: float):
+        """Each leaf's largest difference over its tolerance rel * (its
+        largest entry + 1e-3 of the largest gradient entry of the step): a
+        gradient is a sum of terms that can cancel to far below the terms,
+        and f32 rounding follows the terms (the roughness head's gradients
+        cancel so).  A ratio above 1 fails."""
+        return {n: float((ga[n] - gb[n]).abs().max())
+                / (rel * (float(gb[n].abs().max()) + 1e-3 * g_scale)) for n in ga}
+
+    # (a) the same trace (K1, K2), K3 through its kernels or its plain
+    # versions: the gradients differ only by K3's f32 sums in another order
+    # (1e-6 relative on the card, phases 4 and 7), which the shading and
+    # losses carry through unchanged in size; held at 1e-4.
+    errs = leaf_errs(g_k, g_p3, 1e-4)
+    worst = max(errs, key=errs.get)
+    log(f"  kernels vs K3 plain (same trace): loss rel diff {abs(loss_k - loss_p3) / abs(loss_p3):.3e} "
+        f"(tol 1e-5); gradients: largest entry of the step {g_scale:.3e}, worst leaf {worst} "
+        f"(largest entry {float(g_p3[worst].abs().max()):.3e}) at {errs[worst]:.3f} of its "
+        f"tolerance (1e-4 of its largest entry + 1e-7 of the step's)")
+    assert abs(loss_k - loss_p3) <= 1e-5 * abs(loss_p3) and errs[worst] <= 1.0
+    for k in ("mask_frac", "edge_pixel_count", "edge_seed_count"):
+        assert m_k[k] == m_p3[k], k
+    # (b) everything plain, the trace too: K1/K2's bf16 sums in another
+    # order can move a root by up to the tracer's 5e-5 (phase 6), as between
+    # the JAX package and the port on the CPU, where the step's gradients
+    # are held to 2e-3 of each leaf's largest entry (tests/test_torch_train.py;
+    # here 1.7e-3 on the card); held at 5e-3 when the masks agree, and always
+    # the masks to 1% and the loss to 1e-3.
+    same_masks = all(m_k[k] == m_pa[k] for k in ("mask_frac", "edge_pixel_count",
+                                                 "edge_seed_count"))
+    errs_a = leaf_errs(g_k, g_pa, 5e-3)
+    worst_a = max(errs_a, key=errs_a.get)
+    log(f"  kernels vs all plain: masks agree {same_masks} (mask_frac {m_pa['mask_frac']:.4f}, "
+        f"edge pixels {m_pa['edge_pixel_count']:.0f}), loss rel diff "
+        f"{abs(loss_k - loss_pa) / abs(loss_pa):.3e} (tol 1e-3), worst gradient leaf {worst_a} "
+        f"at {errs_a[worst_a]:.3f} of its tolerance (5e-3 of its largest entry + 5e-6 of the "
+        f"step's; held when the masks agree)")
+    assert abs(m_k["mask_frac"] - m_pa["mask_frac"]) <= 0.01 * max(m_pa["mask_frac"], 1e-6)
+    assert abs(loss_k - loss_pa) <= 1e-3 * abs(loss_pa)
+    if same_masks:
+        assert errs_a[worst_a] <= 1.0
+    for i, (w, x, cots) in enumerate(bwd_calls):
+        check_k3_bwd(w, x, cots, f"training-step call {i}")
+
+    # the run: 8 warm-up steps, then args.train_steps more, each timed and
+    # its launches counted; no plain version may see a CUDA tensor
+    plain_names = [(K12, "sdf_only_bf16_plain"), (K12, "coarse_march_plain"),
+                   (K3, "sdf_value_feat_grad_plain"), (K3, "sdf_value_feat_grad_bwd_plain")]
+    saved = {(m, n): getattr(m, n) for m, n in plain_names}
+
+    def refuse(name, fn):
+        def call(*a, **k):
+            for t in list(a) + list(k.values()):
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    raise AssertionError(f"{name} reached with a CUDA tensor on the main path")
+            return fn(*a, **k)
+        return call
+
+    step_s, per_step, history = [], [], []
+    train_step = tr.train_step
+
+    def timed_step(*a):
+        before = kernels.launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(*a)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        after = kernels.launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        return out
+
+    tr.train_step = timed_step
+    for (m, n), fn in saved.items():
+        setattr(m, n, refuse(n, fn))
+    kernels.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        tr.run(num_iters=8, seed=args.seed, history=history)
+        tr.run(num_iters=args.train_steps, seed=args.seed, history=history)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+        tr.train_step = train_step
+    train_launches = kernels.launch_counts()
+    img = [float(h["img_loss"]) for h in history]
+    losses = [float(h["loss"]) for h in history]
+    timed = step_s[8:]
+    med = float(np.median(timed))
+    log(f"Stage2Trainer.run, {len(history)} steps (8 warm-up + {args.train_steps}): "
+        f"{run_s:.2f} s; launches {train_launches}; img_loss first 10 "
+        f"{[round(v, 4) for v in img[:10]]}, last 10 {[round(v, 4) for v in img[-10:]]}")
+    log(f"training step: median {med * 1e3:.2f} ms over {len(timed)} timed steps (host clock "
+        f"with a synchronise after each step; min {min(timed) * 1e3:.2f}, max "
+        f"{max(timed) * 1e3:.2f}), {128 * 128 / med:.1f} rays/s; card {card}")
+    assert all(np.isfinite(v) for v in losses + img)
+    assert np.mean(img[-10:]) < np.mean(img[:10]), (np.mean(img[:10]), np.mean(img[-10:]))
+    for i, d in enumerate(per_step):
+        assert all(v >= 1 for v in d.values()), (i, d)
+    for p in tr.params.parameters():
+        assert torch.isfinite(p).all()
+    launches = train_launches
+
+    # ---- 9. timings at the slice's shapes ----
     kernel_rows = []
     work = sdf_work(cfg.sdf)
     if not args.no_timing:
@@ -522,22 +763,35 @@ def main(argv=None) -> int:
                            n3 * 2 * work["value_grad"], F32_FLOPS, n3 * work["transc"])
         kernel_rows.append(("sdf_value_feat_grad", "iron_tpu_torch/kernels/csrc/fused_sdf_grad.cu",
                             "iron_tpu/kernels/fused_sdf_grad.py:423", ms, plain_ms, b_ms, b_by))
+
+        # K3-bwd: the training step's largest call (the interior budget)
+        w, xb, cots = max(bwd_calls, key=lambda c: c[1].numel())
+        nb = xb.numel() // 3
+        ms = cuda_ms(lambda: K3.sdf_value_feat_grad_bwd(w, xb, *cots), iters=10)
+        plain_ms = cuda_ms(lambda: K3.sdf_value_feat_grad_bwd_plain(w, xb, *cots), iters=5)
+        bw = bwd_work(cfg.sdf)
+        b_ms, b_by = bound(nb * (12 + (cfg.sdf.d_out + 3) * 4 + 12) + 2 * bw["weights_all"] * 4,
+                           nb * 2 * bw["macs"], F32_FLOPS, nb * bw["transc"])
+        kernel_rows.append(("sdf_value_feat_grad_bwd",
+                            "iron_tpu_torch/kernels/csrc/fused_sdf_grad.cu",
+                            "iron_tpu/kernels/fused_sdf_grad.py:502", ms, plain_ms, b_ms, b_by))
         log(f"counted a point: {work['value']} MACs for the sdf alone, {work['value_grad']} "
-            f"for value, feature and gradient, {work['transc']} transcendentals")
+            f"for value, feature and gradient, {bw['macs']} for their adjoint (K3-bwd, "
+            f"{nb} points of the training step), {work['transc']} transcendentals")
         for r in kernel_rows:
             log(f"time {r[0]}: {r[3]:.3f} ms, plain {r[4]:.3f} ms, bound {r[5]:.4f} ms "
                 f"({r[6]}), {r[5] / r[3]:.1%} of the bound")
         log(f"render_full per view: {np.median(render_s):.3f} s median of {len(render_s)} "
             f"(host clock, first view includes warm-up)")
 
-    # ---- 8. the kernels line ----
+    # ---- 10. the kernels line (launches: the training run of phase 8) ----
     rows = [{"name": r[0], "route": "cuda", "source": r[1], "replaces": r[2],
              "launches": launches[r[0]], "max_abs_err": max_err[r[0]], "ms": r[3],
              "plain_ms": r[4], "bound_ms": r[5], "bound_by": r[6], "library_ms": None}
             for r in kernel_rows]
     log(json.dumps({"kernels": rows}))
     log(card)
-    # ---- 9. result ----
+    # ---- 11. result ----
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -134,3 +134,16 @@ def sdf_value_feat_grad(net: SDFNetwork, x: torch.Tensor
     if not keep:
         out = out.detach()
     return out[..., 0], out[..., 1:], grad
+
+
+def sdf_grad(net: SDFNetwork, x: torch.Tensor) -> torch.Tensor:
+    """Per-point SDF gradient [..., 3] by autograd through `sdf_only`; under
+    grad mode the result keeps its graph to the parameters (create_graph),
+    so a loss on it differentiates twice, as the JAX vjp does."""
+    keep = torch.is_grad_enabled()
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        s = sdf_only(net, xg)
+        (grad,) = torch.autograd.grad(s, xg, grad_outputs=torch.ones_like(s),
+                                      create_graph=keep)
+    return grad

@@ -58,15 +58,15 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
 
 
 def _pad(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-    out = t.new_zeros((rows, cols))
-    out[:t.shape[0], :t.shape[1]] = t
-    return out
+    """t zero-padded to [rows, cols] (differentiable)."""
+    return torch.nn.functional.pad(t, (0, cols - t.shape[1], 0, rows - t.shape[0]))
 
 
-def padded_layers(net: SDFNetwork):
+def layout_layers(net: SDFNetwork):
     """The SDF's effective weights in the kernels' f32 layout: (mats,
     biases, skip).  Skip layer: two matrices (hidden rows, PE rows) without
-    its 1/sqrt(2); final layer at its full width."""
+    its 1/sqrt(2); final layer at its full width.  Differentiable: under
+    grad mode the mats carry the graph back to each layer's v, g and b."""
     cfg = net.cfg
     if cfg.d_in != 3 or cfg.d_hidden != HID or cfg.d_embed > PE_W or len(cfg.skip_in) > 1:
         raise ValueError(f"the fused SDF kernels take d_in=3, d_hidden={HID}, at most "
@@ -74,20 +74,27 @@ def padded_layers(net: SDFNetwork):
     skip = cfg.skip_in[0] if cfg.skip_in else -1
     n = len(net.layers)
     mats, biases = [], []
-    with torch.no_grad():
-        for l, layer in enumerate(net.layers):
-            w, b = layer.effective_weight().detach(), layer.b.detach()
-            if l < n - 1:
-                w, b = _pad(w, w.shape[0], HID), _pad(b[None], 1, HID)[0]
-            if l == 0:
-                mats.append(_pad(w, PE_W, w.shape[1]))
-            elif l == skip:
-                d_h = w.shape[0] - cfg.d_embed
-                mats += [_pad(w[:d_h], HID, w.shape[1]), _pad(w[d_h:], PE_W, w.shape[1])]
-            else:
-                mats.append(w)
-            biases.append(b)
+    for l, layer in enumerate(net.layers):
+        w, b = layer.effective_weight(), layer.b
+        if l < n - 1:
+            w, b = _pad(w, w.shape[0], HID), torch.nn.functional.pad(b, (0, HID - b.shape[0]))
+        if l == 0:
+            mats.append(_pad(w, PE_W, w.shape[1]))
+        elif l == skip:
+            d_h = w.shape[0] - cfg.d_embed
+            mats += [_pad(w[:d_h], HID, w.shape[1]), _pad(w[d_h:], PE_W, w.shape[1])]
+        else:
+            mats.append(w)
+        biases.append(b)
     return mats, biases, skip
+
+
+def padded_layers(net: SDFNetwork):
+    """`layout_layers` without a graph: the weights of a render and of the
+    bf16 kernels."""
+    with torch.no_grad():
+        mats, biases, skip = layout_layers(net)
+    return [m.detach() for m in mats], [b.detach() for b in biases], skip
 
 
 def pack_mma_b(w: torch.Tensor) -> torch.Tensor:

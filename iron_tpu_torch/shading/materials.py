@@ -78,6 +78,14 @@ def renderer_network_configs(renderer_name: str,
     return cfgs
 
 
+def material_lr_map(renderer_name: str) -> Dict[str, float]:
+    """Adam learning rate of each material network (1e-4) and of the point
+    light (1e-2)."""
+    lrs = {name: 1e-4 for name in renderer_network_configs(renderer_name)}
+    lrs["point_light_network"] = 1e-2
+    return lrs
+
+
 def init_material_networks(renderer_name: str, generator: torch.Generator,
                            device="cuda", d_feature: int = 256
                            ) -> Tuple[nn.ModuleDict, Dict[str, RenderingConfig]]:

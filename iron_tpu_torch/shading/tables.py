@@ -1,8 +1,8 @@
 """Mitsuba roughplastic transmission tables (counterpart of
 iron_tpu/shading/tables.py).
 
-The tables are data: they are read by path from the JAX package's
-`iron_tpu/assets/ggx/*.txt`, without importing that package.  Lookup:
+The tables are data, the port's own copy of the JAX package's
+`iron_tpu/assets/ggx/*.txt` in `iron_tpu_torch/assets/ggx/`.  Lookup:
 warpedCos = dot^0.25, warpedAlpha = (alpha/4)^0.25; T12 index =
 floor(wAlpha*50)*100 + floor(wCos*100), clamped, value clamped to [0, 1];
 Fdr = clamp(1 - diff_table[floor(wAlpha*50)], 0, 1).
@@ -15,8 +15,8 @@ import os
 import numpy as np
 import torch
 
-ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "iron_tpu", "assets", "ggx")
+ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "assets", "ggx")
 
 NUM_THETA_SAMPLES = 100
 NUM_ALPHA_SAMPLES = 50

@@ -1,10 +1,13 @@
 """Surface render: camera trace -> hole filling -> edge location -> shading ->
-two-sided edge compositing (counterpart of iron_tpu/surface/render.py, its
-evaluation path: `is_training=False`).
+two-sided edge compositing (counterpart of iron_tpu/surface/render.py).
 
 As in the JAX package, nothing is compacted by boolean indexing: the tracer
 and shader run on the full pixel set under masks, and the edge pipeline runs
-on a static budget of K candidates chosen by `budget_select`.
+on a static budget of K candidates chosen by `budget_select`.  The trace,
+hole filling, Sobel seeds, edge walk and side traces run under
+torch.no_grad() (the JAX package stop-gradients them); with
+`is_training=True` gradients re-enter through the implicit-function reparam
+of the shaded points and the reparam'd, projected edge points.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 from iron_tpu_torch.core.camera import Camera, camera_origin, get_rays, pixel_grid, project
 from iron_tpu_torch.core.rays import intersect_sphere
 from iron_tpu_torch.surface.morphology import closing3x3, sobel_magnitude
+from iron_tpu_torch.surface.reparam import reparam_points
 from iron_tpu_torch.surface.tracer import TracerConfig, budget_select, raytrace
 
 
@@ -54,12 +58,13 @@ def raytrace_pixels(sdf_fn, cam: Camera, uv: torch.Tensor,
                     mask: Optional[torch.Tensor] = None,
                     cfg: SurfaceRenderConfig = SurfaceRenderConfig(),
                     coarse_sdf_fn=None, coarse_march_fn=None) -> Dict:
-    """Trace the rays through pixel coordinates uv [..., 2]."""
+    """Trace the rays through pixel coordinates uv [..., 2] (no graph)."""
     ray_o, ray_d, ray_d_norm = get_rays(cam, uv)
     mask_int, min_dis, max_dis = intersect_sphere(ray_o, ray_d, r=1.0)
     work = mask_int if mask is None else (mask_int & mask)
-    res = raytrace(sdf_fn, ray_o, ray_d, min_dis, max_dis, work, cfg.tracer,
-                   coarse_sdf_fn=coarse_sdf_fn, coarse_march_fn=coarse_march_fn)
+    with torch.no_grad():
+        res = raytrace(sdf_fn, ray_o, ray_d, min_dis, max_dis, work, cfg.tracer,
+                       coarse_sdf_fn=coarse_sdf_fn, coarse_march_fn=coarse_march_fn)
     res["depth"] = res["distance"] / ray_d_norm
     res.update({"uv": uv, "ray_o": ray_o, "ray_d": ray_d, "ray_d_norm": ray_d_norm})
     return res
@@ -127,10 +132,17 @@ def _dedupe_per_pixel(cam: Camera, walk: Dict) -> Dict:
     return {"edge_kept": kept, "edge_pid": pid, "edge_mask_flat": edge_mask[:H * W]}
 
 
-def shade_masked(sdf_all_fn, shade_fn, ray_o, ray_d, points, mask) -> Dict:
+def shade_masked(sdf_all_fn, shade_fn, ray_o, ray_d, points, mask,
+                 is_training: bool = False) -> Dict:
     """Fresh SDF forward at the points, user shading, every buffer masked;
-    the unnormalised gradient is kept as "raw_grad"."""
+    the unnormalised gradient is kept as "raw_grad".  In training the
+    points are reparam'd so that shading carries the SDF's parameter
+    gradient; otherwise the SDF outputs are detached."""
     sdf, feature, grad = sdf_all_fn(points)
+    if is_training:
+        points = reparam_points(points, grad.detach(), -ray_d.detach(), sdf[..., None])
+    else:
+        sdf, feature, grad = sdf.detach(), feature.detach(), grad.detach()
     out = shade_fn(ray_o, ray_d, points, grad, feature)
     masked = {}
     for k, v in out.items():
@@ -150,10 +162,11 @@ def _scatter_rows(img_flat: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
 
 def render_camera(sdf_fn, sdf_all_fn, shade_fn, cam: Camera,
                   cfg: SurfaceRenderConfig = SurfaceRenderConfig(),
-                  debug: bool = False, trace_sdf_fn=None, trace_sdf_all_fn=None,
-                  coarse_sdf_fn=None, coarse_march_fn=None) -> Dict:
-    """The evaluation surface render of one camera; [H, W, ...] buffers and
-    edge diagnostics.  sdf_fn: pts -> sdf; sdf_all_fn: pts -> (sdf, feat,
+                  is_training: bool = False, debug: bool = False, trace_sdf_fn=None,
+                  trace_sdf_all_fn=None, coarse_sdf_fn=None, coarse_march_fn=None) -> Dict:
+    """The surface render of one camera; [H, W, ...] buffers and edge
+    diagnostics; differentiable in the SDF and material parameters with
+    `is_training` under grad mode.  sdf_fn: pts -> sdf; sdf_all_fn: pts -> (sdf, feat,
     grad); shade_fn: (ray_o, ray_d, points, normals, features) -> buffers.
     trace_sdf_fn / trace_sdf_all_fn serve the trace and the edge walk,
     coarse_sdf_fn / coarse_march_fn the coarse-to-fine march."""
@@ -191,8 +204,9 @@ def render_camera(sdf_fn, sdf_all_fn, shade_fn, cam: Camera,
         res["edge_seeds_dropped"] = torch.clamp(n_seeds - cfg.edge_budget, min=0)
         flat = depth_edge_mask.reshape(-1)
         sel = budget_select(flat, cfg.edge_budget)
-        walk = locate_edge_points(trace_sdf_all_fn, cam, res["points"].reshape(-1, 3)[sel],
-                                  flat[sel], cfg)
+        with torch.no_grad():
+            walk = locate_edge_points(trace_sdf_all_fn, cam, res["points"].reshape(-1, 3)[sel],
+                                      flat[sel], cfg)
         dd = _dedupe_per_pixel(cam, walk)
         edge = {**walk, **dd}
         res["edge_mask"] = dd["edge_mask_flat"].reshape(H, W)
@@ -208,14 +222,14 @@ def render_camera(sdf_fn, sdf_all_fn, shade_fn, cam: Camera,
         valid = flat_mask[sel]
         sh = shade_masked(sdf_all_fn, shade_fn, res["ray_o"].reshape(-1, 3)[sel],
                           res["ray_d"].reshape(-1, 3)[sel], res["points"].reshape(-1, 3)[sel],
-                          valid)
+                          valid, is_training)
         shaded = {}
         for k, v in sh.items():
             buf = v.new_zeros((H * W,) + v.shape[1:])
             shaded[k] = _scatter_rows(buf, sel, v, valid).reshape((H, W) + v.shape[1:])
     else:
         shaded = shade_masked(sdf_all_fn, shade_fn, res["ray_o"], res["ray_d"],
-                              res["points"], res["convergent_mask"])
+                              res["points"], res["convergent_mask"], is_training)
     res.update(shaded)
 
     # ---- edge pixels: two-sided trace + shade, circle-coverage composite ----
@@ -225,9 +239,14 @@ def render_camera(sdf_fn, sdf_all_fn, shade_fn, cam: Camera,
         pid = torch.clamp(edge["edge_pid"], 0, H * W - 1)
 
         e_sdf, _, e_grad = sdf_all_fn(epts)
-        e_normal = _normalize(e_grad)
-        edge_uv = edge["walk_uv"]
-        pixel_center = torch.floor(edge_uv) + 0.5
+        e_normal = _normalize(e_grad.detach())
+        if is_training:
+            # the differentiable silhouette path
+            edge_uv = project(cam, reparam_points(epts, e_grad.detach(), e_normal,
+                                                  e_sdf[..., None]))
+        else:
+            edge_uv = edge["walk_uv"]
+        pixel_center = torch.floor(edge_uv.detach()) + 0.5
 
         n2d = _normalize((e_normal @ cam.W2C[:3, :3].T)[:, :2])
         pixel_radius = 0.707
@@ -247,7 +266,7 @@ def render_camera(sdf_fn, sdf_all_fn, shade_fn, cam: Camera,
                              mask=kept2, cfg=side_cfg, coarse_sdf_fn=coarse_sdf_fn,
                              coarse_march_fn=coarse_march_fn)
         s2 = shade_masked(sdf_all_fn, shade_fn, r2["ray_o"], r2["ray_d"], r2["points"],
-                          r2["convergent_mask"] & kept2)
+                          r2["convergent_mask"] & kept2, is_training)
         split = lambda d, lo, hi: {k: v[lo:hi] for k, v in d.items()}
         pos_res, neg_res = split(r2, 0, Kn), split(r2, Kn, 2 * Kn)
         pos_shade, neg_shade = split(s2, 0, Kn), split(s2, Kn, 2 * Kn)

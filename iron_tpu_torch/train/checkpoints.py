@@ -1,7 +1,8 @@
 """Checkpoints: the JAX package's `ckpt_*.pkl` files (pickled numpy
-pytrees {"params", "opt_state", "step", "extra"}) and the conversion between
-their parameter tree and the port's modules (counterpart of
-iron_tpu/train/checkpoints.py).
+pytrees {"params", "opt_state", "step", "extra"}), written and read by both
+packages, the conversion between their parameter tree and the port's
+modules, and the stage-1 -> stage-2 conversion (counterpart of
+iron_tpu/train/checkpoints.py; its orbax checkpoints are not ported).
 
 The parameter tree is {"sdf": {"layers": [{"v", "g", "b"}, ...]},
 "materials": {<net>: {"layers": [...]}, "point_light_network": {"light"}}},
@@ -23,6 +24,24 @@ from iron_tpu_torch.fields.rendering import rendering_from_numpy, rendering_to_n
 from iron_tpu_torch.fields.scalars import init_point_light
 from iron_tpu_torch.fields.sdf import SDFConfig, sdf_from_numpy, sdf_to_numpy
 from iron_tpu_torch.shading.materials import renderer_network_configs
+
+
+def save_checkpoint(out_dir: str, step: int, params, opt_state=None,
+                    extra: Optional[Dict] = None) -> str:
+    """Write `<out_dir>/ckpt_<step:07d>.pkl` atomically, in the JAX package's
+    schema; params are the port's modules or a numpy tree, opt_state a
+    numpy tree or None."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"ckpt_{step:07d}.pkl")
+    if isinstance(params, nn.Module):
+        params = params_to_numpy(params)
+    payload = {"params": params, "opt_state": opt_state, "step": int(step),
+               "extra": extra or {}}
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(payload, f, protocol=4)
+    os.replace(tmp, path)
+    return path
 
 
 def latest_checkpoint(out_dir: str) -> Optional[str]:
@@ -73,3 +92,21 @@ def params_to_numpy(params: nn.ModuleDict) -> Dict:
     mats["point_light_network"] = {"light": np.asarray(light.detach().cpu().numpy(),
                                                        np.float32)}
     return {"sdf": sdf_to_numpy(params["sdf"]), "materials": mats}
+
+
+def stage1_to_stage2(stage1_params: Dict, stage2_params: Dict,
+                     load_diffuse_albedo: bool = True) -> Dict:
+    """Map a stage-1 numpy tree {sdf, color, ...} into a stage-2 numpy tree
+    {sdf, materials}: the SDF as it is, and the stage-1 colour network as
+    the diffuse albedo network when their layer shapes agree."""
+    out = dict(stage2_params)
+    out["sdf"] = stage1_params["sdf"]
+    if load_diffuse_albedo and "color" in stage1_params:
+        s1_layers = stage1_params["color"]["layers"]
+        s2_layers = out["materials"]["diffuse_albedo_network"]["layers"]
+        shape = lambda p: np.shape(p["v" if "v" in p else "w"])
+        if len(s1_layers) == len(s2_layers) and all(
+                shape(a) == shape(b) for a, b in zip(s1_layers, s2_layers)):
+            out["materials"] = {**out["materials"],
+                                "diffuse_albedo_network": stage1_params["color"]}
+    return out

@@ -18,7 +18,9 @@ from iron_tpu.fields.sdf import sdf_only as j_sdf_only, sdf_value_feat_grad as j
 from iron_tpu.kernels.fused_sdf import _fused_sdf_panel_bf16, _prepare_bf16_weights
 from iron_tpu.surface.tracer import TracerConfig as JTracerConfig, raytrace as j_raytrace
 
-from iron_tpu_torch.fields.sdf import SDFConfig, sdf_from_numpy, sdf_only
+from iron_tpu_torch.core.embedder import positional_encoding
+from iron_tpu_torch.fields.sdf import (SDFConfig, sdf_from_numpy, sdf_only, sdf_value_feat_grad,
+                                      softplus100)
 from iron_tpu_torch.kernels import build
 from iron_tpu_torch.kernels import fused_sdf as K12
 from iron_tpu_torch.kernels import fused_sdf_grad as K3
@@ -192,3 +194,115 @@ def test_port_imports_without_jax_nvcc_or_triton():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def _second_order_loss(v, ft, g, lib):
+    """tests/test_kernels.py's eikonal-style loss, in JAX or PyTorch."""
+    if lib is jnp:
+        return (jnp.mean((jnp.linalg.norm(g, axis=-1) - 1.0) ** 2) + jnp.mean(v ** 2)
+                + 1e-3 * jnp.mean(ft ** 2))
+    return (((torch.linalg.norm(g, dim=-1) - 1.0) ** 2).mean() + (v ** 2).mean()
+            + 1e-3 * (ft ** 2).mean())
+
+
+def _torch_grads(net, x, fn):
+    """d loss / d (x, every layer's v, g, b) with the values of fn(x)."""
+    xt = T(x).requires_grad_(True)
+    loss = _second_order_loss(*fn(xt), torch)
+    leaves = [xt] + [getattr(l, k) for l in net.layers for k in ("v", "g", "b")]
+    return [N(t) for t in torch.autograd.grad(loss, leaves)]
+
+
+def test_sdf_value_feat_grad_bwd_plain_matches_jax_backward_kernel():
+    """K3-bwd's plain version, through the port's autograd Function and the
+    differentiable weight preparation, against the JAX package's fused
+    kernel pair (forward and `_core_bwd`, Pallas in interpret mode, tile 128
+    so that dW accumulates over two tiles) at the full default SDFConfig, on
+    the second-order loss of tests/test_kernels.py: dx to rtol 1e-4 / atol
+    1e-7 and every parameter leaf to rtol 1e-4 / atol 1e-6, that test's
+    tolerances."""
+    from iron_tpu.kernels.fused_sdf_grad import make_fused_sdf_grad_fn as j_make_fused
+    params, jcfg, net = _nets()
+    x = (np.random.default_rng(1).normal(size=(200, 3)) * 0.4).astype(np.float32)
+    fused = j_make_fused(jcfg, tile=128, interpret=True)
+    jgp, jgx = jax.grad(lambda p, xx: _second_order_loss(*fused(p, xx), jnp),
+                        argnums=(0, 1))(params, jnp.asarray(x))
+    w = K3.prepare_grad_weights(net, differentiable=True)
+    reset_launch_counts()
+    got = _torch_grads(net, x, lambda xt: K3.sdf_value_feat_grad(w, xt))
+    assert all(v == 0 for v in launch_counts().values())   # CPU tensors: plain versions
+    np.testing.assert_allclose(got[0], np.asarray(jgx), rtol=1e-4, atol=1e-7)
+    ref = [np.asarray(jgp["layers"][i][k]) for i in range(len(net.layers))
+           for k in ("v", "g", "b")]
+    assert len(ref) == len(got) - 1
+    for a, b in zip(got[1:], ref):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
+
+
+def test_sdf_value_feat_grad_bwd_plain_matches_torch_double_backward():
+    """The same adjoint against PyTorch's own double backward through the
+    port's autograd `fields.sdf.sdf_value_feat_grad` (create_graph): both
+    f32 on the CPU, so they agree to rounding: rtol 1e-4 / atol 1e-6 (dx
+    reaches 2 here, where f32 sums in another order differ by a few 1e-7)."""
+    _, _, net = _nets(seed=3)
+    with torch.no_grad():   # move the PE rows the geometric init zeroes
+        for l in net.layers:
+            l.v.add_(0.02 * torch.randn(l.v.shape, generator=torch.Generator().manual_seed(4)))
+    x = (np.random.default_rng(2).normal(size=(96, 3)) * 0.5).astype(np.float32)
+    ref = _torch_grads(net, x, lambda xt: sdf_value_feat_grad(net, xt))
+    w = K3.prepare_grad_weights(net, differentiable=True)
+    got = _torch_grads(net, x, lambda xt: K3.sdf_value_feat_grad(w, xt))
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
+
+
+def test_sdf_value_feat_grad_bwd_plain_cotangents_and_shapes():
+    """The backward of each output alone, on points with leading dims and
+    scale 2 (the value's cotangent carries 1/scale, the gradient's none),
+    against autograd through the same function in the prepared layout: the
+    shapes of the prepared matrices, biases and points, and values to rtol
+    1e-4 / atol 1e-6 times each leaf's largest entry (entries reach 20
+    here; f32 sums in another order)."""
+    _, _, net = _nets(seed=2, scale=2.0)
+    x = torch.as_tensor((np.random.default_rng(5).normal(size=(4, 6, 3)) * 0.3)
+                        .astype(np.float32))
+    w = K3.prepare_grad_weights(net)
+    g = np.random.default_rng(6)
+    cots = [torch.as_tensor(g.normal(size=s).astype(np.float32))
+            for s in ((4, 6), (4, 6, w.d_out - 1), (4, 6, 3))]
+    for i in range(3):
+        c = [t if j == i else torch.zeros_like(t) for j, t in enumerate(cots)]
+        dW, db, dx = K3.sdf_value_feat_grad_bwd(w, x, *c)
+        assert [t.shape for t in dW] == [m.shape for m in w.mats]
+        assert [t.shape for t in db] == [b.shape for b in w.biases] and dx.shape == x.shape
+        xg = x.clone().requires_grad_(True)
+        mats = [m.clone().requires_grad_(True) for m in w.mats]
+        biases = [b.clone().requires_grad_(True) for b in w.biases]
+        wg = K3.GradWeights(**{**w.__dict__, "mats": mats, "biases": biases})
+        out = sdf_value_feat_grad_autograd_reference(wg, xg)
+        ref = torch.autograd.grad(sum((o * t).sum() for o, t in zip(out, c)),
+                                  [xg] + mats + biases)
+        for a, b in zip([dx] + dW + db, ref):
+            np.testing.assert_allclose(N(a), N(b), rtol=1e-4,
+                                       atol=1e-6 * max(1.0, float(b.abs().max())))
+
+
+def sdf_value_feat_grad_autograd_reference(w, x):
+    """K3's function written with autograd in the prepared layout: the
+    value, the features, and the gradient by a create_graph backward."""
+    xx = x.reshape(-1, 3)
+    y = xx * w.scale
+    pe = torch.nn.functional.pad(positional_encoding(y, w.multires), (0, K12.PE_W - w.d_embed))
+    h, mi = pe, 0
+    for l in range(w.n_layers):
+        z = h @ w.mats[mi]
+        mi += 1
+        if l == w.skip:
+            z = z + pe @ w.mats[mi]
+            mi += 1
+        z = z + w.biases[l]
+        h = softplus100(z) if l < w.n_layers - 1 else z
+    (grad,) = torch.autograd.grad(h[:, 0].sum(), xx, create_graph=True)
+    shape = x.shape[:-1]
+    return (h[:, 0].reshape(shape) / w.scale, h[:, 1:].reshape(shape + (w.d_out - 1,)),
+            grad.reshape(shape + (3,)) / w.scale)
