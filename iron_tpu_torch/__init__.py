@@ -3,7 +3,9 @@
 Entry points run on the CUDA device unless the caller passes device="cpu";
 asking for CUDA without a card raises.  On CUDA the precision policy of the
 JAX package holds: float32 everywhere, never TF32, bf16 operands with f32
-accumulation only inside the two coarse-trace kernels.
+accumulation only inside the two coarse-trace kernels, the 3-pass trace
+kernel (split bf16 operands, f32-class results) and, with
+`Stage2Config.mat_bf16`, the material networks.
 """
 from __future__ import annotations
 

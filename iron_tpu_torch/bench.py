@@ -33,14 +33,16 @@ ITERS = 30
 WINDOWS = 5
 
 
-def bench_trainer(device="cuda", seed: int = 0) -> Stage2Trainer:
+def bench_trainer(device="cuda", seed: int = 0, **cfg_kw) -> Stage2Trainer:
     """The bench's trainer: the synthetic sphere at 256x256, comp, 128x128
-    crops, edge budget 1024, interior budget 4096."""
+    crops, edge budget 1024, interior budget 4096; `cfg_kw` sets other
+    Stage2Config fields (e.g. trace_pallas)."""
     dev = resolve_device(device)
     data = render_synthetic_dataset("sphere", n_views=4, H=PATCH * 2, W=PATCH * 2, light=30.0,
                                     device=dev)
     cfg = Stage2Config(renderer_name="comp", patch_size=PATCH,
-                       surface=SurfaceRenderConfig(edge_budget=1024, interior_budget=4096))
+                       surface=SurfaceRenderConfig(edge_budget=1024, interior_budget=4096),
+                       **cfg_kw)
     return Stage2Trainer(cfg, data["images"], data["Ks"], data["W2Cs"],
                          generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
 

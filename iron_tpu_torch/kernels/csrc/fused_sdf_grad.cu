@@ -7,6 +7,11 @@
 //   (_fwd_kernel, _forward_chain, _u_chain, _pe_value_d1_d2).
 // K3 backward, iron_sdf_value_feat_grad_bwd, replaces its backward kernel
 // (_bwd_kernel through _core_bwd): see the note above sdf_grad_bwd_kernel.
+// K5, iron_sdf_full, replaces iron_tpu/kernels/fused_sdf.py::make_pallas_sdf_fn
+// (_kernel, _mlp_body): K3's forward sweep alone, [sdf / scale, features]
+// for every point, f32.  524,544 MACs a point (the hidden chain and all 257
+// outputs) against 1,040 bytes (12 in, 257 x 4 out), so f32 operations
+// bound it too; TF32 would break the JAX package's 2e-5 hold on it.
 //
 // Layout (kernels/fused_sdf_grad.py::prepare_grad_weights): PE in reference
 // column order padded to 48; hidden 256; the layer feeding the skip padded to
@@ -80,10 +85,101 @@ __device__ __forceinline__ void zero(float (&acc)[ROWS]) {
   for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
 }
 
-// wfwd: layer matrices [K_l x N_l] in layer order (skip layer: W_h then W_pe);
-// wt: their transposes, final layer excluded; bias: (n_layers-1) x 256 then
-// d_out; wlast0: column 0 of the final matrix (256).  Every loop over the 64
-// rows of acc is fully unrolled, so acc stays in registers.
+// The tile of rows [row0, row0 + 64): sm.y = x * scale, sm.pe = PE(y),
+// sm.d1 = dPE/dy (zero past d_embed), sm.a0cot cleared.  Ends with a barrier.
+__device__ __forceinline__ void load_tile(GradSmem& sm, const float* __restrict__ x, int n,
+                                          int row0, float scale, int d_embed) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < ROWS * 3; i += THREADS) {
+    const int r = i / 3, j = i % 3;
+    sm.y[r][j] = (row0 + r < n) ? x[(size_t)(row0 + r) * 3 + j] * scale : 0.0f;
+  }
+  __syncthreads();
+  for (int i = tid; i < ROWS * PE_W; i += THREADS) {
+    const int r = i / PE_W, c = i % PE_W;
+    float v = 0.0f, d = 0.0f;
+    if (c < d_embed) {
+      if (c < 3) {
+        v = sm.y[r][c];
+        d = 1.0f;
+      } else {
+        const int q = (c - 3) / 3;          // sin block (even q) or cos block, frequency q/2
+        const float f = ldexpf(1.0f, q >> 1);
+        const float a = sm.y[r][(c - 3) % 3] * f;
+        const float sa = sinf(a), ca = cosf(a);
+        v = (q & 1) ? ca : sa;
+        d = (q & 1) ? -f * sa : f * ca;
+      }
+    }
+    sm.pe[i] = v;
+    sm.d1[i] = d;
+    sm.a0cot[i] = 0.0f;
+  }
+  __syncthreads();
+}
+
+// The forward sweep of the tile in sm.pe through every layer.  Hidden
+// activations go to sm.act and, when sp_base is not null, sigmoid(100 z) of
+// hidden layer l to sp_base + l * 64 * 256.  The final layer writes, for the
+// rows below n, value[row * vstride] = z_0 / scale and
+// feat[row * fstride + c - 1] = z_c (c >= 1).  wfwd: layer matrices
+// [K_l x N_l] in layer order (skip layer: W_h then W_pe); bias: (n_layers-1)
+// x 256 then d_out.  Every loop over the 64 rows of acc is fully unrolled,
+// so acc stays in registers.  Ends with a barrier.
+__device__ __forceinline__ void forward_sweep(GradSmem& sm, const float* __restrict__ wfwd,
+                                              const float* __restrict__ bias, int n_layers,
+                                              int skip, int d_out, float scale, int row0, int n,
+                                              float* __restrict__ sp_base,
+                                              float* __restrict__ value, int vstride,
+                                              float* __restrict__ feat, int fstride) {
+  const int tid = threadIdx.x;
+  float acc[ROWS];
+  const float* w = wfwd;
+  for (int l = 0; l < n_layers; ++l) {
+    const bool last = (l == n_layers - 1);
+    const int K = (l == 0) ? PE_W : HID;
+    const int N = last ? d_out : HID;
+    const float* A = (l == 0) ? sm.pe : sm.act;
+    const float* bl = bias + l * HID;
+    for (int c0 = 0; c0 < N; c0 += THREADS) {
+      const int c = c0 + tid;
+      zero(acc);
+      if (c < N) {
+        col_gemm(A, K, K, w, N, c, acc);
+        if (l == skip) col_gemm(sm.pe, PE_W, PE_W, w + (size_t)K * N, N, c, acc);
+      }
+      if (!last) {
+        __syncthreads();  // every read of the input tile is done
+        const float b = __ldg(bl + c);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) sm.act[r * HID + c] = softplus100(acc[r] + b);
+        if (sp_base != nullptr) {
+          float* sp = sp_base + (size_t)l * ROWS * HID;
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) sp[r * HID + c] = sigmoid100(acc[r] + b);
+        }
+        __syncthreads();
+      } else if (c < N) {
+        const float b = __ldg(bl + c);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          if (row0 + r < n) {
+            const float z = acc[r] + b;
+            if (c == 0)
+              value[(size_t)(row0 + r) * vstride] = z / scale;
+            else
+              feat[(size_t)(row0 + r) * fstride + (c - 1)] = z;
+          }
+        }
+      }
+    }
+    w += (size_t)K * N + ((l == skip) ? (size_t)PE_W * N : 0);
+  }
+  __syncthreads();  // the final layer's reads of act are done
+}
+
+// wt: the transposes of wfwd's matrices, final layer excluded; wlast0: column
+// 0 of the final matrix (256).
 __global__ void __launch_bounds__(THREADS)
 sdf_grad_fwd_kernel(const float* __restrict__ x, int n, const float* __restrict__ wfwd,
                     const float* __restrict__ wt, const float* __restrict__ bias,
@@ -101,76 +197,9 @@ sdf_grad_fwd_kernel(const float* __restrict__ x, int n, const float* __restrict_
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * ROWS;
-    for (int i = tid; i < ROWS * 3; i += THREADS) {
-      const int r = i / 3, j = i % 3;
-      sm.y[r][j] = (row0 + r < n) ? x[(size_t)(row0 + r) * 3 + j] * scale : 0.0f;
-    }
-    __syncthreads();
-    for (int i = tid; i < ROWS * PE_W; i += THREADS) {
-      const int r = i / PE_W, c = i % PE_W;
-      float v = 0.0f, d = 0.0f;
-      if (c < d_embed) {
-        if (c < 3) {
-          v = sm.y[r][c];
-          d = 1.0f;
-        } else {
-          const int q = (c - 3) / 3;          // sin block (even q) or cos block, frequency q/2
-          const float f = ldexpf(1.0f, q >> 1);
-          const float a = sm.y[r][(c - 3) % 3] * f;
-          const float sa = sinf(a), ca = cosf(a);
-          v = (q & 1) ? ca : sa;
-          d = (q & 1) ? -f * sa : f * ca;
-        }
-      }
-      sm.pe[i] = v;
-      sm.d1[i] = d;
-      sm.a0cot[i] = 0.0f;
-    }
-    __syncthreads();
-
-    // ---- forward sweep ----
-    const float* w = wfwd;
-    for (int l = 0; l < n_layers; ++l) {
-      const bool last = (l == n_layers - 1);
-      const int K = (l == 0) ? PE_W : HID;
-      const int N = last ? d_out : HID;
-      const float* A = (l == 0) ? sm.pe : sm.act;
-      const float* bl = bias + l * HID;
-      for (int c0 = 0; c0 < N; c0 += THREADS) {
-        const int c = c0 + tid;
-        zero(acc);
-        if (c < N) {
-          col_gemm(A, K, K, w, N, c, acc);
-          if (l == skip) col_gemm(sm.pe, PE_W, PE_W, w + (size_t)K * N, N, c, acc);
-        }
-        if (!last) {
-          __syncthreads();  // every read of the input tile is done
-          float* sp = sp_base + (size_t)l * ROWS * HID;
-          const float b = __ldg(bl + c);
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r) {
-            const float z = acc[r] + b;
-            sm.act[r * HID + c] = softplus100(z);
-            sp[r * HID + c] = sigmoid100(z);
-          }
-          __syncthreads();
-        } else if (c < N) {
-          const float b = __ldg(bl + c);
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r) {
-            if (row0 + r < n) {
-              const float z = acc[r] + b;
-              if (c == 0)
-                value[row0 + r] = z / scale;
-              else
-                feat[(size_t)(row0 + r) * (d_out - 1) + (c - 1)] = z;
-            }
-          }
-        }
-      }
-      w += (size_t)K * N + ((l == skip) ? (size_t)PE_W * N : 0);
-    }
-    __syncthreads();  // the final layer's reads of act are done
+    load_tile(sm, x, n, row0, scale, d_embed);
+    forward_sweep(sm, wfwd, bias, n_layers, skip, d_out, scale, row0, n, sp_base, value, 1,
+                  feat, d_out - 1);
 
     // ---- reverse sweep: u_{L-2} = W_last[:, 0] * sigmoid(100 z_{L-2}) ----
     {
@@ -217,6 +246,20 @@ sdf_grad_fwd_kernel(const float* __restrict__ x, int n, const float* __restrict_
     }
     __syncthreads();
   }
+}
+
+// K5: the forward sweep alone, one 64-row tile a block, writing out[row] =
+// [z_0 / scale, z_1, ..., z_{d_out-1}] (d_out floats a row).
+__global__ void __launch_bounds__(THREADS)
+sdf_full_kernel(const float* __restrict__ x, int n, const float* __restrict__ wfwd,
+                const float* __restrict__ bias, int n_layers, int skip, int d_embed, int d_out,
+                float scale, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  GradSmem& sm = *reinterpret_cast<GradSmem*>(smem_raw);
+  const int row0 = blockIdx.x * ROWS;
+  load_tile(sm, x, n, row0, scale, d_embed);
+  forward_sweep(sm, wfwd, bias, n_layers, skip, d_out, scale, row0, n, nullptr, out, d_out,
+                out + 1, d_out);
 }
 
 // ---------------------------------------------------------------------------
@@ -616,6 +659,19 @@ int iron_sdf_value_feat_grad(const float* x, int n, const float* wfwd, const flo
   sdf_grad_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       x, n, wfwd, wt, bias, wlast0, n_layers, skip, d_embed, d_out, scale, value, feat,
       grad, scratch);
+  return (int)cudaGetLastError();
+}
+
+// out: n x d_out floats.
+int iron_sdf_full(const float* x, int n, const float* wfwd, const float* bias, int n_layers,
+                  int skip, int d_embed, int d_out, float scale, float* out, void* stream) {
+  if (n <= 0) return 0;
+  const int smem = (int)sizeof(GradSmem);
+  cudaError_t e = cudaFuncSetAttribute(sdf_full_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  sdf_full_kernel<<<(n + ROWS - 1) / ROWS, THREADS, smem, (cudaStream_t)stream>>>(
+      x, n, wfwd, bias, n_layers, skip, d_embed, d_out, scale, out);
   return (int)cudaGetLastError();
 }
 

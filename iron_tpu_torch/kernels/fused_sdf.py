@@ -1,12 +1,20 @@
-"""Coarse bf16 SDF evaluators of the sphere tracer: K2 (`sdf_only_bf16`) and
-K1 (`coarse_march`), CUDA kernels in `csrc/fused_sdf.cu` (counterpart of
-iron_tpu/kernels/fused_sdf.py).
+"""SDF evaluators of the sphere tracer on bf16 tensor cores, CUDA kernels in
+`csrc/fused_sdf.cu` (counterpart of iron_tpu/kernels/fused_sdf.py): the
+coarse K2 (`sdf_only_bf16`) and K1 (`coarse_march`), and the accurate K4
+(`sdf_only_3pass`).
 
-Both evaluate the positional encoding in f32 and the SDF MLP with bf16
+K1 and K2 evaluate the positional encoding in f32 and the SDF MLP with bf16
 operands, f32 accumulation and f32 bias, rounding each softplus output to
 bf16: the precision class of the JAX package's coarse evaluators.  Every
 root the coarse march proposes is re-checked by the tracer on the accurate
-f32 SDF, so this class affects speed, not the result.
+SDF, so this class affects speed, not the result.
+
+K4 is the accurate trace evaluator of `Stage2Config.trace_pallas`: every
+activation h and weight W is split into bf16 halves, hi = bf16(h) and
+lo = bf16(h - hi), and each product is hi_h @ hi_W + hi_h @ lo_W +
+lo_h @ hi_W with f32 accumulation (the lo @ lo term, 2^-16 relative, is
+dropped): the error class of a bf16x3 product, about 1e-5 to 2e-4 on the
+sdf, against 1e-2 for K2.  PE and softplus stay f32.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and computes
 its plain PyTorch version, with the same arithmetic, for a CPU tensor.  Its
@@ -17,7 +25,8 @@ order, padded to 48 rows (three k-tiles of 16); the layer feeding the skip
 is padded to 256 outputs whose rows in the skip matrix are zero; the skip
 layer is split into its hidden and PE matrices; the final layer keeps only
 the sdf column.  The 256-wide matrices are packed into mma.sync B fragments
-(`pack_mma_b`).
+(`pack_mma_b`).  K4's weights (`prepare_3pass_weights`) are two such sets,
+the hi and the lo halves of the same f32 layout, with the same biases.
 """
 from __future__ import annotations
 
@@ -110,8 +119,9 @@ def pack_mma_b(w: torch.Tensor) -> torch.Tensor:
     return r.permute(0, 4, 5, 2, 1, 3).reshape(kt, HID // 8, 32, 4).contiguous()
 
 
-def prepare_bf16_weights(net: SDFNetwork) -> Bf16Weights:
-    mats, biases, skip = padded_layers(net)
+def _round_layout(net: SDFNetwork, mats, biases, skip: int) -> Bf16Weights:
+    """The f32 layout `mats` rounded to bf16 and packed (final layer: its
+    sdf column only)."""
     last_w, last_b = mats[-1][:, :1], biases[-1][:1]
     mats = [_bf16(m) for m in mats[:-1]] + [_bf16(last_w)]
     biases = biases[:-1] + [last_b]
@@ -122,6 +132,26 @@ def prepare_bf16_weights(net: SDFNetwork) -> Bf16Weights:
         wlast=mats[-1][:, 0].to(torch.bfloat16).contiguous(),
         n_layers=len(net.layers), skip=skip, d_embed=net.cfg.d_embed,
         multires=net.cfg.multires, scale=float(net.cfg.scale))
+
+
+def prepare_bf16_weights(net: SDFNetwork) -> Bf16Weights:
+    return _round_layout(net, *padded_layers(net))
+
+
+@dataclass
+class ThreePassWeights:
+    """K4's weights: the bf16 hi and lo halves of the f32 layout, W ~ hi + lo
+    to 2^-16 relative.  `lo` carries the same biases as `hi`."""
+    hi: Bf16Weights
+    lo: Bf16Weights
+
+
+def prepare_3pass_weights(net: SDFNetwork) -> ThreePassWeights:
+    """Counterpart of iron_tpu/kernels/fused_sdf.py::_prepare_3pass_weights on
+    the port's layout."""
+    mats, biases, skip = padded_layers(net)
+    return ThreePassWeights(hi=_round_layout(net, mats, biases, skip),
+                            lo=_round_layout(net, [m - _bf16(m) for m in mats], biases, skip))
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +181,37 @@ def _mlp_bf16_plain(w: Bf16Weights, pts: torch.Tensor) -> torch.Tensor:
 def sdf_only_bf16_plain(w: Bf16Weights, x: torch.Tensor) -> torch.Tensor:
     """x [..., 3] -> sdf [...]: K2's function in plain PyTorch."""
     return _mlp_bf16_plain(w, x.reshape(-1, 3)).reshape(x.shape[:-1])
+
+
+def _split(h: torch.Tensor):
+    """(hi, lo) = (bf16(h), bf16(h - hi)) as f32 tensors."""
+    hi = _bf16(h)
+    return hi, _bf16(h - hi)
+
+
+def sdf_only_3pass_plain(w: ThreePassWeights, x: torch.Tensor) -> torch.Tensor:
+    """x [..., 3] -> sdf [...]: K4's function in plain PyTorch.  The PE and
+    every softplus output are split into hi and lo; each layer sums
+    hi @ W_hi + hi @ W_lo + lo @ W_hi (exact products of bf16 values, f32
+    sums), the skip as (mm3(h) + mm3(pe)) / sqrt(2), then the f32 bias."""
+    hi, lo = w.hi, w.lo
+    pts = x.reshape(-1, 3)
+    pe = positional_encoding(pts * hi.scale, hi.multires)
+    pe = _split(torch.nn.functional.pad(pe, (0, PE_W - pe.shape[-1])))
+
+    def mm3(a, i):
+        return a[0] @ hi.mats[i] + a[0] @ lo.mats[i] + a[1] @ hi.mats[i]
+
+    h, mi = pe, 0
+    for l in range(hi.n_layers - 1):
+        acc = mm3(h, mi)
+        mi += 1
+        if l == hi.skip:
+            acc = (acc + mm3(pe, mi)) * INV_SQRT2
+            mi += 1
+        h = _split(softplus100(acc + hi.biases[l]))
+    s = mm3(h, -1)[:, 0] + hi.biases[-1][0]
+    return (s * (1.0 / hi.scale)).reshape(x.shape[:-1])
 
 
 def coarse_march_plain(w: Bf16Weights, ray_o, ray_d, acc0, work, max_dis,
@@ -186,6 +247,8 @@ def _lib():
         lib.iron_coarse_march_bf16.argtypes = [P, P, P, P, P, I, I, F, P, P, P, I, I, I,
                                                F, P, P, P, P]
         lib.iron_coarse_march_bf16.restype = I
+        lib.iron_sdf_only_3pass.argtypes = [P, I, P, P, P, P, P, I, I, I, F, P, P]
+        lib.iron_sdf_only_3pass.restype = I
         lib._typed = True
     return lib
 
@@ -257,10 +320,41 @@ def coarse_march(w: Bf16Weights, ray_o, ray_d, acc0, work, max_dis,
 coarse_march.launches = 0
 
 
+def sdf_only_3pass(w: ThreePassWeights, x: torch.Tensor) -> torch.Tensor:
+    """K4: x [..., 3] f32 -> sdf [...] f32 at the accurate bf16x3 precision.
+    Replaces iron_tpu/kernels/fused_sdf.py::make_pallas_sdf_only_3pass_fn."""
+    if not x.is_cuda:
+        return sdf_only_3pass_plain(w, x)
+    xf = _points(x)
+    _check_weights(w.hi, xf.device)
+    _check_weights(w.lo, xf.device)
+    out = torch.empty(xf.shape[0], device=xf.device, dtype=torch.float32)
+    lib = _lib()
+    hi, lo = w.hi, w.lo
+    code = lib.iron_sdf_only_3pass(
+        xf.data_ptr(), xf.shape[0], hi.wpack.data_ptr(), lo.wpack.data_ptr(),
+        hi.bias_flat.data_ptr(), hi.wlast.data_ptr(), lo.wlast.data_ptr(), hi.n_layers,
+        hi.skip, hi.d_embed, hi.scale, out.data_ptr(),
+        torch.cuda.current_stream(xf.device).cuda_stream)
+    build.check(lib, code, "sdf_only_3pass")
+    sdf_only_3pass.launches += 1
+    return out.reshape(x.shape[:-1])
+
+
+sdf_only_3pass.launches = 0
+
+
 def make_sdf_only_bf16_fn(net: SDFNetwork):
     """sdf(x [..., 3]) -> [...] through K2 (the coarse fallback sweep)."""
     w = prepare_bf16_weights(net)
     return lambda x: sdf_only_bf16(w, x)
+
+
+def make_sdf_only_3pass_fn(net: SDFNetwork):
+    """sdf(x [..., 3]) -> [...] through K4: the tracer's accurate
+    `trace_sdf_fn` under `Stage2Config.trace_pallas`."""
+    w = prepare_3pass_weights(net)
+    return lambda x: sdf_only_3pass(w, x)
 
 
 def make_coarse_march_fn(net: SDFNetwork, threshold: float = 2.0e-2):

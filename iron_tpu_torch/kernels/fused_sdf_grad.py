@@ -12,6 +12,11 @@ matrix, every bias and of x: the hand-derived adjoint of the u-chain (in
 forward order) and of the primal chain (in reverse order), as `_bwd_kernel`
 of the JAX module computes it.
 
+K5 (`sdf_full`, the counterpart of
+iron_tpu/kernels/fused_sdf.py::make_pallas_sdf_fn) is K3-fwd's forward
+sweep alone on the same weights: [sdf, features] of every point, f32, no
+graph; its plain version is `sdf_full_plain`.
+
 `sdf_value_feat_grad(w, x)` is the entry point.  When x or the prepared
 weights need a gradient it runs through `_FusedSdfCore`, a
 torch.autograd.Function whose forward is K3-fwd and whose backward is
@@ -177,6 +182,15 @@ def sdf_value_feat_grad_plain(w: GradWeights, x: torch.Tensor):
 
 
 @torch.no_grad()
+def sdf_full_plain(w: GradWeights, x: torch.Tensor) -> torch.Tensor:
+    """x [..., 3] -> [..., d_out] = [sdf, features]: K5's function, the
+    forward chain of K3-fwd in plain f32 PyTorch."""
+    z = _forward_chain(w, x.reshape(-1, 3) * w.scale)[4][-1]
+    out = torch.cat([z[:, :1] / w.scale, z[:, 1:]], dim=-1)
+    return out.reshape(x.shape[:-1] + (w.d_out,))
+
+
+@torch.no_grad()
 def sdf_value_feat_grad_bwd_plain(w: GradWeights, x: torch.Tensor, dvalue: torch.Tensor,
                                   dfeat: torch.Tensor, dgrad: torch.Tensor):
     """K3-bwd's function in plain f32 PyTorch, without autograd: the
@@ -259,6 +273,8 @@ def _lib():
         lib.iron_grad_blocks.restype = I
         lib.iron_grad_bwd_blocks.argtypes = [I]
         lib.iron_grad_bwd_blocks.restype = I
+        lib.iron_sdf_full.argtypes = [P, I, P, P, I, I, I, I, F, P, P]
+        lib.iron_sdf_full.restype = I
         lib._typed = True
     return lib
 
@@ -306,6 +322,28 @@ def sdf_value_feat_grad_fwd(w: GradWeights, x: torch.Tensor):
 
 
 sdf_value_feat_grad_fwd.launches = 0
+
+
+def sdf_full(w: GradWeights, x: torch.Tensor) -> torch.Tensor:
+    """K5: x [..., 3] f32 -> [..., d_out] f32, column 0 the sdf, then the
+    features, with no graph.  Replaces
+    iron_tpu/kernels/fused_sdf.py::make_pallas_sdf_fn."""
+    if not x.is_cuda:
+        return sdf_full_plain(w, x)
+    _check(w, x)
+    xf = x.detach().reshape(-1, 3).contiguous()
+    out = torch.empty((xf.shape[0], w.d_out), device=xf.device, dtype=torch.float32)
+    lib = _lib()
+    code = lib.iron_sdf_full(
+        xf.data_ptr(), xf.shape[0], w.wfwd.data_ptr(), w.bias_flat.data_ptr(), w.n_layers,
+        w.skip, w.d_embed, w.d_out, w.scale, out.data_ptr(),
+        torch.cuda.current_stream(xf.device).cuda_stream)
+    build.check(lib, code, "sdf_full")
+    sdf_full.launches += 1
+    return out.reshape(x.shape[:-1] + (w.d_out,))
+
+
+sdf_full.launches = 0
 
 
 def sdf_value_feat_grad_bwd(w: GradWeights, x: torch.Tensor, dvalue: torch.Tensor,
@@ -397,3 +435,11 @@ def make_fused_sdf_grad_fn(net: SDFNetwork):
     differentiably and the result is differentiable through K3-bwd."""
     w = prepare_grad_weights(net, differentiable=torch.is_grad_enabled())
     return lambda x: sdf_value_feat_grad(w, x)
+
+
+def make_sdf_fn(net: SDFNetwork):
+    """sdf_all(x [..., 3]) -> [..., d_out] through K5, without a graph: the
+    counterpart of iron_tpu/kernels/fused_sdf.py::make_pallas_sdf_fn (the
+    SDF sweep of scripts/bench_sdf_eval_torch.py)."""
+    w = prepare_grad_weights(net)
+    return lambda x: sdf_full(w, x)

@@ -9,21 +9,22 @@ priors and the optional silhouette term -> backward -> one Adam per
 parameter group.
 
 On a CUDA device `build_stage2_fns` routes the coarse march through K1, the
-coarse fallback sweep through K2 and the shading-path SDF core through K3
-(forward K3-fwd, backward K3-bwd), as the JAX package routes them through
-its Pallas kernels on a TPU; on the CPU it uses the plain f32 functions
-with autograd, as the JAX package uses XLA there.  The uniform-cube
-eikonal term runs on plain autograd (create_graph) on both, as in the JAX
-package, where it is plain XLA.
+coarse fallback sweep through K2, the shading-path SDF core through K3
+(forward K3-fwd, backward K3-bwd) and, with `trace_pallas`, every accurate
+trace evaluation through K4, as the JAX package routes them through its
+Pallas kernels on a TPU; on the CPU it uses the plain f32 functions with
+autograd, as the JAX package uses XLA there.  The uniform-cube eikonal term
+runs on plain autograd (create_graph) on both, as in the JAX package, where
+it is plain XLA.  `mat_bf16` runs the material networks in bf16 on both.
 
 Not ported (each raises): `steps_per_call > 1` (the JAX package's lax.scan
-over steps), `async_ckpt` (orbax), `mat_bf16` and `trace_pallas`.
+over steps) and `async_ckpt` (orbax).
 """
 from __future__ import annotations
 
 import os
 import pickle
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -36,7 +37,8 @@ from iron_tpu_torch.core.camera import Camera, crop_camera, make_camera, resize_
 from iron_tpu_torch.core.rays import intersect_sphere
 from iron_tpu_torch.fields.sdf import (SDFConfig, init_sdf, sdf_grad, sdf_only,
                                        sdf_value_feat_grad)
-from iron_tpu_torch.kernels.fused_sdf import make_coarse_march_fn, make_sdf_only_bf16_fn
+from iron_tpu_torch.kernels.fused_sdf import (make_coarse_march_fn, make_sdf_only_3pass_fn,
+                                              make_sdf_only_bf16_fn)
 from iron_tpu_torch.kernels.fused_sdf_grad import make_fused_sdf_grad_fn
 from iron_tpu_torch.losses.image import pyramid_l2_loss, ssim_loss
 from iron_tpu_torch.losses.regularizers import (dielectric_eta_loss, eikonal_loss,
@@ -86,9 +88,12 @@ class Stage2Config:
     coarse_pallas: bool = True
     # shading-path SDF core through K3; False raises on the card, likewise
     shade_pallas: bool = True
-    # accurate trace through the 3-pass kernel K4 (not ported yet: raises)
+    # every accurate no-grad trace evaluation (refine, stragglers, bisection,
+    # fallback revalidation, edge-side traces, silhouette sweep) through the
+    # 3-pass kernel K4 on a CUDA device; the plain f32 SDF on the CPU
     trace_pallas: bool = False
-    # bf16 material networks (not ported yet: raises)
+    # the material networks' products and activations in bf16
+    # (RenderingConfig.compute_dtype), BRDF math in f32
     mat_bf16: bool = False
     silhouette_weight: float = 0.0
     silhouette_alpha: float = 50.0
@@ -119,20 +124,17 @@ def init_light_from_cameras(W2Cs: np.ndarray, scale: float = 8.0) -> float:
 
 def build_stage2_fns(params: nn.ModuleDict, mat_cfgs, cfg: Stage2Config) -> Dict:
     """Evaluator closures for the surface pipeline: sdf / sdf_all, their
-    trace variants, the coarse evaluators (K1, K2 on a CUDA device) and the
+    trace variants (trace_sdf through K4 on a CUDA device with
+    trace_pallas; the edge walk's trace_sdf_all stays plain f32, as in the
+    JAX package), the coarse evaluators (K1, K2 on a CUDA device) and the
     shade closure.  Call under torch.no_grad() for a render; built under
     grad mode, sdf_all on the card is differentiable through K3-bwd."""
     sdf = params["sdf"]
     on_card = next(sdf.parameters()).is_cuda
-    if cfg.mat_bf16:
-        raise NotImplementedError("mat_bf16 (bf16 material networks) is not ported yet")
     if on_card and not (cfg.coarse_pallas and cfg.shade_pallas):
         raise NotImplementedError("on a CUDA device the coarse evaluators and the shading "
                                   "SDF core always run through their kernels "
                                   "(coarse_pallas and shade_pallas must stay True)")
-    if on_card and cfg.trace_pallas:
-        raise NotImplementedError("trace_pallas needs the 3-pass trace kernel, which is "
-                                  "not ported yet")
     out = {
         "sdf_fn": lambda p: sdf_only(sdf, p),
         "sdf_all_fn": lambda p: sdf_value_feat_grad(sdf, p),
@@ -143,12 +145,18 @@ def build_stage2_fns(params: nn.ModuleDict, mat_cfgs, cfg: Stage2Config) -> Dict
     }
     if on_card:
         out["sdf_all_fn"] = make_fused_sdf_grad_fn(sdf)
+        if cfg.trace_pallas:
+            out["trace_sdf_fn"] = make_sdf_only_3pass_fn(sdf)
         if cfg.coarse_trace_precision is not None:
             out["coarse_sdf_fn"] = make_sdf_only_bf16_fn(sdf)
             out["coarse_march_fn"] = make_coarse_march_fn(
                 sdf, threshold=cfg.surface.tracer.coarse_threshold)
+    shade_cfgs = mat_cfgs
+    if cfg.mat_bf16:
+        shade_cfgs = {k: replace(v, compute_dtype="bfloat16")
+                      for k, v in mat_cfgs.items()}
     out["shade_fn"] = lambda ray_o, ray_d, pts, normals, feats: shade_points(
-        cfg.renderer_name, params["materials"], mat_cfgs, ray_o, ray_d, pts, normals,
+        cfg.renderer_name, params["materials"], shade_cfgs, ray_o, ray_d, pts, normals,
         feats, is_metal=cfg.is_metal, use_env_light=cfg.use_env_light)
     return out
 

@@ -2,14 +2,16 @@
 """Where the time of the PyTorch port's render and training step goes, on
 one NVIDIA GPU.
 
-    python3 scripts/profile_render_torch.py [--res 512 128] [--train-steps 1]
+    python3 scripts/profile_render_torch.py [--res 512 128] [--train-steps 1] [--trace-pallas]
 
 Render: builds the same scene as chip_smoke.py (Stage2Config(), the comp
 renderer, weights from torch.Generator seed 0, view 0 of a ring of cameras
 at distance 3), warms up, then traces one Stage2Trainer.render_full per
 resolution.  Training: the bench's trainer (iron_tpu_torch.bench), 8
 warm-up steps, then `--train-steps` steps of Stage2Trainer.run traced
-(0 skips it).  Each trace, taken with torch.profiler, prints: the wall time,
+(0 skips it).  `--trace-pallas` runs both with Stage2Config.trace_pallas
+(every accurate trace evaluation through K4).  Each trace, taken with
+torch.profiler, prints: the wall time,
 the device time summed over all kernels, the device idle share, the device
 time by group (the port's kernels, cuBLAS products, everything else), the
 host syncs (item / nonzero calls), the top kernels, and one JSON line.
@@ -39,6 +41,8 @@ GROUPS = (("K1 coarse_march", "coarse_march_kernel"),
           ("K2 sdf_only_bf16", "sdf_only_bf16_kernel"),
           ("K3 sdf_grad_fwd", "sdf_grad_fwd_kernel"),
           ("K3 sdf_grad_bwd", ("sdf_grad_bwd_kernel", "reduce_partials_kernel")),
+          ("K4 sdf_only_3pass", "sdf_only_3pass_kernel"),
+          ("K5 sdf_full", "sdf_full_kernel"),
           ("cuBLAS products", ("gemm", "gemv", "xmma", "cutlass")))
 
 
@@ -81,6 +85,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--res", type=int, nargs="*", default=[512, 128])
     ap.add_argument("--train-steps", type=int, default=1)
+    ap.add_argument("--trace-pallas", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device visible", file=sys.stderr)
@@ -89,8 +94,9 @@ def main(argv=None) -> int:
     for res in args.res:
         Ks, W2Cs = ring_cameras(1, res)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        tr = Stage2Trainer(Stage2Config(), np.zeros((1, res, res, 3), np.float32), Ks, W2Cs,
-                           generator=gen, device="cuda")
+        tr = Stage2Trainer(Stage2Config(trace_pallas=args.trace_pallas),
+                           np.zeros((1, res, res, 3), np.float32), Ks, W2Cs, generator=gen,
+                           device="cuda")
         for _ in range(2):
             tr.render_full(0)
         torch.cuda.synchronize()
@@ -98,10 +104,11 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             out = tr.render_full(0)
             wall_ms = (time.perf_counter() - t0) * 1e3
-        report(prof, wall_ms, f"render_full {res}x{res}",
+        tag = ", trace_pallas" if args.trace_pallas else ""
+        report(prof, wall_ms, f"render_full {res}x{res}{tag}",
                {"coverage": round(float(out["hit_mask"].mean()), 4)})
     if args.train_steps > 0:
-        tr = bench_trainer("cuda")
+        tr = bench_trainer("cuda", trace_pallas=args.trace_pallas)
         tr.run(num_iters=8)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -109,7 +116,8 @@ def main(argv=None) -> int:
             m = tr.run(num_iters=args.train_steps)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        report(prof, wall_ms, f"training, {args.train_steps} step(s) after 8 warm-up",
+        tag = ", trace_pallas" if args.trace_pallas else ""
+        report(prof, wall_ms, f"training, {args.train_steps} step(s) after 8 warm-up{tag}",
                {"mask_frac": round(m["mask_frac"], 4)})
     return 0
 
