@@ -58,9 +58,10 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks of an H100 SXM at its 700 W limit (dense): HBM bytes/s,
-# bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
+# bf16 and tf32 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
 # K2's tolerance against its plain version: the same bf16 arithmetic in
 # another f32 sum order, where a sum on a bf16 rounding boundary rounds an
@@ -364,28 +365,35 @@ def main(argv=None) -> int:
         assert top(s_k) <= thr + BF16_REORDER_TOL and top(s_p) <= thr + BF16_REORDER_TOL
         max_err["coarse_march"] = max(max_err.get("coarse_march", 0.0), err)
 
-    def k4_err(pts) -> float:
-        """max |K4 - its plain version| on pts (held at K4_PLAIN_TOL)."""
+    def k4_err(pts, w4_=None) -> float:
+        """max |K4 - its plain version| on pts (held at K4_PLAIN_TOL), with
+        the weights w4_ (default: the render's)."""
+        w4_ = w4 if w4_ is None else w4_
         with torch.no_grad():
-            k4 = K12.sdf_only_3pass(w4, pts)
+            k4 = K12.sdf_only_3pass(w4_, pts)
             torch.cuda.synchronize()
-            ref = K12.sdf_only_3pass_plain(w4, pts)
+            ref = K12.sdf_only_3pass_plain(w4_, pts)
         assert k4.shape == pts.shape[:-1] and torch.isfinite(k4).all()
         err = float((k4 - ref).abs().max()) if k4.numel() else 0.0
         assert err <= K4_PLAIN_TOL, err
         max_err["sdf_only_3pass"] = max(max_err.get("sdf_only_3pass", 0.0), err)
         return err
 
-    def check_k4(pts, what: str) -> None:
+    def check_k4(pts, what: str, sdf_net=None) -> None:
         """K4 against its plain version, and the JAX package's criteria for
         the 3-pass kernel against the f32 SDF (tests/test_kernels.py):
-        within 5e-4, and under 0.3 x K2's error on the same points."""
-        err = k4_err(pts)
+        within 5e-4, and under 0.3 x K2's error on the same points (on the
+        weights of sdf_net, default the render's)."""
+        if sdf_net is None:
+            sdf_net, w4_, w12_ = net, w4, w12
+        else:
+            w4_, w12_ = K12.prepare_3pass_weights(sdf_net), K12.prepare_bf16_weights(sdf_net)
+        err = k4_err(pts, w4_)
         with torch.no_grad():
-            k4 = K12.sdf_only_3pass(w4, pts)
-            f32 = sdf_only(net, pts)
+            k4 = K12.sdf_only_3pass(w4_, pts)
+            f32 = sdf_only(sdf_net, pts)
             e4 = float((k4 - f32).abs().max())
-            e2 = float((K12.sdf_only_bf16(w12, pts) - f32).abs().max())
+            e2 = float((K12.sdf_only_bf16(w12_, pts) - f32).abs().max())
         log(f"K4 sdf_only_3pass {what} {tuple(pts.shape)}: max|K4 - plain| {err:.3e} (tol "
             f"{K4_PLAIN_TOL:.0e}); max|K4 - f32 sdf| {e4:.3e} (tol 5e-4), max|K2 - f32 sdf| "
             f"{e2:.3e}, ratio {e4 / e2:.4f} (tol < 0.3)")
@@ -718,9 +726,11 @@ def main(argv=None) -> int:
                for a, b in zip(flat(got), flat(ref))]
         same = all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
         err = max(float((a - b).abs().max()) for a, b in zip(flat(got), flat(ref)))
-        log(f"K3-bwd {what} ({x.numel() // 3} points): max |K3-bwd - plain| / max |plain| over "
-            f"dx, {len(got[0])} matrices and {len(got[1])} biases {max(rel):.3e} (tol 1e-4), "
-            f"max abs err {err:.3e}, deterministic {same}")
+        rows, clusters = K3.bwd_tiling(x.numel() // 3, K3._lib().iron_grad_bwd_clusters())
+        log(f"K3-bwd {what} ({x.numel() // 3} points, {rows}-row tiles on {clusters} clusters, "
+            f"{4 * clusters} CTAs): max |K3-bwd - plain| / max |plain| over dx, {len(got[0])} "
+            f"matrices and {len(got[1])} biases {max(rel):.3e} (tol 1e-4), max abs err "
+            f"{err:.3e}, deterministic {same}")
         assert max(rel) <= 1e-4 and same
         for t in flat(got):
             assert torch.isfinite(t).all()
@@ -731,7 +741,7 @@ def main(argv=None) -> int:
         return [torch.as_tensor(t, device=dev) for t in c]
 
     w3g = K3.prepare_grad_weights(net)
-    for n in (4096, 65536):
+    for n in (1, 63, 65, 4096, 65536, 100000):
         xb = torch.as_tensor((rng.normal(size=(n, 3)) * 0.4).astype(np.float32), device=dev)
         check_k3_bwd(w3g, xb, random_cots(n, w3g), "on random points")
 
@@ -985,6 +995,22 @@ def main(argv=None) -> int:
     step_calls["sdf_only_3pass"] = k4_step_calls
     hold_retraced("K4 vs its plain version", (loss_t, m_t, g_t), (loss_t4, m_t4, g_t4),
                   counts + ("mask_miss_count", "mask_excess_count"))
+    # K4 against its plain version on every call of the step, and on ragged
+    # sizes; the JAX criteria against the f32 SDF on all the step's points
+    errs4s = [k4_err(p, w4s) for p in k4_step_calls]
+    n4s = [p.numel() // 3 for p in k4_step_calls]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ctas = [K12.k4_width(k, sms) * -(-k // 64) for k in n4s]
+    log(f"K4 on the {len(k4_step_calls)} calls of the trace_pallas step ({sum(n4s)} points, "
+        f"{min(n4s)} to {max(n4s)} a call, median {int(np.median(n4s))}; CTAs a call: median "
+        f"{int(np.median(ctas))}, {min(ctas)} to {max(ctas)}): max|K4 - plain| "
+        f"{max(errs4s):.3e} (tol {K4_PLAIN_TOL:.0e})")
+    for n in (1, 63, 65):
+        xr = torch.as_tensor(rng.uniform(-1, 1, size=(n, 3)).astype(np.float32), device=dev)
+        log(f"K4 on {n} random points: max|K4 - plain| {k4_err(xr):.3e} (tol "
+            f"{K4_PLAIN_TOL:.0e})")
+    check_k4(torch.cat([p.reshape(-1, 3) for p in k4_step_calls]), "on all points of the step",
+             tr_tp.params["sdf"])
     launches_tp, _ = train_run(tr_tp, step_path_tp, " with trace_pallas")
 
     # ---- 8c. the SDF sweep of make_sdf_fn (K5, the counterpart of the JAX
@@ -1026,10 +1052,13 @@ def main(argv=None) -> int:
         return bound(n * (12 + 4 + (cfg.sdf.d_out - 1) * 4 + 12) + work["weights_all"] * 4,
                      n * 2 * work["value_grad"], F32_FLOPS, n * work["transc"])
 
-    def bound_k3_bwd(x):
+    def bound_k3_bwd(x, flop_rate=TF32_FLOPS, passes=3):
+        """K3-bwd runs its products as three tf32 tensor-core products a MAC
+        (3xTF32); bound_k3_bwd(x, F32_FLOPS, 1) is the bound of the same
+        work in f32 on the CUDA cores."""
         n = x.numel() // 3
         return bound(n * (12 + (cfg.sdf.d_out + 3) * 4 + 12) + 2 * bw["weights_all"] * 4,
-                     n * 2 * bw["macs"], F32_FLOPS, n * bw["transc"])
+                     n * 2 * passes * bw["macs"], flop_rate, n * bw["transc"])
 
     def bound_k4(pts):
         n = pts.numel() // 3
@@ -1075,6 +1104,11 @@ def main(argv=None) -> int:
                             "iron_tpu_torch/kernels/csrc/fused_sdf_grad.cu",
                             "iron_tpu/kernels/fused_sdf_grad.py:502", ms, plain_ms,
                             *bound_k3_bwd(xb)))
+        log(f"K3-bwd bound on the step's largest call ({xb.numel() // 3} points): "
+            f"{bound_k3_bwd(xb)[0]:.4f} ms as 3xTF32 on the tensor cores (the route it takes), "
+            f"{bound_k3_bwd(xb, F32_FLOPS, 1)[0]:.4f} ms in f32 on the CUDA cores; over the "
+            f"step's {len(bwd_calls)} calls {sum(bound_k3_bwd(c[1])[0] for c in bwd_calls):.4f} "
+            f"and {sum(bound_k3_bwd(c[1], F32_FLOPS, 1)[0] for c in bwd_calls):.4f} ms")
 
         # K4: its largest main-path call (a trace call of view 0) and 262,144
         # uniform points; beside each, the port's f32 sdf_only, the trace
@@ -1131,9 +1165,14 @@ def main(argv=None) -> int:
             step_cost = []
             for name, (run, bnd) in per_call.items():
                 cs = step_calls[name]
-                t = sum(cuda_ms(lambda c=c: run(c), iters=5, warmup=1) for c in cs)
+                ts = [cuda_ms(lambda c=c: run(c), iters=5, warmup=1) for c in cs]
+                t = sum(ts)
                 b = sum(bnd(c)[0] for c in cs)
                 step_cost.append((t - b, name, len(cs), t, b))
+                if name == "sdf_value_feat_grad_bwd":
+                    log("K3-bwd on the step's calls: " + ", ".join(
+                        f"{c[1].numel() // 3} points {tc:.4f} ms (bound {bnd(c)[0]:.4f} ms)"
+                        for c, tc in zip(cs, ts)))
         log("the training step's shapes, each kernel over the calls of one step "
             "(launches x (time - bound), largest first): " + "; ".join(
                 f"{name} {n} launches, {t:.3f} ms against a bound of {b:.4f} ms ({b / t:.1%}), "

@@ -92,14 +92,24 @@ def load(stem: str) -> ctypes.CDLL:
 
 
 def ptxas_reports() -> List[str]:
-    """The ptxas lines of the current builds' logs (registers, spills)."""
+    """The ptxas report of the current builds, one line a kernel: its
+    (mangled) name, registers, shared memory and spills."""
     lines = []
     for stem in SOURCES:
         log = f"{_lib_path(stem)}.log"
-        if os.path.exists(log):
-            with open(log) as f:
-                lines += [f"{stem}: {ln.strip()}" for ln in f
-                          if "registers" in ln or "spill" in ln]
+        if not os.path.exists(log):
+            continue
+        name, parts = None, []
+        with open(log) as f:
+            for ln in f:
+                if "Compiling entry function" in ln:
+                    if name:
+                        lines.append(f"{stem}: {name}: " + "; ".join(parts))
+                    name, parts = ln.split("'")[1], []
+                elif name and ("registers" in ln or "spill" in ln):
+                    parts.append(ln.split(":", 1)[-1].strip())
+        if name:
+            lines.append(f"{stem}: {name}: " + "; ".join(parts))
     return lines
 
 

@@ -247,7 +247,7 @@ def _lib():
         lib.iron_coarse_march_bf16.argtypes = [P, P, P, P, P, I, I, F, P, P, P, I, I, I,
                                                F, P, P, P, P]
         lib.iron_coarse_march_bf16.restype = I
-        lib.iron_sdf_only_3pass.argtypes = [P, I, P, P, P, P, P, I, I, I, F, P, P]
+        lib.iron_sdf_only_3pass.argtypes = [P, I, P, P, I, P, P, P, I, I, I, F, P, I, P]
         lib.iron_sdf_only_3pass.restype = I
         lib._typed = True
     return lib
@@ -320,6 +320,15 @@ def coarse_march(w: Bf16Weights, ray_o, ray_d, acc0, work, max_dis,
 coarse_march.launches = 0
 
 
+def k4_width(n: int, sms: int) -> int:
+    """CTAs of a K4 cluster (each takes 256 / width columns of a 64-row
+    tile) for n points on a card of `sms` SMs: the smallest of 1, 2 and 4
+    whose grid, width x ceil(n / 64) CTAs, covers the SMs; 4 when none
+    does."""
+    tiles = -(-n // 64)
+    return 1 if tiles >= sms else 2 if 2 * tiles >= sms else 4
+
+
 def sdf_only_3pass(w: ThreePassWeights, x: torch.Tensor) -> torch.Tensor:
     """K4: x [..., 3] f32 -> sdf [...] f32 at the accurate bf16x3 precision.
     Replaces iron_tpu/kernels/fused_sdf.py::make_pallas_sdf_only_3pass_fn."""
@@ -331,11 +340,12 @@ def sdf_only_3pass(w: ThreePassWeights, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty(xf.shape[0], device=xf.device, dtype=torch.float32)
     lib = _lib()
     hi, lo = w.hi, w.lo
+    sms = torch.cuda.get_device_properties(xf.device).multi_processor_count
     code = lib.iron_sdf_only_3pass(
         xf.data_ptr(), xf.shape[0], hi.wpack.data_ptr(), lo.wpack.data_ptr(),
-        hi.bias_flat.data_ptr(), hi.wlast.data_ptr(), lo.wlast.data_ptr(), hi.n_layers,
-        hi.skip, hi.d_embed, hi.scale, out.data_ptr(),
-        torch.cuda.current_stream(xf.device).cuda_stream)
+        hi.wpack.numel() // (16 * HID), hi.bias_flat.data_ptr(), hi.wlast.data_ptr(),
+        lo.wlast.data_ptr(), hi.n_layers, hi.skip, hi.d_embed, hi.scale, out.data_ptr(),
+        k4_width(xf.shape[0], sms), torch.cuda.current_stream(xf.device).cuda_stream)
     build.check(lib, code, "sdf_only_3pass")
     sdf_only_3pass.launches += 1
     return out.reshape(x.shape[:-1])

@@ -30,7 +30,11 @@ reference order padded to 48, the layer feeding the skip padded to 256
 outputs, the skip split into hidden and PE matrices) but f32, with the skip's
 1/sqrt(2) folded into its two matrices and the final layer at its full width.
 The transposed products read host-made transposes, so every product reads
-its weights coalesced.  Under grad mode the prepared matrices are built
+its weights coalesced.  K3-bwd runs its products on the tensor cores
+(3xTF32, csrc/split3.cuh) and reads both sets packed into mma.sync tf32 B
+fragments (`pack_tf32_b`): `bwd_wf` the forward matrices, `bwd_wt` their
+transposes and the final layer's, packed at K3-bwd's first use of the
+prepared weights.  Under grad mode the prepared matrices are built
 differentiably from the live parameters, so autograd carries their
 gradients back through the padding, the folded 1/sqrt(2) and the weight
 norm to each layer's v, g and b.
@@ -38,8 +42,8 @@ norm to each layer's v, g and b.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
-from typing import List, Optional
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -49,8 +53,8 @@ from iron_tpu_torch.fields.sdf import SDFNetwork, softplus100
 from iron_tpu_torch.kernels import build
 from iron_tpu_torch.kernels.fused_sdf import HID, INV_SQRT2, PE_W, layout_layers
 
-ROWS = 64        # points per tile of the kernels
-OUT_MAX = 260    # widest final layer the backward kernel takes (d_out rounded up to 4)
+ROWS = 64        # points per tile of K3-fwd and K5
+OUT_MAX = 264    # widest final layer the backward kernel takes (d_out padded to 8)
 
 
 @dataclass
@@ -62,7 +66,6 @@ class GradWeights:
     biases: List[torch.Tensor]  # f32, one per layer (hidden ones padded to 256)
     wfwd: torch.Tensor         # mats, flattened and concatenated
     wt: torch.Tensor           # transposes of the hidden layers' mats, concatenated
-    wt_last: torch.Tensor      # the final layer's transpose, rows padded to OUT_MAX-class width
     bias_flat: torch.Tensor    # f32 [(n_layers - 1) * 256 + d_out]
     wlast0: torch.Tensor       # f32 [256], the final layer's sdf column
     n_layers: int
@@ -71,10 +74,49 @@ class GradWeights:
     multires: int
     d_out: int
     scale: float
+    _bwd_packs: Optional[Tuple[torch.Tensor, torch.Tensor]] = field(default=None, repr=False)
 
     @property
     def requires_grad(self) -> bool:
         return any(t.requires_grad for t in self.mats + self.biases)
+
+    @property
+    def bwd_wf(self) -> torch.Tensor:
+        """K3-bwd: pack_tf32_b of the hidden layers' mats."""
+        return self._pack_bwd()[0]
+
+    @property
+    def bwd_wt(self) -> torch.Tensor:
+        """K3-bwd: pack_tf32_b of the hidden layers' transposed mats, then
+        of the final layer's (its rows padded to a multiple of 8)."""
+        return self._pack_bwd()[1]
+
+    def _pack_bwd(self):
+        # packed at the first use and kept: only K3-bwd reads them, so the
+        # forward-only callers (K3-fwd, K5, the CPU) never pack
+        if self._bwd_packs is None:
+            flat = [m.detach() for m in self.mats]
+            out_pad = -(-self.d_out // 8) * 8
+            last_t = torch.nn.functional.pad(flat[-1].T, (0, 0, 0, out_pad - self.d_out))
+            self._bwd_packs = (
+                torch.cat([pack_tf32_b(m).reshape(-1) for m in flat[:-1]]),
+                torch.cat([pack_tf32_b(m.T).reshape(-1) for m in flat[:-1]]
+                          + [pack_tf32_b(last_t).reshape(-1)]))
+        return self._bwd_packs
+
+
+def pack_tf32_b(w: torch.Tensor) -> torch.Tensor:
+    """Pack a [8*KS, 8*NT] f32 matrix into mma.sync m16n8k8 tf32 B fragments.
+
+    Output [KS, NT, 32 lanes, 2] f32: lane (g, t) = (lane >> 2, lane & 3) of
+    n-tile nt and k-step ks holds W[8 ks + t, 8 nt + g] and
+    W[8 ks + t + 4, 8 nt + g], so one lane's fragment is one 8-byte load and
+    a warp's loads are contiguous.  The values stay f32: the kernel splits
+    them into tf32 hi and lo parts."""
+    ks, nt = w.shape[0] // 8, w.shape[1] // 8
+    # k = 8 ks + 4 half + t ; n = 8 nt + g
+    r = w.detach().to(torch.float32).reshape(ks, 2, 4, nt, 8)
+    return r.permute(0, 3, 4, 2, 1).reshape(ks, nt, 32, 2).contiguous()
 
 
 def prepare_grad_weights(net: SDFNetwork, differentiable: bool = False) -> GradWeights:
@@ -88,18 +130,14 @@ def prepare_grad_weights(net: SDFNetwork, differentiable: bool = False) -> GradW
     if not differentiable:
         mats, biases = [m.detach() for m in mats], [b.detach() for b in biases]
     flat = [m.detach() for m in mats]
-    last = flat[-1]
-    d_out = net.cfg.d_out
-    out_ld = -(-d_out // 4) * 4
     return GradWeights(
         mats=mats, biases=biases,
         wfwd=torch.cat([m.reshape(-1) for m in flat]).contiguous(),
         wt=torch.cat([m.T.contiguous().reshape(-1) for m in flat[:-1]]).contiguous(),
-        wt_last=torch.nn.functional.pad(last.T, (0, 0, 0, out_ld - d_out)).contiguous(),
         bias_flat=torch.cat([b.detach() for b in biases]).contiguous(),
-        wlast0=last[:, 0].contiguous(),
+        wlast0=flat[-1][:, 0].contiguous(),
         n_layers=len(net.layers), skip=skip, d_embed=net.cfg.d_embed,
-        multires=net.cfg.multires, d_out=d_out, scale=float(net.cfg.scale))
+        multires=net.cfg.multires, d_out=net.cfg.d_out, scale=float(net.cfg.scale))
 
 
 def _pe_panels(w: GradWeights, y: torch.Tensor):
@@ -266,13 +304,13 @@ def _lib():
         lib.iron_sdf_value_feat_grad.argtypes = [P, I, P, P, P, P, I, I, I, I, F, P, P, P,
                                                  P, I, P]
         lib.iron_sdf_value_feat_grad.restype = I
-        lib.iron_sdf_value_feat_grad_bwd.argtypes = [P, I, P, P, P, P, P, P, P, I, I, I, I,
-                                                     F, P, P, I, I, P, P, I, P]
+        lib.iron_sdf_value_feat_grad_bwd.argtypes = [P, I, P, P, P, P, P, P, I, I, I, I, F, P,
+                                                     P, I, I, P, P, I, I, P]
         lib.iron_sdf_value_feat_grad_bwd.restype = I
         lib.iron_grad_blocks.argtypes = [I]
         lib.iron_grad_blocks.restype = I
-        lib.iron_grad_bwd_blocks.argtypes = [I]
-        lib.iron_grad_bwd_blocks.restype = I
+        lib.iron_grad_bwd_clusters.argtypes = []
+        lib.iron_grad_bwd_clusters.restype = I
         lib.iron_sdf_full.argtypes = [P, I, P, P, I, I, I, I, F, P, P]
         lib.iron_sdf_full.restype = I
         lib._typed = True
@@ -282,7 +320,7 @@ def _lib():
 def _check(w: GradWeights, x: torch.Tensor) -> None:
     if x.dtype != torch.float32 or x.shape[-1] != 3:
         raise ValueError(f"expected float32 points [..., 3], got {x.dtype} {tuple(x.shape)}")
-    for t in (w.wfwd, w.wt, w.wt_last, w.bias_flat, w.wlast0):
+    for t in (w.wfwd, w.wt, w.bias_flat, w.wlast0):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"prepared weights must be contiguous and on {x.device}")
 
@@ -346,13 +384,28 @@ def sdf_full(w: GradWeights, x: torch.Tensor) -> torch.Tensor:
 sdf_full.launches = 0
 
 
+def bwd_tiling(n: int, clusters: int):
+    """(rows, grid clusters) of K3-bwd for n points on a card that holds
+    `clusters` clusters of 4 CTAs at once: the fewest rounds of clusters
+    that 64-row tiles allow, and in them the shortest tile (a multiple of 16
+    rows) that covers the n points, one persistent cluster a tile, at most
+    `clusters`."""
+    rounds = max(1, -(-n // (64 * clusters)))
+    rows = 16 * max(1, -(-n // (16 * clusters * rounds)))
+    return rows, max(1, min(-(-n // rows), clusters))
+
+
+_BWD_CLUSTERS = {}
+
+
 def sdf_value_feat_grad_bwd(w: GradWeights, x: torch.Tensor, dvalue: torch.Tensor,
                             dfeat: torch.Tensor, dgrad: torch.Tensor):
     """K3-bwd: the cotangents of (value, feature, grad) -> (d mats, d biases,
     dx), f32.  Replaces the backward kernel of
     iron_tpu/kernels/fused_sdf_grad.py::make_fused_sdf_grad_fn (`_bwd_kernel`
-    through `_core_bwd`).  The dW/db of every block are summed by a second
-    pass in a fixed order, so the result does not change from run to run."""
+    through `_core_bwd`).  Each cluster sums its tiles' dW/db into its own
+    partial and a second pass sums the partials in a fixed order, so the
+    result does not change from run to run."""
     if not x.is_cuda:
         return sdf_value_feat_grad_bwd_plain(w, x, dvalue, dfeat, dgrad)
     _check(w, x)
@@ -369,21 +422,26 @@ def sdf_value_feat_grad_bwd(w: GradWeights, x: torch.Tensor, dvalue: torch.Tenso
                     dim=-1).contiguous()
     dg = dgrad.reshape(n, 3).contiguous()
     lib = _lib()
-    grid = max(1, min(-(-n // ROWS), lib.iron_grad_bwd_blocks(_sms(dev))))
+    if dev not in _BWD_CLUSTERS:
+        _BWD_CLUSTERS[dev] = lib.iron_grad_bwd_clusters()
+        if _BWD_CLUSTERS[dev] < 1:
+            raise RuntimeError("sdf_value_feat_grad_bwd: the card holds no cluster of the "
+                               "backward kernel")
+    rows, clusters = bwd_tiling(n, _BWD_CLUSTERS[dev])
     n_w, n_b = w.wfwd.numel(), w.bias_flat.numel()
     stride = n_w + n_b
-    # per block: its dW/db partials, and z, vh and the u-chain's bar_z of
-    # every hidden layer for its current tile
-    part = torch.empty(grid * stride, device=dev, dtype=torch.float32)
-    scratch = torch.empty(grid * 3 * (w.n_layers - 1) * ROWS * HID, device=dev,
+    # per cluster its dW/db partial; per CTA z, vh and the u-chain's bar_z of
+    # its own columns of every hidden layer, for its current tile
+    part = torch.empty(clusters * stride, device=dev, dtype=torch.float32)
+    scratch = torch.empty(clusters * 4 * 3 * (w.n_layers - 1) * rows * (HID // 4), device=dev,
                           dtype=torch.float32)
     dparams = torch.empty(stride, device=dev, dtype=torch.float32)
     dx = torch.empty((n, 3), device=dev, dtype=torch.float32)
     code = lib.iron_sdf_value_feat_grad_bwd(
-        xf.data_ptr(), n, dvf.data_ptr(), dg.data_ptr(), w.wfwd.data_ptr(), w.wt.data_ptr(),
-        w.wt_last.data_ptr(), w.bias_flat.data_ptr(), w.wlast0.data_ptr(), w.n_layers,
-        w.skip, w.d_embed, w.d_out, w.scale, dx.data_ptr(), part.data_ptr(), stride, n_w,
-        scratch.data_ptr(), dparams.data_ptr(), grid,
+        xf.data_ptr(), n, dvf.data_ptr(), dg.data_ptr(), w.bwd_wf.data_ptr(),
+        w.bwd_wt.data_ptr(), w.bias_flat.data_ptr(), w.wlast0.data_ptr(), w.n_layers, w.skip,
+        w.d_embed, w.d_out, w.scale, dx.data_ptr(), part.data_ptr(), stride, n_w,
+        scratch.data_ptr(), dparams.data_ptr(), rows, clusters,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, code, "sdf_value_feat_grad_bwd")
     sdf_value_feat_grad_bwd.launches += 1

@@ -9,6 +9,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse fixture)
 import jax
 import jax.numpy as jnp
@@ -213,30 +214,167 @@ def _torch_grads(net, x, fn):
     return [N(t) for t in torch.autograd.grad(loss, leaves)]
 
 
-def test_sdf_value_feat_grad_bwd_plain_matches_jax_backward_kernel():
-    """K3-bwd's plain version, through the port's autograd Function and the
-    differentiable weight preparation, against the JAX package's fused
-    kernel pair (forward and `_core_bwd`, Pallas in interpret mode, tile 128
-    so that dW accumulates over two tiles) at the full default SDFConfig, on
-    the second-order loss of tests/test_kernels.py: dx to rtol 1e-4 / atol
-    1e-7 and every parameter leaf to rtol 1e-4 / atol 1e-6, that test's
-    tolerances."""
+@pytest.fixture(scope="module")
+def jax_backward_reference():
+    """The JAX package's fused kernel pair (forward and `_core_bwd`, Pallas
+    in interpret mode, tile 128 so that dW accumulates over two tiles) at the
+    full default SDFConfig: d loss / d (x, every layer's v, g, b) of the
+    second-order loss of tests/test_kernels.py on 200 points."""
     from iron_tpu.kernels.fused_sdf_grad import make_fused_sdf_grad_fn as j_make_fused
-    params, jcfg, net = _nets()
+    params, jcfg, _ = _nets()
     x = (np.random.default_rng(1).normal(size=(200, 3)) * 0.4).astype(np.float32)
     fused = j_make_fused(jcfg, tile=128, interpret=True)
     jgp, jgx = jax.grad(lambda p, xx: _second_order_loss(*fused(p, xx), jnp),
                         argnums=(0, 1))(params, jnp.asarray(x))
+    leaves = [np.asarray(jgp["layers"][i][k]) for i in range(len(params["layers"]))
+              for k in ("v", "g", "b")]
+    return x, np.asarray(jgx), leaves
+
+
+def _assert_matches_jax_backward(got, ref):
+    """dx to rtol 1e-4 / atol 1e-7 and every parameter leaf to rtol 1e-4 /
+    atol 1e-6: the tolerances of tests/test_kernels.py for the JAX kernel."""
+    x, jgx, leaves = ref
+    np.testing.assert_allclose(got[0], jgx, rtol=1e-4, atol=1e-7)
+    assert len(leaves) == len(got) - 1
+    for a, b in zip(got[1:], leaves):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
+
+
+def test_sdf_value_feat_grad_bwd_plain_matches_jax_backward_kernel(jax_backward_reference):
+    """K3-bwd's plain version, through the port's autograd Function and the
+    differentiable weight preparation, against the JAX package's fused
+    kernel pair on the second-order loss of tests/test_kernels.py."""
+    _, _, net = _nets()
+    x = jax_backward_reference[0]
     w = K3.prepare_grad_weights(net, differentiable=True)
     reset_launch_counts()
     got = _torch_grads(net, x, lambda xt: K3.sdf_value_feat_grad(w, xt))
     assert all(v == 0 for v in launch_counts().values())   # CPU tensors: plain versions
-    np.testing.assert_allclose(got[0], np.asarray(jgx), rtol=1e-4, atol=1e-7)
-    ref = [np.asarray(jgp["layers"][i][k]) for i in range(len(net.layers))
-           for k in ("v", "g", "b")]
-    assert len(ref) == len(got) - 1
-    for a, b in zip(got[1:], ref):
-        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
+    _assert_matches_jax_backward(got, jax_backward_reference)
+
+
+def _round_tf32(t):
+    """t rounded to tf32 as the kernel's split_tf32 does (csrc/split3.cuh):
+    add half a unit of the 11th significant bit to the bit pattern, clear the
+    13 bits below it."""
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _round_bf16(t):
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+class _SplitProducts(TorchFunctionMode):
+    """Every matrix product a @ b as a 3-pass tensor-core kernel issues it:
+    each operand split into hi = round(v) and lo = round(v - hi), then
+    a_hi b_hi + a_hi b_lo + a_lo b_hi with f32 sums (the products of the
+    parts are exact in f32)."""
+
+    def __init__(self, rnd):
+        super().__init__()
+        self.rnd = rnd
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__):
+            a, b = args
+            ah, bh = self.rnd(a), self.rnd(b)
+            al, bl = self.rnd(a - ah), self.rnd(b - bh)
+            return ah @ bh + ah @ bl + al @ bh
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("parts", ["tf32", "bf16"])
+def test_split_backward_against_jax_backward_kernel(jax_backward_reference, parts):
+    """The backward computed with split products (every product of the
+    plain adjoint, the recomputed forward chain and u-chain included)
+    against the JAX package's `_core_bwd`, at the tolerances that hold the
+    plain f32 version (above).  With tf32 parts, K3-bwd's route (3xTF32),
+    it meets them; with bf16 parts (three bf16 passes, K4's route) the
+    parameter gradients miss them, which is why K3-bwd runs tf32."""
+    _, _, net = _nets()
+    x = jax_backward_reference[0]
+    w = K3.prepare_grad_weights(net, differentiable=True)
+    rnd = _round_tf32 if parts == "tf32" else _round_bf16
+
+    class SplitCore(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, xt, *params):
+            ctx.save_for_backward(xt)
+            return K3.sdf_value_feat_grad_plain(w, xt)
+
+        @staticmethod
+        def backward(ctx, dv, df, dg):
+            (xt,) = ctx.saved_tensors
+            with _SplitProducts(rnd):
+                dW, db, dx = K3.sdf_value_feat_grad_bwd_plain(w, xt, dv, df, dg)
+            return (dx, *dW, *db)
+
+    got = _torch_grads(net, x, lambda xt: SplitCore.apply(xt, *w.mats, *w.biases))
+    if parts == "tf32":
+        _assert_matches_jax_backward(got, jax_backward_reference)
+    else:
+        with pytest.raises(AssertionError):
+            _assert_matches_jax_backward(got, jax_backward_reference)
+
+
+def _unpack_tf32_b(p):
+    """The inverse of pack_tf32_b: [KS, NT, 32, 2] -> [8 KS, 8 NT]."""
+    ks, nt = p.shape[:2]
+    return p.reshape(ks, nt, 8, 4, 2).permute(0, 4, 3, 1, 2).reshape(8 * ks, 8 * nt)
+
+
+def test_tf32_packs_reproduce_the_layout():
+    """K3-bwd's weights: `bwd_wf` holds every hidden layer's prepared matrix
+    (the skip's two) and `bwd_wt` their transposes, then the final layer's
+    transpose with its rows padded to a multiple of 8, each packed into
+    m16n8k8 tf32 B fragments: lane (g, t) of n-tile nt and k-step ks holds
+    W[8 ks + t, 8 nt + g] and W[8 ks + t + 4, 8 nt + g]; unpacked, the f32
+    matrices come back bit for bit."""
+    _, _, net = _nets(seed=2, scale=2.0)
+    w = K3.prepare_grad_weights(net)
+    fwd = w.mats[:-1]
+    out_pad = -(-w.d_out // 8) * 8
+    tr = [m.T for m in fwd] + [torch.nn.functional.pad(w.mats[-1].T, (0, 0, 0, out_pad - w.d_out))]
+    for buf, mats in ((w.bwd_wf, fwd), (w.bwd_wt, tr)):
+        off = 0
+        for m in mats:
+            p = buf[off:off + m.numel()].reshape(m.shape[0] // 8, m.shape[1] // 8, 32, 2)
+            off += m.numel()
+            assert torch.equal(_unpack_tf32_b(p), m)
+            for ks, nt, lane in ((0, 0, 0), (1, 2, 13), (m.shape[0] // 8 - 1, m.shape[1] // 8 - 1, 31)):
+                g, t = lane >> 2, lane & 3
+                assert torch.equal(p[ks, nt, lane], m[[8 * ks + t, 8 * ks + t + 4], 8 * nt + g])
+        assert off == buf.numel()
+
+
+def test_tf32_packs_are_made_at_first_use():
+    """Only K3-bwd reads the tf32 packs: preparing the weights and running
+    the forward sweep (K3-fwd's and K5's plain versions) packs nothing; the
+    first read packs both and later reads get the same tensors."""
+    _, _, net = _nets(seed=2, scale=2.0)
+    w = K3.prepare_grad_weights(net)
+    x = torch.as_tensor((np.random.default_rng(5).normal(size=(7, 3)) * 0.3).astype(np.float32))
+    K3.sdf_value_feat_grad_fwd(w, x)
+    K3.sdf_full(w, x)
+    assert w._bwd_packs is None
+    wf, wt = w.bwd_wf, w.bwd_wt
+    assert w.bwd_wf is wf and w.bwd_wt is wt
+    assert wf.numel() == sum(m.numel() for m in w.mats[:-1])
+
+
+@pytest.mark.parametrize("n,rows,clusters", [(1, 16, 1), (63, 16, 4), (1024, 48, 22),
+                                             (2048, 48, 30), (4096, 48, 30), (100000, 64, 30)])
+def test_bwd_tiling(n, rows, clusters):
+    """K3-bwd's tiles on a card that holds 30 clusters of 4 CTAs (an H100
+    SXM): the fewest rounds 64-row tiles allow, the shortest tile (a
+    multiple of 16 rows) that covers the points in them, and tiles spread
+    evenly: no cluster takes two tiles more than another."""
+    got = K3.bwd_tiling(n, 30)
+    assert got == (rows, clusters)
+    tiles = -(-n // rows)
+    assert rows % 16 == 0 and 16 <= rows <= 64 and tiles * rows >= n
+    assert -(-tiles // clusters) == max(1, -(-n // (64 * 30)))
 
 
 def test_sdf_value_feat_grad_bwd_plain_matches_torch_double_backward():

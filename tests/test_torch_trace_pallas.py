@@ -104,6 +104,45 @@ def test_3pass_weight_split_reproduces_the_layout():
     torch.testing.assert_close(w.lo.wlast.float(), w.lo.mats[-1][:, 0], rtol=0, atol=0)
 
 
+def test_k4_weight_stream_cluster_slices_reproduce_the_layout():
+    """K4's weight stream: the packed matrices in layer order are a sequence
+    of k-tiles of 16 x 256 (1,024 uint2 each, `n_ktiles` in all), and CTA r
+    of a cluster copies the 2 KB at uint2 offset 1,024 c + 256 r of k-tile c,
+    its 8 n-tiles.  Unpacked, those slices are rows [16 kt, 16 kt + 16) and
+    columns [64 r, 64 r + 64) of the hi and lo matrices, and hi + lo
+    reproduces the f32 layout to 2^-16 of each entry."""
+    _, _, net = _nets(seed=1, scale=1.7)
+    w = K4.prepare_3pass_weights(net)
+    mats, _, skip = K4.padded_layers(net)
+    per_tile = 16 * K4.HID                       # bf16 values in a packed k-tile
+    n_ktiles = w.hi.wpack.numel() // per_tile
+    ktiles = [(mi, kt) for mi, m in enumerate(mats[:-1]) for kt in range(m.shape[0] // 16)]
+    assert n_ktiles == len(ktiles) == 3 + 7 * 16 + 3 and skip == 4
+    for c, (mi, kt) in enumerate(ktiles):
+        for r in range(4):
+            lo_hi = []
+            for half in (w.hi, w.lo):
+                sl = half.wpack.reshape(-1)[c * per_tile + 1024 * r:c * per_tile + 1024 * (r + 1)]
+                # [8 n-tiles, lanes (g, t), (half8, pair)] -> [16 k, 64 n]
+                sl = sl.reshape(8, 8, 4, 2, 2).permute(3, 2, 4, 0, 1).reshape(16, 64).float()
+                assert torch.equal(sl, half.mats[mi][16 * kt:16 * kt + 16, 64 * r:64 * r + 64])
+                lo_hi.append(sl)
+            ref = mats[mi][16 * kt:16 * kt + 16, 64 * r:64 * r + 64]
+            assert bool(((lo_hi[0] + lo_hi[1] - ref).abs() <= 2.0 ** -16 * ref.abs()).all())
+
+
+@pytest.mark.parametrize("n,width", [(1, 4), (1852, 4), (4096, 4), (4224, 2), (8384, 2),
+                                     (8448, 1), (262144, 1)])
+def test_k4_width(n, width):
+    """K4's cluster width on a 132-SM card: 4 CTAs a 64-row tile for the
+    trace_pallas step's small calls (a 1,852-point call runs 116 CTAs), then
+    the narrowest width whose grid covers the SMs: 2 from 66 tiles, 1 (one
+    CTA a tile) from 132."""
+    assert K4.k4_width(n, 132) == width
+    tiles = -(-n // 64)
+    assert width * tiles >= 132 or width == 4
+
+
 @pytest.mark.parametrize("shape,seed", [((300, 3), 1), ((7, 11, 3), 2)])
 def test_sdf_full_plain_matches_jax_kernel(shape, seed):
     """K5's plain version against the JAX kernel (interpret mode, tile 128)
