@@ -21,9 +21,11 @@ with the launch counts set to 0 just before it and read just after:
     4 views at 256x256, 128x128 crops, comp): one step through the kernels
     against the same step through the plain versions (loss and every
     gradient), K3-bwd against its plain version on the inputs that step
-    gives it, then 8 + 30 steps of Stage2Trainer.run with every kernel of
-    the path launched at every step, finite and falling losses, and no
-    plain version reached by a CUDA tensor;
+    gives it, K1 and K3-fwd against their plain versions on every call of
+    a step (with K1's schedule: rays, evaluations, the slowest ray's
+    iterations, tile-evaluations), then 8 + 30 steps of Stage2Trainer.run
+    with every kernel of the path launched at every step, finite and
+    falling losses, and no plain version reached by a CUDA tensor;
   * the same training with trace_pallas, the dataset's masks and
     silhouette_weight 0.3 (the silhouette sweep runs on K4 too): one step
     against the same step through K4's plain version, then 8 + 30 steps;
@@ -200,29 +202,6 @@ def on_silhouette(hit: np.ndarray) -> np.ndarray:
     return win.any(0) & ~win.all(0)
 
 
-def march_evaluations(w, ro, rd, acc0, work, max_dis, n_iters, thr) -> int:
-    """SDF evaluations the coarse march needs on these rays: every ray once,
-    then every active ray once per iteration (plain arithmetic)."""
-    import torch
-    from iron_tpu_torch.kernels.fused_sdf import sdf_only_bf16_plain
-    ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
-    max_dis = torch.broadcast_to(max_dis, work.shape).reshape(-1)
-    work = work.reshape(-1)
-    acc = acc0.reshape(-1).clone()
-    s = sdf_only_bf16_plain(w, ro + rd * acc[:, None])
-    act = work & (s.abs() > thr) & (acc < max_dis)
-    evals = ro.shape[0]
-    for _ in range(n_iters):
-        k = int(act.sum())
-        if k == 0:
-            break
-        evals += k
-        acc = acc + torch.where(act, s, 0.0)
-        s = torch.where(act, sdf_only_bf16_plain(w, ro + rd * acc[:, None]), s)
-        act = act & (s.abs() > thr) & (acc < max_dis)
-    return evals
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--res", type=int, default=512, help="render resolution (square)")
@@ -283,6 +262,8 @@ def main(argv=None) -> int:
     w3 = K3.prepare_grad_weights(net)
     w4 = K12.prepare_3pass_weights(net)
     max_err = {}
+    log(f"K1 grid: the card holds {K12._lib().iron_coarse_march_ctas()} CTAs of the march "
+        f"kernel at once")
 
     def check_k2(pts, what: str, against_f32: bool = False) -> None:
         with torch.no_grad():
@@ -301,23 +282,35 @@ def main(argv=None) -> int:
         assert err <= BF16_REORDER_TOL
         max_err["sdf_only_bf16"] = max(max_err.get("sdf_only_bf16", 0.0), err)
 
-    def check_k3(x, what: str) -> None:
+    def check_k3(x, what: str, w=None) -> None:
+        """K3-fwd against its plain version (weights w, default the
+        render's)."""
+        w = w3 if w is None else w
         with torch.no_grad():
-            got = K3.sdf_value_feat_grad(w3, x)
+            got = K3.sdf_value_feat_grad(w, x)
             torch.cuda.synchronize()
-            ref = K3.sdf_value_feat_grad_plain(w3, x)
+            ref = K3.sdf_value_feat_grad_plain(w, x)
         errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
         scale = [float(b.abs().max()) for b in ref]
         log(f"K3 sdf_value_feat_grad {what} {tuple(x.shape)}: max err value {errs[0]:.3e} "
             f"feature {errs[1]:.3e} grad {errs[2]:.3e} (magnitudes {scale[0]:.2f}, "
-            f"{scale[1]:.2f}, {scale[2]:.2f}; tol 1e-5 + 1e-5 relative: f32 sums in another "
-            f"order)")
+            f"{scale[1]:.2f}, {scale[2]:.2f}; tol 1e-5 + 1e-5 relative: 3xTF32 products and "
+            f"f32 sums in another order)")
         for a, e, s in zip(got, errs, scale):
             assert torch.isfinite(a).all() and e <= 1e-5 + 1e-5 * s
         max_err["sdf_value_feat_grad"] = max(max_err.get("sdf_value_feat_grad", 0.0), *errs)
 
-    def check_k1(margs, what: str) -> None:
-        """K1 against its plain version on one march.  A ray may stop up to
+    def k1_sdf(w, ro, rd, dist, md):
+        """|sdf| at ro + rd * dist under K1's own arithmetic: a K1 launch
+        with n_iters = 0 evaluates every ray once at its acc0."""
+        if ro.shape[0] == 0:
+            return ro.new_zeros(0)
+        ones = torch.ones(ro.shape[0], dtype=torch.bool, device=ro.device)
+        return K12.coarse_march(w, ro, rd, dist, ones, md, 0, thr)[2].abs()
+
+    def check_k1(margs, what: str, w=None) -> None:
+        """K1 against its plain version on one march (weights w, default the
+        render's).  A ray may stop up to
         one coarse step (< 2e-2) apart.  A ray that passes the surface with
         |sdf| near the 2e-2 threshold (a graze) stops there in one version
         and marches on in the other when the two sum orders round an
@@ -325,14 +318,21 @@ def main(argv=None) -> int:
         the active masks agree on 99.9% of the rays, and of the rays further
         apart than 3e-2, every one whose earlier stop lies inside the sphere
         has |sdf| <= threshold + 5e-3 (the bf16 reordering error) there
-        under both evaluators: it is a graze within the evaluators' error of
-        the threshold.  The others left the sphere in both versions or are
-        still marching in both (the same outcome, at other distances)."""
+        under both evaluators, K1's own arithmetic (a K1 launch with n_iters
+        = 0 at that distance) and its plain version: it is a graze within
+        the evaluators' error of the threshold.  The others left the sphere
+        in both versions or are still marching in both (the same outcome,
+        at other distances).  Prints the march's schedule: rays, marching
+        rays, evaluations, the slowest ray's iterations, and 64-ray
+        tile-evaluations, compacted (K1) and one block a tile to its slowest
+        ray (the design before)."""
+        w = w12 if w is None else w
         ro, rd, acc0, work, max_dis, n_it = margs
         with torch.no_grad():
-            a_k, acc_k, _ = K12.coarse_march(w12, *margs, thr)
+            a_k, acc_k, _ = K12.coarse_march(w, *margs, thr)
             torch.cuda.synchronize()
-            a_p, acc_p, _ = K12.coarse_march_plain(w12, *margs, thr)
+            a_p, acc_p, _ = K12.coarse_march_plain(w, *margs, thr)
+            *_, st = K12.coarse_march_schedule(w, *margs, thr)
             wk = work.reshape(-1)
             md = torch.broadcast_to(max_dis, work.shape).reshape(-1)
             a_k, a_p = a_k.reshape(-1), a_p.reshape(-1)
@@ -344,26 +344,28 @@ def main(argv=None) -> int:
             early = torch.minimum(acc_k, acc_p)
             early_stopped = torch.where(acc_k <= acc_p, ~a_k, ~a_p)
             graze = apart & (early < md) & early_stopped
-            p = ro.reshape(-1, 3)[graze] + rd.reshape(-1, 3)[graze] * early[graze][:, None]
-            s_k = s_p = s_f32 = p.new_zeros(0)
-            if p.shape[0]:
-                s_k = K12.sdf_only_bf16(w12, p).abs()
-                s_p = K12.sdf_only_bf16_plain(w12, p).abs()
-                s_f32 = sdf_only(net, p).abs()
+            ro_g, rd_g = ro.reshape(-1, 3)[graze], rd.reshape(-1, 3)[graze]
+            s_k = k1_sdf(w, ro_g, rd_g, early[graze], md[graze])
+            p = ro_g + rd_g * early[graze][:, None]
+            s_p = K12.sdf_only_bf16_plain(w, p).abs()
         n_apart, n_graze = int(apart.sum()), int(graze.sum())
         n_left = int((apart & (early >= md)).sum())
         top = lambda t: float(t.max()) if t.numel() else 0.0
-        log(f"K1 coarse_march {what} ({wk.numel()} rays, {int(wk.sum())} marching, {n_it} "
-            f"iters): max|acc K1 - plain| {err:.3e}, active masks agree {agree:.6f} (tol >= "
+        log(f"K1 coarse_march {what}: {st['rays']} rays, {st['marching']} marching, "
+            f"{st['evaluations']} evaluations, slowest ray {st['iterations']} iterations (of "
+            f"{n_it}), tile-evaluations {st['tile_evals']} compacted, {st['tile_evals_blocks']} "
+            f"one block a tile; active rays by iteration {[p_[0] for p_ in st['per_iteration']]}")
+        log(f"  max|acc K1 - plain| {err:.3e}, active masks agree {agree:.6f} (tol >= "
             f"0.999); rays apart by > 3e-2: {n_apart} ({n_apart / max(int(wk.sum()), 1):.2e} "
             f"of the marching), {n_graze} of them stopped inside the sphere first; at that "
-            f"stop max |sdf| K1-arithmetic {top(s_k):.3e}, plain {top(s_p):.3e} (tol "
-            f"{thr + BF16_REORDER_TOL:.3e}), f32 {top(s_f32):.3e}, min plain "
-            f"{float(s_p.min()) if n_graze else 0.0:.3e}; of the others {n_left} left the "
-            f"sphere in both, {n_apart - n_graze - n_left} are still marching in both")
+            f"stop max |sdf| K1 {top(s_k):.3e}, plain {top(s_p):.3e} (tol "
+            f"{thr + BF16_REORDER_TOL:.3e}), min plain {float(s_p.min()) if n_graze else 0.0:.3e}"
+            f"; of the others {n_left} left the sphere in both, "
+            f"{n_apart - n_graze - n_left} are still marching in both")
         assert agree >= 0.999
         assert top(s_k) <= thr + BF16_REORDER_TOL and top(s_p) <= thr + BF16_REORDER_TOL
         max_err["coarse_march"] = max(max_err.get("coarse_march", 0.0), err)
+        return st
 
     def k4_err(pts, w4_=None) -> float:
         """max |K4 - its plain version| on pts (held at K4_PLAIN_TOL), with
@@ -601,8 +603,8 @@ def main(argv=None) -> int:
                  coarse_march_fn=recorded("coarse_march", fns["coarse_march_fn"]))
     log("main-path calls of view 0: " + ", ".join(
         f"{k} {[tuple(c[0].shape[:-1]) for c in v]}" for k, v in calls.items()))
-    for i, margs in enumerate(calls["coarse_march"]):
-        check_k1(margs, f"main-path call {i}")
+    k1_view_stats = [check_k1(margs, f"main-path call {i} of view 0")
+                     for i, margs in enumerate(calls["coarse_march"])]
     for i, (p,) in enumerate(calls["sdf_only_bf16"]):
         check_k2(p, f"main-path call {i}")
     for i, (x,) in enumerate(calls["sdf_value_feat_grad"]):
@@ -894,6 +896,11 @@ def main(argv=None) -> int:
     step_calls = recorded_step(tr)
     step_calls["sdf_value_feat_grad_bwd"] = bwd_calls
     w12s, w3s = K12.prepare_bf16_weights(tr.params["sdf"]), K3.prepare_grad_weights(tr.params["sdf"])
+    # K1 and K3-fwd against their plain versions on every call of the step
+    k1_step_stats = [check_k1(c, f"training-step call {i}", w12s)
+                     for i, c in enumerate(step_calls["coarse_march"])]
+    for i, (x,) in enumerate(step_calls["sdf_value_feat_grad"]):
+        check_k3(x, f"training-step call {i}", w3s)
 
     # the run: 8 warm-up steps, then args.train_steps more, each timed and
     # its launches counted; no plain version may see a CUDA tensor
@@ -1038,7 +1045,7 @@ def main(argv=None) -> int:
     def bound_k1(w, margs):
         n = margs[0].numel() // 3
         with torch.no_grad():
-            evals = march_evaluations(w, *margs, thr)
+            evals = K12.coarse_march_schedule(w, *margs, thr)[3]["evaluations"]
         return bound(n * (3 * 4 * 2 + 4 * 2 + 1) + n * (4 * 2 + 1) + wbytes12,
                      evals * 2 * work["value"], BF16_FLOPS, evals * work["transc"])
 
@@ -1047,10 +1054,18 @@ def main(argv=None) -> int:
         return bound(n * (12 + 4) + wbytes12, n * 2 * work["value"], BF16_FLOPS,
                      n * work["transc"])
 
-    def bound_k3(x):
+    def bound_k3(x, flop_rate=F32_FLOPS, passes=1):
+        """K3-fwd's bound in f32 on the CUDA cores; bound_k3(x, TF32_FLOPS,
+        3) is that of its route, three tf32 tensor-core products a MAC."""
         n = x.numel() // 3
         return bound(n * (12 + 4 + (cfg.sdf.d_out - 1) * 4 + 12) + work["weights_all"] * 4,
-                     n * 2 * work["value_grad"], F32_FLOPS, n * work["transc"])
+                     n * 2 * passes * work["value_grad"], flop_rate, n * work["transc"])
+
+    def fwd_tiling(x):
+        dev_ = x.device
+        lib3 = K3._lib()
+        return K3.fwd_tiling(x.numel() // 3,
+                             lambda cs: K3._fwd_place(lib3, dev_, 64, cs, w3.n_layers, False)[1])
 
     def bound_k3_bwd(x, flop_rate=TF32_FLOPS, passes=3):
         """K3-bwd runs its products as three tf32 tensor-core products a MAC
@@ -1073,8 +1088,10 @@ def main(argv=None) -> int:
             ms = cuda_ms(lambda: K12.coarse_march(w12, *margs, thr))
             plain_ms = cuda_ms(lambda: K12.coarse_march_plain(w12, *margs, thr),
                                iters=3, warmup=1)
-            log(f"K1 image march: the data needs {march_evaluations(w12, *margs, thr)} SDF "
-                f"evaluations")
+            st = k1_view_stats[0]
+            log(f"K1 image march: the data needs {st['evaluations']} SDF evaluations, "
+                f"{st['tile_evals']} 64-ray tile-evaluations, {ms / st['tile_evals'] * 1e3:.2f} us "
+                f"of the call a tile-evaluation")
             kernel_rows.append(("coarse_march", "iron_tpu_torch/kernels/csrc/fused_sdf.cu",
                                 "iron_tpu/kernels/fused_sdf.py:571", ms, plain_ms,
                                 *bound_k1(w12, margs)))
@@ -1094,7 +1111,11 @@ def main(argv=None) -> int:
             kernel_rows.append(("sdf_value_feat_grad",
                                 "iron_tpu_torch/kernels/csrc/fused_sdf_grad.cu",
                                 "iron_tpu/kernels/fused_sdf_grad.py:423", ms, plain_ms,
-                                *bound_k3(x_img)))
+                                *bound_k3(x_img, TF32_FLOPS, 3)))
+            log(f"K3-fwd bound on the render's {x_img.numel() // 3} points: "
+                f"{bound_k3(x_img, TF32_FLOPS, 3)[0]:.4f} ms as 3xTF32 on the tensor cores (the "
+                f"route it takes), {bound_k3(x_img)[0]:.4f} ms in f32 on the CUDA cores; tiling "
+                f"(rows, width, clusters) {fwd_tiling(x_img)}")
 
         # K3-bwd: the training step's largest call (the interior budget)
         w, xb, cots = max(bwd_calls, key=lambda c: c[1].numel())
@@ -1156,7 +1177,7 @@ def main(argv=None) -> int:
                 "sdf_only_bf16": (lambda c: K12.sdf_only_bf16(w12s, c[0]),
                                   lambda c: bound_k2(c[0])),
                 "sdf_value_feat_grad": (lambda c: K3.sdf_value_feat_grad_fwd(w3s, c[0]),
-                                        lambda c: bound_k3(c[0])),
+                                        lambda c: bound_k3(c[0], TF32_FLOPS, 3)),
                 "sdf_value_feat_grad_bwd": (lambda c: K3.sdf_value_feat_grad_bwd(*c[:2], *c[2]),
                                             lambda c: bound_k3_bwd(c[1])),
                 "sdf_only_3pass": (lambda c: K12.sdf_only_3pass(w4s, c),
@@ -1173,6 +1194,18 @@ def main(argv=None) -> int:
                     log("K3-bwd on the step's calls: " + ", ".join(
                         f"{c[1].numel() // 3} points {tc:.4f} ms (bound {bnd(c)[0]:.4f} ms)"
                         for c, tc in zip(cs, ts)))
+                elif name == "sdf_value_feat_grad":
+                    log("K3-fwd on the step's calls: " + ", ".join(
+                        f"{c[0].numel() // 3} points {tc:.4f} ms (tiling {fwd_tiling(c[0])}; "
+                        f"bound {bnd(c)[0]:.4f} ms as 3xTF32, {bound_k3(c[0])[0]:.4f} ms in f32)"
+                        for c, tc in zip(cs, ts)))
+                elif name == "coarse_march":
+                    log("K1 on the step's calls (the chain: the slowest ray's iterations + 1 "
+                        "evaluations in a row): " + ", ".join(
+                            f"{st['rays']} rays, {st['iterations'] + 1} evaluations in a row, "
+                            f"{tc:.4f} ms, {tc / (st['iterations'] + 1) * 1e3:.1f} us an "
+                            f"evaluation (bound {bnd(c)[0]:.4f} ms)"
+                            for c, tc, st in zip(cs, ts, k1_step_stats)))
         log("the training step's shapes, each kernel over the calls of one step "
             "(launches x (time - bound), largest first): " + "; ".join(
                 f"{name} {n} launches, {t:.3f} ms against a bound of {b:.4f} ms ({b / t:.1%}), "

@@ -21,10 +21,9 @@
 // operations, not by device memory.  The bf16 weights (about 1.1 MB) do not
 // fit in a block's shared memory; each block keeps only its 64-row activation
 // tile on chip (two 33 KB bf16 buffers and the PE tile) and streams every
-// layer's weights from L2 as pre-packed mma fragments (sdf_mlp_bf16.cuh).  K1
-// keeps the ray state in shared memory and registers for all iterations and
-// leaves its loop when no ray of the block is active (__syncthreads_or), the
-// counterpart of the TPU kernel's per-tile early exit.
+// layer's weights from L2 as pre-packed mma fragments.  K2 runs the shared
+// body of sdf_mlp_bf16.cuh, one block a tile.  K1 is a persistent launch
+// that compacts the active rays between iterations: see the K1 note below.
 #include "sdf_mlp_bf16.cuh"
 #include "split3.cuh"
 
@@ -57,65 +56,6 @@ sdf_only_bf16_kernel(const float* __restrict__ x, int n,
   if (threadIdx.x < ROWS && row0 + threadIdx.x < n)
     out[row0 + threadIdx.x] = sm.out[threadIdx.x] * inv_scale;
 }
-
-__global__ void __launch_bounds__(THREADS)
-coarse_march_kernel(const float* __restrict__ ray_o, const float* __restrict__ ray_d,
-                    const float* __restrict__ acc0, const uint8_t* __restrict__ work,
-                    const float* __restrict__ max_dis, int n, int n_iters, float thr,
-                    const uint2* __restrict__ wpack, const float* __restrict__ bias,
-                    const __nv_bfloat16* __restrict__ wlast, int n_layers, int skip,
-                    int d_embed, float scale, float inv_scale,
-                    float* __restrict__ acc_out, float* __restrict__ sdf_out,
-                    uint8_t* __restrict__ act_out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  MlpSmem& sm = *reinterpret_cast<MlpSmem*>(smem_raw);
-  const int row0 = blockIdx.x * ROWS;
-  const int r = threadIdx.x;              // ray owned by threads 0..63
-  const bool owner = r < ROWS;
-  const bool valid = owner && (row0 + r < n);
-  float acc = 0.0f, s = 0.0f, md = 0.0f;
-  bool wk = false, act = false;
-  if (owner) {
-    for (int j = 0; j < 3; ++j) {
-      sm.ro[r][j] = valid ? ray_o[(size_t)(row0 + r) * 3 + j] : 0.0f;
-      sm.rd[r][j] = valid ? ray_d[(size_t)(row0 + r) * 3 + j] : 0.0f;
-    }
-    if (valid) {
-      acc = acc0[row0 + r];
-      md = max_dis[row0 + r];
-      wk = work[row0 + r] != 0;
-    }
-  }
-
-  // sdf at ro + rd*acc for every row of the block -> returned to the owners
-  auto eval = [&](float a) -> float {
-    if (owner)
-      for (int j = 0; j < 3; ++j) sm.y[r][j] = (sm.ro[r][j] + sm.rd[r][j] * a) * scale;
-    __syncthreads();
-    fill_pe(sm, d_embed);
-    __syncthreads();
-    mlp_eval(sm, wpack, bias, wlast, n_layers, skip);
-    return owner ? sm.out[r] * inv_scale : 0.0f;
-  };
-
-  s = eval(acc);
-  act = wk && fabsf(s) > thr && acc < md;
-  for (int i = 0; i < n_iters; ++i) {
-    if (!__syncthreads_or(act ? 1 : 0)) break;
-    const float acc2 = acc + (act ? s : 0.0f);
-    const float s_new = eval(acc2);
-    const float s2 = act ? s_new : s;
-    act = act && fabsf(s2) > thr && acc2 < md;
-    acc = acc2;
-    s = s2;
-  }
-  if (valid) {
-    acc_out[row0 + r] = acc;
-    sdf_out[row0 + r] = s;
-    act_out[row0 + r] = act ? 1 : 0;
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // K4.  A call of the training step's tracer holds about 1,850 points (29
@@ -369,6 +309,272 @@ cudaError_t launch_3pass(const float* x, int n, const void* whi, const void* wlo
                             1.0f / scale, out);
 }
 
+// ---------------------------------------------------------------------------
+// K1, the coarse march.  A training step marches 16,384 and 2,048 rays, of
+// which a few thousand march at all and a few hundred are still marching
+// after five iterations; a 512² view marches 262,144.  So the march is a
+// chain of up to n_iters + 1 dependent evaluations per ray, on a card that
+// a step keeps nearly empty and a view fills.  The design:
+//
+//   * One persistent launch of as many CTAs as the card holds at once (two
+//     an SM, iron_coarse_march_ctas), at most one a 64-ray tile of the
+//     call.  Iteration -1 evaluates every ray at acc0 (the rays outside
+//     `work` too) and appends each ray that marches on to a device-side
+//     list of active ray indices; iteration i takes its 64-ray tiles from
+//     list i and appends the rays still active to list i + 1 (a
+//     warp-aggregated atomicAdd).  The grid meets at a barrier between
+//     iterations (sm90.cuh::grid_sync; every CTA is resident by
+//     construction) and leaves together when a list is empty.  A block
+//     marches no ray that has stopped: a 512² view's march takes 20,082
+//     tile-evaluations where one 64-ray block a tile to its slowest ray
+//     took 36,652.  No host sync: the wrapper allocates the lists and
+//     counts and returns.
+//   * Each evaluation is K4's body in one pass: A fragments by ldmatrix, B
+//     fragments from L2 straight into registers PF k-tiles ahead of their
+//     use, in one stream across the layers.  A tile's evaluation is bound
+//     by its CTA's L2 stream (~0.97 MB of bf16 weights), so two CTAs an SM
+//     (at most 128 registers a thread) run two streams.  The epilogue's
+//     softplus takes the SFU's exp and log (within 1e-8 of the precise
+//     form, far under bf16's 2^-9); the PE takes sin and cos of an angle
+//     from one sincosf.  The final layer sums each row in a fixed order
+//     (four threads a row, 64 products each, then two shuffles), so a ray's
+//     result does not depend on its tile or its row.
+//   * Splitting a short iteration's tiles over the columns of a 2- or
+//     4-CTA cluster, as K4 does, was built and timed on an NVIDIA H100
+//     80GB HBM3 at 700 W: the exchange of each layer's activations and the
+//     cluster barrier (~3k cycles a layer) cost what the narrower weight
+//     stream saved, so no step or view march was faster than at one CTA a
+//     tile (PERF.md).
+//
+// Shared memory ~77 KB a CTA (two bf16 activation tiles, the PE tile, the
+// rows' ray state).
+namespace k1 {
+
+constexpr int PF = 4;   // k-tiles of B fragments in flight
+
+struct Smem {
+  __nv_bfloat16 act[2][ROWS * H_STRIDE];
+  __nv_bfloat16 pe[ROWS * P_STRIDE];
+  float y[ROWS][3];    // scaled sample points of the tile's rows
+  float out[ROWS];     // sdf * scale of the tile's rows
+  float acc[ROWS];     // each row's marched distance
+  int ray[ROWS];       // each row's ray, -1 for an empty row
+  int count;           // the active list's length, read after a grid barrier
+};
+
+struct Args {
+  const float* ray_o;
+  const float* ray_d;
+  const float* acc0;
+  const uint8_t* work;
+  const float* max_dis;
+  int n, n_iters;
+  float thr;
+  const uint2* wpack;
+  int n_ktiles;
+  const float* bias;
+  const __nv_bfloat16* wlast;
+  int n_layers, skip, d_embed;
+  float scale, inv_scale;
+  float* acc_out;
+  float* sdf_out;
+  uint8_t* act_out;
+  int* lists;          // two lists of n ray indices, used in turns
+  int* counts;         // n_iters + 1 list lengths, zero at launch
+  unsigned* barrier;   // grid barrier count, zero at launch
+};
+
+// sm.out[r] = sdf(sm.y[r]) * scale for the tile's 64 rows; warp w computes
+// all 4 m-tiles of the n-tiles [4 w, 4 w + 4) of every hidden layer.  Ends
+// with a block barrier after sm.out is written.
+__device__ void eval_tile(Smem& sm, const Args& p) {
+  constexpr int MTW = 4, NTW = 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nt0 = NTW * warp;
+
+  // the weight stream, k-tile c of the packed matrices in slot c % PF
+  const size_t lane_off = (size_t)nt0 * 32 + lane;
+  uint2 bh[PF][NTW];
+  auto fetch = [&](int c, uint2 (&h)[NTW]) {
+    if (c >= p.n_ktiles) return;
+    const size_t o = (size_t)c * k4::KT_WORDS + lane_off;
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) h[j] = __ldg(p.wpack + o + j * 32);
+  };
+#pragma unroll
+  for (int i = 0; i < PF; ++i) fetch(i, bh[i]);
+
+  // the PE tile: sin and cos of one angle from one sincosf (the reference
+  // column order: x, then sin(2^k x) and cos(2^k x) blocks of 3), the
+  // identity columns and the zero padding
+  const int n_freq = (p.d_embed - 3) / 6;
+  for (int i = tid; i < ROWS * 3 * n_freq; i += THREADS) {
+    const int r = i / (3 * n_freq), k = (i / 3) % n_freq, j = i % 3;
+    float sn, cs;
+    sincosf(ldexpf(sm.y[r][j], k), &sn, &cs);   // exact: y * 2^k
+    __nv_bfloat16* row = sm.pe + r * P_STRIDE + 3 + 6 * k + j;
+    row[0] = __float2bfloat16_rn(sn);
+    row[3] = __float2bfloat16_rn(cs);
+  }
+  for (int i = tid; i < ROWS * (PE_W - p.d_embed + 3); i += THREADS) {
+    const int r = i / (PE_W - p.d_embed + 3), c = i % (PE_W - p.d_embed + 3);
+    sm.pe[r * P_STRIDE + (c < 3 ? c : p.d_embed + c - 3)] =
+        __float2bfloat16_rn(c < 3 ? sm.y[r][c] : 0.0f);
+  }
+  __syncthreads();
+
+  int c = 0;
+  float acc[MTW][NTW][4];
+  auto consume = [&](const __nv_bfloat16* A, int stride, int KT) {
+    const int c_end = c + KT;
+    for (int c0 = c - c % PF; c0 < c_end; c0 += PF) {
+#pragma unroll
+      for (int i = 0; i < PF; ++i) {
+        const int ck = c0 + i;
+        if (ck < c || ck >= c_end) continue;
+        uint32_t a[MTW][4];
+#pragma unroll
+        for (int m = 0; m < MTW; ++m) k4::load_a_ldm(A, stride, m, ck - c, a[m]);
+        uint2 b[NTW];
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) b[j] = bh[i][j];
+        fetch(ck + PF, bh[i]);
+#pragma unroll
+        for (int m = 0; m < MTW; ++m)
+#pragma unroll
+          for (int j = 0; j < NTW; ++j) mma_bf16(acc[m][j], a[m], b[j].x, b[j].y);
+      }
+    }
+    c = c_end;
+  };
+
+  int cur = 0;
+  for (int l = 0; l < p.n_layers - 1; ++l) {
+#pragma unroll
+    for (int m = 0; m < MTW; ++m)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[m][j][k] = 0.0f;
+    int nxt = 0;
+    if (l == 0) {
+      consume(sm.pe, P_STRIDE, PE_W / 16);
+    } else {
+      consume(sm.act[cur], H_STRIDE, HID / 16);
+      if (l == p.skip) consume(sm.pe, P_STRIDE, PE_W / 16);
+      nxt = cur ^ 1;
+    }
+    const float post = (l == p.skip) ? INV_SQRT2 : 1.0f;
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      const int col = (nt0 + j) * 8 + 2 * t;
+      const float b0 = __ldg(p.bias + l * HID + col), b1 = __ldg(p.bias + l * HID + col + 1);
+#pragma unroll
+      for (int m = 0; m < MTW; ++m)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          store_pair(k4::softplus100_fast(acc[m][j][2 * half] * post + b0),
+                     k4::softplus100_fast(acc[m][j][2 * half + 1] * post + b1),
+                     sm.act[nxt] + (m * 16 + g + 8 * half) * H_STRIDE + col);
+    }
+    __syncthreads();
+    cur = nxt;
+  }
+
+  // final layer, the sdf column: four threads a row
+  {
+    const int r = tid >> 2, q = tid & 3;
+    const __nv_bfloat16* hh = sm.act[cur] + r * H_STRIDE + q * 64;
+    const __nv_bfloat16* wh = p.wlast + q * 64;
+    float s = 0.0f;
+#pragma unroll 8
+    for (int k = 0; k < 64; k += 2) {
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(hh + k));
+      const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(wh + k));
+      s = fmaf(a.x, w.x, s);
+      s = fmaf(a.y, w.y, s);
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    if (q == 0) sm.out[r] = s + __ldg(p.bias + (p.n_layers - 1) * HID);
+  }
+  __syncthreads();
+}
+
+// One iteration of the march over its m active rays (list == nullptr:
+// iteration -1, every ray at acc0): CTA b takes the 64-ray tiles b, b +
+// gridDim.x, ...
+__device__ void march_iteration(Smem& sm, const Args& p, int m, const int* list, int* next,
+                                int* next_count) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int tiles = (m + ROWS - 1) / ROWS;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    if (tid < ROWS) {
+      const int j = tile * ROWS + tid;
+      int ray = -1;
+      float a = 0.0f;
+      if (j < m) {
+        // state written by other CTAs in the iteration before: read past L1
+        ray = list ? __ldcg(list + j) : j;
+        a = list ? __ldcg(p.acc_out + ray) + __ldcg(p.sdf_out + ray) : p.acc0[ray];
+      }
+      sm.ray[tid] = ray;
+      sm.acc[tid] = a;
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        sm.y[tid][k] = ray >= 0 ? (p.ray_o[(size_t)ray * 3 + k] + p.ray_d[(size_t)ray * 3 + k] * a)
+                                      * p.scale : 0.0f;
+    }
+    __syncthreads();
+    eval_tile(sm, p);
+    // the rows' new state, and the rays that march on
+    bool keep = false;
+    int ray = -1;
+    if (tid < ROWS) {
+      ray = sm.ray[tid];
+      if (ray >= 0) {
+        const float s = sm.out[tid] * p.inv_scale, a = sm.acc[tid];
+        keep = (list || p.work[ray] != 0) && fabsf(s) > p.thr && a < p.max_dis[ray];
+        p.acc_out[ray] = a;
+        p.sdf_out[ray] = s;
+        p.act_out[ray] = keep ? 1 : 0;
+      }
+      const unsigned bal = __ballot_sync(0xffffffffu, keep);
+      if (bal) {
+        const int leader = __ffs(bal) - 1;
+        int pos = 0;
+        if (lane == leader) pos = atomicAdd(next_count, __popc(bal));
+        pos = __shfl_sync(0xffffffffu, pos, leader);
+        if (keep) next[pos + __popc(bal & ((1u << lane) - 1))] = ray;
+      }
+    }
+    __syncthreads();   // sm.ray, sm.acc and sm.out are read before the next tile's loads
+  }
+}
+
+}  // namespace k1
+
+__global__ void __launch_bounds__(THREADS, 2)
+coarse_march_kernel(const __grid_constant__ k1::Args p) {
+  using namespace k1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  int m = p.n;
+  for (int it = -1; it < p.n_iters; ++it) {
+    if (it >= 0) {
+      grid_sync(p.barrier, (unsigned)(it + 1) * gridDim.x);
+      if (threadIdx.x == 0) sm.count = (int)ld_acquire((const unsigned*)(p.counts + it));
+      __syncthreads();
+      m = sm.count;
+      __syncthreads();
+      if (m == 0) break;   // the same m in every CTA: the grid leaves together
+    }
+    march_iteration(sm, p, m, it < 0 ? nullptr : p.lists + (size_t)(it & 1) * p.n,
+                    p.lists + (size_t)((it + 1) & 1) * p.n, p.counts + it + 1);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -392,22 +598,40 @@ int iron_sdf_only_bf16(const float* x, int n, const void* wpack, const float* bi
   return (int)cudaGetLastError();
 }
 
+// The CTAs of K1 that the card holds at once; -1 on error.
+int iron_coarse_march_ctas() {
+  const int smem = (int)sizeof(k1::Smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaFuncSetAttribute(coarse_march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, coarse_march_kernel, THREADS,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return per_sm * sms;
+}
+
+// ctas: the persistent grid, at most iron_coarse_march_ctas().  lists: 2 n
+// ints; counts: n_iters + 2 ints, zero (the list lengths, then the grid
+// barrier's count).
 int iron_coarse_march_bf16(const float* ray_o, const float* ray_d, const float* acc0,
                            const void* work, const float* max_dis, int n, int n_iters,
-                           float threshold, const void* wpack, const float* bias,
+                           float threshold, const void* wpack, int n_ktiles, const float* bias,
                            const void* wlast, int n_layers, int skip, int d_embed,
                            float scale, float* acc_out, float* sdf_out, void* act_out,
-                           void* stream) {
+                           int* lists, int* counts, int ctas, void* stream) {
   if (n <= 0) return 0;
-  const int smem = (int)sizeof(MlpSmem);
+  if (ctas < 1 || n_iters < 0) return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(k1::Smem);
   cudaError_t e = cudaFuncSetAttribute(coarse_march_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const int grid = (n + ROWS - 1) / ROWS;
-  coarse_march_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      ray_o, ray_d, acc0, (const uint8_t*)work, max_dis, n, n_iters, threshold,
-      (const uint2*)wpack, bias, (const __nv_bfloat16*)wlast, n_layers, skip, d_embed,
-      scale, 1.0f / scale, acc_out, sdf_out, (uint8_t*)act_out);
+  const k1::Args p = {ray_o, ray_d, acc0, (const uint8_t*)work, max_dis, n, n_iters, threshold,
+                      (const uint2*)wpack, n_ktiles, bias, (const __nv_bfloat16*)wlast,
+                      n_layers, skip, d_embed, scale, 1.0f / scale, acc_out, sdf_out,
+                      (uint8_t*)act_out, lists, counts, (unsigned*)(counts + n_iters + 1)};
+  coarse_march_kernel<<<ctas, THREADS, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

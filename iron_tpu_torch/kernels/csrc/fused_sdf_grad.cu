@@ -1,10 +1,11 @@
 // K3 forward, iron_sdf_value_feat_grad: SDF value, the feature vector and the
 // input gradient of the weight-normed softplus(100) SDF MLP in one forward
-// and one reverse sweep, all in f32.
+// and one reverse sweep, at f32 class.
 //
 // Replaces the forward TPU kernel of
 //   iron_tpu/kernels/fused_sdf_grad.py::make_fused_sdf_grad_fn
-//   (_fwd_kernel, _forward_chain, _u_chain, _pe_value_d1_d2).
+//   (_fwd_kernel, _forward_chain, _u_chain, _pe_value_d1_d2): see the note
+//   above sdf_grad_fwd_kernel.
 // K3 backward, iron_sdf_value_feat_grad_bwd, replaces its backward kernel
 // (_bwd_kernel through _core_bwd): see the note above sdf_grad_bwd_kernel.
 // K5, iron_sdf_full, replaces iron_tpu/kernels/fused_sdf.py::make_pallas_sdf_fn
@@ -20,18 +21,14 @@
 // u_{l-1} = (u_l @ W_l^T) * sigmoid(100 z_{l-1}) reads host-made transposes,
 // so that both sweeps read weights coalesced.
 //
-// What bounds it on an H100: about 2 MFLOP a point in f32 (983,296 MACs:
-// the forward to 257 outputs and the reverse sweep) against about 1 KB of
-// output, so f32 operations on the CUDA cores bound it (TF32 tensor
-// cores would break the 1e-5 parity the JAX package holds).  Each block takes
-// 64 points, one thread per output column, accumulating the 64 rows in
-// registers from broadcast float4 reads of the activation tile in shared
-// memory; weights stream from L2.  The reverse sweep needs sigmoid(100 z) of
-// every hidden layer (8 x 256 f32 a point, 512 KB for a tile, beyond shared
-// memory), so each thread writes its own column of them to a scratch buffer
-// that the wrapper allocates, and reads it back in the reverse sweep.  Blocks
-// are persistent (as many as fit on the card walk all tiles), so the scratch
-// stays small and mostly in L2.
+// What bounds K3-fwd on an H100: about 2 MFLOP a point (983,296 MACs: the
+// forward to 257 outputs and the reverse sweep) against about 1 KB of
+// output, so operations bound it: 3.12 ms on 262,144 points as 3xTF32 on
+// the tensor cores (its route: three tf32 products a MAC), 7.71 ms in f32
+// on the CUDA cores.  See the note above sdf_grad_fwd_kernel.  K5 keeps the
+// f32 forward sweep below on the CUDA cores, one block a 64-row tile, one
+// thread per output column accumulating the rows in registers from
+// broadcast float4 reads of the activation tile.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -180,76 +177,6 @@ __device__ __forceinline__ void forward_sweep(GradSmem& sm, const float* __restr
     w += (size_t)K * N + ((l == skip) ? (size_t)PE_W * N : 0);
   }
   __syncthreads();  // the final layer's reads of act are done
-}
-
-// wt: the transposes of wfwd's matrices, final layer excluded; wlast0: column
-// 0 of the final matrix (256).
-__global__ void __launch_bounds__(THREADS)
-sdf_grad_fwd_kernel(const float* __restrict__ x, int n, const float* __restrict__ wfwd,
-                    const float* __restrict__ wt, const float* __restrict__ bias,
-                    const float* __restrict__ wlast0, int n_layers, int skip, int d_embed,
-                    int d_out, float scale, float* __restrict__ value,
-                    float* __restrict__ feat, float* __restrict__ grad,
-                    float* __restrict__ scratch) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  GradSmem& sm = *reinterpret_cast<GradSmem*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int n_hidden = n_layers - 1;
-  float* sp_base = scratch + (size_t)blockIdx.x * n_hidden * ROWS * HID;
-  const int n_tiles = (n + ROWS - 1) / ROWS;
-  float acc[ROWS];
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * ROWS;
-    load_tile(sm, x, n, row0, scale, d_embed);
-    forward_sweep(sm, wfwd, bias, n_layers, skip, d_out, scale, row0, n, sp_base, value, 1,
-                  feat, d_out - 1);
-
-    // ---- reverse sweep: u_{L-2} = W_last[:, 0] * sigmoid(100 z_{L-2}) ----
-    {
-      const float* sp = sp_base + (size_t)(n_hidden - 1) * ROWS * HID;
-      const float wl = __ldg(wlast0 + tid);
-#pragma unroll 8
-      for (int r = 0; r < ROWS; ++r) sm.act[r * HID + tid] = wl * sp[r * HID + tid];
-    }
-    __syncthreads();
-    for (int l = n_hidden - 1; l >= 0; --l) {
-      // offset of layer l's transposed matrix (uniform over the block)
-      size_t off = 0;
-      for (int m = 0; m < l; ++m)
-        off += (size_t)HID * ((m == 0) ? PE_W : HID) + ((m == skip) ? (size_t)HID * PE_W : 0);
-      const int K = (l == 0) ? PE_W : HID;   // input width of layer l
-      if (l == skip && tid < PE_W) {
-        zero(acc);
-        col_gemm(sm.act, HID, HID, wt + off + (size_t)HID * K, PE_W, tid, acc);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) sm.a0cot[r * PE_W + tid] += acc[r];
-      }
-      zero(acc);
-      if (tid < K) col_gemm(sm.act, HID, HID, wt + off, K, tid, acc);
-      __syncthreads();  // every read of u_l is done
-      if (l > 0) {
-        const float* sp = sp_base + (size_t)(l - 1) * ROWS * HID;
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) sm.act[r * HID + tid] = acc[r] * sp[r * HID + tid];
-      } else if (tid < PE_W) {
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) sm.a0cot[r * PE_W + tid] += acc[r];
-      }
-      __syncthreads();
-    }
-
-    // ---- grad_j = sum over the PE columns of axis j of a0cot * dPE/dy ----
-    if (tid < ROWS * 3) {
-      const int r = tid / 3, j = tid % 3;
-      if (row0 + r < n) {
-        float g = 0.0f;
-        for (int c = j; c < d_embed; c += 3) g += sm.a0cot[r * PE_W + c] * sm.d1[r * PE_W + c];
-        grad[(size_t)(row0 + r) * 3 + j] = g;
-      }
-    }
-    __syncthreads();
-  }
 }
 
 // K5: the forward sweep alone, one 64-row tile a block, writing out[row] =
@@ -932,6 +859,427 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part, int block
   out[i] = s;
 }
 
+// ---------------------------------------------------------------------------
+// K3 forward.  Value, features and input gradient of n points: the forward
+// chain through every layer, then the u-chain (u_{L-2} = W_last[:, 0] *
+// sigmoid(100 z_{L-2}), u_{l-1} = (u_l @ W_l^T) * sigmoid(100 z_{l-1})) to
+// the PE cotangent a0cot, and grad_j = sum over the PE columns of axis j of
+// a0cot * dPE/dy.
+//
+// The design for Hopper, K3-bwd's recipe on K3-bwd's weights:
+//   * Every product on the tensor cores at f32 class, 3xTF32 (split3.cuh):
+//     mma.sync m16n8k8 on operands split into tf32 hi and lo, a_hi b_hi +
+//     a_hi b_lo + a_lo b_hi.  It meets the JAX kernel's 1e-5 hold on value,
+//     features and gradient where three bf16 passes miss it
+//     (tests/test_torch_kernels_k1_k3.py).  Row tiles stay f32 in shared
+//     memory and are split as fragments are loaded; B fragments come from
+//     the tf32 packs that K3-bwd reads (GradWeights.bwd_wf, bwd_wt) and the
+//     final layer's forward pack (fwd_wlast), PF k-steps ahead of use.
+//     The tensor cores' f32 accumulation drops low bits of a running sum,
+//     so each k-step's three passes go to a fresh accumulator that an f32
+//     add puts into the sum: summed into one accumulator, the errors were
+//     ~10x larger, up to 0.9 of the 1e-5 hold (PERF.md).
+//   * Work sized to the call (kernels/fused_sdf_grad.py::fwd_tiling).  A
+//     training step's calls (1,024 to 4,096 points) split each tile's
+//     columns over a cluster of CS = 4 or 2 CTAs, the widest whose clusters
+//     hold the call in one round; CTA r owns the columns [256 r / CS, ...)
+//     of every hidden layer: its epilogue writes them into its own
+//     full-width row tile and copies them into the other CTAs' (distributed
+//     shared memory, sm90.cuh::cluster_spread), one cluster barrier a
+//     layer; a tile is the shortest of 16 MT rows (MT = 1 to 4) that covers
+//     the call in that round.  A larger call (the render's 262,144 points)
+//     runs one CTA a 64-row tile (CS = 1) on a persistent grid.
+//   * sigmoid(100 z) of every hidden layer, the u-chain's factor, is kept
+//     by the thread that computed it, in fragment order: in shared memory
+//     when it fits beside the row tiles (a CTA's own columns x 8 layers x
+//     16 MT rows: at CS = 4, 48 rows take 96 KB), else in a per-CTA global
+//     scratch that only that thread reads back (64 rows at CS = 1: 512 KB a
+//     CTA, 67 MB for the grid, past the L2), each layer's slab brought to
+//     L2 by prefetches issued before the u-chain product that precedes its
+//     use.
+//   * The SFU's exp and log for softplus(100 z) and sigmoid(100 z), one exp
+//     for both: within 1e-7 relative of the precise forms, far under the
+//     1e-5 hold.
+//   * The 48-wide products of the PE cotangent run on CTA 0, warps 0-5,
+//     which also writes the gradient.  The final layer's first 256
+//     columns go as the hidden layers'; its last (d_out = 257) is an f32
+//     dot product on the CUDA cores of the last CTA.
+namespace k3f {
+
+constexpr int TS = HID + 4;    // row stride of the full-width tiles (conflict-free fragments)
+constexpr int PS = PE_W + 4;   // row stride of the PE panel
+constexpr int OUT_NT = 33;     // n-tiles of the final layer, d_out padded to 264
+
+template <int MT>
+struct Smem {
+  float T[2][16 * MT * TS];   // full-width row tiles: a_l in the forward chain, u_l in the u-chain
+  float pe[16 * MT * PS];     // PE(y)
+  float d1[16 * MT * PE_W];   // dPE/dy (CTA 0)
+  float a0cot[16 * MT * PE_W];  // PE cotangent (CTA 0)
+  float y[16 * MT][3];
+};
+
+// softplus(100 z) / 100 and sigmoid(100 z) from one SFU exp.
+__device__ __forceinline__ void softplus_sigmoid100(float z, float& sp, float& sg) {
+  const float t = 100.0f * z;
+  const float e = __expf(-fabsf(t));
+  sp = (fmaxf(t, 0.0f) + __logf(1.0f + e)) * 0.01f;
+  const float r = __fdividef(1.0f, 1.0f + e);
+  sg = t >= 0.0f ? r : e * r;
+}
+
+// acc[j][m] += A[16 m .., 0 .. 8 KS) @ B[.., n-tile j0 + j] for NJ n-tiles
+// and MT m-tiles, 3xTF32: each A fragment is split once and used for every
+// n-tile.  B: packed tf32 fragments [KS][NT][32 lanes] of float2, read
+// from L2 PF k-steps ahead of use.  Each k-step's three passes sum into a
+// fresh accumulator that an f32 add then adds to acc.
+template <int MT, int NJ>
+__device__ __forceinline__ void prod_rows_nj(float (&acc)[NJ][MT][4], const float* A, int lda,
+                                             int KS, const float2* __restrict__ B, int NT,
+                                             int j0) {
+  constexpr int PF = NJ >= 4 ? 2 : 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float2* b = B + (size_t)j0 * 32 + lane;
+  const size_t bstep = (size_t)NT * 32;
+  float2 bq[PF][NJ];
+#pragma unroll
+  for (int i = 0; i < PF; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      bq[i][j] = (i < KS) ? __ldg(b + i * bstep + j * 32) : make_float2(0.0f, 0.0f);
+  for (int ks0 = 0; ks0 < KS; ks0 += PF) {
+#pragma unroll
+    for (int i = 0; i < PF; ++i) {
+      const int ks = ks0 + i;
+      if (ks < KS) {
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float* a = A + (16 * m + g) * lda + 8 * ks + t;
+          const float av[4] = {a[0], a[8 * lda], a[4], a[8 * lda + 4]};
+          split_tf32(av, ah[m], al[m]);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float2 bv = bq[i][j];
+          if (ks + PF < KS) bq[i][j] = __ldg(b + (ks + PF) * bstep + j * 32);
+          uint32_t bb[4];
+          split_tf32(bv.x, bb[0], bb[2]);
+          split_tf32(bv.y, bb[1], bb[3]);
+          // the k-step's products in a fresh accumulator, added to the
+          // running sum by an f32 add: the tensor cores' f32 accumulation
+          // drops low bits of each sum, here of a k-step's sum only
+          float part[MT][4] = {};
+          mma3_tf32(part, ah, al, bb);
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][m][e] += part[m][e];
+        }
+      }
+    }
+  }
+}
+
+template <int MT, int NJ>
+__device__ __forceinline__ void zero(float (&acc)[NJ][MT][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][m][e] = 0.0f;
+}
+
+}  // namespace k3f
+
+// wf, wt2: K3-bwd's packed forward and transposed matrices (k3b::pack_off);
+// wlf: the final layer packed [256 x 264] (OUT_NT n-tiles).  sp: this
+// launch's sigmoid(100 z) store, (n_layers - 1) x 16 MT x 256 / CS floats a
+// CTA, in shared memory after the Smem when sp_on_chip, else in `scratch`.
+template <int MT, int CS>
+__global__ void __launch_bounds__(THREADS, 1)
+sdf_grad_fwd_kernel(const float* __restrict__ x, int n, const float2* __restrict__ wf,
+                    const float2* __restrict__ wt2, const float2* __restrict__ wlf,
+                    const float* __restrict__ bias, const float* __restrict__ wlast0,
+                    int n_layers, int skip, int d_embed, int d_out, float scale,
+                    float* __restrict__ value, float* __restrict__ feat,
+                    float* __restrict__ grad, float* __restrict__ scratch, int sp_on_chip) {
+  using namespace k3f;
+  constexpr int R = 16 * MT;
+  constexpr int OWN_NT = 32 / CS;        // n-tiles of a hidden layer a CTA owns
+  constexpr int NJ = OWN_NT / 8;         // of them, a warp's
+  constexpr int SLAB = 8 * NJ * MT * 2 * 32;   // float2 of one layer's own-column slab
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<MT>& sm = *reinterpret_cast<Smem<MT>*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rank = CS == 1 ? 0 : cluster_rank();
+  const int cid = blockIdx.x / CS, ncl = gridDim.x / CS;
+  const int nh = n_layers - 1;
+  const int j0 = rank * OWN_NT + warp * NJ;   // this warp's first n-tile of a hidden layer
+  float2* sp = sp_on_chip
+                   ? reinterpret_cast<float2*>(smem_raw + sizeof(Smem<MT>))
+                   : reinterpret_cast<float2*>(scratch) + (size_t)blockIdx.x * nh * SLAB;
+  // this thread's element (j, m, h) of a layer's slab: fragment order
+  auto si = [&](int l, int j, int m, int h) {
+    return (size_t)l * SLAB + (((warp * NJ + j) * MT + m) * 2 + h) * 32 + lane;
+  };
+  // write (v0, v1) at [row][col] of tile T[b] for this thread's element
+  auto put = [&](int b, int j, int m, int h, float v0, float v1) {
+    const int row = 16 * m + g + 8 * h, col = 8 * (j0 + j) + 2 * t;
+    *reinterpret_cast<float2*>(&sm.T[b][row * TS + col]) = make_float2(v0, v1);
+  };
+  // T[b] is complete in every CTA of the cluster
+  auto share = [&](int b) {
+    __syncthreads();
+    if (CS > 1) {
+      cluster_spread(&sm.T[b][rank * OWN_NT * 8], TS * 4, R, OWN_NT * 32, CS);
+      cluster_sync();
+    }
+  };
+  const int n_tiles = (n + R - 1) / R;
+
+  if (CS > 1) cluster_sync();   // every CTA of the cluster runs before any remote write
+  for (int tile = cid; tile < n_tiles; tile += ncl) {
+    const int row0 = tile * R;
+    // ---- inputs: PE, dPE/dy ----
+    for (int i = tid; i < R * 3; i += THREADS) {
+      const int r = i / 3, j = i % 3;
+      sm.y[r][j] = (row0 + r < n) ? x[(size_t)(row0 + r) * 3 + j] * scale : 0.0f;
+    }
+    __syncthreads();
+    for (int i = tid; i < R * PE_W; i += THREADS) {
+      const int r = i / PE_W, c = i % PE_W;
+      float v, d;
+      k3b::pe_d1(sm.y[r], c, d_embed, v, d);
+      sm.pe[r * PS + c] = v;
+      if (rank == 0) {
+        sm.d1[i] = d;
+        sm.a0cot[i] = 0.0f;
+      }
+    }
+    __syncthreads();
+
+    // ---- forward chain: a_{l+1} = softplus(z_l) -> T, sigmoid(100 z_l) -> sp ----
+    int wb = 0, rb = 0;
+    for (int l = 0; l < nh; ++l) {
+      const size_t off = k3b::pack_off(l, skip);
+      float acc[NJ][MT][4];
+      zero(acc);
+      if (l == 0) {
+        prod_rows_nj(acc, sm.pe, PS, PE_W / 8, wf + off, HID / 8, j0);
+      } else {
+        prod_rows_nj(acc, sm.T[rb], TS, HID / 8, wf + off, HID / 8, j0);
+        if (l == skip) prod_rows_nj(acc, sm.pe, PS, PE_W / 8, wf + off + k3b::PACK_HID, HID / 8, j0);
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = 8 * (j0 + j) + 2 * t;
+        const float b0 = __ldg(bias + l * HID + col), b1 = __ldg(bias + l * HID + col + 1);
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float a0, a1, s0, s1;
+            softplus_sigmoid100(acc[j][m][2 * h] + b0, a0, s0);
+            softplus_sigmoid100(acc[j][m][2 * h + 1] + b1, a1, s1);
+            put(wb, j, m, h, a0, a1);
+            sp[si(l, j, m, h)] = make_float2(s0, s1);
+          }
+      }
+      share(wb);
+      rb = wb;
+      wb ^= 1;
+    }
+
+    // ---- final layer: value and features; the n-tiles [j0, j0 + NJ) as in
+    // the hidden layers, and the columns past 256 on the last CTA ----
+    auto write_out = [&](int jt, const float (&acc)[MT][4]) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * m + g + 8 * (e >> 1), c = 8 * jt + 2 * t + (e & 1);
+          if (c < d_out && row0 + row < n) {
+            const float z = acc[m][e] + __ldg(bias + nh * HID + c);
+            if (c == 0) value[row0 + row] = z / scale;
+            else feat[(size_t)(row0 + row) * (d_out - 1) + c - 1] = z;
+          }
+        }
+    };
+    {
+      float acc[NJ][MT][4];
+      zero(acc);
+      prod_rows_nj(acc, sm.T[rb], TS, HID / 8, wlf, OUT_NT, j0);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) write_out(j0 + j, acc[j]);
+    }
+    if (rank == CS - 1 && tid < 4 * R) {
+      // the columns past 256 (d_out 257: one) on the CUDA cores, in f32:
+      // four threads a row, 64 products each, then two shuffles
+      const int r = tid >> 2, q = tid & 3;
+      const float* a = sm.T[rb] + r * TS + 64 * q;
+      const float* wl = reinterpret_cast<const float*>(wlf);
+      for (int c = HID; c < d_out; ++c) {
+        float z = 0.0f;
+#pragma unroll 8
+        for (int k = 0; k < 64; ++k) {
+          // W_last[64 q + k][c] in the pack: k-step, lane (c % 8, row % 4), half
+          const int row = 64 * q + k;
+          const int i = (((row >> 3) * OUT_NT + (c >> 3)) * 32 + (c & 7) * 4 + (row & 3)) * 2
+                        + ((row >> 2) & 1);
+          z = fmaf(a[k], __ldg(wl + i), z);
+        }
+        z += __shfl_xor_sync(0xffffffffu, z, 1);
+        z += __shfl_xor_sync(0xffffffffu, z, 2);
+        if (q == 0 && row0 + r < n)
+          feat[(size_t)(row0 + r) * (d_out - 1) + c - 1] = z + __ldg(bias + nh * HID + c);
+      }
+    }
+
+    // ---- u-chain: u_{L-2} = W_last[:, 0] * sigmoid(100 z_{L-2}) ----
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = 8 * (j0 + j) + 2 * t;
+      const float w0 = __ldg(wlast0 + col), w1 = __ldg(wlast0 + col + 1);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 s = sp[si(nh - 1, j, m, h)];
+          put(wb, j, m, h, w0 * s.x, w1 * s.y);
+        }
+    }
+    share(wb);
+    rb = wb;
+    wb ^= 1;
+    for (int l = nh - 1; l >= 0; --l) {
+      const size_t off = k3b::pack_off(l, skip);
+      if (rank == 0 && warp < PE_W / 8 && (l == skip || l == 0)) {
+        // a0cot += u_l @ W_pe^T (skip) or u_0 @ W_0^T
+        float acc[1][MT][4];
+        zero(acc);
+        prod_rows_nj(acc, sm.T[rb], TS, HID / 8,
+                     wt2 + off + (l == skip ? k3b::PACK_HID : 0), PE_W / 8, warp);
+        k3b::add_panel(acc[0], sm.a0cot);
+      }
+      if (l == 0) break;
+      // u_{l-1} = (u_l @ W_l^T) * sigmoid(100 z_{l-1}), own columns; the
+      // sigmoid store of layer l - 1, when in the global scratch, is
+      // brought to L2 while the product runs
+      if (!sp_on_chip) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              asm volatile("prefetch.global.L2 [%0];" ::"l"(sp + si(l - 1, j, m, h)));
+      }
+      float acc[NJ][MT][4];
+      zero(acc);
+      prod_rows_nj(acc, sm.T[rb], TS, HID / 8, wt2 + off, HID / 8, j0);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 s = sp[si(l - 1, j, m, h)];
+            put(wb, j, m, h, acc[j][m][2 * h] * s.x, acc[j][m][2 * h + 1] * s.y);
+          }
+      share(wb);
+      rb = wb;
+      wb ^= 1;
+    }
+
+    // ---- grad (CTA 0) ----
+    __syncthreads();
+    if (rank == 0 && tid < R * 3) {
+      const int r = tid / 3, j = tid % 3;
+      if (row0 + r < n) {
+        float s = 0.0f;
+        for (int c = j; c < d_embed; c += 3) s += sm.a0cot[r * PE_W + c] * sm.d1[r * PE_W + c];
+        grad[(size_t)(row0 + r) * 3 + j] = s;
+      }
+    }
+    // every CTA is done with this tile's shared memory before the next
+    // tile's remote writes
+    if (CS > 1) cluster_sync();
+    else __syncthreads();
+  }
+}
+
+// Dynamic shared memory of K3-fwd at (MT, CS): the Smem, and the sigmoid
+// store when sp_on_chip.
+size_t fwd_smem(int mt, int cs, int n_layers, bool sp_on_chip) {
+  const size_t base = mt == 1 ? sizeof(k3f::Smem<1>) : mt == 2 ? sizeof(k3f::Smem<2>)
+                      : mt == 3 ? sizeof(k3f::Smem<3>) : sizeof(k3f::Smem<4>);
+  return base + (sp_on_chip ? (size_t)(n_layers - 1) * 16 * mt * (HID / cs) * 4 : 0);
+}
+
+template <int MT, int CS>
+cudaError_t launch_fwd(int clusters, size_t smem, cudaStream_t st, const float* x, int n,
+                       const void* wf, const void* wt2, const void* wlf, const float* bias,
+                       const float* wlast0, int n_layers, int skip, int d_embed, int d_out,
+                       float scale, float* value, float* feat, float* grad, float* scratch,
+                       int sp_on_chip, int* occupancy) {
+  auto kern = sdf_grad_fwd_kernel<MT, CS>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(clusters * CS, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CS > 1 ? 1 : 0;
+  if (occupancy) {   // the clusters (CS = 1: CTAs) the card holds at once
+    if (CS > 1) return cudaOccupancyMaxActiveClusters(occupancy, kern, &cfg);
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem);
+    *occupancy = per_sm * sms;
+    return e;
+  }
+  return cudaLaunchKernelEx(&cfg, kern, x, n, (const float2*)wf, (const float2*)wt2,
+                            (const float2*)wlf, bias, wlast0, n_layers, skip, d_embed, d_out,
+                            scale, value, feat, grad, scratch, sp_on_chip);
+}
+
+// The tilings K3-fwd is built for: width 1 with 64-row tiles, width 2 with
+// 32 to 64, width 4 with 16 to 64 (kernels/fused_sdf_grad.py::fwd_tiling).
+cudaError_t dispatch_fwd(int rows, int width, int clusters, size_t smem, cudaStream_t st,
+                         const float* x, int n, const void* wf, const void* wt2,
+                         const void* wlf, const float* bias, const float* wlast0, int n_layers,
+                         int skip, int d_embed, int d_out, float scale, float* value,
+                         float* feat, float* grad, float* scratch, int sp_on_chip,
+                         int* occupancy) {
+#define IRON_FWD(MT, CS)                                                                   \
+  return launch_fwd<MT, CS>(clusters, smem, st, x, n, wf, wt2, wlf, bias, wlast0, n_layers, \
+                            skip, d_embed, d_out, scale, value, feat, grad, scratch,       \
+                            sp_on_chip, occupancy)
+  if (width == 1 && rows == 64) IRON_FWD(4, 1);
+  if (width == 2 && rows == 32) IRON_FWD(2, 2);
+  if (width == 2 && rows == 48) IRON_FWD(3, 2);
+  if (width == 2 && rows == 64) IRON_FWD(4, 2);
+  if (width == 4 && rows == 16) IRON_FWD(1, 4);
+  if (width == 4 && rows == 32) IRON_FWD(2, 4);
+  if (width == 4 && rows == 48) IRON_FWD(3, 4);
+  if (width == 4 && rows == 64) IRON_FWD(4, 4);
+#undef IRON_FWD
+  return cudaErrorInvalidValue;
+}
+
 // Launch configuration of the backward kernel: `clusters` clusters of 4
 // CTAs, 256 threads, k3b::Smem of dynamic shared memory.
 void bwd_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1], int clusters,
@@ -969,32 +1317,46 @@ extern "C" {
 
 const char* iron_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// Blocks the card holds at once (the persistent grid): blocks per SM times sms.
-int iron_grad_blocks(int sms) {
-  const int smem = (int)sizeof(GradSmem);
-  if (cudaFuncSetAttribute(sdf_grad_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess)
-    return sms;
-  int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sdf_grad_fwd_kernel, THREADS,
-                                                    smem) != cudaSuccess || per_sm < 1)
-    per_sm = 1;
-  return per_sm * sms;
+// Whether K3-fwd at (rows, width) keeps sigmoid(100 z) in shared memory:
+// 1 when it fits beside the tiles, else 0; -1 on error.
+int iron_grad_fwd_sp_on_chip(int rows, int width, int n_layers) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return -1;
+  return fwd_smem(rows / 16, width, n_layers, true) <= (size_t)optin ? 1 : 0;
 }
 
-// scratch: grid * (n_layers - 1) * 64 * 256 floats.
-int iron_sdf_value_feat_grad(const float* x, int n, const float* wfwd, const float* wt,
-                             const float* bias, const float* wlast0, int n_layers, int skip,
-                             int d_embed, int d_out, float scale, float* value, float* feat,
-                             float* grad, float* scratch, int grid, void* stream) {
+// The clusters of `width` CTAs (width 1: CTAs) of K3-fwd at (rows, width)
+// the card holds at once; -1 on error.
+int iron_grad_fwd_clusters(int rows, int width, int n_layers, int sp_on_chip) {
+  int occ = 0;
+  const size_t smem = fwd_smem(rows / 16, width, n_layers, sp_on_chip != 0);
+  if (dispatch_fwd(rows, width, 1, smem, nullptr, nullptr, 0, nullptr, nullptr, nullptr,
+                   nullptr, nullptr, n_layers, 0, 0, 0, 1.0f, nullptr, nullptr, nullptr,
+                   nullptr, sp_on_chip, &occ) != cudaSuccess)
+    return -1;
+  return occ;
+}
+
+// rows, width: a tile's rows and the CTAs that share it, clusters: the
+// persistent grid (kernels/fused_sdf_grad.py::fwd_tiling).  wf, wt2: K3-bwd's
+// packed forward and transposed matrices; wlf: the final layer's forward
+// pack.  sp_on_chip: iron_grad_fwd_sp_on_chip's answer; when 0, scratch
+// holds clusters * (n_layers - 1) * rows * 256 floats.
+int iron_sdf_value_feat_grad(const float* x, int n, const void* wf, const void* wt2,
+                             const void* wlf, const float* bias, const float* wlast0,
+                             int n_layers, int skip, int d_embed, int d_out, float scale,
+                             float* value, float* feat, float* grad, float* scratch, int rows,
+                             int width, int clusters, int sp_on_chip, void* stream) {
   if (n <= 0) return 0;
-  const int smem = (int)sizeof(GradSmem);
-  cudaError_t e = cudaFuncSetAttribute(sdf_grad_fwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (clusters < 1 || d_out > 8 * k3f::OUT_NT || sp_on_chip < 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_smem(rows / 16, width, n_layers, sp_on_chip != 0);
+  cudaError_t e = dispatch_fwd(rows, width, clusters, smem, (cudaStream_t)stream, x, n, wf, wt2,
+                               wlf, bias, wlast0, n_layers, skip, d_embed, d_out, scale, value,
+                               feat, grad, scratch, sp_on_chip, nullptr);
   if (e != cudaSuccess) return (int)e;
-  sdf_grad_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, n, wfwd, wt, bias, wlast0, n_layers, skip, d_embed, d_out, scale, value, feat,
-      grad, scratch);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
-// Shared device body of the coarse bf16 SDF kernels (fused_sdf.cu, K1 and
-// K2): the positional encoding in f32 and the weight-normed softplus(100) MLP
-// with its skip, as bf16 tensor-core products (mma.sync m16n8k16) with f32
-// accumulation.
+// Device body of the coarse bf16 SDF kernel K2 (fused_sdf.cu; K1 runs its
+// own, K4's body in one pass): the positional encoding in f32 and the
+// weight-normed softplus(100) MLP with its skip, as bf16 tensor-core products
+// (mma.sync m16n8k16) with f32 accumulation.
 //
 // Layout chosen for Hopper (not the TPU's lane panel): the PE keeps the
 // reference column order [x, sin(2^0 x), cos(2^0 x), ...] padded to 48
@@ -31,9 +31,6 @@ struct MlpSmem {
   __nv_bfloat16 pe[ROWS * P_STRIDE];               // PE tile, read by layer 0 and the skip
   float y[ROWS][3];                                // scaled input points
   float out[ROWS];                                 // final-layer output (sdf * scale)
-  // coarse-march ray state
-  float ro[ROWS][3];
-  float rd[ROWS][3];
 };
 
 __device__ __forceinline__ float softplus100(float z) {

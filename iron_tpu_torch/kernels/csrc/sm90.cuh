@@ -1,8 +1,8 @@
 // Thin wrappers over the Hopper (sm_90a) instructions that the clustered
 // tensor-core kernels use: warp-level mma.sync (bf16 m16n8k16 and tf32
-// m16n8k8), ldmatrix, and thread block clusters with distributed shared
-// memory.  Kept apart from the arithmetic so that each kernel reads as a
-// sequence of named steps.
+// m16n8k8), ldmatrix, thread block clusters with distributed shared memory,
+// and the barrier of a persistent grid.  Kept apart from the arithmetic so
+// that each kernel reads as a sequence of named steps.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -79,5 +79,33 @@ __device__ __forceinline__ void cluster_spread(void* p, int stride, int rows, in
 // Every thread of every block of the cluster arrives and waits; orders the
 // shared memory accesses (local and remote) before it with those after it.
 __device__ __forceinline__ void cluster_sync() { cooperative_groups::this_cluster().sync(); }
+
+// ---- grid-wide barrier of a persistent grid ----
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Every block of the grid arrives and waits: the k-th barrier of a launch
+// waits until *count (zero at launch) reaches k * gridDim.x.  Only a grid
+// whose blocks are all resident at once may use it (the launch sizes the
+// grid from the occupancy the card reports).  A wait of more than 2^35
+// clock cycles traps, so that a fault ends the launch with an error and
+// does not hang the card.
+__device__ __forceinline__ void grid_sync(unsigned* count, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1u);
+    const long long t0 = clock64();
+    while (ld_acquire(count) < target) {
+      if (clock64() - t0 > (1ll << 35)) __trap();
+      __nanosleep(64);
+    }
+  }
+  __syncthreads();
+}
 
 }  // namespace iron

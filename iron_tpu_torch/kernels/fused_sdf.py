@@ -16,6 +16,11 @@ lo_h @ hi_W with f32 accumulation (the lo @ lo term, 2^-16 relative, is
 dropped): the error class of a bf16x3 product, about 1e-5 to 2e-4 on the
 sdf, against 1e-2 for K2.  PE and softplus stay f32.
 
+K1 runs the march as one persistent launch that keeps a device-side list of
+the rays still marching and evaluates only those, in 64-ray tiles, each
+iteration.  `coarse_march_schedule` is that schedule in plain PyTorch, with
+its counts (evaluations, tile-evaluations).
+
 Each wrapper launches its kernel for a CUDA tensor (or raises) and computes
 its plain PyTorch version, with the same arithmetic, for a CPU tensor.  Its
 `launches` attribute counts kernel launches.
@@ -234,6 +239,72 @@ def coarse_march_plain(w: Bf16Weights, ray_o, ray_d, acc0, work, max_dis,
     return act.reshape(shape), acc.reshape(shape), s.reshape(shape)
 
 
+def k1_ctas(n: int, card_ctas: int) -> int:
+    """K1's persistent grid for n rays: every CTA the card holds at once,
+    but no more than the call has 64-ray tiles."""
+    return max(1, min(card_ctas, -(-n // 64)))
+
+
+def coarse_march_schedule(w: Bf16Weights, ray_o, ray_d, acc0, work, max_dis,
+                          n_iters: int, threshold: float):
+    """K1's schedule in plain PyTorch: the march as the kernel runs it, and
+    what it costs.  Iteration -1 evaluates every ray at acc0 in 64-ray tiles
+    and lists the rays that march on; iteration i evaluates the 64-ray tiles
+    of list i and lists the rays still active.  The kernel's rows are
+    independent of one another, so a ray gets the same numbers in any tile
+    and at any row.  Returns (active, acc, sdf) as coarse_march_plain does,
+    and a dict: rays, marching (rays in `work`), evaluations, iterations (of
+    the slowest ray), tile_evals (the 64-ray tile-evaluations of this
+    schedule), tile_evals_blocks (those of one 64-ray block a tile marching
+    until its slowest ray stops), and per_iteration [(active rays, tiles)]."""
+    shape = work.shape
+    ro, rd = ray_o.reshape(-1, 3), ray_d.reshape(-1, 3)
+    n = ro.shape[0]
+    md = torch.broadcast_to(max_dis, shape).reshape(-1)
+    wk = work.reshape(-1)
+    acc, s = acc0.reshape(-1).clone(), torch.empty(n, dtype=torch.float32, device=ro.device)
+    act = torch.zeros(n, dtype=torch.bool, device=ro.device)
+    iters = torch.zeros(n, dtype=torch.int64, device=ro.device)
+    per_iteration = []
+    lst = None   # iteration -1: every ray, in order
+    for it in range(-1, n_iters):
+        m = n if lst is None else int(lst.numel())
+        if m == 0:
+            break
+        tiles = -(-m // 64)
+        per_iteration.append((m, tiles))
+        rays_all = torch.arange(m, device=ro.device) if lst is None else lst
+        a_all = acc[rays_all] if lst is None else acc[rays_all] + s[rays_all]
+        # each listed ray at its own row of an n-row batch: the CPU's BLAS
+        # sums a row in an order that depends on its place in the batch (the
+        # card's mma does not), and there its place is the one it has in
+        # coarse_march_plain
+        pts = torch.zeros_like(ro)
+        pts[rays_all] = ro[rays_all] + rd[rays_all] * a_all[:, None]
+        s_all = _mlp_bf16_plain(w, pts)
+        nxt = []
+        for t in range(tiles):
+            rays, a = rays_all[t * 64:t * 64 + 64], a_all[t * 64:t * 64 + 64]
+            sn = s_all[rays]
+            keep = (sn.abs() > threshold) & (a < md[rays])
+            if lst is None:
+                keep = keep & wk[rays]
+            else:
+                iters[rays] += 1
+            acc[rays], s[rays], act[rays] = a, sn, keep
+            nxt.append(rays[keep])
+        lst = torch.cat(nxt)
+    blocks = iters.new_zeros(-(-n // 64)).scatter_reduce(
+        0, torch.arange(n, device=ro.device) // 64, iters, "amax")
+    stats = {"rays": n, "marching": int(wk.sum()),
+             "evaluations": sum(p[0] for p in per_iteration),
+             "iterations": len(per_iteration) - 1,
+             "tile_evals": sum(p[1] for p in per_iteration),
+             "tile_evals_blocks": int((blocks + 1).sum()),
+             "per_iteration": per_iteration}
+    return act.reshape(shape), acc.reshape(shape), s.reshape(shape), stats
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -244,9 +315,11 @@ def _lib():
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.iron_sdf_only_bf16.argtypes = [P, I, P, P, P, I, I, I, F, P, P]
         lib.iron_sdf_only_bf16.restype = I
-        lib.iron_coarse_march_bf16.argtypes = [P, P, P, P, P, I, I, F, P, P, P, I, I, I,
-                                               F, P, P, P, P]
+        lib.iron_coarse_march_bf16.argtypes = [P, P, P, P, P, I, I, F, P, I, P, P, I, I, I,
+                                               F, P, P, P, P, P, I, P]
         lib.iron_coarse_march_bf16.restype = I
+        lib.iron_coarse_march_ctas.argtypes = []
+        lib.iron_coarse_march_ctas.restype = I
         lib.iron_sdf_only_3pass.argtypes = [P, I, P, P, I, P, P, P, I, I, I, F, P, I, P]
         lib.iron_sdf_only_3pass.restype = I
         lib._typed = True
@@ -291,7 +364,9 @@ def coarse_march(w: Bf16Weights, ray_o, ray_d, acc0, work, max_dis,
                  n_iters: int, threshold: float):
     """K1: the whole coarse sphere-trace march -> (active bool, acc f32,
     sdf f32), shapes of `work`.  Replaces
-    iron_tpu/kernels/fused_sdf.py::make_pallas_coarse_march_fn."""
+    iron_tpu/kernels/fused_sdf.py::make_pallas_coarse_march_fn.  One
+    persistent launch that compacts the active rays between iterations
+    (`coarse_march_schedule` is its schedule); it does not sync the host."""
     if not work.is_cuda:
         return coarse_march_plain(w, ray_o, ray_d, acc0, work, max_dis, n_iters, threshold)
     shape = work.shape
@@ -302,21 +377,34 @@ def coarse_march(w: Bf16Weights, ray_o, ray_d, acc0, work, max_dis,
     wk = work.reshape(-1).to(torch.uint8).contiguous()
     if not (rd.shape[0] == a0.shape[0] == md.shape[0] == wk.shape[0] == n):
         raise ValueError("ray_o, ray_d, acc0, work and max_dis must hold one entry per ray")
-    _check_weights(w, ro.device)
-    acc = torch.empty(n, device=ro.device, dtype=torch.float32)
-    s = torch.empty_like(acc)
-    act = torch.empty(n, device=ro.device, dtype=torch.uint8)
+    if n_iters < 0:
+        raise ValueError(f"n_iters must be >= 0, got {n_iters}")
+    dev = ro.device
+    _check_weights(w, dev)
     lib = _lib()
+    if dev not in _MARCH_CTAS:
+        _MARCH_CTAS[dev] = lib.iron_coarse_march_ctas()
+        if _MARCH_CTAS[dev] < 1:
+            raise RuntimeError("coarse_march: the card holds no CTA of the march kernel")
+    acc = torch.empty(n, device=dev, dtype=torch.float32)
+    s = torch.empty_like(acc)
+    act = torch.empty(n, device=dev, dtype=torch.uint8)
+    # two lists of active rays used in turns; each iteration's list length,
+    # then the grid barrier's count
+    lists = torch.empty(2 * n, device=dev, dtype=torch.int32)
+    counts = torch.zeros(int(n_iters) + 2, device=dev, dtype=torch.int32)
     code = lib.iron_coarse_march_bf16(
         ro.data_ptr(), rd.data_ptr(), a0.data_ptr(), wk.data_ptr(), md.data_ptr(), n,
-        int(n_iters), float(threshold), w.wpack.data_ptr(), w.bias_flat.data_ptr(),
-        w.wlast.data_ptr(), w.n_layers, w.skip, w.d_embed, w.scale, acc.data_ptr(),
-        s.data_ptr(), act.data_ptr(), torch.cuda.current_stream(ro.device).cuda_stream)
+        int(n_iters), float(threshold), w.wpack.data_ptr(), w.wpack.numel() // (16 * HID),
+        w.bias_flat.data_ptr(), w.wlast.data_ptr(), w.n_layers, w.skip, w.d_embed, w.scale,
+        acc.data_ptr(), s.data_ptr(), act.data_ptr(), lists.data_ptr(), counts.data_ptr(),
+        k1_ctas(n, _MARCH_CTAS[dev]), torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, code, "coarse_march")
     coarse_march.launches += 1
     return act.bool().reshape(shape), acc.reshape(shape), s.reshape(shape)
 
 
+_MARCH_CTAS = {}
 coarse_march.launches = 0
 
 

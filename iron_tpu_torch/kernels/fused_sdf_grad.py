@@ -1,8 +1,8 @@
 """Fused SDF core: value, feature and input gradient in one forward and one
-reverse sweep (K3-fwd), and the adjoint of both sweeps (K3-bwd), f32
-throughout.  CUDA kernels in `csrc/fused_sdf_grad.cu`, counterparts of the
-forward and backward kernels of
-iron_tpu/kernels/fused_sdf_grad.py::make_fused_sdf_grad_fn.
+reverse sweep (K3-fwd), and the adjoint of both sweeps (K3-bwd), at f32
+class (3xTF32 tensor-core products).  CUDA kernels in
+`csrc/fused_sdf_grad.cu`, counterparts of the forward and backward kernels
+of iron_tpu/kernels/fused_sdf_grad.py::make_fused_sdf_grad_fn.
 
 The reverse sweep is the JAX kernel's u-chain: u = e0 at the output,
 u_{l-1} = (u_l @ W_l^T) * sigmoid(100 z_{l-1}), and the PE cotangent times
@@ -29,13 +29,16 @@ Weight layout (`prepare_grad_weights`): as the bf16 kernels' (PE in the
 reference order padded to 48, the layer feeding the skip padded to 256
 outputs, the skip split into hidden and PE matrices) but f32, with the skip's
 1/sqrt(2) folded into its two matrices and the final layer at its full width.
-The transposed products read host-made transposes, so every product reads
-its weights coalesced.  K3-bwd runs its products on the tensor cores
-(3xTF32, csrc/split3.cuh) and reads both sets packed into mma.sync tf32 B
-fragments (`pack_tf32_b`): `bwd_wf` the forward matrices, `bwd_wt` their
-transposes and the final layer's, packed at K3-bwd's first use of the
-prepared weights.  Under grad mode the prepared matrices are built
-differentiably from the live parameters, so autograd carries their
+K3-fwd and K3-bwd run their products on the tensor cores (3xTF32,
+csrc/split3.cuh) and read the matrices packed into mma.sync tf32 B
+fragments (`pack_tf32_b`): `bwd_wf` the hidden layers' matrices, `bwd_wt`
+their transposes and the final layer's, `fwd_wlast` the final layer's,
+packed at the first use of the prepared weights.  K3-fwd sizes its work to
+the call (`fwd_tiling`): each tile's columns split over a cluster of 4 or 2
+CTAs when one round of such clusters holds the call, else one CTA a 64-row
+tile.  K5 reads the f32 matrices (`wfwd`) on the CUDA cores.  Under grad
+mode the prepared matrices are built differentiably from the live
+parameters, so autograd carries their
 gradients back through the padding, the folded 1/sqrt(2) and the weight
 norm to each layer's v, g and b.
 """
@@ -53,7 +56,6 @@ from iron_tpu_torch.fields.sdf import SDFNetwork, softplus100
 from iron_tpu_torch.kernels import build
 from iron_tpu_torch.kernels.fused_sdf import HID, INV_SQRT2, PE_W, layout_layers
 
-ROWS = 64        # points per tile of K3-fwd and K5
 OUT_MAX = 264    # widest final layer the backward kernel takes (d_out padded to 8)
 
 
@@ -65,7 +67,6 @@ class GradWeights:
     mats: List[torch.Tensor]   # f32, layer order (skip: W_h / sqrt 2, W_pe / sqrt 2)
     biases: List[torch.Tensor]  # f32, one per layer (hidden ones padded to 256)
     wfwd: torch.Tensor         # mats, flattened and concatenated
-    wt: torch.Tensor           # transposes of the hidden layers' mats, concatenated
     bias_flat: torch.Tensor    # f32 [(n_layers - 1) * 256 + d_out]
     wlast0: torch.Tensor       # f32 [256], the final layer's sdf column
     n_layers: int
@@ -74,7 +75,7 @@ class GradWeights:
     multires: int
     d_out: int
     scale: float
-    _bwd_packs: Optional[Tuple[torch.Tensor, torch.Tensor]] = field(default=None, repr=False)
+    _packs: Optional[Tuple[torch.Tensor, ...]] = field(default=None, repr=False)
 
     @property
     def requires_grad(self) -> bool:
@@ -82,27 +83,34 @@ class GradWeights:
 
     @property
     def bwd_wf(self) -> torch.Tensor:
-        """K3-bwd: pack_tf32_b of the hidden layers' mats."""
-        return self._pack_bwd()[0]
+        """K3-fwd and K3-bwd: pack_tf32_b of the hidden layers' mats."""
+        return self._tf32_packs()[0]
 
     @property
     def bwd_wt(self) -> torch.Tensor:
-        """K3-bwd: pack_tf32_b of the hidden layers' transposed mats, then
-        of the final layer's (its rows padded to a multiple of 8)."""
-        return self._pack_bwd()[1]
+        """K3-fwd and K3-bwd: pack_tf32_b of the hidden layers' transposed
+        mats, then of the final layer's (its rows padded to a multiple of 8)."""
+        return self._tf32_packs()[1]
 
-    def _pack_bwd(self):
-        # packed at the first use and kept: only K3-bwd reads them, so the
-        # forward-only callers (K3-fwd, K5, the CPU) never pack
-        if self._bwd_packs is None:
+    @property
+    def fwd_wlast(self) -> torch.Tensor:
+        """K3-fwd: pack_tf32_b of the final layer's mat, its columns padded
+        to a multiple of 8."""
+        return self._tf32_packs()[2]
+
+    def _tf32_packs(self):
+        # packed at the first use and kept: only the tensor-core kernels
+        # read them, so K5 and the CPU never pack
+        if self._packs is None:
             flat = [m.detach() for m in self.mats]
             out_pad = -(-self.d_out // 8) * 8
-            last_t = torch.nn.functional.pad(flat[-1].T, (0, 0, 0, out_pad - self.d_out))
-            self._bwd_packs = (
+            last = torch.nn.functional.pad(flat[-1], (0, out_pad - self.d_out))
+            self._packs = (
                 torch.cat([pack_tf32_b(m).reshape(-1) for m in flat[:-1]]),
                 torch.cat([pack_tf32_b(m.T).reshape(-1) for m in flat[:-1]]
-                          + [pack_tf32_b(last_t).reshape(-1)]))
-        return self._bwd_packs
+                          + [pack_tf32_b(last.T).reshape(-1)]),
+                pack_tf32_b(last).reshape(-1))
+        return self._packs
 
 
 def pack_tf32_b(w: torch.Tensor) -> torch.Tensor:
@@ -133,7 +141,6 @@ def prepare_grad_weights(net: SDFNetwork, differentiable: bool = False) -> GradW
     return GradWeights(
         mats=mats, biases=biases,
         wfwd=torch.cat([m.reshape(-1) for m in flat]).contiguous(),
-        wt=torch.cat([m.T.contiguous().reshape(-1) for m in flat[:-1]]).contiguous(),
         bias_flat=torch.cat([b.detach() for b in biases]).contiguous(),
         wlast0=flat[-1][:, 0].contiguous(),
         n_layers=len(net.layers), skip=skip, d_embed=net.cfg.d_embed,
@@ -301,14 +308,16 @@ def _lib():
     lib = build.load("fused_sdf_grad")
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.iron_sdf_value_feat_grad.argtypes = [P, I, P, P, P, P, I, I, I, I, F, P, P, P,
-                                                 P, I, P]
+        lib.iron_sdf_value_feat_grad.argtypes = [P, I, P, P, P, P, P, I, I, I, I, F, P, P, P,
+                                                 P, I, I, I, I, P]
         lib.iron_sdf_value_feat_grad.restype = I
+        lib.iron_grad_fwd_sp_on_chip.argtypes = [I, I, I]
+        lib.iron_grad_fwd_sp_on_chip.restype = I
+        lib.iron_grad_fwd_clusters.argtypes = [I, I, I, I]
+        lib.iron_grad_fwd_clusters.restype = I
         lib.iron_sdf_value_feat_grad_bwd.argtypes = [P, I, P, P, P, P, P, P, I, I, I, I, F, P,
                                                      P, I, I, P, P, I, I, P]
         lib.iron_sdf_value_feat_grad_bwd.restype = I
-        lib.iron_grad_blocks.argtypes = [I]
-        lib.iron_grad_blocks.restype = I
         lib.iron_grad_bwd_clusters.argtypes = []
         lib.iron_grad_bwd_clusters.restype = I
         lib.iron_sdf_full.argtypes = [P, I, P, P, I, I, I, I, F, P, P]
@@ -320,22 +329,59 @@ def _lib():
 def _check(w: GradWeights, x: torch.Tensor) -> None:
     if x.dtype != torch.float32 or x.shape[-1] != 3:
         raise ValueError(f"expected float32 points [..., 3], got {x.dtype} {tuple(x.shape)}")
-    for t in (w.wfwd, w.wt, w.bias_flat, w.wlast0):
+    for t in (w.wfwd, w.bias_flat, w.wlast0):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"prepared weights must be contiguous and on {x.device}")
 
 
-def _sms(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+def fwd_tiling(n: int, clusters_of):
+    """(rows, width, grid clusters) of K3-fwd for n points, where
+    clusters_of(width) is how many clusters of `width` CTAs (width 1: CTAs)
+    the card holds at once.  A call that one round of 4-CTA clusters holds,
+    one tile of at most 64 rows a cluster, runs width 4; else one that a
+    round of 2-CTA clusters holds runs width 2; each with the shortest tile
+    (a multiple of 16 rows, at least 32 at width 2: the kernel's builds)
+    that covers the points in that round.  A larger call runs one CTA a
+    64-row tile on a persistent grid: the card is full without splitting
+    columns, and splitting them would add their exchange."""
+    for width in (4, 2):
+        held = clusters_of(width)
+        if -(-n // 64) <= held:
+            rows = 16 * max(1 if width == 4 else 2, -(-n // (16 * held)))
+            return rows, width, -(-n // rows)
+    return 64, 1, max(1, min(-(-n // 64), clusters_of(1)))
+
+
+_FWD_PLACES = {}
+
+
+def _fwd_place(lib, dev, rows: int, width: int, n_layers: int, sp_on_chip=None):
+    """(sigmoid store on chip, clusters the card holds) of K3-fwd at (rows,
+    width), kept per device.  The store is on chip when it fits beside the
+    tiles; sp_on_chip=False asks for the clusters with it in global memory
+    (the occupancy at the largest shared memory of a width)."""
+    key = (dev, rows, width, n_layers, sp_on_chip)
+    if key not in _FWD_PLACES:
+        on = lib.iron_grad_fwd_sp_on_chip(rows, width, n_layers) if sp_on_chip is None \
+            else int(sp_on_chip)
+        held = lib.iron_grad_fwd_clusters(rows, width, n_layers, on) if on >= 0 else -1
+        if held < 1:
+            raise RuntimeError(f"sdf_value_feat_grad: the card holds no {width}-CTA cluster of "
+                               f"{rows}-row tiles")
+        _FWD_PLACES[key] = (on, held)
+    return _FWD_PLACES[key]
 
 
 def sdf_value_feat_grad_fwd(w: GradWeights, x: torch.Tensor):
     """K3-fwd: x [..., 3] f32 -> (sdf [...], feature [..., d_out - 1],
-    grad [..., 3]), f32, with no graph.  Replaces the forward kernel of
+    grad [..., 3]), f32 class (3xTF32 products), with no graph.  Replaces
+    the forward kernel of
     iron_tpu/kernels/fused_sdf_grad.py::make_fused_sdf_grad_fn."""
     if not x.is_cuda:
         return sdf_value_feat_grad_plain(w, x)
     _check(w, x)
+    if w.d_out > OUT_MAX:
+        raise ValueError(f"the forward kernel takes d_out <= {OUT_MAX}, got {w.d_out}")
     shape = x.shape[:-1]
     xf = x.detach().reshape(-1, 3).contiguous()
     n = xf.shape[0]
@@ -344,15 +390,18 @@ def sdf_value_feat_grad_fwd(w: GradWeights, x: torch.Tensor):
     feat = torch.empty((n, w.d_out - 1), device=dev, dtype=torch.float32)
     grad = torch.empty((n, 3), device=dev, dtype=torch.float32)
     lib = _lib()
-    # persistent blocks, each with its own sigmoid(100 z) scratch of
-    # (n_layers - 1) x 64 x 256 f32
-    grid = max(1, min(-(-n // ROWS), lib.iron_grad_blocks(_sms(dev))))
-    scratch = torch.empty(grid * (w.n_layers - 1) * ROWS * HID, device=dev, dtype=torch.float32)
+    rows, width, clusters = fwd_tiling(
+        n, lambda cs: _fwd_place(lib, dev, 64, cs, w.n_layers, False)[1])
+    on_chip, _ = _fwd_place(lib, dev, rows, width, w.n_layers)
+    # each CTA's store of sigmoid(100 z) of its own columns of every hidden layer
+    scratch = (value if on_chip else
+               torch.empty(clusters * (w.n_layers - 1) * rows * HID, device=dev,
+                           dtype=torch.float32))
     code = lib.iron_sdf_value_feat_grad(
-        xf.data_ptr(), n, w.wfwd.data_ptr(), w.wt.data_ptr(), w.bias_flat.data_ptr(),
-        w.wlast0.data_ptr(), w.n_layers, w.skip, w.d_embed, w.d_out, w.scale,
-        value.data_ptr(), feat.data_ptr(), grad.data_ptr(), scratch.data_ptr(), grid,
-        torch.cuda.current_stream(dev).cuda_stream)
+        xf.data_ptr(), n, w.bwd_wf.data_ptr(), w.bwd_wt.data_ptr(), w.fwd_wlast.data_ptr(),
+        w.bias_flat.data_ptr(), w.wlast0.data_ptr(), w.n_layers, w.skip, w.d_embed, w.d_out,
+        w.scale, value.data_ptr(), feat.data_ptr(), grad.data_ptr(), scratch.data_ptr(), rows,
+        width, clusters, on_chip, torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, code, "sdf_value_feat_grad")
     sdf_value_feat_grad_fwd.launches += 1
     return (value.reshape(shape), feat.reshape(shape + (w.d_out - 1,)),

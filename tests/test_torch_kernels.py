@@ -349,15 +349,16 @@ def test_tf32_packs_reproduce_the_layout():
 
 
 def test_tf32_packs_are_made_at_first_use():
-    """Only K3-bwd reads the tf32 packs: preparing the weights and running
-    the forward sweep (K3-fwd's and K5's plain versions) packs nothing; the
-    first read packs both and later reads get the same tensors."""
+    """Only the tensor-core kernels (K3-fwd, K3-bwd) read the tf32 packs:
+    preparing the weights and running the forward sweep (K3-fwd's and K5's
+    plain versions) packs nothing; the first read packs them all and later
+    reads get the same tensors."""
     _, _, net = _nets(seed=2, scale=2.0)
     w = K3.prepare_grad_weights(net)
     x = torch.as_tensor((np.random.default_rng(5).normal(size=(7, 3)) * 0.3).astype(np.float32))
     K3.sdf_value_feat_grad_fwd(w, x)
     K3.sdf_full(w, x)
-    assert w._bwd_packs is None
+    assert w._packs is None
     wf, wt = w.bwd_wf, w.bwd_wt
     assert w.bwd_wf is wf and w.bwd_wt is wt
     assert wf.numel() == sum(m.numel() for m in w.mats[:-1])
