@@ -21,16 +21,21 @@ with the launch counts set to 0 just before it and read just after:
     4 views at 256x256, 128x128 crops, comp): one step through the kernels
     against the same step through the plain versions (loss and every
     gradient), K3-bwd against its plain version on the inputs that step
-    gives it, K1 and K3-fwd against their plain versions on every call of
-    a step (with K1's schedule: rays, evaluations, the slowest ray's
-    iterations, tile-evaluations), then 8 + 30 steps of Stage2Trainer.run
+    gives it, K1, K2 and K3-fwd against their plain versions on every call
+    of a step (with K1's schedule: rays, evaluations, the slowest ray's
+    iterations, tile-evaluations), K1's cooperative launch (a grid one CTA
+    larger than the card holds is refused, and the step's and the view's
+    marches launched beside another stream's ~50 ms kernels give the
+    outputs of the same marches alone, bit for bit), then 8 + 30 steps of
+    Stage2Trainer.run
     with every kernel of the path launched at every step, finite and
     falling losses, and no plain version reached by a CUDA tensor;
   * the same training with trace_pallas, the dataset's masks and
     silhouette_weight 0.3 (the silhouette sweep runs on K4 too): one step
     against the same step through K4's plain version, then 8 + 30 steps;
   * the SDF sweep of iron_tpu_torch.kernels.make_sdf_fn (K5) on 262,144
-    points, held against its plain version and the f32 sdf_apply;
+    points, held against its plain version and the f32 sdf_apply (also on
+    262,144 uniform points in phase 4b);
 
 then times each kernel beside its plain version and its bound, and prints:
 
@@ -265,21 +270,22 @@ def main(argv=None) -> int:
     log(f"K1 grid: the card holds {K12._lib().iron_coarse_march_ctas()} CTAs of the march "
         f"kernel at once")
 
-    def check_k2(pts, what: str, against_f32: bool = False) -> None:
+    def check_k2(pts, what: str, sdf_net=None) -> None:
+        """K2 against its plain version and the f32 SDF, on the weights of
+        sdf_net (default the render's)."""
+        sdf_net = net if sdf_net is None else sdf_net
+        w = w12 if sdf_net is net else K12.prepare_bf16_weights(sdf_net)
         with torch.no_grad():
-            k2 = K12.sdf_only_bf16(w12, pts)
+            k2 = K12.sdf_only_bf16(w, pts)
             torch.cuda.synchronize()
-            k2_plain = K12.sdf_only_bf16_plain(w12, pts)
-            f32 = sdf_only(net, pts)
+            k2_plain = K12.sdf_only_bf16_plain(w, pts)
+            f32 = sdf_only(sdf_net, pts)
         assert k2.shape == pts.shape[:-1] and torch.isfinite(k2).all()
         err = float((k2 - k2_plain).abs().max())
-        msg = f"K2 sdf_only_bf16 {what} {tuple(pts.shape)}: max|K2 - plain| {err:.3e} (tol 5e-3)"
-        if against_f32:
-            err_f32 = float((k2 - f32).abs().max())
-            msg += f", max|K2 - f32 sdf| {err_f32:.3e} (tol 1.2e-2, the bf16 coarse budget)"
-            assert err_f32 <= 1.2e-2
-        log(msg)
-        assert err <= BF16_REORDER_TOL
+        err_f32 = float((k2 - f32).abs().max())
+        log(f"K2 sdf_only_bf16 {what} {tuple(pts.shape)}: max|K2 - plain| {err:.3e} (tol 5e-3), "
+            f"max|K2 - f32 sdf| {err_f32:.3e} (tol 1.2e-2, the bf16 coarse budget)")
+        assert err <= BF16_REORDER_TOL and err_f32 <= 1.2e-2
         max_err["sdf_only_bf16"] = max(max_err.get("sdf_only_bf16", 0.0), err)
 
     def check_k3(x, what: str, w=None) -> None:
@@ -413,8 +419,9 @@ def main(argv=None) -> int:
         err = float((got - ref).abs().max())
         err_f32 = float((got - f32).abs().max())
         log(f"K5 sdf_full {what} {tuple(x.shape)}: max|K5 - plain| {err:.3e} (tol "
-            f"{K5_TOL:.0e}), max|K5 - f32 sdf_apply| {err_f32:.3e} (tol {K5_TOL:.0e} + 1e-5 "
-            f"relative; magnitude {float(f32.abs().max()):.2f})")
+            f"{K5_TOL:.0e}; 3xTF32 products and f32 sums in another order), max|K5 - f32 "
+            f"sdf_apply| {err_f32:.3e} (tol {K5_TOL:.0e} + 1e-5 relative; magnitude "
+            f"{float(f32.abs().max()):.2f})")
         assert err <= K5_TOL and torch.allclose(got, f32, atol=K5_TOL, rtol=1e-5)
         max_err["sdf_full"] = max(max_err.get("sdf_full", 0.0), err)
 
@@ -426,7 +433,7 @@ def main(argv=None) -> int:
     t = torch.linspace(0, 1, 128, device=dev)
     pts = ro_t[:, None] + rd_t[:, None] * (near[:, None] + t * (far - near)[:, None])[..., None]
     with torch.no_grad():
-        check_k2(pts, "on random rays", against_f32=True)
+        check_k2(pts, "on random rays")
 
     # ---- 4. K3-fwd against its plain f32 version, 65,536 points ----
     x3 = torch.as_tensor((rng.uniform(-1, 1, size=(65536, 3)) * 0.6).astype(np.float32),
@@ -901,6 +908,58 @@ def main(argv=None) -> int:
                      for i, c in enumerate(step_calls["coarse_march"])]
     for i, (x,) in enumerate(step_calls["sdf_value_feat_grad"]):
         check_k3(x, f"training-step call {i}", w3s)
+    for i, (p,) in enumerate(step_calls["sdf_only_bf16"]):
+        check_k2(p, f"training-step call {i}", tr.params["sdf"])
+
+    # K1's cooperative launch.  (a) A grid one CTA larger than the card holds
+    # at once is refused with an error that names the cooperative launch,
+    # and nothing runs.  (b) The step's and the view's marches, launched
+    # while ~50 ms kernels on other streams hold part of the card (a block
+    # on each of 8 SMs, so that those SMs take one CTA of K1 where they take
+    # two), give the outputs of the same marches alone, bit for bit: the
+    # grid waits until it is resident as a whole, and no CTA spins at the
+    # grid barrier for one that cannot start.
+    marches = [(w12s, c) for c in step_calls["coarse_march"]] + [(w12, calls["coarse_march"][0])]
+    with torch.no_grad():
+        alone = [K12.coarse_march(w, *c, thr) for w, c in marches]
+        torch.cuda.synchronize()
+        # the view's march, its rays repeated to one 64-ray tile a CTA and more
+        ro_v, rd_v, acc0_v, work_v, md_v, n_it_v = calls["coarse_march"][0]
+        dev_k1 = work_v.device
+        card_ctas = K12._MARCH_CTAS[dev_k1]
+        rep = -(-64 * (card_ctas + 1) // work_v.numel())
+        big = (ro_v.reshape(-1, 3).repeat(rep, 1), rd_v.reshape(-1, 3).repeat(rep, 1),
+               acc0_v.reshape(-1).repeat(rep), work_v.reshape(-1).repeat(rep),
+               torch.broadcast_to(md_v, work_v.shape).reshape(-1).repeat(rep), n_it_v)
+        K12._MARCH_CTAS[dev_k1] = card_ctas + 1
+        try:
+            K12.coarse_march(w12, *big, thr)
+            torch.cuda.synchronize()
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+        finally:
+            K12._MARCH_CTAS[dev_k1] = card_ctas
+        log(f"K1 with a grid of {card_ctas + 1} CTAs ({card_ctas} held at once): "
+            f"{'refused: ' + refused if refused else 'NOT refused'}")
+        assert refused is not None and "cooperative launch" in refused
+        side = [torch.cuda.Stream() for _ in range(8)]
+        t_side = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t_side[0].record(side[0])
+        for st in side:
+            with torch.cuda.stream(st):
+                torch.cuda._sleep(100_000_000)   # ~50 ms at 2 GHz
+        t_side[1].record(side[0])
+        t0 = time.perf_counter()
+        beside = [K12.coarse_march(w, *c, thr) for w, c in marches]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        same = [all(torch.equal(a, b) for a, b in zip(x, y)) for x, y in zip(alone, beside)]
+    log(f"K1 beside 8 kernels of {t_side[0].elapsed_time(t_side[1]):.1f} ms on other streams: "
+        f"{len(marches)} marches (the step's and view 0's) done {wall * 1e3:.1f} ms after their "
+        f"launch, outputs bit-equal to the marches alone: {same}")
+    assert all(same)
 
     # the run: 8 warm-up steps, then args.train_steps more, each timed and
     # its launches counted; no plain version may see a CUDA tensor
@@ -1099,6 +1158,8 @@ def main(argv=None) -> int:
             # K2: the fallback sweep of the image trace
             pts = calls["sdf_only_bf16"][0][0]
             ms = cuda_ms(lambda: K12.sdf_only_bf16(w12, pts))
+            log(f"K2 on the view's fallback sweep ({pts.numel() // 3} points): (rows a CTA, "
+                f"grid) {K12.k2_tiling(pts.numel() // 3, K12._K2_CTAS[pts.device])}")
             plain_ms = cuda_ms(lambda: K12.sdf_only_bf16_plain(w12, pts), iters=5)
             kernel_rows.append(("sdf_only_bf16", "iron_tpu_torch/kernels/csrc/fused_sdf.cu",
                                 "iron_tpu/kernels/fused_sdf.py:277", ms, plain_ms,
@@ -1147,17 +1208,27 @@ def main(argv=None) -> int:
                 kernel_rows.append(("sdf_only_3pass", "iron_tpu_torch/kernels/csrc/fused_sdf.cu",
                                     "iron_tpu/kernels/fused_sdf.py:410", ms4, plain4, *b4))
 
-        # K5: the sweep's 262,144 points
+        # K5: the sweep's 262,144 points; its route is three tf32
+        # tensor-core products a MAC (3xTF32), the f32 bound beside it
         n5 = x_u.shape[0]
         with torch.no_grad():
             ms = cuda_ms(lambda: K3.sdf_full(w3, x_u), iters=5)
             plain_ms = cuda_ms(lambda: K3.sdf_full_plain(w3, x_u), iters=3)
-        b_ms, b_by = bound(n5 * (12 + cfg.sdf.d_out * 4) + work["weights_all"] * 4,
-                           n5 * 2 * work["value_all"], F32_FLOPS, n5 * work["transc"])
+
+        def bound_k5(flop_rate, passes):
+            return bound(n5 * (12 + cfg.sdf.d_out * 4) + work["weights_all"] * 4,
+                         n5 * 2 * passes * work["value_all"], flop_rate, n5 * work["transc"])
+
         kernel_rows.append(("sdf_full", "iron_tpu_torch/kernels/csrc/fused_sdf_grad.cu",
-                            "iron_tpu/kernels/fused_sdf.py:460", ms, plain_ms, b_ms, b_by))
+                            "iron_tpu/kernels/fused_sdf.py:460", ms, plain_ms,
+                            *bound_k5(TF32_FLOPS, 3)))
+        log(f"K5 bound on the sweep's {n5} points: {bound_k5(TF32_FLOPS, 3)[0]:.4f} ms as 3xTF32 "
+            f"on the tensor cores (the route it takes), {bound_k5(F32_FLOPS, 1)[0]:.4f} ms in f32 "
+            f"on the CUDA cores; {K3.K5_ROWS}-row tiles on "
+            f"{K3.k5_grid(n5, K3._K5_HELD[x_u.device])} CTAs")
         log(f"counted a point: {work['value']} MACs for the sdf alone (K1, K2; three times "
-            f"that for K4), {work['value_all']} for all {cfg.sdf.d_out} outputs (K5), "
+            f"that for K4), {work['value_all']} for all {cfg.sdf.d_out} outputs (K5; three tf32 "
+            f"products each), "
             f"{work['value_grad']} for value, feature and gradient, {bw['macs']} for their "
             f"adjoint (K3-bwd), {work['transc']} transcendentals")
         for r in kernel_rows:

@@ -2,12 +2,12 @@
 package's Pallas TPU kernels, each beside its plain PyTorch version:
 
   K1     `fused_sdf.coarse_march`                   the coarse sphere-trace march (bf16,
-                                                   compacted in one persistent launch)
-  K2     `fused_sdf.sdf_only_bf16`                  the coarse SDF evaluator (bf16)
+                                                   compacted in one cooperative launch)
+  K2     `fused_sdf.sdf_only_bf16`                  the coarse SDF evaluator (bf16, wgmma)
   K3-fwd `fused_sdf_grad.sdf_value_feat_grad_fwd`   value, feature and grad (3xTF32)
   K3-bwd `fused_sdf_grad.sdf_value_feat_grad_bwd`   their adjoint: dW, db and dx (3xTF32)
   K4     `fused_sdf.sdf_only_3pass`                 the accurate trace evaluator (bf16x3)
-  K5     `fused_sdf_grad.sdf_full`                  [sdf, features] of every point (f32)
+  K5     `fused_sdf_grad.sdf_full`                  [sdf, features] of every point (3xTF32)
 
 Sources live in `csrc/`; `build.py` compiles them with nvcc at the first
 CUDA call.  Importing this package needs neither nvcc nor a card.

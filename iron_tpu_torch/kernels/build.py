@@ -91,25 +91,30 @@ def load(stem: str) -> ctypes.CDLL:
     return _LIBS[stem]
 
 
+def ptxas_lines(log: str) -> List[str]:
+    """One line a kernel from an nvcc log with `-Xptxas -v`: its (mangled)
+    name, registers, shared memory and spills."""
+    lines, name, parts = [], None, []
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            if name:
+                lines.append(f"{name}: " + "; ".join(parts))
+            name, parts = ln.split("'")[1], []
+        elif name and ("registers" in ln or "spill" in ln):
+            parts.append(ln.split(":", 1)[-1].strip())
+    if name:
+        lines.append(f"{name}: " + "; ".join(parts))
+    return lines
+
+
 def ptxas_reports() -> List[str]:
-    """The ptxas report of the current builds, one line a kernel: its
-    (mangled) name, registers, shared memory and spills."""
+    """The ptxas report of the current builds, one line a kernel (ptxas_lines)."""
     lines = []
     for stem in SOURCES:
         log = f"{_lib_path(stem)}.log"
-        if not os.path.exists(log):
-            continue
-        name, parts = None, []
-        with open(log) as f:
-            for ln in f:
-                if "Compiling entry function" in ln:
-                    if name:
-                        lines.append(f"{stem}: {name}: " + "; ".join(parts))
-                    name, parts = ln.split("'")[1], []
-                elif name and ("registers" in ln or "spill" in ln):
-                    parts.append(ln.split(":", 1)[-1].strip())
-        if name:
-            lines.append(f"{stem}: {name}: " + "; ".join(parts))
+        if os.path.exists(log):
+            with open(log) as f:
+                lines += [f"{stem}: {ln}" for ln in ptxas_lines(f.read())]
     return lines
 
 

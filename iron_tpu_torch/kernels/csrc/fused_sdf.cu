@@ -4,7 +4,7 @@
 //
 // K2, iron_sdf_only_bf16, replaces the TPU kernel of
 //   iron_tpu/kernels/fused_sdf.py::make_pallas_sdf_only_bf16_fn (_sdf_only_kernel_bf16):
-//   x [N,3] -> sdf [N].
+//   x [N,3] -> sdf [N].  See the note above sdf_only_bf16_kernel.
 // K1, iron_coarse_march_bf16, replaces
 //   iron_tpu/kernels/fused_sdf.py::make_pallas_coarse_march_fn (_march_kernel_bf16):
 //   the whole masked coarse march, acc += sdf(ro + rd*acc) until |sdf| <= thr or
@@ -15,15 +15,15 @@
 //   f32-class accuracy, every product hi*Whi + hi*Wlo + lo*Whi (split3.cuh).
 //   See the note above sdf_only_3pass_kernel.
 //
-// What bounds K1 and K2 on an H100: the chain is 9 dense layers of 256 per
-// point, about 0.92 MFLOP a point (459,008 MACs to the sdf column) against
-// 12-40 bytes of input and output, so both are bound by tensor-core
-// operations, not by device memory.  The bf16 weights (about 1.1 MB) do not
-// fit in a block's shared memory; each block keeps only its 64-row activation
-// tile on chip (two 33 KB bf16 buffers and the PE tile) and streams every
-// layer's weights from L2 as pre-packed mma fragments.  K2 runs the shared
-// body of sdf_mlp_bf16.cuh, one block a tile.  K1 is a persistent launch
-// that compacts the active rays between iterations: see the K1 note below.
+// What bounds K1, K2 and K4 on an H100: the chain is 9 dense layers of 256
+// per point, about 0.92 MFLOP a point (459,008 MACs to the sdf column)
+// against 12-40 bytes of input and output, so tensor-core operations bound
+// them, not device memory.  The bf16 weights (about 0.97 MB) do not fit in a
+// block's shared memory; every tile streams them from L2: K1 and K4 as
+// pre-packed mma fragments straight into registers, K2 through a ring of
+// k-tiles in shared memory that two warpgroups share.  K1 is a persistent
+// launch that compacts the active rays between iterations: see the K1 note
+// below.
 #include "sdf_mlp_bf16.cuh"
 #include "split3.cuh"
 
@@ -38,23 +38,6 @@ __device__ __forceinline__ void load_scaled(float (*y)[3], const float* __restri
     const int r = i / 3, j = i % 3;
     y[r][j] = (row0 + r < n) ? x[(size_t)(row0 + r) * 3 + j] * scale : 0.0f;
   }
-}
-
-__global__ void __launch_bounds__(THREADS)
-sdf_only_bf16_kernel(const float* __restrict__ x, int n,
-                     const uint2* __restrict__ wpack, const float* __restrict__ bias,
-                     const __nv_bfloat16* __restrict__ wlast, int n_layers, int skip,
-                     int d_embed, float scale, float inv_scale, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  MlpSmem& sm = *reinterpret_cast<MlpSmem*>(smem_raw);
-  const int row0 = blockIdx.x * ROWS;
-  load_scaled(sm.y, x, n, row0, scale);
-  __syncthreads();
-  fill_pe(sm, d_embed);
-  __syncthreads();
-  mlp_eval(sm, wpack, bias, wlast, n_layers, skip);
-  if (threadIdx.x < ROWS && row0 + threadIdx.x < n)
-    out[row0 + threadIdx.x] = sm.out[threadIdx.x] * inv_scale;
 }
 
 // ---------------------------------------------------------------------------
@@ -310,6 +293,250 @@ cudaError_t launch_3pass(const float* x, int n, const void* whi, const void* wlo
 }
 
 // ---------------------------------------------------------------------------
+// K2, the fallback sweep's coarse SDF.  A call holds 131,072 points (1,024
+// rays x 128 samples): the card is full, and what a tile costs is its share
+// of the weight stream and of the products and epilogues.  The design for
+// Hopper's warpgroups:
+//
+//   * One CTA an SM (a persistent grid) takes 128 rows at a time: two
+//     consumer warpgroups of 64 rows each and one producer warpgroup, of
+//     which one thread works.  Every weight byte that reaches the SM serves
+//     both consumer warpgroups, 128 rows (the body K2 had before read all
+//     0.97 MB of weights from L2 for every 64 rows).  The producer gives its
+//     registers to the consumers (setmaxnreg: 24 and 240 a thread).
+//   * The producer streams the weights, k-tile after k-tile in the order of
+//     the layers, with one bulk copy (TMA, 1-D, no tensor map) of 8 KB a
+//     k-tile into a ring of STAGES k-tiles in shared memory, completed on a
+//     "full" mbarrier a stage; each consumer warpgroup frees a stage on its
+//     "empty" mbarrier once the products that read it are done.  The host
+//     packs each k-tile in the order the wgmma descriptor reads it, swizzle
+//     included (kernels/fused_sdf.py::pack_wgmma_b), so a plain copy lands
+//     it.
+//   * Each hidden layer is a chain of wgmma.mma_async m64n256k16 (bf16, f32
+//     accumulation) a warpgroup, one a k-tile, A from registers and B from
+//     the ring, INFLIGHT products in flight behind the one issued.  The
+//     accumulator of a 256-wide layer has the layout of the next layer's A
+//     fragments for K = 256, so the epilogue (bias, the SFU softplus, bf16)
+//     writes the next layer's A straight into registers: activations never
+//     go back to shared memory.  The PE tile (48 columns, 3 k-tiles) is read
+//     from shared memory by ldmatrix, for layer 0 and the skip; the skip's
+//     1/sqrt(2) is applied after its sum, as K1 does.
+//   * The two warpgroups take turns at the tensor cores, so that one's
+//     products run during the other's epilogue (14% faster than in
+//     lockstep).
+//   * The final layer (the sdf column) sums each row on the CUDA cores in a
+//     fixed order: a row's 256 values lie in one quad of lanes, each lane
+//     sums its 64, then two shuffles.
+//
+// What bounds it on an H100 (PERF.md; scripts/trace_kernels_torch.py,
+// scripts/ablate_k2_k5_torch.py): the epilogues, about half of a tile's
+// cycles (two SFU operations and ~9 others a value, 128 values a thread a
+// layer), then the products; not the weight stream: with the copies past
+// the first ring left out the call takes as long.  A 2-CTA cluster that
+// multicasts each k-tile into both rings (256 rows a weight read) and K2 on
+// K1's evaluation (mma.sync, two 64-row CTAs an SM) were built and timed
+// slower; the ablation script builds both.
+//
+// Shared memory ~208 KB a CTA (the ring 192 KB, two PE tiles, the rows'
+// points, the barriers); 384 threads.
+namespace k2 {
+
+constexpr int WG_ROWS = 64;                    // rows of a consumer warpgroup
+constexpr int CONSUMERS = 2;                   // consumer warpgroups a CTA
+constexpr int TILE = CONSUMERS * WG_ROWS;      // rows a CTA takes at a time
+constexpr int THREADS = 128 * (CONSUMERS + 1); // and the producer warpgroup
+constexpr int STAGES = 24;                     // k-tiles in the ring: a layer and a half
+constexpr int KT_BYTES = 16 * HID * 2;         // a bf16 16 x 256 k-tile
+
+struct Smem {
+  unsigned char ring[STAGES][KT_BYTES];        // first: 1024-byte aligned
+  __nv_bfloat16 pe[CONSUMERS][WG_ROWS * P_STRIDE];
+  float y[TILE][3];
+  uint64_t full[STAGES];
+  uint64_t empty[STAGES];
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+}  // namespace k2
+
+// wg: the swizzled k-tiles of the hidden layers in layer order (n_ktiles of
+// them; the skip layer's hidden then PE matrix); bias and wlast as K1's.
+__global__ void __launch_bounds__(k2::THREADS, 1)
+sdf_only_bf16_kernel(const float* __restrict__ x, int n, const unsigned char* __restrict__ wg,
+                     int n_ktiles, const float* __restrict__ bias,
+                     const __nv_bfloat16* __restrict__ wlast, int n_layers, int skip,
+                     int d_embed, float scale, float inv_scale, float* __restrict__ out) {
+  using namespace k2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles = (n + TILE - 1) / TILE;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMERS);   // a thread of each consumer warpgroup
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * CONSUMERS) {
+    // ---- the producer: the weight stream, once a tile ----
+    setmaxnreg_dec<24>();
+    if (tid == 128 * CONSUMERS) {
+      uint32_t c = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        for (int k = 0; k < n_ktiles; ++k, ++c) {
+          const int s = c % STAGES;
+          if (c >= STAGES) mbar_wait(&sm.empty[s], (c / STAGES - 1) & 1);
+          mbar_arrive_expect_tx(&sm.full[s], KT_BYTES);
+          bulk_load(sm.ring[s], wg + (size_t)k * KT_BYTES, KT_BYTES, &sm.full[s]);
+        }
+      }
+    }
+  } else {
+    // ---- a consumer warpgroup: rows [64 wgi, 64 wgi + 64) of each tile ----
+    setmaxnreg_inc<240>();
+    const int wgi = warp >> 2, wwarp = warp & 3, wtid = tid & 127;
+    // the two warpgroups take turns at the tensor cores (named barriers 3
+    // and 4), warpgroup 0 first: one's products run during the other's
+    // epilogue
+    if (wgi == 1) named_arrive(3, 256);
+    const int g = lane >> 2, t = lane & 3;
+    __nv_bfloat16* pe = sm.pe[wgi];
+    float (*y)[3] = sm.y + wgi * WG_ROWS;
+    uint32_t c = 0;   // the k-tile of the stream
+    float acc[128];
+    uint32_t a[HID / 16][4];
+    // this warpgroup is done with the stage of k-tile ck (its wgmma waits
+    // have returned)
+    auto release = [&](uint32_t ck) {
+      if (wtid == 0) mbar_arrive(&sm.empty[ck % STAGES]);
+    };
+    // acc (+)= A @ k-tile c, the i-th product of a layer (i = 0 overwrites
+    // acc); once the product INFLIGHT before it is done, free that one's stage
+    constexpr int INFLIGHT = 1;   // products in flight behind the one issued
+    auto product = [&](const uint32_t (&ar)[4], int i) {
+      const int s = c % STAGES;
+      mbar_wait(&sm.full[s], (c / STAGES) & 1);
+      wgmma_fence();
+      wgmma_m64n256k16_bf16(acc, ar, wgmma_desc_k16_sw32(sm.ring[s]), i > 0 ? 1 : 0);
+      wgmma_commit();
+      if (i >= INFLIGHT) {
+        wgmma_wait<INFLIGHT>();
+        release(c - INFLIGHT);
+      }
+      ++c;
+    };
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int row0 = tile * TILE + wgi * WG_ROWS;
+      named_sync(1 + wgi, 128);   // the tile before is done with y and the PE tile
+      for (int i = wtid; i < WG_ROWS * 3; i += 128) {
+        const int r = i / 3, j = i % 3;
+        y[r][j] = (row0 + r < n) ? x[(size_t)(row0 + r) * 3 + j] * scale : 0.0f;
+      }
+      named_sync(1 + wgi, 128);
+      fill_pe_sincos(pe, y, WG_ROWS, d_embed, wtid, 128);
+      named_sync(1 + wgi, 128);
+
+      for (int l = 0; l < n_layers - 1; ++l) {
+        uint32_t ape[PE_W / 16][4];
+        const bool pe_in = (l == 0 || l == skip);
+        if (pe_in) {
+#pragma unroll
+          for (int kt = 0; kt < PE_W / 16; ++kt) k4::load_a_ldm(pe, P_STRIDE, wwarp, kt, ape[kt]);
+        }
+#pragma unroll
+        for (int i = 0; i < 128; ++i) reg_fence(acc[i]);
+        named_sync(3 + wgi, 256);   // this warpgroup's turn
+        int products = 0;   // of this layer
+        if (l == 0) {
+#pragma unroll
+          for (int kt = 0; kt < PE_W / 16; ++kt) product(ape[kt], products++);
+        } else {
+#pragma unroll
+          for (int kt = 0; kt < HID / 16; ++kt) product(a[kt], products++);
+          if (l == skip) {
+#pragma unroll
+            for (int kt = 0; kt < PE_W / 16; ++kt) product(ape[kt], products++);
+          }
+        }
+        named_arrive(4 - wgi, 256);   // the other warpgroup's turn
+        wgmma_wait<0>();
+        for (int q = min(INFLIGHT, products); q >= 1; --q) release(c - q);
+        // the products are done with their registers
+#pragma unroll
+        for (int i = 0; i < 128; ++i) reg_fence(acc[i]);
+#pragma unroll
+        for (int kt = 0; kt < HID / 16; ++kt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) reg_fence(a[kt][e]);
+        if (pe_in) {
+#pragma unroll
+          for (int kt = 0; kt < PE_W / 16; ++kt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) reg_fence(ape[kt][e]);
+        }
+        // z = acc * post + b; softplus; bf16: the next layer's A fragments.
+        // Columns 16 kt + 2 t (+1) are n-tile 2 kt, 16 kt + 8 + 2 t (+1)
+        // n-tile 2 kt + 1; rows g and g + 8 of the warp's 16.
+        const float post = (l == skip) ? INV_SQRT2 : 1.0f;
+        const float* bl = bias + l * HID;
+#pragma unroll
+        for (int kt = 0; kt < HID / 16; ++kt) {
+          const float2 b0 = __ldg(reinterpret_cast<const float2*>(bl + 16 * kt + 2 * t));
+          const float2 b1 = __ldg(reinterpret_cast<const float2*>(bl + 16 * kt + 8 + 2 * t));
+          const float* d = acc + 8 * kt;
+          a[kt][0] = pack_bf16(k4::softplus100_fast(d[0] * post + b0.x),
+                               k4::softplus100_fast(d[1] * post + b0.y));
+          a[kt][1] = pack_bf16(k4::softplus100_fast(d[2] * post + b0.x),
+                               k4::softplus100_fast(d[3] * post + b0.y));
+          a[kt][2] = pack_bf16(k4::softplus100_fast(d[4] * post + b1.x),
+                               k4::softplus100_fast(d[5] * post + b1.y));
+          a[kt][3] = pack_bf16(k4::softplus100_fast(d[6] * post + b1.x),
+                               k4::softplus100_fast(d[7] * post + b1.y));
+        }
+      }
+
+      // final layer, the sdf column of rows g and g + 8: this lane's 64
+      // products each, then the quad's sum
+      float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+      for (int kt = 0; kt < HID / 16; ++kt) {
+        const uint32_t* wl = reinterpret_cast<const uint32_t*>(wlast + 16 * kt + 2 * t);
+        const float2 w0 = unpack_bf16(__ldg(wl)), w1 = unpack_bf16(__ldg(wl + 4));
+        const float2 h0 = unpack_bf16(a[kt][0]), h1 = unpack_bf16(a[kt][1]);
+        const float2 h2 = unpack_bf16(a[kt][2]), h3 = unpack_bf16(a[kt][3]);
+        s0 = fmaf(h0.x, w0.x, s0);
+        s0 = fmaf(h0.y, w0.y, s0);
+        s0 = fmaf(h2.x, w1.x, s0);
+        s0 = fmaf(h2.y, w1.y, s0);
+        s1 = fmaf(h1.x, w0.x, s1);
+        s1 = fmaf(h1.y, w0.y, s1);
+        s1 = fmaf(h3.x, w1.x, s1);
+        s1 = fmaf(h3.y, w1.y, s1);
+      }
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+      const int r = row0 + 16 * wwarp + g;
+      const float b_last = __ldg(bias + (n_layers - 1) * HID);
+      if (t == 0 && r < n) out[r] = (s0 + b_last) * inv_scale;
+      if (t == 0 && r + 8 < n) out[r + 8] = (s1 + b_last) * inv_scale;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K1, the coarse march.  A training step marches 16,384 and 2,048 rays, of
 // which a few thousand march at all and a few hundred are still marching
 // after five iterations; a 512² view marches 262,144.  So the march is a
@@ -323,8 +550,11 @@ cudaError_t launch_3pass(const float* x, int n, const void* whi, const void* wlo
 //     list of active ray indices; iteration i takes its 64-ray tiles from
 //     list i and appends the rays still active to list i + 1 (a
 //     warp-aggregated atomicAdd).  The grid meets at a barrier between
-//     iterations (sm90.cuh::grid_sync; every CTA is resident by
-//     construction) and leaves together when a list is empty.  A block
+//     iterations (sm90.cuh::grid_sync) and leaves together when a list is
+//     empty.  The launch is cooperative: every CTA is resident at once
+//     whatever else runs on the card (another stream's kernel, a cap on the
+//     SMs), or the launch fails; a grid sized from an idle card's occupancy
+//     and launched plainly could spin at the barrier.  A block
 //     marches no ray that has stopped: a 512² view's march takes 20,082
 //     tile-evaluations where one 64-ray block a tile to its slowest ray
 //     took 36,652.  No host sync: the wrapper allocates the lists and
@@ -351,6 +581,7 @@ cudaError_t launch_3pass(const float* x, int n, const void* whi, const void* wlo
 namespace k1 {
 
 constexpr int PF = 4;   // k-tiles of B fragments in flight
+constexpr int SM_SLOTS = 1024;   // CTA counts by %smid (coarse_march_kernel)
 
 struct Smem {
   __nv_bfloat16 act[2][ROWS * H_STRIDE];
@@ -360,6 +591,7 @@ struct Smem {
   float acc[ROWS];     // each row's marched distance
   int ray[ROWS];       // each row's ray, -1 for an empty row
   int count;           // the active list's length, read after a grid barrier
+  int place;           // where this CTA takes its tiles from iteration 0 on
 };
 
 struct Args {
@@ -382,6 +614,7 @@ struct Args {
   int* lists;          // two lists of n ray indices, used in turns
   int* counts;         // n_iters + 1 list lengths, zero at launch
   unsigned* barrier;   // grid barrier count, zero at launch
+  unsigned* places;    // 2 + SM_SLOTS counts of CTAs, zero at launch (coarse_march_kernel)
 };
 
 // sm.out[r] = sdf(sm.y[r]) * scale for the tile's 64 rows; warp w computes
@@ -405,23 +638,7 @@ __device__ void eval_tile(Smem& sm, const Args& p) {
 #pragma unroll
   for (int i = 0; i < PF; ++i) fetch(i, bh[i]);
 
-  // the PE tile: sin and cos of one angle from one sincosf (the reference
-  // column order: x, then sin(2^k x) and cos(2^k x) blocks of 3), the
-  // identity columns and the zero padding
-  const int n_freq = (p.d_embed - 3) / 6;
-  for (int i = tid; i < ROWS * 3 * n_freq; i += THREADS) {
-    const int r = i / (3 * n_freq), k = (i / 3) % n_freq, j = i % 3;
-    float sn, cs;
-    sincosf(ldexpf(sm.y[r][j], k), &sn, &cs);   // exact: y * 2^k
-    __nv_bfloat16* row = sm.pe + r * P_STRIDE + 3 + 6 * k + j;
-    row[0] = __float2bfloat16_rn(sn);
-    row[3] = __float2bfloat16_rn(cs);
-  }
-  for (int i = tid; i < ROWS * (PE_W - p.d_embed + 3); i += THREADS) {
-    const int r = i / (PE_W - p.d_embed + 3), c = i % (PE_W - p.d_embed + 3);
-    sm.pe[r * P_STRIDE + (c < 3 ? c : p.d_embed + c - 3)] =
-        __float2bfloat16_rn(c < 3 ? sm.y[r][c] : 0.0f);
-  }
+  fill_pe_sincos(sm.pe, sm.y, ROWS, p.d_embed, tid, THREADS);
   __syncthreads();
 
   int c = 0;
@@ -503,13 +720,13 @@ __device__ void eval_tile(Smem& sm, const Args& p) {
 }
 
 // One iteration of the march over its m active rays (list == nullptr:
-// iteration -1, every ray at acc0): CTA b takes the 64-ray tiles b, b +
-// gridDim.x, ...
-__device__ void march_iteration(Smem& sm, const Args& p, int m, const int* list, int* next,
-                                int* next_count) {
+// iteration -1, every ray at acc0): the CTA takes the 64-ray tiles block,
+// block + gridDim.x, ...
+__device__ void march_iteration(Smem& sm, const Args& p, int m, int block, const int* list,
+                                int* next, int* next_count) {
   const int tid = threadIdx.x, lane = tid & 31;
   const int tiles = (m + ROWS - 1) / ROWS;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (int tile = block; tile < tiles; tile += gridDim.x) {
     if (tid < ROWS) {
       const int j = tile * ROWS + tid;
       int ray = -1;
@@ -561,16 +778,32 @@ coarse_march_kernel(const __grid_constant__ k1::Args p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   int m = p.n;
+  // From iteration 0 on, an iteration's few tiles go to the CTAs in an order
+  // that puts the CTAs first on their SM before the second ones: a
+  // cooperative launch places CTAs two to an SM from the start (CTAs k and
+  // k + 8 share one), and block order would crowd the tiles onto half as
+  // many SMs, two weight streams an SM.
+  if (threadIdx.x == 0) {
+    unsigned smid;
+    asm volatile("mov.u32 %0, %%smid;\n" : "=r"(smid));
+    const bool first = atomicAdd(p.places + 2 + smid % SM_SLOTS, 1u) == 0;
+    sm.place = first ? (int)atomicAdd(p.places, 1u) : -1 - (int)atomicAdd(p.places + 1, 1u);
+  }
   for (int it = -1; it < p.n_iters; ++it) {
     if (it >= 0) {
       grid_sync(p.barrier, (unsigned)(it + 1) * gridDim.x);
-      if (threadIdx.x == 0) sm.count = (int)ld_acquire((const unsigned*)(p.counts + it));
+      if (threadIdx.x == 0) {
+        sm.count = (int)ld_acquire((const unsigned*)(p.counts + it));
+        // every CTA has counted itself before the first barrier
+        if (sm.place < 0) sm.place = (int)ld_acquire(p.places) - 1 - sm.place;
+      }
       __syncthreads();
       m = sm.count;
       __syncthreads();
       if (m == 0) break;   // the same m in every CTA: the grid leaves together
     }
-    march_iteration(sm, p, m, it < 0 ? nullptr : p.lists + (size_t)(it & 1) * p.n,
+    march_iteration(sm, p, m, it < 0 ? (int)blockIdx.x : sm.place,
+                    it < 0 ? nullptr : p.lists + (size_t)(it & 1) * p.n,
                     p.lists + (size_t)((it + 1) & 1) * p.n, p.counts + it + 1);
   }
 }
@@ -579,24 +812,51 @@ coarse_march_kernel(const __grid_constant__ k1::Args p) {
 
 extern "C" {
 
-int iron_mlp_smem_bytes() { return (int)sizeof(MlpSmem); }
-
 const char* iron_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-int iron_sdf_only_bf16(const float* x, int n, const void* wpack, const float* bias,
-                       const void* wlast, int n_layers, int skip, int d_embed,
-                       float scale, float* out, void* stream) {
+// The CTAs of K2 the card holds at once (one an SM); -1 on error.
+int iron_sdf_only_bf16_ctas() {
+  const int smem = (int)sizeof(k2::Smem) + 1024;   // and the ring's alignment
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaFuncSetAttribute(sdf_only_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sdf_only_bf16_kernel, k2::THREADS,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return per_sm * sms;
+}
+
+// wg: n_ktiles swizzled k-tiles of 16 x 256 bf16 (kernels/fused_sdf.py::
+// pack_wgmma_b); ctas: the persistent grid (kernels/fused_sdf.py::k2_tiling).
+int iron_sdf_only_bf16(const float* x, int n, const void* wg, int n_ktiles, const float* bias,
+                       const void* wlast, int n_layers, int skip, int d_embed, float scale,
+                       float* out, int ctas, void* stream) {
   if (n <= 0) return 0;
-  const int smem = (int)sizeof(MlpSmem);
+  if (ctas < 1) return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(k2::Smem) + 1024;   // and the ring's alignment
   cudaError_t e = cudaFuncSetAttribute(sdf_only_bf16_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const int grid = (n + ROWS - 1) / ROWS;
-  sdf_only_bf16_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, n, (const uint2*)wpack, bias, (const __nv_bfloat16*)wlast, n_layers, skip,
-      d_embed, scale, 1.0f / scale, out);
+  sdf_only_bf16_kernel<<<ctas, k2::THREADS, smem, (cudaStream_t)stream>>>(
+      x, n, (const unsigned char*)wg, n_ktiles, bias, (const __nv_bfloat16*)wlast, n_layers,
+      skip, d_embed, scale, 1.0f / scale, out);
   return (int)cudaGetLastError();
 }
+
+// 1 when the card can launch a cooperative grid (K1's launch), 0 when it
+// cannot, -1 on error.
+int iron_cooperative_launch() {
+  int dev = 0, coop = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) != cudaSuccess)
+    return -1;
+  return coop ? 1 : 0;
+}
+
+// The ints of K1's counts past the list lengths and the barrier's count.
+int iron_coarse_march_places() { return 2 + k1::SM_SLOTS; }
 
 // The CTAs of K1 that the card holds at once; -1 on error.
 int iron_coarse_march_ctas() {
@@ -612,9 +872,10 @@ int iron_coarse_march_ctas() {
   return per_sm * sms;
 }
 
-// ctas: the persistent grid, at most iron_coarse_march_ctas().  lists: 2 n
-// ints; counts: n_iters + 2 ints, zero (the list lengths, then the grid
-// barrier's count).
+// ctas: the persistent grid, at most iron_coarse_march_ctas() (a larger grid
+// returns cudaErrorCooperativeLaunchTooLarge).  lists: 2 n ints; counts:
+// n_iters + 2 + iron_coarse_march_places() ints, zero (the list lengths, the
+// grid barrier's count, the counts of the CTAs' places).
 int iron_coarse_march_bf16(const float* ray_o, const float* ray_d, const float* acc0,
                            const void* work, const float* max_dis, int n, int n_iters,
                            float threshold, const void* wpack, int n_ktiles, const float* bias,
@@ -630,8 +891,25 @@ int iron_coarse_march_bf16(const float* ray_o, const float* ray_d, const float* 
   const k1::Args p = {ray_o, ray_d, acc0, (const uint8_t*)work, max_dis, n, n_iters, threshold,
                       (const uint2*)wpack, n_ktiles, bias, (const __nv_bfloat16*)wlast,
                       n_layers, skip, d_embed, scale, 1.0f / scale, acc_out, sdf_out,
-                      (uint8_t*)act_out, lists, counts, (unsigned*)(counts + n_iters + 1)};
-  coarse_march_kernel<<<ctas, THREADS, smem, (cudaStream_t)stream>>>(p);
+                      (uint8_t*)act_out, lists, counts, (unsigned*)(counts + n_iters + 1),
+                      (unsigned*)(counts + n_iters + 2)};
+  // A cooperative launch: every CTA is resident at once, or the launch
+  // fails (cudaErrorCooperativeLaunchTooLarge) and nothing runs.
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(ctas, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, coarse_march_kernel, p);
+  if (e != cudaSuccess) {
+    cudaGetLastError();   // a refused launch leaves no error for the next one to report
+    return (int)e;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -9,10 +9,11 @@
 // K3 backward, iron_sdf_value_feat_grad_bwd, replaces its backward kernel
 // (_bwd_kernel through _core_bwd): see the note above sdf_grad_bwd_kernel.
 // K5, iron_sdf_full, replaces iron_tpu/kernels/fused_sdf.py::make_pallas_sdf_fn
-// (_kernel, _mlp_body): K3's forward sweep alone, [sdf / scale, features]
-// for every point, f32.  524,544 MACs a point (the hidden chain and all 257
-// outputs) against 1,040 bytes (12 in, 257 x 4 out), so f32 operations
-// bound it too; TF32 would break the JAX package's 2e-5 hold on it.
+// (_kernel, _mlp_body): K3-fwd's forward sweep alone (sdf_grad_fwd_kernel
+// with GRAD = false), [sdf / scale, features] for every point at f32 class.
+// 524,544 MACs a point (the hidden chain and all 257 outputs) against 1,040
+// bytes (12 in, 257 x 4 out), so operations bound it: 1.67 ms on 262,144
+// points as 3xTF32 (its route), 4.12 ms in f32 on the CUDA cores.
 //
 // Layout (kernels/fused_sdf_grad.py::prepare_grad_weights): PE in reference
 // column order padded to 48; hidden 256; the layer feeding the skip padded to
@@ -25,10 +26,7 @@
 // forward to 257 outputs and the reverse sweep) against about 1 KB of
 // output, so operations bound it: 3.12 ms on 262,144 points as 3xTF32 on
 // the tensor cores (its route: three tf32 products a MAC), 7.71 ms in f32
-// on the CUDA cores.  See the note above sdf_grad_fwd_kernel.  K5 keeps the
-// f32 forward sweep below on the CUDA cores, one block a 64-row tile, one
-// thread per output column accumulating the rows in registers from
-// broadcast float4 reads of the activation tile.
+// on the CUDA cores.  See the note above sdf_grad_fwd_kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,18 +36,9 @@ using namespace iron;
 
 namespace {
 
-constexpr int ROWS = 64;
 constexpr int HID = 256;
 constexpr int PE_W = 48;
 constexpr int THREADS = 256;
-
-struct GradSmem {
-  float act[ROWS * HID];     // activations in the forward sweep, u in the reverse
-  float pe[ROWS * PE_W];     // PE(y)
-  float d1[ROWS * PE_W];     // dPE/dy
-  float a0cot[ROWS * PE_W];  // cotangent of the PE input
-  float y[ROWS][3];
-};
 
 __device__ __forceinline__ float softplus100(float z) {
   const float t = 100.0f * z;
@@ -60,142 +49,8 @@ __device__ __forceinline__ float sigmoid100(float z) {
   return 1.0f / (1.0f + expf(-100.0f * z));
 }
 
-// acc[r] += sum_k A[r][k] * W[k*ldw + c] for the 64 rows of the tile
-// (K a multiple of 4, A 16-byte aligned rows).
-__device__ __forceinline__ void col_gemm(const float* A, int lda, int K,
-                                         const float* __restrict__ W, int ldw, int c,
-                                         float (&acc)[ROWS]) {
-  for (int k = 0; k < K; k += 4) {
-    const float w0 = __ldg(W + (size_t)(k + 0) * ldw + c);
-    const float w1 = __ldg(W + (size_t)(k + 1) * ldw + c);
-    const float w2 = __ldg(W + (size_t)(k + 2) * ldw + c);
-    const float w3 = __ldg(W + (size_t)(k + 3) * ldw + c);
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(A + r * lda + k);
-      acc[r] = fmaf(a.x, w0, acc[r]);
-      acc[r] = fmaf(a.y, w1, acc[r]);
-      acc[r] = fmaf(a.z, w2, acc[r]);
-      acc[r] = fmaf(a.w, w3, acc[r]);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[ROWS]) {
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
-}
-
-// The tile of rows [row0, row0 + 64): sm.y = x * scale, sm.pe = PE(y),
-// sm.d1 = dPE/dy (zero past d_embed), sm.a0cot cleared.  Ends with a barrier.
-__device__ __forceinline__ void load_tile(GradSmem& sm, const float* __restrict__ x, int n,
-                                          int row0, float scale, int d_embed) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < ROWS * 3; i += THREADS) {
-    const int r = i / 3, j = i % 3;
-    sm.y[r][j] = (row0 + r < n) ? x[(size_t)(row0 + r) * 3 + j] * scale : 0.0f;
-  }
-  __syncthreads();
-  for (int i = tid; i < ROWS * PE_W; i += THREADS) {
-    const int r = i / PE_W, c = i % PE_W;
-    float v = 0.0f, d = 0.0f;
-    if (c < d_embed) {
-      if (c < 3) {
-        v = sm.y[r][c];
-        d = 1.0f;
-      } else {
-        const int q = (c - 3) / 3;          // sin block (even q) or cos block, frequency q/2
-        const float f = ldexpf(1.0f, q >> 1);
-        const float a = sm.y[r][(c - 3) % 3] * f;
-        const float sa = sinf(a), ca = cosf(a);
-        v = (q & 1) ? ca : sa;
-        d = (q & 1) ? -f * sa : f * ca;
-      }
-    }
-    sm.pe[i] = v;
-    sm.d1[i] = d;
-    sm.a0cot[i] = 0.0f;
-  }
-  __syncthreads();
-}
-
-// The forward sweep of the tile in sm.pe through every layer.  Hidden
-// activations go to sm.act and, when sp_base is not null, sigmoid(100 z) of
-// hidden layer l to sp_base + l * 64 * 256.  The final layer writes, for the
-// rows below n, value[row * vstride] = z_0 / scale and
-// feat[row * fstride + c - 1] = z_c (c >= 1).  wfwd: layer matrices
-// [K_l x N_l] in layer order (skip layer: W_h then W_pe); bias: (n_layers-1)
-// x 256 then d_out.  Every loop over the 64 rows of acc is fully unrolled,
-// so acc stays in registers.  Ends with a barrier.
-__device__ __forceinline__ void forward_sweep(GradSmem& sm, const float* __restrict__ wfwd,
-                                              const float* __restrict__ bias, int n_layers,
-                                              int skip, int d_out, float scale, int row0, int n,
-                                              float* __restrict__ sp_base,
-                                              float* __restrict__ value, int vstride,
-                                              float* __restrict__ feat, int fstride) {
-  const int tid = threadIdx.x;
-  float acc[ROWS];
-  const float* w = wfwd;
-  for (int l = 0; l < n_layers; ++l) {
-    const bool last = (l == n_layers - 1);
-    const int K = (l == 0) ? PE_W : HID;
-    const int N = last ? d_out : HID;
-    const float* A = (l == 0) ? sm.pe : sm.act;
-    const float* bl = bias + l * HID;
-    for (int c0 = 0; c0 < N; c0 += THREADS) {
-      const int c = c0 + tid;
-      zero(acc);
-      if (c < N) {
-        col_gemm(A, K, K, w, N, c, acc);
-        if (l == skip) col_gemm(sm.pe, PE_W, PE_W, w + (size_t)K * N, N, c, acc);
-      }
-      if (!last) {
-        __syncthreads();  // every read of the input tile is done
-        const float b = __ldg(bl + c);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) sm.act[r * HID + c] = softplus100(acc[r] + b);
-        if (sp_base != nullptr) {
-          float* sp = sp_base + (size_t)l * ROWS * HID;
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r) sp[r * HID + c] = sigmoid100(acc[r] + b);
-        }
-        __syncthreads();
-      } else if (c < N) {
-        const float b = __ldg(bl + c);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          if (row0 + r < n) {
-            const float z = acc[r] + b;
-            if (c == 0)
-              value[(size_t)(row0 + r) * vstride] = z / scale;
-            else
-              feat[(size_t)(row0 + r) * fstride + (c - 1)] = z;
-          }
-        }
-      }
-    }
-    w += (size_t)K * N + ((l == skip) ? (size_t)PE_W * N : 0);
-  }
-  __syncthreads();  // the final layer's reads of act are done
-}
-
-// K5: the forward sweep alone, one 64-row tile a block, writing out[row] =
-// [z_0 / scale, z_1, ..., z_{d_out-1}] (d_out floats a row).
-__global__ void __launch_bounds__(THREADS)
-sdf_full_kernel(const float* __restrict__ x, int n, const float* __restrict__ wfwd,
-                const float* __restrict__ bias, int n_layers, int skip, int d_embed, int d_out,
-                float scale, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  GradSmem& sm = *reinterpret_cast<GradSmem*>(smem_raw);
-  const int row0 = blockIdx.x * ROWS;
-  load_tile(sm, x, n, row0, scale, d_embed);
-  forward_sweep(sm, wfwd, bias, n_layers, skip, d_out, scale, row0, n, nullptr, out, d_out,
-                out + 1, d_out);
-}
-
 // Offset of layer l's first matrix in the concatenated layout (the skip
-// layer's PE matrix follows its hidden one).  For l < n_layers it is also the
-// offset of layer l's transposes in the hidden-transposes buffer.
+// layer's PE matrix follows its hidden one).
 __device__ __forceinline__ size_t mat_off(int l, int n_layers, int skip, int d_out) {
   size_t off = 0;
   for (int m = 0; m < l; ++m) {
@@ -904,18 +759,29 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part, int block
 //     which also writes the gradient.  The final layer's first 256
 //     columns go as the hidden layers'; its last (d_out = 257) is an f32
 //     dot product on the CUDA cores of the last CTA.
+//
+// K5 is this kernel with GRAD = false: the forward chain and the final
+// layer alone, without the u-chain, the sigmoid store and its scratch, one
+// CTA a tile on a persistent grid.  With a single row tile (a barrier a
+// layer between the products and the epilogue) a tile fits 96 and 128 rows
+// as well as 64: each weight k-step then serves more rows.  96 rows measured
+// fastest on the sweep's 262,144 points (64 rows re-read the weights a
+// third more often a point; at 128 the 3xTF32 operands spill registers),
+// and K5 is built for 96 alone (kernels/fused_sdf_grad.py::K5_ROWS;
+// PERF.md; scripts/ablate_k2_k5_torch.py builds the other heights).
 namespace k3f {
 
 constexpr int TS = HID + 4;    // row stride of the full-width tiles (conflict-free fragments)
 constexpr int PS = PE_W + 4;   // row stride of the PE panel
 constexpr int OUT_NT = 33;     // n-tiles of the final layer, d_out padded to 264
 
-template <int MT>
+// GRAD = false (K5): one row tile, no PE cotangent.
+template <int MT, bool GRAD = true>
 struct Smem {
-  float T[2][16 * MT * TS];   // full-width row tiles: a_l in the forward chain, u_l in the u-chain
-  float pe[16 * MT * PS];     // PE(y)
-  float d1[16 * MT * PE_W];   // dPE/dy (CTA 0)
-  float a0cot[16 * MT * PE_W];  // PE cotangent (CTA 0)
+  float T[GRAD ? 2 : 1][16 * MT * TS];   // full-width row tiles: a_l in the forward chain, u_l in the u-chain
+  float pe[16 * MT * PS];                // PE(y)
+  float d1[GRAD ? 16 * MT * PE_W : 1];      // dPE/dy (CTA 0)
+  float a0cot[GRAD ? 16 * MT * PE_W : 1];   // PE cotangent (CTA 0)
   float y[16 * MT][3];
 };
 
@@ -997,7 +863,11 @@ __device__ __forceinline__ void zero(float (&acc)[NJ][MT][4]) {
 // wlf: the final layer packed [256 x 264] (OUT_NT n-tiles).  sp: this
 // launch's sigmoid(100 z) store, (n_layers - 1) x 16 MT x 256 / CS floats a
 // CTA, in shared memory after the Smem when sp_on_chip, else in `scratch`.
-template <int MT, int CS>
+// GRAD = false is K5: the forward sweep alone, without the u-chain, the
+// sigmoid store and the gradient, on one row tile (a barrier a layer
+// between the products and the epilogue), CS = 1; row r's [sdf, features]
+// go to value[r * d_out ...] (feat = value + 1).
+template <int MT, int CS, bool GRAD = true>
 __global__ void __launch_bounds__(THREADS, 1)
 sdf_grad_fwd_kernel(const float* __restrict__ x, int n, const float2* __restrict__ wf,
                     const float2* __restrict__ wt2, const float2* __restrict__ wlf,
@@ -1006,12 +876,16 @@ sdf_grad_fwd_kernel(const float* __restrict__ x, int n, const float2* __restrict
                     float* __restrict__ value, float* __restrict__ feat,
                     float* __restrict__ grad, float* __restrict__ scratch, int sp_on_chip) {
   using namespace k3f;
+  static_assert(GRAD || CS == 1, "the forward sweep alone runs one CTA a tile");
   constexpr int R = 16 * MT;
   constexpr int OWN_NT = 32 / CS;        // n-tiles of a hidden layer a CTA owns
   constexpr int NJ = OWN_NT / 8;         // of them, a warp's
   constexpr int SLAB = 8 * NJ * MT * 2 * 32;   // float2 of one layer's own-column slab
+  const int vstride = GRAD ? 1 : d_out, fstride = GRAD ? d_out - 1 : d_out;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<MT>& sm = *reinterpret_cast<Smem<MT>*>(smem_raw);
+  Smem<MT, GRAD>& sm = *reinterpret_cast<Smem<MT, GRAD>*>(smem_raw);
+  // row tile b (one tile without the u-chain)
+  auto T = [&](int b) { return sm.T[GRAD ? b : 0]; };
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int rank = CS == 1 ? 0 : cluster_rank();
@@ -1019,7 +893,7 @@ sdf_grad_fwd_kernel(const float* __restrict__ x, int n, const float2* __restrict
   const int nh = n_layers - 1;
   const int j0 = rank * OWN_NT + warp * NJ;   // this warp's first n-tile of a hidden layer
   float2* sp = sp_on_chip
-                   ? reinterpret_cast<float2*>(smem_raw + sizeof(Smem<MT>))
+                   ? reinterpret_cast<float2*>(smem_raw + sizeof(Smem<MT, GRAD>))
                    : reinterpret_cast<float2*>(scratch) + (size_t)blockIdx.x * nh * SLAB;
   // this thread's element (j, m, h) of a layer's slab: fragment order
   auto si = [&](int l, int j, int m, int h) {
@@ -1028,13 +902,13 @@ sdf_grad_fwd_kernel(const float* __restrict__ x, int n, const float2* __restrict
   // write (v0, v1) at [row][col] of tile T[b] for this thread's element
   auto put = [&](int b, int j, int m, int h, float v0, float v1) {
     const int row = 16 * m + g + 8 * h, col = 8 * (j0 + j) + 2 * t;
-    *reinterpret_cast<float2*>(&sm.T[b][row * TS + col]) = make_float2(v0, v1);
+    *reinterpret_cast<float2*>(&T(b)[row * TS + col]) = make_float2(v0, v1);
   };
   // T[b] is complete in every CTA of the cluster
   auto share = [&](int b) {
     __syncthreads();
     if (CS > 1) {
-      cluster_spread(&sm.T[b][rank * OWN_NT * 8], TS * 4, R, OWN_NT * 32, CS);
+      cluster_spread(&T(b)[rank * OWN_NT * 8], TS * 4, R, OWN_NT * 32, CS);
       cluster_sync();
     }
   };
@@ -1054,7 +928,7 @@ sdf_grad_fwd_kernel(const float* __restrict__ x, int n, const float2* __restrict
       float v, d;
       k3b::pe_d1(sm.y[r], c, d_embed, v, d);
       sm.pe[r * PS + c] = v;
-      if (rank == 0) {
+      if (GRAD && rank == 0) {
         sm.d1[i] = d;
         sm.a0cot[i] = 0.0f;
       }
@@ -1070,9 +944,10 @@ sdf_grad_fwd_kernel(const float* __restrict__ x, int n, const float2* __restrict
       if (l == 0) {
         prod_rows_nj(acc, sm.pe, PS, PE_W / 8, wf + off, HID / 8, j0);
       } else {
-        prod_rows_nj(acc, sm.T[rb], TS, HID / 8, wf + off, HID / 8, j0);
+        prod_rows_nj(acc, T(rb), TS, HID / 8, wf + off, HID / 8, j0);
         if (l == skip) prod_rows_nj(acc, sm.pe, PS, PE_W / 8, wf + off + k3b::PACK_HID, HID / 8, j0);
       }
+      if (!GRAD) __syncthreads();   // every read of the one row tile is done
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int col = 8 * (j0 + j) + 2 * t;
@@ -1085,7 +960,7 @@ sdf_grad_fwd_kernel(const float* __restrict__ x, int n, const float2* __restrict
             softplus_sigmoid100(acc[j][m][2 * h] + b0, a0, s0);
             softplus_sigmoid100(acc[j][m][2 * h + 1] + b1, a1, s1);
             put(wb, j, m, h, a0, a1);
-            sp[si(l, j, m, h)] = make_float2(s0, s1);
+            if (GRAD) sp[si(l, j, m, h)] = make_float2(s0, s1);
           }
       }
       share(wb);
@@ -1103,23 +978,23 @@ sdf_grad_fwd_kernel(const float* __restrict__ x, int n, const float2* __restrict
           const int row = 16 * m + g + 8 * (e >> 1), c = 8 * jt + 2 * t + (e & 1);
           if (c < d_out && row0 + row < n) {
             const float z = acc[m][e] + __ldg(bias + nh * HID + c);
-            if (c == 0) value[row0 + row] = z / scale;
-            else feat[(size_t)(row0 + row) * (d_out - 1) + c - 1] = z;
+            if (c == 0) value[(size_t)(row0 + row) * vstride] = z / scale;
+            else feat[(size_t)(row0 + row) * fstride + c - 1] = z;
           }
         }
     };
     {
       float acc[NJ][MT][4];
       zero(acc);
-      prod_rows_nj(acc, sm.T[rb], TS, HID / 8, wlf, OUT_NT, j0);
+      prod_rows_nj(acc, T(rb), TS, HID / 8, wlf, OUT_NT, j0);
 #pragma unroll
       for (int j = 0; j < NJ; ++j) write_out(j0 + j, acc[j]);
     }
-    if (rank == CS - 1 && tid < 4 * R) {
-      // the columns past 256 (d_out 257: one) on the CUDA cores, in f32:
-      // four threads a row, 64 products each, then two shuffles
-      const int r = tid >> 2, q = tid & 3;
-      const float* a = sm.T[rb] + r * TS + 64 * q;
+    // the columns past 256 (d_out 257: one) on the CUDA cores, in f32:
+    // four threads a row, 64 products each, then two shuffles
+    for (int i = tid; rank == CS - 1 && i < 4 * R; i += THREADS) {
+      const int r = i >> 2, q = i & 3;
+      const float* a = T(rb) + r * TS + 64 * q;
       const float* wl = reinterpret_cast<const float*>(wlf);
       for (int c = HID; c < d_out; ++c) {
         float z = 0.0f;
@@ -1134,9 +1009,12 @@ sdf_grad_fwd_kernel(const float* __restrict__ x, int n, const float2* __restrict
         z += __shfl_xor_sync(0xffffffffu, z, 1);
         z += __shfl_xor_sync(0xffffffffu, z, 2);
         if (q == 0 && row0 + r < n)
-          feat[(size_t)(row0 + r) * (d_out - 1) + c - 1] = z + __ldg(bias + nh * HID + c);
+          feat[(size_t)(row0 + r) * fstride + c - 1] = z + __ldg(bias + nh * HID + c);
       }
     }
+    // K5 ends the tile here; the next tile's input barriers order this
+    // tile's reads of the row tile before its writes
+    if constexpr (!GRAD) continue;
 
     // ---- u-chain: u_{L-2} = W_last[:, 0] * sigmoid(100 z_{L-2}) ----
 #pragma unroll
@@ -1160,7 +1038,7 @@ sdf_grad_fwd_kernel(const float* __restrict__ x, int n, const float2* __restrict
         // a0cot += u_l @ W_pe^T (skip) or u_0 @ W_0^T
         float acc[1][MT][4];
         zero(acc);
-        prod_rows_nj(acc, sm.T[rb], TS, HID / 8,
+        prod_rows_nj(acc, T(rb), TS, HID / 8,
                      wt2 + off + (l == skip ? k3b::PACK_HID : 0), PE_W / 8, warp);
         k3b::add_panel(acc[0], sm.a0cot);
       }
@@ -1179,7 +1057,7 @@ sdf_grad_fwd_kernel(const float* __restrict__ x, int n, const float2* __restrict
       }
       float acc[NJ][MT][4];
       zero(acc);
-      prod_rows_nj(acc, sm.T[rb], TS, HID / 8, wt2 + off, HID / 8, j0);
+      prod_rows_nj(acc, T(rb), TS, HID / 8, wt2 + off, HID / 8, j0);
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -1254,6 +1132,44 @@ cudaError_t launch_fwd(int clusters, size_t smem, cudaStream_t st, const float* 
   return cudaLaunchKernelEx(&cfg, kern, x, n, (const float2*)wf, (const float2*)wt2,
                             (const float2*)wlf, bias, wlast0, n_layers, skip, d_embed, d_out,
                             scale, value, feat, grad, scratch, sp_on_chip);
+}
+
+// K5 at 16 MT rows a tile: the forward sweep alone, one CTA a tile on a
+// persistent grid of `ctas`; out[r * d_out + c] (c = 0 the sdf).  With
+// held != nullptr, writes the CTAs the card holds at once and launches nothing.
+template <int MT>
+cudaError_t launch_full(int ctas, cudaStream_t st, const float* x, int n, const void* wf,
+                        const void* wlf, const float* bias, int n_layers, int skip, int d_embed,
+                        int d_out, float scale, float* out, int* held) {
+  auto kern = sdf_grad_fwd_kernel<MT, 1, false>;
+  const int smem = (int)sizeof(k3f::Smem<MT, false>);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  if (held) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem);
+    *held = per_sm * sms;
+    return e;
+  }
+  kern<<<ctas, THREADS, smem, st>>>(x, n, (const float2*)wf, nullptr, (const float2*)wlf, bias,
+                                    nullptr, n_layers, skip, d_embed, d_out, scale, out, out + 1,
+                                    nullptr, nullptr, 0);
+  return cudaSuccess;
+}
+
+// The tile height K5 is built for (kernels/fused_sdf_grad.py::K5_ROWS).
+cudaError_t dispatch_full(int rows, int ctas, cudaStream_t st, const float* x, int n,
+                          const void* wf, const void* wlf, const float* bias, int n_layers,
+                          int skip, int d_embed, int d_out, float scale, float* out, int* held) {
+#define IRON_FULL(MT)                                                                      \
+  return launch_full<MT>(ctas, st, x, n, wf, wlf, bias, n_layers, skip, d_embed, d_out,   \
+                         scale, out, held)
+  if (rows == 96) IRON_FULL(6);
+#undef IRON_FULL
+  return cudaErrorInvalidValue;
 }
 
 // The tilings K3-fwd is built for: width 1 with 64-row tiles, width 2 with
@@ -1360,16 +1276,26 @@ int iron_sdf_value_feat_grad(const float* x, int n, const void* wf, const void* 
   return (int)cudaGetLastError();
 }
 
-// out: n x d_out floats.
-int iron_sdf_full(const float* x, int n, const float* wfwd, const float* bias, int n_layers,
-                  int skip, int d_embed, int d_out, float scale, float* out, void* stream) {
+// The CTAs of K5 at `rows` rows a tile that the card holds at once; -1 on
+// error.
+int iron_sdf_full_ctas(int rows) {
+  int held = 0;
+  if (dispatch_full(rows, 1, nullptr, nullptr, 0, nullptr, nullptr, nullptr, 0, 0, 0, 0, 1.0f,
+                    nullptr, &held) != cudaSuccess)
+    return -1;
+  return held;
+}
+
+// out: n x d_out floats.  wf, wlf: K3-fwd's packed hidden and final-layer
+// matrices; rows: a tile's rows (96); ctas: the persistent grid.
+int iron_sdf_full(const float* x, int n, const void* wf, const void* wlf, const float* bias,
+                  int n_layers, int skip, int d_embed, int d_out, float scale, float* out,
+                  int rows, int ctas, void* stream) {
   if (n <= 0) return 0;
-  const int smem = (int)sizeof(GradSmem);
-  cudaError_t e = cudaFuncSetAttribute(sdf_full_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (ctas < 1 || d_out > 8 * k3f::OUT_NT) return (int)cudaErrorInvalidValue;
+  cudaError_t e = dispatch_full(rows, ctas, (cudaStream_t)stream, x, n, wf, wlf, bias, n_layers,
+                                skip, d_embed, d_out, scale, out, nullptr);
   if (e != cudaSuccess) return (int)e;
-  sdf_full_kernel<<<(n + ROWS - 1) / ROWS, THREADS, smem, (cudaStream_t)stream>>>(
-      x, n, wfwd, bias, n_layers, skip, d_embed, d_out, scale, out);
   return (int)cudaGetLastError();
 }
 

@@ -16,10 +16,12 @@ lo_h @ hi_W with f32 accumulation (the lo @ lo term, 2^-16 relative, is
 dropped): the error class of a bf16x3 product, about 1e-5 to 2e-4 on the
 sdf, against 1e-2 for K2.  PE and softplus stay f32.
 
-K1 runs the march as one persistent launch that keeps a device-side list of
-the rays still marching and evaluates only those, in 64-ray tiles, each
-iteration.  `coarse_march_schedule` is that schedule in plain PyTorch, with
-its counts (evaluations, tile-evaluations).
+K1 runs the march as one persistent, cooperative launch that keeps a
+device-side list of the rays still marching and evaluates only those, in
+64-ray tiles, each iteration.  `coarse_march_schedule` is that schedule in
+plain PyTorch, with its counts (evaluations, tile-evaluations).  K2 runs
+128-row tiles on Hopper's warpgroups, one persistent CTA an SM
+(`k2_tiling`).
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and computes
 its plain PyTorch version, with the same arithmetic, for a CPU tensor.  Its
@@ -30,8 +32,10 @@ order, padded to 48 rows (three k-tiles of 16); the layer feeding the skip
 is padded to 256 outputs whose rows in the skip matrix are zero; the skip
 layer is split into its hidden and PE matrices; the final layer keeps only
 the sdf column.  The 256-wide matrices are packed into mma.sync B fragments
-(`pack_mma_b`).  K4's weights (`prepare_3pass_weights`) are two such sets,
-the hi and the lo halves of the same f32 layout, with the same biases.
+(`pack_mma_b`, K1 and K4) and into the swizzled k-tiles that K2's wgmma
+reads from shared memory (`pack_wgmma_b`).  K4's weights
+(`prepare_3pass_weights`) are two such sets, the hi and the lo halves of the
+same f32 layout, with the same biases.
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ class Bf16Weights:
     mats: List[torch.Tensor]   # f32 values of the bf16 matrices, layer order (skip: W_h, W_pe)
     biases: List[torch.Tensor]  # f32, one per layer (hidden ones padded to 256)
     wpack: torch.Tensor        # bf16 mma fragments of mats[:-1], concatenated
+    wgpack: torch.Tensor       # bf16 wgmma k-tiles of mats[:-1], concatenated (K2)
     bias_flat: torch.Tensor    # f32 [(n_layers - 1) * 256 + 1]
     wlast: torch.Tensor        # bf16 [256], the final layer's sdf column
     n_layers: int
@@ -124,6 +129,27 @@ def pack_mma_b(w: torch.Tensor) -> torch.Tensor:
     return r.permute(0, 4, 5, 2, 1, 3).reshape(kt, HID // 8, 32, 4).contiguous()
 
 
+def pack_wgmma_b(w: torch.Tensor) -> torch.Tensor:
+    """Pack a [16*KT, 256] matrix into KT k-tiles that K2's wgmma reads as
+    its B operand from shared memory.
+
+    Output [KT, 4096] bf16, each k-tile 8 KB in the order of a K-major
+    operand in the 32-byte swizzle: column n's 16 values of the k-tile are
+    32 bytes, two 16-byte halves (k < 8, k >= 8); columns come in atoms of
+    8 (256 bytes, one after another); in columns 4-7 of an atom the two
+    halves trade places (address bit 4 ^= bit 7).  So W[16 kt + k, n] is
+    element 128 (n // 8) + 16 (n % 8) + 8 ((k // 8) ^ ((n % 8) // 4)) + k % 8
+    of k-tile kt, and one bulk copy lands a k-tile as the descriptor
+    (csrc/sm90.cuh::wgmma_desc_k16_sw32) reads it."""
+    kt = w.shape[0] // 16
+    k = torch.arange(16)[:, None]
+    n = torch.arange(HID)[None, :]
+    dst = 128 * (n // 8) + 16 * (n % 8) + 8 * ((k // 8) ^ ((n % 8) // 4)) + k % 8
+    out = torch.empty((kt, 16 * HID), dtype=torch.bfloat16, device=w.device)
+    out[:, dst.reshape(-1).to(w.device)] = w.to(torch.bfloat16).reshape(kt, 16 * HID)
+    return out
+
+
 def _round_layout(net: SDFNetwork, mats, biases, skip: int) -> Bf16Weights:
     """The f32 layout `mats` rounded to bf16 and packed (final layer: its
     sdf column only)."""
@@ -133,6 +159,7 @@ def _round_layout(net: SDFNetwork, mats, biases, skip: int) -> Bf16Weights:
     return Bf16Weights(
         mats=mats, biases=biases,
         wpack=torch.cat([pack_mma_b(m).reshape(-1) for m in mats[:-1]]),
+        wgpack=torch.cat([pack_wgmma_b(m).reshape(-1) for m in mats[:-1]]),
         bias_flat=torch.cat(biases).contiguous(),
         wlast=mats[-1][:, 0].to(torch.bfloat16).contiguous(),
         n_layers=len(net.layers), skip=skip, d_embed=net.cfg.d_embed,
@@ -313,21 +340,27 @@ def _lib():
     lib = build.load("fused_sdf")
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.iron_sdf_only_bf16.argtypes = [P, I, P, P, P, I, I, I, F, P, P]
+        lib.iron_sdf_only_bf16.argtypes = [P, I, P, I, P, P, I, I, I, F, P, I, P]
         lib.iron_sdf_only_bf16.restype = I
+        lib.iron_sdf_only_bf16_ctas.argtypes = []
+        lib.iron_sdf_only_bf16_ctas.restype = I
         lib.iron_coarse_march_bf16.argtypes = [P, P, P, P, P, I, I, F, P, I, P, P, I, I, I,
                                                F, P, P, P, P, P, I, P]
         lib.iron_coarse_march_bf16.restype = I
         lib.iron_coarse_march_ctas.argtypes = []
         lib.iron_coarse_march_ctas.restype = I
+        lib.iron_coarse_march_places.argtypes = []
+        lib.iron_coarse_march_places.restype = I
+        lib.iron_cooperative_launch.argtypes = []
+        lib.iron_cooperative_launch.restype = I
         lib.iron_sdf_only_3pass.argtypes = [P, I, P, P, I, P, P, P, I, I, I, F, P, I, P]
         lib.iron_sdf_only_3pass.restype = I
         lib._typed = True
     return lib
 
 
-def _check_weights(w: Bf16Weights, dev: torch.device) -> None:
-    for t in (w.wpack, w.bias_flat, w.wlast):
+def _check_weights(w: Bf16Weights, dev: torch.device, *extra: torch.Tensor) -> None:
+    for t in (w.wpack, w.bias_flat, w.wlast, *extra):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("prepared weights must be contiguous and on the "
                              f"input's device {dev}")
@@ -339,19 +372,39 @@ def _points(x: torch.Tensor) -> torch.Tensor:
     return x.detach().reshape(-1, 3).contiguous()
 
 
+K2_ROWS = 128      # rows a K2 CTA takes at a time: two warpgroups of 64
+
+
+def k2_tiling(n: int, held: int):
+    """(rows a CTA takes at a time, grid CTAs) of K2 for n points on a card
+    that holds `held` CTAs at once (one an SM): a persistent grid of every
+    CTA the card holds, but no more than the call has 128-row tiles."""
+    return K2_ROWS, max(1, min(held, -(-n // K2_ROWS)))
+
+
+_K2_CTAS = {}
+
+
 def sdf_only_bf16(w: Bf16Weights, x: torch.Tensor) -> torch.Tensor:
     """K2: x [..., 3] f32 -> sdf [...] f32 at the coarse bf16 precision.
     Replaces iron_tpu/kernels/fused_sdf.py::make_pallas_sdf_only_bf16_fn."""
     if not x.is_cuda:
         return sdf_only_bf16_plain(w, x)
     xf = _points(x)
-    _check_weights(w, xf.device)
-    out = torch.empty(xf.shape[0], device=xf.device, dtype=torch.float32)
+    dev = xf.device
+    _check_weights(w, dev, w.wgpack)
+    n = xf.shape[0]
+    out = torch.empty(n, device=dev, dtype=torch.float32)
     lib = _lib()
+    if dev not in _K2_CTAS:
+        _K2_CTAS[dev] = lib.iron_sdf_only_bf16_ctas()
+        if _K2_CTAS[dev] < 1:
+            raise RuntimeError("sdf_only_bf16: the card holds no CTA of K2")
     code = lib.iron_sdf_only_bf16(
-        xf.data_ptr(), xf.shape[0], w.wpack.data_ptr(), w.bias_flat.data_ptr(),
-        w.wlast.data_ptr(), w.n_layers, w.skip, w.d_embed, w.scale, out.data_ptr(),
-        torch.cuda.current_stream(xf.device).cuda_stream)
+        xf.data_ptr(), n, w.wgpack.data_ptr(), w.wgpack.numel() // (16 * HID),
+        w.bias_flat.data_ptr(), w.wlast.data_ptr(), w.n_layers, w.skip, w.d_embed, w.scale,
+        out.data_ptr(), k2_tiling(n, _K2_CTAS[dev])[1],
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, code, "sdf_only_bf16")
     sdf_only_bf16.launches += 1
     return out.reshape(x.shape[:-1])
@@ -360,15 +413,32 @@ def sdf_only_bf16(w: Bf16Weights, x: torch.Tensor) -> torch.Tensor:
 sdf_only_bf16.launches = 0
 
 
+def _cooperative_launch(dev: torch.device) -> int:
+    """cudaDevAttrCooperativeLaunch of the card (1 or 0; -1 on error)."""
+    with torch.cuda.device(dev):
+        return _lib().iron_cooperative_launch()
+
+
+_COOPERATIVE = {}
+
+
 def coarse_march(w: Bf16Weights, ray_o, ray_d, acc0, work, max_dis,
                  n_iters: int, threshold: float):
     """K1: the whole coarse sphere-trace march -> (active bool, acc f32,
     sdf f32), shapes of `work`.  Replaces
     iron_tpu/kernels/fused_sdf.py::make_pallas_coarse_march_fn.  One
-    persistent launch that compacts the active rays between iterations
-    (`coarse_march_schedule` is its schedule); it does not sync the host."""
+    persistent, cooperative launch that compacts the active rays between
+    iterations (`coarse_march_schedule` is its schedule); it does not sync
+    the host.  Raises when the card cannot launch a cooperative grid, and
+    when the launch is refused (a grid larger than the card holds at once)."""
     if not work.is_cuda:
         return coarse_march_plain(w, ray_o, ray_d, acc0, work, max_dis, n_iters, threshold)
+    dev = work.device
+    if dev not in _COOPERATIVE:
+        _COOPERATIVE[dev] = _cooperative_launch(dev)
+    if _COOPERATIVE[dev] != 1:
+        raise RuntimeError("coarse_march: the card cannot launch a cooperative grid "
+                           "(cudaDevAttrCooperativeLaunch), which K1's grid barrier needs")
     shape = work.shape
     ro, rd = _points(ray_o), _points(ray_d)
     n = ro.shape[0]
@@ -379,7 +449,6 @@ def coarse_march(w: Bf16Weights, ray_o, ray_d, acc0, work, max_dis,
         raise ValueError("ray_o, ray_d, acc0, work and max_dis must hold one entry per ray")
     if n_iters < 0:
         raise ValueError(f"n_iters must be >= 0, got {n_iters}")
-    dev = ro.device
     _check_weights(w, dev)
     lib = _lib()
     if dev not in _MARCH_CTAS:
@@ -390,16 +459,17 @@ def coarse_march(w: Bf16Weights, ray_o, ray_d, acc0, work, max_dis,
     s = torch.empty_like(acc)
     act = torch.empty(n, device=dev, dtype=torch.uint8)
     # two lists of active rays used in turns; each iteration's list length,
-    # then the grid barrier's count
+    # the grid barrier's count, then the counts that place the CTAs
     lists = torch.empty(2 * n, device=dev, dtype=torch.int32)
-    counts = torch.zeros(int(n_iters) + 2, device=dev, dtype=torch.int32)
+    counts = torch.zeros(int(n_iters) + 2 + lib.iron_coarse_march_places(), device=dev,
+                         dtype=torch.int32)
     code = lib.iron_coarse_march_bf16(
         ro.data_ptr(), rd.data_ptr(), a0.data_ptr(), wk.data_ptr(), md.data_ptr(), n,
         int(n_iters), float(threshold), w.wpack.data_ptr(), w.wpack.numel() // (16 * HID),
         w.bias_flat.data_ptr(), w.wlast.data_ptr(), w.n_layers, w.skip, w.d_embed, w.scale,
         acc.data_ptr(), s.data_ptr(), act.data_ptr(), lists.data_ptr(), counts.data_ptr(),
         k1_ctas(n, _MARCH_CTAS[dev]), torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, code, "coarse_march")
+    build.check(lib, code, "coarse_march (cooperative launch)")
     coarse_march.launches += 1
     return act.bool().reshape(shape), acc.reshape(shape), s.reshape(shape)
 

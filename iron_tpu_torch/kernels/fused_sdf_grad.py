@@ -14,8 +14,9 @@ of the JAX module computes it.
 
 K5 (`sdf_full`, the counterpart of
 iron_tpu/kernels/fused_sdf.py::make_pallas_sdf_fn) is K3-fwd's forward
-sweep alone on the same weights: [sdf, features] of every point, f32, no
-graph; its plain version is `sdf_full_plain`.
+sweep alone on the same weights and the same kernel body (3xTF32, no
+u-chain): [sdf, features] of every point at f32 class, no graph; its plain
+version is `sdf_full_plain`.
 
 `sdf_value_feat_grad(w, x)` is the entry point.  When x or the prepared
 weights need a gradient it runs through `_FusedSdfCore`, a
@@ -36,11 +37,10 @@ their transposes and the final layer's, `fwd_wlast` the final layer's,
 packed at the first use of the prepared weights.  K3-fwd sizes its work to
 the call (`fwd_tiling`): each tile's columns split over a cluster of 4 or 2
 CTAs when one round of such clusters holds the call, else one CTA a 64-row
-tile.  K5 reads the f32 matrices (`wfwd`) on the CUDA cores.  Under grad
-mode the prepared matrices are built differentiably from the live
-parameters, so autograd carries their
-gradients back through the padding, the folded 1/sqrt(2) and the weight
-norm to each layer's v, g and b.
+tile.  K5 runs one CTA a tile of `K5_ROWS` rows on a persistent grid.
+Under grad mode the prepared matrices are built differentiably from the live
+parameters, so autograd carries their gradients back through the padding,
+the folded 1/sqrt(2) and the weight norm to each layer's v, g and b.
 """
 from __future__ import annotations
 
@@ -83,7 +83,7 @@ class GradWeights:
 
     @property
     def bwd_wf(self) -> torch.Tensor:
-        """K3-fwd and K3-bwd: pack_tf32_b of the hidden layers' mats."""
+        """K3-fwd, K3-bwd and K5: pack_tf32_b of the hidden layers' mats."""
         return self._tf32_packs()[0]
 
     @property
@@ -94,13 +94,13 @@ class GradWeights:
 
     @property
     def fwd_wlast(self) -> torch.Tensor:
-        """K3-fwd: pack_tf32_b of the final layer's mat, its columns padded
-        to a multiple of 8."""
+        """K3-fwd and K5: pack_tf32_b of the final layer's mat, its columns
+        padded to a multiple of 8."""
         return self._tf32_packs()[2]
 
     def _tf32_packs(self):
-        # packed at the first use and kept: only the tensor-core kernels
-        # read them, so K5 and the CPU never pack
+        # packed at the first use and kept: only the kernels read them, so
+        # the CPU never packs
         if self._packs is None:
             flat = [m.detach() for m in self.mats]
             out_pad = -(-self.d_out // 8) * 8
@@ -320,8 +320,10 @@ def _lib():
         lib.iron_sdf_value_feat_grad_bwd.restype = I
         lib.iron_grad_bwd_clusters.argtypes = []
         lib.iron_grad_bwd_clusters.restype = I
-        lib.iron_sdf_full.argtypes = [P, I, P, P, I, I, I, I, F, P, P]
+        lib.iron_sdf_full.argtypes = [P, I, P, P, P, I, I, I, I, F, P, I, I, P]
         lib.iron_sdf_full.restype = I
+        lib.iron_sdf_full_ctas.argtypes = [I]
+        lib.iron_sdf_full_ctas.restype = I
         lib._typed = True
     return lib
 
@@ -411,6 +413,22 @@ def sdf_value_feat_grad_fwd(w: GradWeights, x: torch.Tensor):
 sdf_value_feat_grad_fwd.launches = 0
 
 
+# Rows of a K5 tile, the height it is built for: of 64, 96 and 128 rows
+# (16 MT, MT = 4, 6, 8), 96 measured fastest on the sweep's 262,144 points
+# (PERF.md, scripts/ablate_k2_k5_torch.py): 64 reads the weight stream a
+# third more often a point, 128 spills registers.
+K5_ROWS = 96
+
+
+def k5_grid(n: int, held: int) -> int:
+    """K5's persistent grid for n points on a card that holds `held` CTAs at
+    once: every CTA it holds, but no more than the call has tiles."""
+    return max(1, min(held, -(-n // K5_ROWS)))
+
+
+_K5_HELD = {}
+
+
 def sdf_full(w: GradWeights, x: torch.Tensor) -> torch.Tensor:
     """K5: x [..., 3] f32 -> [..., d_out] f32, column 0 the sdf, then the
     features, with no graph.  Replaces
@@ -418,13 +436,20 @@ def sdf_full(w: GradWeights, x: torch.Tensor) -> torch.Tensor:
     if not x.is_cuda:
         return sdf_full_plain(w, x)
     _check(w, x)
+    if w.d_out > OUT_MAX:
+        raise ValueError(f"the forward kernel takes d_out <= {OUT_MAX}, got {w.d_out}")
     xf = x.detach().reshape(-1, 3).contiguous()
-    out = torch.empty((xf.shape[0], w.d_out), device=xf.device, dtype=torch.float32)
+    n, dev = xf.shape[0], xf.device
+    out = torch.empty((n, w.d_out), device=dev, dtype=torch.float32)
     lib = _lib()
+    if dev not in _K5_HELD:
+        _K5_HELD[dev] = lib.iron_sdf_full_ctas(K5_ROWS)
+        if _K5_HELD[dev] < 1:
+            raise RuntimeError(f"sdf_full: the card holds no CTA of {K5_ROWS}-row tiles")
     code = lib.iron_sdf_full(
-        xf.data_ptr(), xf.shape[0], w.wfwd.data_ptr(), w.bias_flat.data_ptr(), w.n_layers,
-        w.skip, w.d_embed, w.d_out, w.scale, out.data_ptr(),
-        torch.cuda.current_stream(xf.device).cuda_stream)
+        xf.data_ptr(), n, w.bwd_wf.data_ptr(), w.fwd_wlast.data_ptr(), w.bias_flat.data_ptr(),
+        w.n_layers, w.skip, w.d_embed, w.d_out, w.scale, out.data_ptr(), K5_ROWS,
+        k5_grid(n, _K5_HELD[dev]), torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, code, "sdf_full")
     sdf_full.launches += 1
     return out.reshape(x.shape[:-1] + (w.d_out,))

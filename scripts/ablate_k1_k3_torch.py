@@ -61,13 +61,21 @@ __device__ __forceinline__ float softplus100_poly(float z) {
   return (fmaxf(t, 0.0f) + fmaf(r, e, 2.2159764512252877e-07f)) * 0.01f;
 }
 """
+PRECISE_SOFTPLUS = """// softplus(100 z) / 100 with precise libm calls
+__device__ __forceinline__ float softplus100(float z) {
+  const float t = 100.0f * z;
+  return (fmaxf(t, 0.0f) + log1pf(expf(-fabsf(t)))) / 100.0f;
+}
+
+"""
 PF_LINE = "constexpr int PF = 4;   // k-tiles of B fragments in flight\n"
 BOUNDS = "__global__ void __launch_bounds__(THREADS, 2)\ncoarse_march_kernel("
 K1_VARIANTS = {
     "as built": [],
     "polynomial log1p": [(SP_FAST, SP_FAST.replace("k4::softplus100_fast(", "softplus100_poly(")),
                          (EVAL_NOTE, LOG1P_POLY + EVAL_NOTE)],
-    "precise softplus": [(SP_FAST, SP_FAST.replace("k4::softplus100_fast(", "softplus100("))],
+    "precise softplus": [(SP_FAST, SP_FAST.replace("k4::softplus100_fast(", "softplus100(")),
+                         ("namespace k4 {\n", PRECISE_SOFTPLUS + "namespace k4 {\n")],
     "PF 2": [(PF_LINE, PF_LINE.replace("PF = 4", "PF = 2"))],
     "PF 8": [(PF_LINE, PF_LINE.replace("PF = 4", "PF = 8"))],
     "1 CTA an SM": [(BOUNDS, BOUNDS.replace("(THREADS, 2)", "(THREADS, 1)"))],
@@ -183,7 +191,9 @@ def main() -> int:
                              None)
                 else:
                     lists = torch.empty(2 * n, device=dev, dtype=torch.int32)
-                    counts = torch.zeros(n_iters + 2, device=dev, dtype=torch.int32)
+                    lib.iron_coarse_march_places.restype = I
+                    counts = torch.zeros(n_iters + 2 + lib.iron_coarse_march_places(), device=dev,
+                                         dtype=torch.int32)
                     code = f(ro.data_ptr(), rd.data_ptr(), a0.data_ptr(), wk.data_ptr(),
                              md.data_ptr(), n, n_iters, thr, w.wpack.data_ptr(),
                              w.wpack.numel() // (16 * K.HID), w.bias_flat.data_ptr(),

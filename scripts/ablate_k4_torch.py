@@ -38,6 +38,13 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PF_LINE = "constexpr int PF = 4;                    // k-tiles of B fragments in flight\n"
+PRECISE_SOFTPLUS = """// softplus(100 z) / 100 with precise libm calls
+__device__ __forceinline__ float softplus100(float z) {
+  const float t = 100.0f * z;
+  return (fmaxf(t, 0.0f) + log1pf(expf(-fabsf(t)))) / 100.0f;
+}
+
+"""
 VARIANTS = {
     "as built": [],
     "PF 2": [(PF_LINE, PF_LINE.replace("PF = 4", "PF = 2"))],
@@ -45,7 +52,8 @@ VARIANTS = {
     "precise softplus": [("          store_split_bf16(softplus100_fast(acc[m][j][2 * half] * post + b0),\n"
                           "                           softplus100_fast(",
                           "          store_split_bf16(softplus100(acc[m][j][2 * half] * post + b0),\n"
-                          "                           softplus100(")],
+                          "                           softplus100("),
+                         ("namespace k4 {\n", PRECISE_SOFTPLUS + "namespace k4 {\n")],
 }
 
 L2_BENCH = r'''

@@ -39,10 +39,10 @@ from iron_tpu_torch.train.stage2 import Stage2Config, Stage2Trainer  # noqa: E40
 
 GROUPS = (("K1 coarse_march", "coarse_march_kernel"),
           ("K2 sdf_only_bf16", "sdf_only_bf16_kernel"),
+          ("K5 sdf_full", "ELi1ELb0E"),   # sdf_grad_fwd_kernel<MT, 1, false>: K3-fwd's sweep alone
           ("K3 sdf_grad_fwd", "sdf_grad_fwd_kernel"),
           ("K3 sdf_grad_bwd", ("sdf_grad_bwd_kernel", "reduce_partials_kernel")),
           ("K4 sdf_only_3pass", "sdf_only_3pass_kernel"),
-          ("K5 sdf_full", "sdf_full_kernel"),
           ("cuBLAS products", ("gemm", "gemv", "xmma", "cutlass")))
 
 

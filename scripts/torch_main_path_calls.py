@@ -1,6 +1,7 @@
-"""The inputs that the port's main paths hand K1 (coarse_march) and K3-fwd
-(sdf_value_feat_grad_fwd), recorded on one NVIDIA GPU for the measurement
-scripts (scripts/trace_kernels_torch.py, scripts/ablate_k1_k3_torch.py):
+"""The inputs that the port's main paths hand K1 (coarse_march), K2
+(sdf_only_bf16) and K3-fwd (sdf_value_feat_grad_fwd), recorded on one NVIDIA
+GPU for the measurement scripts (scripts/trace_kernels_torch.py,
+scripts/ablate_k1_k3_torch.py, scripts/ablate_k2_k5_torch.py):
 
   * "view": Stage2Trainer.render_full of view 0 at 512x512, the default
     Stage2Config at the full SDF width, random weights from the seed and
@@ -34,7 +35,7 @@ def main_path_calls(seed: int = 0, res: int = 512) -> dict:
     dev = torch.device("cuda")
     clone = lambda a: a.detach().clone() if isinstance(a, torch.Tensor) else a
     out = {}
-    targets = ((K12, "coarse_march"), (K3, "sdf_value_feat_grad_fwd"))
+    targets = ((K12, "coarse_march"), (K12, "sdf_only_bf16"), (K3, "sdf_value_feat_grad_fwd"))
     saved = {name: getattr(mod, name) for mod, name in targets}
 
     def recording(rec):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time of K1, K3-fwd, K3-bwd and K4 goes inside a launch, on one
-NVIDIA GPU.
+"""Where the time of K1, K2, K3-fwd, K3-bwd and K4 goes inside a launch, on
+one NVIDIA GPU.
 
     python3 scripts/trace_kernels_torch.py
 
@@ -8,16 +8,21 @@ NVIDIA GPU.
    1,852 and 262,144 points and of K3-bwd on the training step's 1,024,
    2,048 and 4,096 points, full default SDF width, random weights; of K1
    (coarse_march) and K3-fwd (sdf_value_feat_grad_fwd) on the calls of a
-   training step and of a 512x512 render of view 0
+   training step and of a 512x512 render of view 0, and of K2
+   (sdf_only_bf16) on the view's fallback sweep
    (scripts/torch_main_path_calls.py).
 2. A copy of csrc/ with clock64() read at phase boundaries is built and
    run: per hidden layer of K4 the k-tile loop (the tensor-core products),
    the epilogue (softplus and the hi/lo split), the spread of the CTA's
    columns to the cluster and the cluster barrier; for K3-bwd the six steps
-   of a tile.  For K1 and K3-fwd the cycles of each phase are summed over
+   of a tile; the SM of each of K1's CTAs (%smid).  For K1 and K3-fwd the
+   cycles of each phase are summed over
    the whole launch: K1's evaluations, their PE, k-tile loops, epilogues
    and final layer, the rows' loads and their update and append to the
-   next list, and the waits at the grid barrier; K3-fwd's inputs, forward products and
+   next list, and the waits at the grid barrier; K2's (warpgroup 0) inputs
+   and PE, waits for its turn at the tensor cores, products issued (with the
+   waits for the ring), the wait for the last products, epilogues and final
+   layer; K3-fwd's inputs, forward products and
    epilogues, final layer, u-chain products and epilogues, the spreads and
    barriers, the PE cotangent and the gradient.  Cycles are the SM's clock
    of the grid's first CTA (thread 0).
@@ -61,6 +66,10 @@ __device__ __forceinline__ void IRON_ADD(int i, long long& t) {
 extern "C" int iron_acc_read(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, iron_acc, sizeof(iron_acc));
 }
+__device__ int iron_smid[1024];
+extern "C" int iron_smid_read(int* out) {
+  return (int)cudaMemcpyFromSymbol(out, iron_smid, sizeof(iron_smid));
+}
 extern "C" int iron_acc_clear() {
   static const unsigned long long zeros[64] = {};
   return (int)cudaMemcpyToSymbol(iron_acc, zeros, sizeof(zeros));
@@ -86,8 +95,8 @@ EDITS = {
         ("  uint2 bh[PF][NTW];\n  auto fetch = [&](int c, uint2 (&h)[NTW]) {",
          "  long long iron_t = clock64();\n  if (IRON_ON) iron_acc[40] += 1;\n"
          "  uint2 bh[PF][NTW];\n  auto fetch = [&](int c, uint2 (&h)[NTW]) {"),
-        ("        __float2bfloat16_rn(c < 3 ? sm.y[r][c] : 0.0f);\n  }\n  __syncthreads();\n",
-         "        __float2bfloat16_rn(c < 3 ? sm.y[r][c] : 0.0f);\n  }\n  __syncthreads();\n"
+        ("  fill_pe_sincos(sm.pe, sm.y, ROWS, p.d_embed, tid, THREADS);\n  __syncthreads();\n",
+         "  fill_pe_sincos(sm.pe, sm.y, ROWS, p.d_embed, tid, THREADS);\n  __syncthreads();\n"
          "  IRON_ADD(0, iron_t);\n"),
         ("    const float post = (l == p.skip) ? INV_SQRT2 : 1.0f;\n",
          "    IRON_ADD(1, iron_t);\n    const float post = (l == p.skip) ? INV_SQRT2 : 1.0f;\n"),
@@ -98,8 +107,8 @@ EDITS = {
         ("    if (q == 0) sm.out[r] = s + __ldg(p.bias + (p.n_layers - 1) * HID);\n  }\n",
          "    if (q == 0) sm.out[r] = s + __ldg(p.bias + (p.n_layers - 1) * HID);\n  }\n"
          "  IRON_ADD(3, iron_t);\n"),
-        ("  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {\n",
-         "  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {\n"
+        ("  for (int tile = block; tile < tiles; tile += gridDim.x) {\n",
+         "  for (int tile = block; tile < tiles; tile += gridDim.x) {\n"
          "    long long iron_u = clock64();\n"),
         ("    __syncthreads();\n    eval_tile(sm, p);\n",
          "    __syncthreads();\n    IRON_ADD(4, iron_u);\n    eval_tile(sm, p);\n"
@@ -115,6 +124,27 @@ EDITS = {
         ("                    p.lists + (size_t)((it + 1) & 1) * p.n, p.counts + it + 1);\n  }\n}\n",
          "                    p.lists + (size_t)((it + 1) & 1) * p.n, p.counts + it + 1);\n  }\n"
          "  IRON_ADD(8, iron_k);\n}\n"),
+        # K1: the SM of each CTA
+        ('    asm volatile("mov.u32 %0, %%smid;\\n" : "=r"(smid));\n',
+         '    asm volatile("mov.u32 %0, %%smid;\\n" : "=r"(smid));\n'
+         '    if (blockIdx.x < 1024) iron_smid[blockIdx.x] = (int)smid;\n'),
+        # K2: cycles summed over the launch, thread 0 (warpgroup 0) of CTA 0
+        ("      const int row0 = tile * TILE + wgi * WG_ROWS;\n",
+         "      const int row0 = tile * TILE + wgi * WG_ROWS;\n      long long iron_t = clock64();\n"
+         "      if (IRON_ON) iron_acc[27] += 1;\n"),
+        ("      named_sync(1 + wgi, 128);\n\n      for (int l = 0; l < n_layers - 1; ++l) {\n",
+         "      named_sync(1 + wgi, 128);\n      IRON_ADD(26, iron_t);\n\n"
+         "      for (int l = 0; l < n_layers - 1; ++l) {\n"),
+        ("        named_sync(3 + wgi, 256);   // this warpgroup's turn\n",
+         "        named_sync(3 + wgi, 256);   // this warpgroup's turn\n        IRON_ADD(21, iron_t);\n"),
+        ("        named_arrive(4 - wgi, 256);   // the other warpgroup's turn\n",
+         "        IRON_ADD(22, iron_t);\n        named_arrive(4 - wgi, 256);   // the other warpgroup's turn\n"),
+        ("        // z = acc * post + b; softplus; bf16: the next layer's A fragments.\n",
+         "        IRON_ADD(23, iron_t);\n        // z = acc * post + b; softplus; bf16: the next layer's A fragments.\n"),
+        ("        }\n      }\n\n      // final layer, the sdf column of rows g and g + 8",
+         "        }\n        IRON_ADD(24, iron_t);\n      }\n\n      // final layer, the sdf column of rows g and g + 8"),
+        ("      if (t == 0 && r + 8 < n) out[r + 8] = (s1 + b_last) * inv_scale;\n",
+         "      if (t == 0 && r + 8 < n) out[r + 8] = (s1 + b_last) * inv_scale;\n      IRON_ADD(25, iron_t);\n"),
     ],
     "fused_sdf_grad": [
         ("using namespace iron;\n", "using namespace iron;\n" + STAMP),
@@ -168,6 +198,8 @@ K3B_STEPS = ["inputs and PE", "forward chain", "u-chain", "output stage", "adjoi
              "adjoint of the primal chain", "dx"]
 K1_PHASES = ["PE", "k-tile loops", "epilogues", "final layer", "rows' loads",
              "update and append", "grid barrier waits"]
+K2_PHASES = {26: "inputs and PE", 21: "turn waits", 22: "products issued (ring waits)",
+             23: "last products' wait", 24: "epilogues", 25: "final layer"}
 K3F_PHASES = ["inputs", "forward products", "forward epilogues", "spreads and barriers",
               "final layer", "u-chain epilogues", "PE cotangent and gradient (CTA 0)",
               "u-chain products", "end of tile"]
@@ -214,8 +246,11 @@ def main() -> int:
                  for i, c in enumerate(mp["step"]["sdf_value_feat_grad_fwd"])]
     big = max(mp["view"]["sdf_value_feat_grad_fwd"], key=lambda c: c[1].numel())
     k3f_calls.append((f"K3-fwd 512x512 view, largest call ({big[1].numel() // 3} points)", big))
-    for label, c in k1_calls:
-        cases[label] = lambda c=c: K.coarse_march(*c)
+    k2_calls = [(f"K2 512x512 view call {i} ({c[1].numel() // 3} points)", c)
+                for i, c in enumerate(mp["view"]["sdf_only_bf16"][:1])]
+    for label, c in k1_calls + k2_calls:
+        cases[label] = lambda c=c, f=(K.sdf_only_bf16 if label.startswith("K2") else
+                                      K.coarse_march): f(*c)
     for label, c in k3f_calls:
         cases[label] = lambda c=c: K3.sdf_value_feat_grad_fwd(*c)
     for name, fn in cases.items():
@@ -261,7 +296,7 @@ def main() -> int:
                     [(f"K3-bwd {n} points", lambda n=n: K3.sdf_value_feat_grad_bwd(
                         w3, pts(n), *cots(n))) for n in (1024, 4096)])
             runs += [(label, cases[label]) for label, _ in
-                     (k1_calls if stem == "fused_sdf" else k3f_calls)]
+                     (k1_calls + k2_calls if stem == "fused_sdf" else k3f_calls)]
             for label, fn in runs:
                 fn()
                 torch.cuda.synchronize()
@@ -276,6 +311,12 @@ def main() -> int:
                     raise SystemExit("cudaMemcpyFromSymbol failed")
                 acc = np.array(buf[:], dtype=np.int64)
                 if label.startswith("K1"):
+                    smid = (ctypes.c_int * 1024)()
+                    if lib.iron_smid_read(smid) != 0:
+                        raise SystemExit("cudaMemcpyFromSymbol failed")
+                    sm48 = list(smid[:48])
+                    print(f"{label}: SMs of CTAs 0-15 {list(smid[:16])}; CTAs 0-47 on "
+                          f"{len(set(sm48))} SMs", flush=True)
                     n_ev = max(int(acc[40]), 1)
                     print(f"{label}, CTA 0: {int(acc[40])} evaluations, "
                           + ", ".join(f"{n} {int(acc[i])}" for i, n in enumerate(K1_PHASES))
@@ -283,6 +324,13 @@ def main() -> int:
                           f"cycles; an evaluation {int(sum(acc[:4]) / n_ev)} cycles: PE "
                           f"{int(acc[0] / n_ev)}, k-tile loops {int(acc[1] / n_ev)}, epilogues "
                           f"{int(acc[2] / n_ev)}, final layer {int(acc[3] / n_ev)}", flush=True)
+                    continue
+                if label.startswith("K2"):
+                    tiles = max(int(acc[27]), 1)
+                    print(f"{label}, CTA 0, warpgroup 0: {int(acc[27])} tiles, "
+                          + ", ".join(f"{n} {int(acc[i])}" for i, n in K2_PHASES.items())
+                          + f" cycles summed; a tile {int(sum(acc[i] for i in K2_PHASES) / tiles)} "
+                          f"cycles", flush=True)
                     continue
                 if label.startswith("K3-fwd"):
                     tiles = max(int(acc[11]), 1)

@@ -349,10 +349,10 @@ def test_tf32_packs_reproduce_the_layout():
 
 
 def test_tf32_packs_are_made_at_first_use():
-    """Only the tensor-core kernels (K3-fwd, K3-bwd) read the tf32 packs:
-    preparing the weights and running the forward sweep (K3-fwd's and K5's
-    plain versions) packs nothing; the first read packs them all and later
-    reads get the same tensors."""
+    """Only the kernels (K3-fwd, K3-bwd, K5) read the tf32 packs: preparing
+    the weights and running the forward sweep (K3-fwd's and K5's plain
+    versions) packs nothing; the first read packs them all and later reads
+    get the same tensors."""
     _, _, net = _nets(seed=2, scale=2.0)
     w = K3.prepare_grad_weights(net)
     x = torch.as_tensor((np.random.default_rng(5).normal(size=(7, 3)) * 0.3).astype(np.float32))
