@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # the full run: 4 views at 512x512, 2 x 38 training steps
+    python3 chip_smoke.py              # the full run: 4 views at 512x512, 3 x 38 training steps
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, and drives the port's main
@@ -36,10 +36,21 @@ with the launch counts set to 0 just before it and read just after:
   * the SDF sweep of iron_tpu_torch.kernels.make_sdf_fn (K5) on 262,144
     points, held against its plain version and the f32 sdf_apply (also on
     262,144 uniform points in phase 4b);
+  * stage 1 (phase 8d, `stage1_phase`): NeuS volume training at the width of
+    iron_tpu/configs/womask_iron.json on the same data: one step through K3
+    against the same step through its plain versions (loss, metrics, every
+    gradient), K3-fwd and K3-bwd on that step's inputs, 8 + 30 steps of
+    Stage1Trainer.run (K3-fwd and K3-bwd once a step and nothing else, a
+    falling loss, the host syncs of each step), upsample_pallas (K2 four
+    times a step, each call held), render_image through K3-fwd alone
+    against its plain version, and a stage-1 checkpoint warm-starting a
+    Stage2Trainer for one step;
 
 then times each kernel beside its plain version and its bound, and prints:
 
   * the card's name and power limit (nvidia-smi);
+  * one JSON line {"stage1": {...}}: the stage-1 step median, rays/s, host
+    syncs a step, and K3-fwd, K3-bwd and K2 at the stage-1 shapes;
   * one JSON line {"kernels": [...]} on the six kernels (launches: K1-K3
     from the default training run, K4 from the trace_pallas training run,
     K5 from the sweep);
@@ -59,6 +70,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -205,6 +217,367 @@ def on_silhouette(hit: np.ndarray) -> np.ndarray:
     p = np.pad(hit, 1, mode="edge")
     win = np.stack([p[i:i + H, j:j + W] for i in range(3) for j in range(3)])
     return win.any(0) & ~win.all(0)
+
+
+def k2_plain_f64_sums(K12, w, x):
+    """K2's plain version with its sums in f64: the same bf16 operands and
+    bf16-rounded activations, another sum order and precision."""
+    import torch
+    pe = K12._pe_bf16(w, x * w.scale).double()
+    mats, biases = [m.double() for m in w.mats], [b.double() for b in w.biases]
+    h, mi = pe, 0
+    for l in range(w.n_layers - 1):
+        acc = h @ mats[mi]
+        mi += 1
+        if l == w.skip:
+            acc = (acc + pe @ mats[mi]) * K12.INV_SQRT2
+            mi += 1
+        h = K12._bf16(K12.softplus100((acc + biases[l]).to(torch.float32))).double()
+    return ((h @ mats[-1][:, 0] + biases[-1][0]) / w.scale).to(torch.float32)
+
+
+class count_syncs:
+    """Counts the host syncs of the code inside it, as
+    torch.cuda.set_sync_debug_mode('warn') reports them: `n`, and the
+    Python lines that made them in `sites`."""
+
+    def __enter__(self):
+        import torch
+        self._catch = warnings.catch_warnings(record=True)
+        self._caught = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode(0)
+        self._catch.__exit__(*exc)
+        hits = [w for w in self._caught if "synchroniz" in str(w.message)]
+        self.n = len(hits)
+        self.sites = [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in hits]
+        return False
+
+
+def stage1_phase(args, dev, card, data, kernels, K12, K3, PlainCore, leaf_errs, check_k3,
+                 check_k3_bwd, refuse, plain_names, tcfg, crop, eik) -> dict:
+    """Phase 8d, the stage-1 path at the full width of
+    iron_tpu/configs/womask_iron.json (Stage1Config's defaults), the
+    warm-up cut to 8 steps so that 38 steps train at the working learning
+    rate:
+
+      * one step through the kernels (K3-fwd and K3-bwd once each) against
+        the same step, on the same draws, through K3's plain versions: the
+        loss and every metric, every gradient leaf of the SDF, colour net,
+        variance and NeRF;
+      * K3-fwd and K3-bwd against their plain versions on that step's own
+        inputs (65,536 points), at phases 4 and 7's holds;
+      * Stage1Trainer.run, 8 + args.train_steps steps: finite losses, a
+        falling loss, K3-fwd and K3-bwd launched once a step and no other
+        kernel, no plain version reached by a CUDA tensor, the host syncs of
+        each step (torch.cuda.set_sync_debug_mode);
+      * the kernel step again with remat_core (the colour net recomputed
+        in the backward): loss, metrics and gradients as in (a);
+      * upsample_pallas: 3 steps with K2 launched 4 times a step (the
+        up-sample sweeps), each K2 call held against its plain version and
+        the f32 SDF at phase 3's holds after dividing by max(1, |x|),
+        reported in the stage-1 line beside the plain version with f64
+        sums;
+      * render_image(0, resolution_level=4): K3-fwd alone, 4 chunks of 1,024
+        rays x 128 samples, against the same render through its plain
+        version;
+      * the hand-off: a stage-1 checkpoint warm-starts a Stage2Trainer that
+        takes one finite step.
+
+    Returns what phase 9 times: the recorded calls, the step median, the
+    syncs."""
+    import tempfile
+    import torch
+    from iron_tpu_torch.data.dataset import RayDataset
+    from iron_tpu_torch.fields.sdf import sdf_only
+    from iron_tpu_torch.train.checkpoints import latest_checkpoint, load_checkpoint
+    from iron_tpu_torch.train.schedules import cos_anneal_ratio
+    from iron_tpu_torch.train import stage1 as S1
+    from iron_tpu_torch.train.stage1 import Stage1Config, Stage1Trainer, stage1_loss
+    from iron_tpu_torch.train.stage2 import Stage2Trainer
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(Stage1Config(), warm_up_end=8)
+    ds = RayDataset.from_arrays(data["images"], data["Ks"], data["W2Cs"], data["masks"],
+                                device=dev)
+    new_trainer = lambda c: Stage1Trainer(
+        c, ds, generator=torch.Generator(device=dev).manual_seed(args.seed + 3), device=dev)
+    tr = new_trainer(cfg)
+    B = cfg.batch_size
+    n_pts = B * (cfg.render.n_samples + cfg.render.n_importance)
+    n_params = sum(p.numel() for p in tr.params.parameters())
+    log(f"stage 1: womask_iron width (SDF {cfg.sdf.n_layers}x{cfg.sdf.d_hidden}, colour "
+        f"{cfg.color.n_layers}x{cfg.color.d_hidden}, NeRF {cfg.nerf.D}x{cfg.nerf.W}; "
+        f"{n_params} parameters), {B} rays x ({cfg.render.n_samples} + "
+        f"{cfg.render.n_importance}) samples = {n_pts} points a step, {cfg.render.n_outside} "
+        f"background samples, {cfg.render.up_sample_steps} up-sample rounds, perturb "
+        f"{cfg.render.perturb}")
+
+    # (a) one step through the kernels against the same step, on the same
+    # draws, through K3's plain versions (the up-sample sweeps are the f32
+    # sdf_only in both)
+    draws = tr.draw(torch.Generator(device=dev).manual_seed(args.seed + 4))
+    batch = ds.gen_random_rays(draws.img_idx, B, px=draws.px, py=draws.py)
+    anneal = cos_anneal_ratio(1000, cfg.anneal_end)
+    sdf = tr.params["sdf"]
+    fwd_calls, bwd_calls = [], []
+
+    def s1_step(fns=None, c=cfg):
+        named = list(tr.params.named_parameters())
+        for _, p in named:
+            p.grad = None
+        loss, m = stage1_loss(tr.params, c, batch, anneal, t_rand=draws.t_rand,
+                              t_rand_outside=draws.t_rand_outside, fns=fns)
+        loss.backward()
+        grads = {n: p.grad.clone() if p.grad is not None else torch.zeros_like(p)
+                 for n, p in named}
+        return float(loss.detach()), {k: float(v.detach()) for k, v in m.items()}, grads
+
+    core = K3.make_fused_sdf_grad_fn(sdf)
+    kernel_fns = {"sdf_fn": lambda p: sdf_only(sdf, p),
+                  "sdf_all_fn": lambda x: fwd_calls.append(x.detach().clone()) or core(x)}
+    kernels.reset_launch_counts()
+    K3._FusedSdfCore.record = bwd_calls
+    try:
+        loss_k, m_k, g_k = s1_step(kernel_fns)
+    finally:
+        K3._FusedSdfCore.record = None
+    step_launches = kernels.launch_counts()
+    wg = K3.prepare_grad_weights(sdf, differentiable=True)
+    loss_p, m_p, g_p = s1_step({"sdf_fn": lambda p: sdf_only(sdf, p),
+                                "sdf_all_fn": lambda x: PlainCore.apply(wg, x, *wg.mats,
+                                                                        *wg.biases)})
+    errs = leaf_errs(g_k, g_p, 1e-4)
+    worst = max(errs, key=errs.get)
+    m_rel = {k: abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-6) for k in m_k}
+    log(f"stage-1 step (view {int(draws.img_idx)}, anneal {anneal}): loss {loss_k:.6f} through "
+        f"the kernels, {loss_p:.6f} through K3's plain versions (rel diff "
+        f"{abs(loss_k - loss_p) / abs(loss_p):.3e}, tol 1e-5); metrics {m_k}; largest metric rel "
+        f"diff {max(m_rel.values()):.3e} (tol 1e-4); launches {step_launches}; K3 calls "
+        f"{[tuple(x.shape) for x in fwd_calls]}; gradients of {len(g_k)} leaves (sdf, colour, "
+        f"variance, nerf): worst {worst} at {errs[worst]:.3f} of its tolerance (1e-4 of its "
+        f"largest entry + 1e-7 of the step's)")
+    assert step_launches["sdf_value_feat_grad"] == 1 and step_launches["sdf_value_feat_grad_bwd"] == 1
+    assert sum(step_launches.values()) == 2, step_launches
+    assert len(bwd_calls) == 1 and fwd_calls[0].numel() // 3 == n_pts
+    assert all(np.isfinite(v) for v in m_k.values())
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and max(m_rel.values()) <= 1e-4
+    assert errs[worst] <= 1.0
+    assert {n.split(".")[0] for n in g_k} == {"sdf", "color", "variance", "nerf"}
+
+    # (a') remat_core: the same kernel step, through build_stage1_fns as
+    # train_step takes it, with the colour network recomputed in the
+    # backward (torch.utils.checkpoint between K3-fwd and K3-bwd), changes
+    # no number beyond the run-to-run order of f32 sums
+    kernels.reset_launch_counts()
+    loss_r, m_r, g_r = s1_step(None, dataclasses.replace(cfg, remat_core=True))
+    remat_launches = kernels.launch_counts()
+    errs_r = leaf_errs(g_r, g_k, 1e-5)
+    worst_r = max(errs_r, key=errs_r.get)
+    m_rel_r = max(abs(m_r[k] - m_k[k]) / max(abs(m_k[k]), 1e-6) for k in m_k)
+    log(f"stage-1 step with remat_core: loss rel diff {abs(loss_r - loss_k) / abs(loss_k):.3e} "
+        f"(tol 1e-6), largest metric rel diff {m_rel_r:.3e} (tol 1e-6), launches "
+        f"{remat_launches}; gradients: worst {worst_r} at {errs_r[worst_r]:.3f} of its tolerance "
+        f"(1e-5 of its largest entry + 1e-8 of the step's)")
+    assert remat_launches == step_launches, remat_launches
+    assert abs(loss_r - loss_k) <= 1e-6 * abs(loss_k) and m_rel_r <= 1e-6
+    assert errs_r[worst_r] <= 1.0
+
+    # (b) K3-fwd and K3-bwd on the step's own inputs
+    w3s = K3.prepare_grad_weights(sdf)
+    check_k3(fwd_calls[0], "stage-1 step", w3s)
+    check_k3_bwd(*bwd_calls[0][:2], bwd_calls[0][2], "stage-1 step")
+
+    # (c) the training run, every step counted
+    def s1_run(trainer, n_warm, n_timed, path, label):
+        step_s, per_step, history, syncs, sites = [], [], [], [], {}
+        train_step, draw = trainer.train_step, trainer.draw
+        saved = {(m, n): getattr(m, n) for m, n in plain_names}
+        pending = {}
+
+        def counted_draw(gen):
+            with count_syncs() as c:
+                out = draw(gen)
+            pending["syncs"] = c
+            return out
+
+        def timed_step(d):
+            before = kernels.launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with count_syncs() as c:
+                out = train_step(d)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            after = kernels.launch_counts()
+            per_step.append({k: after[k] - before[k] for k in after})
+            syncs.append(c.n + pending["syncs"].n)
+            for s in c.sites + pending["syncs"].sites:
+                sites[s] = sites.get(s, 0) + 1
+            return out
+
+        trainer.train_step, trainer.draw = timed_step, counted_draw
+        for (m, n), fn in saved.items():
+            setattr(m, n, refuse(n, fn))
+        try:
+            trainer.run(num_iters=n_warm, seed=args.seed, history=history)
+            trainer.run(num_iters=n_timed, seed=args.seed, history=history)
+            torch.cuda.synchronize()
+        finally:
+            for (m, n), fn in saved.items():
+                setattr(m, n, fn)
+            trainer.train_step, trainer.draw = train_step, draw
+        losses = [float(h["loss"]) for h in history]
+        timed = step_s[n_warm:]
+        med = float(np.median(timed))
+        log(f"Stage1Trainer.run{label}, {len(history)} steps ({n_warm} + {n_timed}): loss first "
+            f"10 {[round(v, 4) for v in losses[:10]]}, last 10 "
+            f"{[round(v, 4) for v in losses[-10:]]}; launches a step {per_step[-1]}; host syncs "
+            f"a step {syncs}" + (f" at {sites}" if sites else ""))
+        log(f"stage-1 step{label}: median {med * 1e3:.2f} ms over {len(timed)} timed steps (host "
+            f"clock with a synchronise after each step; min {min(timed) * 1e3:.2f}, max "
+            f"{max(timed) * 1e3:.2f}), {B / med:.1f} rays/s; card {card}")
+        assert all(np.isfinite(v) for v in losses)
+        for i, d in enumerate(per_step):
+            assert all(d[k] == path.get(k, 0) for k in d), (i, d)
+        for p in trainer.params.parameters():
+            assert torch.isfinite(p).all()
+        return med, losses, syncs, sites
+
+    def fixed_loss() -> float:
+        """The loss of step (a)'s rays and draws under the current weights."""
+        with torch.no_grad():
+            return float(stage1_loss(tr.params, cfg, batch, anneal, t_rand=draws.t_rand,
+                                     t_rand_outside=draws.t_rand_outside)[0])
+
+    before = fixed_loss()
+    med, losses, syncs, sites = s1_run(tr, 8, args.train_steps,
+                                       {"sdf_value_feat_grad": 1, "sdf_value_feat_grad_bwd": 1},
+                                       "")
+    after = fixed_loss()
+    log(f"  loss of step (a)'s rays before the run {before:.6f}, after {after:.6f}")
+    assert np.mean(losses[-10:]) < np.mean(losses[:10]) and after < before
+
+    # (d) upsample_pallas: the up-sample sweeps through K2, 4 calls a step,
+    # each held against its plain version
+    tr_up = new_trainer(dataclasses.replace(cfg, upsample_pallas=True))
+    s1_run(tr_up, 1, 2, {"sdf_value_feat_grad": 1, "sdf_value_feat_grad_bwd": 1,
+                         "sdf_only_bf16": cfg.render.up_sample_steps}, " with upsample_pallas")
+    k2_calls = []
+    make_k2 = S1.make_sdf_only_bf16_fn
+
+    def recording_k2(net):
+        f = make_k2(net)
+        return lambda x: k2_calls.append(x.detach().clone()) or f(x)
+
+    S1.make_sdf_only_bf16_fn = recording_k2
+    try:
+        tr_up.train_step(tr_up.draw(torch.Generator(device=dev).manual_seed(args.seed + 5)))
+    finally:
+        S1.make_sdf_only_bf16_fn = make_k2
+    log(f"K2 calls of an upsample_pallas step: {[tuple(p.shape) for p in k2_calls]}")
+    assert len(k2_calls) == cfg.render.up_sample_steps
+    # Phase 3's holds (5e-3 against the plain version, 1.2e-2 against the
+    # f32 SDF) were set on the tracer's points, inside the unit sphere.  The
+    # sweeps also take points out to |x| = 2.5, where the activations, and
+    # so one bf16 unit of them, grow with |x|: there the plain version with
+    # f64 sums moves as far from the plain version as K2 does (the witness,
+    # printed), so the difference is the arithmetic's, not the kernel's.
+    # Held: each difference over max(1, |x|) to phase 3's holds, which is
+    # looser than phase 3 outside the sphere.  Reported in the stage-1 line,
+    # not in the kernels line's max_abs_err (phase 3's calls alone).
+    net_up = tr_up.params["sdf"]
+    wb = K12.prepare_bf16_weights(net_up)
+    k2 = {"calls": [], "hold": BF16_REORDER_TOL, "f32_hold": 1.2e-2, "scaled_by": "max(1, |x|)",
+          "err_scaled": 0.0, "f32_err_scaled": 0.0, "f64_sums_scaled": 0.0,
+          "max_abs_err": 0.0, "max_abs_err_inside": 0.0, "max_abs_f64_sums": 0.0}
+    for i, p in enumerate(k2_calls):
+        x = p.reshape(-1, 3)
+        with torch.no_grad():
+            got = K12.sdf_only_bf16(wb, x)
+            torch.cuda.synchronize()
+            plain = K12.sdf_only_bf16_plain(wb, x)
+            f64 = k2_plain_f64_sums(K12, wb, x)
+            f32 = sdf_only(net_up, x)
+        r = torch.linalg.norm(x, dim=-1)
+        scale = torch.clamp(r, min=1.0)
+        e, e32, e64 = (got - plain).abs(), (got - f32).abs(), (plain - f64).abs()
+        inside = r < 1.0
+        row = {"points": x.shape[0], "max_r": float(r.max()),
+               "err_scaled": float((e / scale).max()),
+               "f32_err_scaled": float((e32 / scale).max()),
+               "f64_sums_scaled": float((e64 / scale).max()), "max_abs_err": float(e.max()),
+               "max_abs_err_inside": float(e[inside].max()),
+               "max_abs_f64_sums": float(e64.max())}
+        log(f"K2 stage-1 up-sample call {i} ({x.shape[0]} points, |x| up to {row['max_r']:.2f}): "
+            f"max|K2 - plain| / max(1, |x|) {row['err_scaled']:.3e} (tol {BF16_REORDER_TOL}; "
+            f"unscaled {row['max_abs_err']:.3e}, {row['max_abs_err_inside']:.3e} inside the unit "
+            f"sphere), max|K2 - f32 sdf| / max(1, |x|) {row['f32_err_scaled']:.3e} (tol 1.2e-2; "
+            f"{float(e32[inside].max()):.3e} inside); the plain version with f64 sums against it: "
+            f"{row['f64_sums_scaled']:.3e} / max(1, |x|), {row['max_abs_f64_sums']:.3e} unscaled")
+        assert torch.isfinite(got).all()
+        assert row["err_scaled"] <= BF16_REORDER_TOL and row["f32_err_scaled"] <= 1.2e-2
+        k2["calls"].append(row)
+        for key in ("err_scaled", "f32_err_scaled", "f64_sums_scaled", "max_abs_err",
+                    "max_abs_err_inside", "max_abs_f64_sums"):
+            k2[key] = max(k2[key], row[key])
+
+    # (e) the validation render: K3-fwd alone, against its plain version
+    render_calls = []
+    kernels.reset_launch_counts()
+    t_r = time.perf_counter()
+    img = tr.render_image(0, resolution_level=4)
+    render_s = time.perf_counter() - t_r
+    render_launches = kernels.launch_counts()
+    w3r = K3.prepare_grad_weights(sdf)
+    plain = tr.render_image(0, resolution_level=4, fns={
+        "sdf_fn": lambda p: sdf_only(sdf, p),
+        "sdf_all_fn": lambda p: K3.sdf_value_feat_grad_plain(w3r, p)})
+    with torch.no_grad():
+        f_r = K3.make_fused_sdf_grad_fn(sdf)
+        tr.render_image(0, resolution_level=4, fns={
+            "sdf_fn": lambda p: sdf_only(sdf, p),
+            "sdf_all_fn": lambda x: render_calls.append(x.clone()) or f_r(x)})
+    dc = float(np.abs(img["color"] - plain["color"]).max())
+    dn = float(np.abs(img["normal"] - plain["normal"]).max())
+    H, W = ds.hw
+    log(f"render_image(0, resolution_level=4): {img['color'].shape}, {render_s:.3f} s (host "
+        f"clock); launches {render_launches}; K3-fwd calls "
+        f"{[tuple(x.shape) for x in render_calls]}; against the render through K3's plain "
+        f"version: colour within {dc:.3e}, normal within {dn:.3e} (tol 1e-4)")
+    chunks = -(-(H // 4) * (W // 4) // 1024)
+    assert render_launches["sdf_value_feat_grad"] == chunks
+    assert sum(render_launches.values()) == chunks, render_launches
+    assert np.isfinite(img["color"]).all() and np.isfinite(img["normal"]).all()
+    assert dc <= 1e-4 and dn <= 1e-4
+    check_k3(render_calls[0], "stage-1 render chunk", w3r)
+
+    # (f) the hand-off to stage 2: a stage-1 checkpoint warm-starts a
+    # Stage2Trainer, which takes one finite step
+    with tempfile.TemporaryDirectory(dir=HERE) as ck_dir:
+        tr.out_dir = ck_dir
+        tr.save()
+        tr.out_dir = None
+        ck = load_checkpoint(latest_checkpoint(ck_dir))
+    tr2 = Stage2Trainer(tcfg, data["images"], data["Ks"], data["W2Cs"],
+                        generator=torch.Generator(device=dev).manual_seed(args.seed + 6),
+                        stage1_params=ck["params"], device=dev)
+    same_sdf = all(torch.equal(a, b) for a, b in zip(tr2.params["sdf"].parameters(),
+                                                     sdf.parameters()))
+    m2 = tr2.train_step(*crop, eik)
+    log(f"hand-off: stage-1 checkpoint at step {ck['step']} -> Stage2Trainer (the SDF carried "
+        f"over bit for bit: {same_sdf}); one stage-2 step: loss {float(m2['loss']):.6f}, "
+        f"mask_frac {float(m2['mask_frac']):.4f}")
+    assert same_sdf and all(bool(torch.isfinite(v)) for v in m2.values())
+    log(f"phase 8d: {time.perf_counter() - t0:.1f} s")
+    return {"cfg": cfg, "trainer": tr, "fwd": fwd_calls[0], "render": render_calls[0],
+            "bwd": bwd_calls[0], "k2": k2_calls, "up_trainer": tr_up, "median_s": med,
+            "syncs": syncs, "sync_sites": sites, "render_s": render_s, "k2_upsample": k2}
 
 
 def main(argv=None) -> int:
@@ -1093,6 +1466,12 @@ def main(argv=None) -> int:
     launches.update(sdf_only_3pass=launches_tp["sdf_only_3pass"],
                     sdf_full=sweep_launches["sdf_full"])
 
+    # ---- 8d. stage 1: NeuS volume training at the womask_iron width (SDF,
+    # colour net and background NeRF 8x256, 512 rays of 64 + 64 samples and
+    # 32 background samples a step) on phase 8's synthetic sphere ----
+    s1 = stage1_phase(args, dev, card, data, kernels, K12, K3, PlainCore, leaf_errs, check_k3,
+                      check_k3_bwd, refuse, plain_names, tcfg, crop, eik)
+
     # ---- 9. timings at the slice's shapes ----
     kernel_rows = []
     work = sdf_work(cfg.sdf)
@@ -1281,6 +1660,45 @@ def main(argv=None) -> int:
             "(launches x (time - bound), largest first): " + "; ".join(
                 f"{name} {n} launches, {t:.3f} ms against a bound of {b:.4f} ms ({b / t:.1%}), "
                 f"gap {gap:.3f} ms" for gap, name, n, t, b in sorted(step_cost, reverse=True)))
+
+    # the stage-1 shapes (phase 8d): K3-fwd on a step's 65,536 points and a
+    # render chunk's 131,072, K3-bwd on the step's 65,536, K2 on each
+    # up-sample sweep of an upsample_pallas step (32,768, then 3 x 8,192)
+    stage1 = {"step_ms_median": s1["median_s"] * 1e3, "rays_per_s": s1["cfg"].batch_size
+              / s1["median_s"], "host_syncs_per_step": s1["syncs"],
+              "sync_sites": s1["sync_sites"], "render_image_s": s1["render_s"],
+              "k2_upsample": s1["k2_upsample"], "card": card}
+    if not args.no_timing:
+        w1 = K3.prepare_grad_weights(s1["trainer"].params["sdf"])
+        wb = K12.prepare_bf16_weights(s1["up_trainer"].params["sdf"])
+        w, xb, cots = s1["bwd"]
+        timed = {}
+        with torch.no_grad():
+            for label, x in (("K3-fwd step", s1["fwd"]), ("K3-fwd render chunk", s1["render"])):
+                timed[label] = (x.numel() // 3, cuda_ms(lambda: K3.sdf_value_feat_grad_fwd(w1, x)),
+                                cuda_ms(lambda: K3.sdf_value_feat_grad_plain(w1, x), iters=3),
+                                bound_k3(x, TF32_FLOPS, 3))
+            timed["K3-bwd step"] = (
+                xb.numel() // 3, cuda_ms(lambda: K3.sdf_value_feat_grad_bwd(w, xb, *cots)),
+                cuda_ms(lambda: K3.sdf_value_feat_grad_bwd_plain(w, xb, *cots), iters=3),
+                bound_k3_bwd(xb))
+            for i, p in enumerate(s1["k2"]):
+                timed[f"K2 up-sample sweep {i}"] = (
+                    p.numel() // 3, cuda_ms(lambda: K12.sdf_only_bf16(wb, p)),
+                    cuda_ms(lambda: K12.sdf_only_bf16_plain(wb, p), iters=5), bound_k2(p))
+        for label, (n, ms, plain_ms, (b, by)) in timed.items():
+            log(f"time {label} ({n} points): {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{b:.4f} ms ({by}), {b / ms:.1%} of the bound")
+        rows_k3 = K3.bwd_tiling(xb.numel() // 3, K3._lib().iron_grad_bwd_clusters())
+        log(f"K3-bwd on the stage-1 step: {rows_k3[0]}-row tiles on {rows_k3[1]} clusters, "
+            f"{-(-xb.numel() // 3 // rows_k3[0]) / rows_k3[1]:.1f} rounds; K3-fwd tiling (rows, "
+            f"width, clusters) {fwd_tiling(s1['fwd'])}, render chunk {fwd_tiling(s1['render'])}")
+        stage1["kernels"] = {k: {"points": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+                                 "bound_by": by} for k, (n, ms, plain_ms, (b, by)) in timed.items()}
+        k2 = [v for k, v in timed.items() if k.startswith("K2")]
+        stage1["k2_step_ms"] = sum(v[1] for v in k2)
+        stage1["k2_step_bound_ms"] = sum(v[3][0] for v in k2)
+    log(json.dumps({"stage1": stage1}))
 
     # ---- 10. the kernels line (launches: the training run of phase 8 for K1-K3,
     # of phase 8b for K4, the sweep of phase 8c for K5) ----

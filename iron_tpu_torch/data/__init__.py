@@ -1,1 +1,2 @@
-"""Data for the port: the synthetic co-located-flash scenes."""
+"""Data for the port: image and camera IO, the ray dataset and the synthetic
+co-located-flash scenes."""

@@ -2,17 +2,19 @@
 iron_tpu/data/synthetic.py): analytic SDF scenes, ring and hemisphere camera
 rigs, and a GGX roughplastic shade function, rendered through the port's own
 `render_camera`.  The ground truth of the end-to-end tests and the bench,
-without JAX.  (Writing a scene folder to disk, `write_scene_dir`, needs the
-image I/O of a later slice.)
+without JAX; `write_scene_dir` writes one as a scene folder on disk.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import json
+import os
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from iron_tpu_torch.core.camera import make_camera
+from iron_tpu_torch.data.io import write_image
 from iron_tpu_torch.shading.brdf import ggx_colocated
 from iron_tpu_torch.surface.render import SurfaceRenderConfig, render_camera
 
@@ -170,3 +172,36 @@ def render_synthetic_dataset(scene: str = "sphere", n_views: int = 12, H: int = 
             masks.append(res["hit_mask"].cpu().numpy()[..., None])
     return {"images": np.stack(imgs), "masks": np.stack(masks).astype(np.float32),
             "Ks": Ks, "W2Cs": W2Cs, "light": light, "sdf_fn": sdf_fn, "sdf_all_fn": sdf_all_fn}
+
+
+def write_scene_dir(data: Dict, path: str, folder_name: str = "image",
+                    denormalize: Optional[Tuple[np.ndarray, float]] = None) -> str:
+    """Write a dataset as a scene folder: `<path>/<folder_name>/NNNNN.png`,
+    `<path>/masks/NNNNN.png` and `cam_dict_norm.json`.  With
+    `denormalize=(translate, scale)` an un-normalised `cam_dict.json` is
+    written too, its poses under the inverse of `cameras.transform_pose`."""
+    img_dir = os.path.join(path, folder_name)
+    mask_dir = os.path.join(path, "masks")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(mask_dir, exist_ok=True)
+    H, W = data["images"].shape[1:3]
+    cam_dict = {}
+    for i in range(data["images"].shape[0]):
+        name = f"{i:05d}.png"
+        write_image(os.path.join(img_dir, name), data["images"][i])
+        write_image(os.path.join(mask_dir, name), np.repeat(data["masks"][i], 3, axis=-1))
+        cam_dict[name] = {"K": [float(x) for x in np.asarray(data["Ks"][i]).flatten()],
+                          "W2C": [float(x) for x in np.asarray(data["W2Cs"][i]).flatten()],
+                          "img_size": [W, H]}
+    with open(os.path.join(path, "cam_dict_norm.json"), "w") as f:
+        json.dump(cam_dict, f, indent=2, sort_keys=True)
+    if denormalize is not None:
+        translate, scale = denormalize
+        raw = {}
+        for name, entry in cam_dict.items():
+            C2W = np.linalg.inv(np.asarray(entry["W2C"], np.float64).reshape(4, 4))
+            C2W[:3, 3] = C2W[:3, 3] / scale - np.asarray(translate)
+            raw[name] = {**entry, "W2C": [float(x) for x in np.linalg.inv(C2W).flatten()]}
+        with open(os.path.join(path, "cam_dict.json"), "w") as f:
+            json.dump(raw, f, indent=2, sort_keys=True)
+    return path

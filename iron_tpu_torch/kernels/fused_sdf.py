@@ -142,11 +142,12 @@ def pack_wgmma_b(w: torch.Tensor) -> torch.Tensor:
     of k-tile kt, and one bulk copy lands a k-tile as the descriptor
     (csrc/sm90.cuh::wgmma_desc_k16_sw32) reads it."""
     kt = w.shape[0] // 16
-    k = torch.arange(16)[:, None]
-    n = torch.arange(HID)[None, :]
+    # the index is made on w's device: a copy from the host would sync it
+    k = torch.arange(16, device=w.device)[:, None]
+    n = torch.arange(HID, device=w.device)[None, :]
     dst = 128 * (n // 8) + 16 * (n % 8) + 8 * ((k // 8) ^ ((n % 8) // 4)) + k % 8
     out = torch.empty((kt, 16 * HID), dtype=torch.bfloat16, device=w.device)
-    out[:, dst.reshape(-1).to(w.device)] = w.to(torch.bfloat16).reshape(kt, 16 * HID)
+    out[:, dst.reshape(-1)] = w.to(torch.bfloat16).reshape(kt, 16 * HID)
     return out
 
 

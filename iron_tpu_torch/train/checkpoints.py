@@ -1,13 +1,19 @@
 """Checkpoints: the JAX package's `ckpt_*.pkl` files (pickled numpy
 pytrees {"params", "opt_state", "step", "extra"}), written and read by both
-packages, the conversion between their parameter tree and the port's
+packages, the conversion between their stage-2 parameter tree and the port's
 modules, and the stage-1 -> stage-2 conversion (counterpart of
 iron_tpu/train/checkpoints.py; its orbax checkpoints are not ported).
 
-The parameter tree is {"sdf": {"layers": [{"v", "g", "b"}, ...]},
+The stage-2 parameter tree is {"sdf": {"layers": [{"v", "g", "b"}, ...]},
 "materials": {<net>: {"layers": [...]}, "point_light_network": {"light"}}},
 with every weight stored [d_in, d_out]; the port's modules keep that layout,
-so the conversion copies arrays as they are.
+so the conversion copies arrays as they are.  The stage-1 tree {"sdf",
+"color", "variance"[, "nerf"]} is converted in train/stage1.py.
+
+A JAX stage-1 checkpoint pickles optax's Adam state, (ScaleByAdamState(count,
+mu, nu), ScaleByScheduleState(count)), by reference to optax's classes.
+`load_checkpoint` reads those two classes as the stand-ins below, with the
+same fields, so that it needs neither optax nor JAX; it maps no other class.
 """
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ import glob
 import os
 import pickle
 import re
-from typing import Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 from torch import nn
@@ -54,11 +60,35 @@ def latest_checkpoint(out_dir: str) -> Optional[str]:
     return max(paths, key=lambda p: int(pat.search(p).group(1)))
 
 
+class ScaleByAdamState(NamedTuple):
+    """Stand-in for optax's ScaleByAdamState in an unpickled checkpoint."""
+    count: Any
+    mu: Any
+    nu: Any
+
+
+class ScaleByScheduleState(NamedTuple):
+    """Stand-in for optax's ScaleByScheduleState in an unpickled checkpoint."""
+    count: Any
+
+
+_OPTAX_STATES = {("optax._src.transform", "ScaleByAdamState"): ScaleByAdamState,
+                 ("optax._src.transform", "ScaleByScheduleState"): ScaleByScheduleState}
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) in _OPTAX_STATES:
+            return _OPTAX_STATES[(module, name)]
+        return super().find_class(module, name)
+
+
 def load_checkpoint(path: str) -> Dict:
-    """Unpickle a checkpoint.  Only open files this program or the JAX
-    package wrote: unpickling can run code."""
+    """Unpickle a checkpoint, optax's two state classes read as the
+    stand-ins above.  Only open files this program or the JAX package wrote:
+    unpickling can run code."""
     with open(path, "rb") as f:
-        return pickle.load(f)
+        return _Unpickler(f).load()
 
 
 def params_from_numpy(tree: Dict, device="cuda", sdf_cfg: SDFConfig = SDFConfig(),
