@@ -45,12 +45,26 @@ with the launch counts set to 0 just before it and read just after:
     times a step, each call held), render_image through K3-fwd alone
     against its plain version, and a stage-1 checkpoint warm-starting a
     Stage2Trainer for one step;
+  * the user's run through the CLIs (phase 8e, `cli_phase`), in process
+    with --device cuda on the synthetic sphere written as a scene folder (8
+    views at 256x256): train_volume with iron_tpu_torch/configs/
+    womask_iron.json (40 steps, async checkpoints), validate_mesh at 256,
+    train_surface from that checkpoint (40 steps, then the mesh, UV and
+    material export at 256), --render_all and evaluate images / mesh /
+    relight: each call's kernels launched (every step, view and export),
+    no plain version reached by a CUDA tensor, the async checkpoints read
+    back bit for bit, the stage-1 SDF adopted bit for bit, the products
+    (mesh, atlases, JPEG renders) decoded, PSNR and chamfer finite;
 
 then times each kernel beside its plain version and its bound, and prints:
 
   * the card's name and power limit (nvidia-smi);
   * one JSON line {"stage1": {...}}: the stage-1 step median, rays/s, host
     syncs a step, and K3-fwd, K3-bwd and K2 at the stage-1 shapes;
+  * one JSON line {"cli": {...}}: each CLI call's wall time and launches,
+    both trainers' steps/s, the render time a view, the export time at 256,
+    PSNR, SSIM and chamfer, and the cuts (40 steps and an export at 256
+    instead of 100,001 / 50,001 steps and 512);
   * one JSON line {"kernels": [...]} on the six kernels (launches: K1-K3
     from the default training run, K4 from the trace_pallas training run,
     K5 from the sweep);
@@ -578,6 +592,259 @@ def stage1_phase(args, dev, card, data, kernels, K12, K3, PlainCore, leaf_errs, 
     return {"cfg": cfg, "trainer": tr, "fwd": fwd_calls[0], "render": render_calls[0],
             "bwd": bwd_calls[0], "k2": k2_calls, "up_trainer": tr_up, "median_s": med,
             "syncs": syncs, "sync_sites": sites, "render_s": render_s, "k2_upsample": k2}
+
+
+def cli_phase(args, dev, card, kernels, refuse, plain_names) -> dict:
+    """Phase 8e, the user's run through the port's CLIs, in process and on
+    the card (--device cuda), on the synthetic sphere written as a scene
+    folder (8 views at 256x256 with masks):
+
+      1. train_volume --mode train --conf iron_tpu_torch/configs/womask_iron.json
+         --num_iters 40 (the full womask_iron width, async checkpoints);
+      2. train_volume --mode validate_mesh --mcube_resolution 256;
+      3. train_surface --neus_ckpt_fpath <that checkpoint> --num_iters 40
+         --export_res 256 (comp at the full width, then the final export);
+      4. train_surface --render_all;
+      5. evaluate images (the renders against the scene's images), mesh (the
+         exported mesh against the analytic sphere's) and relight.
+
+    Holds: every stage-1 step launched K3-fwd and K3-bwd once and nothing
+    else, every stage-2 step K1, K2, K3-fwd and K3-bwd and no K4 or K5, every
+    view of the renders K1, K2 and K3-fwd alone, the export K3-fwd alone and
+    validate_mesh no kernel; no plain version reached by a CUDA tensor; every
+    async checkpoint reads back bit for bit as the trainer's parameters at
+    its step; the stage-2 trainer starts from the stage-1 SDF bit for bit;
+    the mesh and the atlases exist and are not empty; the renders are JPEGs
+    the port's reader decodes; PSNR and chamfer are finite.  Returns the
+    {"cli"} line's record."""
+    import contextlib
+    import glob
+    import io
+    import tempfile
+    import torch
+    from iron_tpu_torch.cli import evaluate as cli_evaluate
+    from iron_tpu_torch.cli import train_surface as cli_surface
+    from iron_tpu_torch.cli import train_volume as cli_volume
+    from iron_tpu_torch.data.io import read_image
+    from iron_tpu_torch.data.synthetic import render_synthetic_dataset, write_scene_dir
+    from iron_tpu_torch.export.mesh import extract_geometry, read_obj, write_obj
+    from iron_tpu_torch.train import stage1 as S1
+    from iron_tpu_torch.train import stage2 as S2
+    from iron_tpu_torch.train.checkpoints import load_checkpoint, params_to_numpy
+
+    t_phase = time.perf_counter()
+    steps, res, n_views = 40, 256, 8
+    conf = os.path.join(HERE, "iron_tpu_torch", "configs", "womask_iron.json")
+    rec = {"scene": f"synthetic sphere, {n_views} views at {res}x{res}, masks",
+           "cuts": {"stage1_steps": [steps, 100001], "stage2_steps": [steps, 50001],
+                    "export_res": [256, 512]},
+           "wall_s": {}, "launches": {}, "card": card}
+    step_log = {"stage1": [], "stage2": []}      # (seconds, launches) a step
+    view_log = []                                # (seconds, launches) a view
+    saved_params = {"stage1": {}, "stage2": {}}  # step -> the parameters at the save
+    adopted = []
+    export_log = []
+
+    def counted(fn, log_to):
+        def call(self, *a, **k):
+            before = kernels.launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            log_to.append((time.perf_counter() - t, {k_: after[k_] - before[k_] for k_ in after}))
+            return out
+        return call
+
+    def recorded_save(fn, stage, to_numpy):
+        def call(self):
+            tree = to_numpy(self.params)
+            saved_params[stage][self.step] = [np.array(x) for x in _leaves(tree)]
+            return fn(self)
+        return call
+
+    def adopting_init(fn):
+        def call(self, *a, **k):
+            fn(self, *a, **k)
+            adopted.append([np.array(x) for x in _leaves(params_to_numpy(self.params)["sdf"])])
+        return call
+
+    def timed_export(fn):
+        def call(trainer, export_dir, resolution=512):
+            before = kernels.launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(trainer, export_dir, resolution=resolution)
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            export_log.append((time.perf_counter() - t,
+                               {k: after[k] - before[k] for k in after}, export_dir))
+        return call
+
+    patches = [(S1.Stage1Trainer, "train_step", counted(S1.Stage1Trainer.train_step,
+                                                        step_log["stage1"])),
+               (S1.Stage1Trainer, "save", recorded_save(S1.Stage1Trainer.save, "stage1",
+                                                        S1.stage1_params_to_numpy)),
+               (S2.Stage2Trainer, "train_step", counted(S2.Stage2Trainer.train_step,
+                                                        step_log["stage2"])),
+               (S2.Stage2Trainer, "save", recorded_save(S2.Stage2Trainer.save, "stage2",
+                                                        params_to_numpy)),
+               (S2.Stage2Trainer, "render_full", counted(S2.Stage2Trainer.render_full,
+                                                         view_log)),
+               (S2.Stage2Trainer, "__init__", adopting_init(S2.Stage2Trainer.__init__)),
+               (cli_surface, "export_assets", timed_export(cli_surface.export_assets))]
+    patches += [(m, n, refuse(n, getattr(m, n))) for m, n in plain_names]
+    originals = [(o, n, getattr(o, n)) for o, n, _ in patches]
+
+    def run(label, main_fn, argv):
+        """One CLI call, its launches counted from 0 and its stdout kept."""
+        out = io.StringIO()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            main_fn(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        rec["wall_s"][label] = time.perf_counter() - t
+        rec["launches"][label] = kernels.launch_counts()
+        text = out.getvalue()
+        log(f"  {label}: {rec['wall_s'][label]:.2f} s, launches {rec['launches'][label]}; "
+            f"stdout: {text.strip().splitlines()[-1] if text.strip() else ''}")
+        return text
+
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        t0 = time.perf_counter()
+        data = render_synthetic_dataset("sphere", n_views=n_views, H=res, W=res, light=30.0,
+                                        device=dev)
+        scene = write_scene_dir(data, os.path.join(tmp, "scene", "train"))
+        log(f"phase 8e: scene folder written ({time.perf_counter() - t0:.1f} s); the CLIs "
+            f"on the card:")
+        exp1, exp2 = os.path.join(tmp, "exp1"), os.path.join(tmp, "exp2")
+        for o, n, fn in patches:
+            setattr(o, n, fn)
+        try:
+            run("train_volume", cli_volume.main,
+                ["--mode", "train", "--conf", conf, "--data_dir", scene, "--out_dir", exp1,
+                 "--num_iters", str(steps)])
+            run("validate_mesh", cli_volume.main,
+                ["--mode", "validate_mesh", "--conf", conf, "--data_dir", scene,
+                 "--out_dir", exp1, "--mcube_resolution", "256"])
+            ck1 = os.path.join(exp1, f"ckpt_{steps:07d}.pkl")
+            run("train_surface", cli_surface.main,
+                ["--data_dir", scene, "--out_dir", exp2, "--neus_ckpt_fpath", ck1,
+                 "--num_iters", str(steps), "--export_res", "256"])
+            n_views_before = len(view_log)
+            run("render_all", cli_surface.main,
+                ["--data_dir", scene, "--out_dir", exp2, "--render_all"])
+            renders = os.path.join(exp2, f"render_train_{steps}")
+            assets = os.path.join(exp2, f"mesh_and_materials_{steps}")
+            sphere = os.path.join(tmp, "sphere.obj")
+            write_obj(sphere, *extract_geometry(
+                lambda p: torch.linalg.norm(p, dim=-1) * -1.0 + 0.5, resolution=256, device=dev))
+            ev_img = run("evaluate", cli_evaluate.main,
+                         ["images", "--pred_dir", renders, "--gt_dir",
+                          os.path.join(scene, "image")])
+            rec["wall_s"]["evaluate_images"] = rec["wall_s"].pop("evaluate")
+            ev_mesh = run("evaluate", cli_evaluate.main,
+                          ["mesh", "--mesh1", os.path.join(assets, "mesh.obj"),
+                           "--mesh2", sphere])
+            rec["wall_s"]["evaluate_mesh"] = rec["wall_s"].pop("evaluate")
+            run("evaluate", cli_evaluate.main,
+                ["relight", "--mesh", os.path.join(assets, "mesh.obj"), "--materials", assets,
+                 "--cam_dict", os.path.join(scene, "cam_dict_norm.json"),
+                 "--out_dir", os.path.join(tmp, "relit")])
+            rec["wall_s"]["evaluate_relight"] = rec["wall_s"].pop("evaluate")
+            rec["launches"].pop("evaluate")
+        finally:
+            for o, n, fn in originals:
+                setattr(o, n, fn)
+
+        # the kernels of each call
+        s1_path = {"sdf_value_feat_grad": 1, "sdf_value_feat_grad_bwd": 1}
+        for i, (_, d) in enumerate(step_log["stage1"]):
+            assert all(d[k] == s1_path.get(k, 0) for k in d), ("stage-1 step", i, d)
+        s2_path = ("coarse_march", "sdf_only_bf16", "sdf_value_feat_grad",
+                   "sdf_value_feat_grad_bwd")
+        for i, (_, d) in enumerate(step_log["stage2"]):
+            assert all(d[k] >= 1 for k in s2_path) and d["sdf_only_3pass"] == 0 and \
+                d["sdf_full"] == 0, ("stage-2 step", i, d)
+        render_path = ("coarse_march", "sdf_only_bf16", "sdf_value_feat_grad")
+        views = view_log[n_views_before:]
+        for i, (_, d) in enumerate(views):
+            assert all(d[k] >= 1 for k in render_path) and all(
+                d[k] == 0 for k in d if k not in render_path), ("render_all view", i, d)
+        assert len(step_log["stage1"]) == steps and len(step_log["stage2"]) == steps
+        assert len(views) == n_views and len(export_log) == 1
+        exp_s, exp_d, _ = export_log[0]
+        assert exp_d["sdf_value_feat_grad"] >= 1 and all(
+            v == 0 for k, v in exp_d.items() if k != "sdf_value_feat_grad"), exp_d
+        assert sum(rec["launches"]["validate_mesh"].values()) == 0, rec["launches"]
+        assert rec["launches"]["train_volume"]["sdf_value_feat_grad_bwd"] == steps
+
+        # the async checkpoints, bit for bit; the stage-1 SDF adopted
+        for stage, out_dir in (("stage1", exp1), ("stage2", exp2)):
+            assert saved_params[stage], stage
+            for step, leaves in saved_params[stage].items():
+                got = _leaves(load_checkpoint(os.path.join(out_dir, f"ckpt_{step:07d}.pkl"))
+                              ["params"])
+                assert len(got) == len(leaves) and all(
+                    np.array_equal(a, b) for a, b in zip(got, leaves)), (stage, step)
+        sdf1 = _leaves(load_checkpoint(ck1)["params"]["sdf"])
+        assert len(adopted) == 2 and all(np.array_equal(a, b)
+                                         for a, b in zip(adopted[0], sdf1))
+
+        # the products
+        for name in ("mesh.obj", "mesh.mtl", "diffuse_albedo.png", "specular_albedo.png",
+                     "roughness.png"):
+            assert os.path.getsize(os.path.join(assets, name)) > 0, name
+        atlas_cover = float((read_image(os.path.join(assets, "diffuse_albedo.png")).max(-1)
+                             > 0).mean())
+        verts, tris, uvs, _ = read_obj(os.path.join(assets, "mesh.obj"))
+        assert len(tris) > 0 and len(uvs) == 3 * len(tris) and atlas_cover > 0
+        assert os.path.getsize(os.path.join(exp1, f"mesh_{steps:07d}.obj")) > 0
+        jpgs = sorted(glob.glob(os.path.join(renders, "*.jpg")))
+        assert len(jpgs) == 4 * n_views
+        for path in jpgs:
+            with open(path, "rb") as f:
+                assert f.read(2) == b"\xff\xd8", path
+            img = read_image(path)
+            assert img.shape == (res, res, 3) and np.isfinite(img).all(), path
+        assert len(os.listdir(os.path.join(tmp, "relit"))) == n_views
+        summary = json.loads(ev_img.strip().splitlines()[-1])
+        chamfer = json.loads(ev_mesh.strip().splitlines()[-1])["chamfer"]
+        assert summary["n_images"] == n_views and np.isfinite(summary["psnr"])
+        assert np.isfinite(chamfer)
+
+    s1_t = [t for t, _ in step_log["stage1"]]
+    s2_t = [t for t, _ in step_log["stage2"]]
+    rec.update({
+        "stage1_steps_per_s": len(s1_t) / sum(s1_t), "stage1_step_median_ms":
+            float(np.median(s1_t)) * 1e3,
+        "stage2_steps_per_s": len(s2_t) / sum(s2_t), "stage2_step_median_ms":
+            float(np.median(s2_t)) * 1e3,
+        "render_ms_per_view": float(np.mean([t for t, _ in views])) * 1e3,
+        "export_256_s": exp_s, "export_launches": exp_d,
+        "psnr": summary["psnr"], "ssim": summary["ssim"], "chamfer": chamfer,
+        "mesh_triangles": int(len(tris)), "atlas_coverage": atlas_cover,
+        "view_launches": views[0][1]})
+    rec["wall_s"]["phase"] = time.perf_counter() - t_phase
+    log(f"phase 8e: stage 1 {rec['stage1_steps_per_s']:.2f} steps/s (median "
+        f"{rec['stage1_step_median_ms']:.2f} ms), stage 2 {rec['stage2_steps_per_s']:.2f} "
+        f"steps/s (median {rec['stage2_step_median_ms']:.2f} ms), {rec['render_ms_per_view']:.1f}"
+        f" ms a {res}x{res} view, export at 256 {exp_s:.2f} s ({len(tris)} triangles, atlas "
+        f"coverage {atlas_cover:.3f}), PSNR {summary['psnr']:.3f}, chamfer {chamfer:.5f}; "
+        f"{rec['wall_s']['phase']:.1f} s")
+    return rec
+
+
+def _leaves(tree) -> list:
+    """The arrays of a nested dict / list tree, in key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [np.asarray(tree)]
 
 
 def main(argv=None) -> int:
@@ -1472,6 +1739,10 @@ def main(argv=None) -> int:
     s1 = stage1_phase(args, dev, card, data, kernels, K12, K3, PlainCore, leaf_errs, check_k3,
                       check_k3_bwd, refuse, plain_names, tcfg, crop, eik)
 
+    # ---- 8e. the user's run through the CLIs (train_volume, validate_mesh,
+    # train_surface with its final export, --render_all, evaluate) ----
+    cli = cli_phase(args, dev, card, kernels, refuse, plain_names)
+
     # ---- 9. timings at the slice's shapes ----
     kernel_rows = []
     work = sdf_work(cfg.sdf)
@@ -1706,6 +1977,7 @@ def main(argv=None) -> int:
              "launches": launches[r[0]], "max_abs_err": max_err[r[0]], "ms": r[3],
              "plain_ms": r[4], "bound_ms": r[5], "bound_by": r[6], "library_ms": None}
             for r in kernel_rows]
+    log(json.dumps({"cli": cli}))
     log(json.dumps({"kernels": rows}))
     log(card)
     # ---- 11. result ----

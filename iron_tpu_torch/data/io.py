@@ -2,10 +2,12 @@
 
 PNG is read and written here on numpy and zlib: 8- and 16-bit gray, gray +
 alpha, RGB and RGBA, non-interlaced, scanline filters 0-4 (none, sub, up,
-average, Paeth).  EXR goes through the port's own codec (`exr.py`).  The
-float conversion is the JAX package's: alpha dropped, gray repeated to RGB,
-8/16-bit content divided by 255 / 65535, EXR given a 1/2.2 gamma on read.
-JPEG, palette and interlaced PNGs raise: the port has no decoder for them.
+average, Paeth).  EXR goes through the port's own codec (`exr.py`), JPEG
+through its baseline codec (`jpeg.py`: written at quality 95 as cv2 writes
+it; progressive and arithmetic-coded files raise).  The float conversion is
+the JAX package's: alpha dropped, gray repeated to RGB, 8/16-bit content
+divided by 255 / 65535, EXR given a 1/2.2 gamma on read.  Palette and
+interlaced PNGs raise: the port has no decoder for them.
 """
 from __future__ import annotations
 
@@ -146,9 +148,13 @@ def read_image(path: str, apply_exr_gamma: bool = True) -> np.ndarray:
         if apply_exr_gamma:
             img = np.power(np.clip(img, 0, None) + 1e-6, 1.0 / 2.2)
         return img
-    if not path.lower().endswith(".png"):
-        raise ValueError(f"{path}: the port reads PNG and EXR images only")
-    img = read_png(path)
+    if path.lower().endswith((".jpg", ".jpeg")):
+        from iron_tpu_torch.data.jpeg import read_jpeg
+        img = read_jpeg(path)
+    elif path.lower().endswith(".png"):
+        img = read_png(path)
+    else:
+        raise ValueError(f"{path}: the port reads PNG, JPEG and EXR images only")
     img = np.repeat(img[..., :1], 3, axis=-1) if img.shape[-1] <= 2 else img[..., :3]
     img = img.astype(np.float32)
     if img.max() > 1.5:  # 8/16-bit content
@@ -158,11 +164,15 @@ def read_image(path: str, apply_exr_gamma: bool = True) -> np.ndarray:
 
 def write_image(path: str, img: np.ndarray) -> None:
     """Write float [0, 1] or uint8 RGB (.exr: linear float, the port's
-    codec; otherwise PNG)."""
+    codec; .jpg / .jpeg: baseline JPEG at quality 95; otherwise PNG)."""
     if path.endswith(".exr"):
         from iron_tpu_torch.data.exr import write_exr
         write_exr(path, np.asarray(img, np.float32))
         return
     if img.dtype != np.uint8:
         img = to8b(img)
+    if path.lower().endswith((".jpg", ".jpeg")):
+        from iron_tpu_torch.data.jpeg import write_jpeg
+        write_jpeg(path, img)
+        return
     write_png(path, img)

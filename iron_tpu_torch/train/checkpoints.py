@@ -2,7 +2,12 @@
 pytrees {"params", "opt_state", "step", "extra"}), written and read by both
 packages, the conversion between their stage-2 parameter tree and the port's
 modules, and the stage-1 -> stage-2 conversion (counterpart of
-iron_tpu/train/checkpoints.py; its orbax checkpoints are not ported).
+iron_tpu/train/checkpoints.py).
+
+Where the JAX package saves asynchronously through orbax, the port's
+`AsyncCheckpointer` writes the same pickles on a background thread.  The
+JAX package's orbax directories are not read (they need jax and orbax):
+`load_any_checkpoint` raises on them, naming the gap.
 
 The stage-2 parameter tree is {"sdf": {"layers": [{"v", "g", "b"}, ...]},
 "materials": {<net>: {"layers": [...]}, "point_light_network": {"light"}}},
@@ -21,6 +26,7 @@ import glob
 import os
 import pickle
 import re
+import threading
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -60,6 +66,56 @@ def latest_checkpoint(out_dir: str) -> Optional[str]:
     return max(paths, key=lambda p: int(pat.search(p).group(1)))
 
 
+def _host_copy(tree):
+    """A numpy tree with every array copied (a CPU tensor's .numpy() shares
+    its storage, which the next optimizer step overwrites)."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    if isinstance(tree, np.ndarray):
+        return tree.copy()
+    return tree
+
+
+class AsyncCheckpointer:
+    """Non-blocking checkpoints in save_checkpoint's schema: `save` copies
+    the parameters (and optimizer state) to host numpy before it returns and
+    writes `<out_dir>/ckpt_<step:07d>.pkl` on a background thread.  The next
+    save, or `wait`, joins the one in flight and raises its error.  The
+    thread is not a daemon: a save in flight completes before the
+    interpreter exits."""
+
+    def __init__(self, out_dir: str):
+        self.out_dir = out_dir
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[Exception] = None
+
+    def save(self, step: int, params, opt_state=None, extra: Optional[Dict] = None) -> str:
+        self.wait()
+        if isinstance(params, nn.Module):
+            params = params_to_numpy(params)
+        job = (self.out_dir, step, _host_copy(params), _host_copy(opt_state),
+               _host_copy(extra))
+        self._thread = threading.Thread(target=self._write, args=job, name="ckpt-save")
+        self._thread.start()
+        return os.path.join(self.out_dir, f"ckpt_{step:07d}.pkl")
+
+    def _write(self, *job) -> None:
+        try:
+            save_checkpoint(*job)
+        except Exception as e:      # raised again by wait(), in the caller's thread
+            self._error = e
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        error, self._error = self._error, None
+        if error is not None:
+            raise error
+
+
 class ScaleByAdamState(NamedTuple):
     """Stand-in for optax's ScaleByAdamState in an unpickled checkpoint."""
     count: Any
@@ -89,6 +145,33 @@ def load_checkpoint(path: str) -> Dict:
     unpickling can run code."""
     with open(path, "rb") as f:
         return _Unpickler(f).load()
+
+
+def load_any_checkpoint(path: str) -> Optional[Dict]:
+    """A checkpoint from a `ckpt_*.pkl` file, or the newest numbered pickle
+    of an experiment directory; None when the path does not exist or holds
+    no checkpoint.  An orbax step directory, or an experiment directory
+    whose `orbax/` holds a step as new as its newest pickle (the JAX
+    package's async saves), raises: the port does not read orbax."""
+    if os.path.isfile(path):
+        return load_checkpoint(path)
+    if not os.path.isdir(path):
+        return None
+    norm = os.path.normpath(path)
+    gap = ("orbax checkpoints (the JAX package's async saves) are not read by the port; "
+           "resave the run with --sync_ckpt, or pass a ckpt_*.pkl")
+    if os.path.basename(norm).isdigit() and os.path.basename(os.path.dirname(norm)) == "orbax":
+        raise NotImplementedError(f"{path}: {gap}")
+    pkl = latest_checkpoint(path)
+    pkl_step = int(re.search(r"ckpt_(\d+)\.pkl$", pkl).group(1)) if pkl else -1
+    root = os.path.join(path, "orbax")
+    steps = ([int(p) for p in os.listdir(root)
+              if p.isdigit() and os.path.isdir(os.path.join(root, p))]
+             if os.path.isdir(root) else [])
+    if steps and max(steps) >= pkl_step:
+        raise NotImplementedError(f"{root}: step {max(steps)} is an orbax checkpoint, newer "
+                                  f"than the newest pickle (step {pkl_step}): {gap}")
+    return load_checkpoint(pkl) if pkl else None
 
 
 def params_from_numpy(tree: Dict, device="cuda", sdf_cfg: SDFConfig = SDFConfig(),

@@ -23,9 +23,11 @@ occupancy-guided samples' u, all passed to `train_step` as a Stage1Draws,
 so that a check can inject other draws (JAX's).  The step's shapes are
 static and its host code reads no device value.
 
+`async_ckpt` saves the same pickles on a background thread
+(train/checkpoints.py::AsyncCheckpointer), where the JAX package uses orbax.
+
 Not ported (each raises): `steps_per_call > 1` (the JAX package's lax.scan
-over steps), `async_ckpt` (orbax) and `interpolate_view_video` (an OpenCV
-video writer).
+over steps) and `interpolate_view_video` (an OpenCV video writer).
 """
 from __future__ import annotations
 
@@ -49,9 +51,9 @@ from iron_tpu_torch.fields.sdf import (SDFConfig, init_sdf, sdf_from_numpy, sdf_
 from iron_tpu_torch.kernels.fused_sdf import make_sdf_only_bf16_fn
 from iron_tpu_torch.kernels.fused_sdf_grad import make_fused_sdf_grad_fn
 from iron_tpu_torch.losses.regularizers import mask_bce_loss
-from iron_tpu_torch.train.checkpoints import (ScaleByAdamState, ScaleByScheduleState,
-                                              latest_checkpoint, load_checkpoint,
-                                              save_checkpoint)
+from iron_tpu_torch.train.checkpoints import (AsyncCheckpointer, ScaleByAdamState,
+                                              ScaleByScheduleState, latest_checkpoint,
+                                              load_checkpoint, save_checkpoint)
 from iron_tpu_torch.train.schedules import cos_anneal_ratio, warmup_cosine_schedule
 from iron_tpu_torch.volume.integrator import NeuSRenderConfig, neus_render
 from iron_tpu_torch.volume.occupancy import (OccupancyGridConfig, occupancy_guided_z,
@@ -68,8 +70,8 @@ class Stage1Config:
     """The JAX package's Stage1Config with the same defaults, less the
     fields nothing in the port reads: `upsample_precision` and
     `core_precision` (the port's products are f32, K3 at f32 class, except
-    K2's bf16 under upsample_pallas), and `val_freq` and `report_freq`
-    (read by the JAX package's CLI, not ported)."""
+    K2's bf16 under upsample_pallas).  `val_freq` and `report_freq` are read
+    by the CLI (cli/train_volume.py)."""
     learning_rate: float = 5e-4
     learning_rate_alpha: float = 0.05
     end_iter: int = 100001
@@ -81,6 +83,8 @@ class Stage1Config:
     mask_weight: float = 0.0
     variance_init: float = 0.3
     save_freq: int = 10000
+    val_freq: int = 500
+    report_freq: int = 100
     # the up-sample SDF sweeps through K2 (bf16) on a CUDA device
     upsample_pallas: bool = False
     # occupancy-guided initial samples, the grid refreshed every
@@ -290,9 +294,6 @@ class Stage1Trainer:
         self.dataset = dataset
         self.out_dir = out_dir
         self.device = resolve_device(device)
-        if cfg.async_ckpt:
-            raise NotImplementedError("orbax (async_ckpt) checkpoints are not ported; the "
-                                      "port writes the pickle checkpoints")
         if self.device.type == "cuda" and cfg.normals_mode != "pallas":
             raise NotImplementedError("on a CUDA device the SDF core runs through its kernel "
                                       "(normals_mode must be 'pallas')")
@@ -308,6 +309,7 @@ class Stage1Trainer:
         self.opt_count = 0        # optax's count: the updates applied so far
         self.step = 0
         self._occ_grid: Optional[torch.Tensor] = None
+        self._async: Optional[AsyncCheckpointer] = None
 
     def _adam(self) -> torch.optim.Adam:
         return torch.optim.Adam(self.params.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8)
@@ -322,6 +324,13 @@ class Stage1Trainer:
             self.opt.state[p] = {"step": torch.tensor(float(count)), "exp_avg": as_p(mu),
                                  "exp_avg_sq": as_p(nu)}
 
+    def warm_start(self, tree: Dict) -> None:
+        """Take the parameters of a JAX stage-1 tree (of either package's
+        checkpoint) and start a fresh Adam."""
+        self.params = stage1_params_from_numpy(tree, self.cfg, self.device)
+        self.opt = self._adam()
+        self.opt_count = 0
+
     def resume(self) -> int:
         """Load the newest `ckpt_<step>.pkl` of out_dir (written by either
         package): the parameters, Adam's moments and count (from the JAX
@@ -331,9 +340,7 @@ class Stage1Trainer:
             path = latest_checkpoint(self.out_dir)
             if path:
                 ck = load_checkpoint(path)
-                self.params = stage1_params_from_numpy(ck["params"], self.cfg, self.device)
-                self.opt = self._adam()
-                self.opt_count = 0
+                self.warm_start(ck["params"])
                 adam = (ck.get("extra") or {}).get("adam")
                 if ck["opt_state"] is not None:
                     st = {type(s): s for s in ck["opt_state"]}
@@ -350,7 +357,9 @@ class Stage1Trainer:
         """`<out_dir>/ckpt_<step>.pkl` in the JAX package's stage-1 schema:
         the parameters and the field configs; opt_state None, which the JAX
         trainer's resume takes as a fresh optimizer, and the port's Adam
-        moments under extra["adam"], which it does not read."""
+        moments under extra["adam"], which it does not read.  With
+        async_ckpt the file is written on a background thread from a host
+        copy taken before this returns."""
         if not self.out_dir:
             return
         st = lambda key: (lambda p: self.opt.state[p][key] if p in self.opt.state
@@ -360,8 +369,18 @@ class Stage1Trainer:
                  "adam": {"count": self.opt_count,
                           "mu": stage1_params_to_numpy(self.params, st("exp_avg")),
                           "nu": stage1_params_to_numpy(self.params, st("exp_avg_sq"))}}
-        save_checkpoint(self.out_dir, self.step, stage1_params_to_numpy(self.params), None,
-                        extra=extra)
+        params = stage1_params_to_numpy(self.params)
+        if self.cfg.async_ckpt:
+            if self._async is None:
+                self._async = AsyncCheckpointer(self.out_dir)
+            self._async.save(self.step, params, None, extra=extra)
+        else:
+            save_checkpoint(self.out_dir, self.step, params, None, extra=extra)
+
+    def wait_for_saves(self) -> None:
+        """Join the async checkpoint in flight, if any (raises its error)."""
+        if self._async is not None:
+            self._async.wait()
 
     def update_occupancy(self) -> None:
         """Refresh the occupancy grid from the current SDF (f32 sdf_only)."""

@@ -17,8 +17,11 @@ autograd, as the JAX package uses XLA there.  The uniform-cube eikonal term
 runs on plain autograd (create_graph) on both, as in the JAX package, where
 it is plain XLA.  `mat_bf16` runs the material networks in bf16 on both.
 
-Not ported (each raises): `steps_per_call > 1` (the JAX package's lax.scan
-over steps) and `async_ckpt` (orbax).
+`async_ckpt` saves the same pickles on a background thread
+(train/checkpoints.py::AsyncCheckpointer), where the JAX package uses orbax.
+
+Not ported (raises): `steps_per_call > 1` (the JAX package's lax.scan over
+steps).
 """
 from __future__ import annotations
 
@@ -48,9 +51,10 @@ from iron_tpu_torch.shading.materials import (init_material_networks, material_l
 from iron_tpu_torch.surface.render import (SurfaceRenderConfig, render_camera,
                                            scale_config_for_resolution)
 from iron_tpu_torch.surface.tracer import budget_select, linspace01
-from iron_tpu_torch.train.checkpoints import (latest_checkpoint, load_checkpoint,
-                                              params_from_numpy, params_to_numpy,
-                                              save_checkpoint, stage1_to_stage2)
+from iron_tpu_torch.train.checkpoints import (AsyncCheckpointer, latest_checkpoint,
+                                              load_checkpoint, params_from_numpy,
+                                              params_to_numpy, save_checkpoint,
+                                              stage1_to_stage2)
 
 
 @dataclass(frozen=True)
@@ -389,9 +393,6 @@ class Stage2Trainer:
         self.cfg = cfg
         self.out_dir = out_dir
         self.device = resolve_device(device)
-        if cfg.async_ckpt:
-            raise NotImplementedError("orbax (async_ckpt) checkpoints are not ported; the "
-                                      "port writes the pickle checkpoints")
         if cfg.inv_gamma_gt:
             images = np.power(images, 2.2)
         self.images = torch.as_tensor(np.asarray(images, np.float32), device=self.device)
@@ -431,6 +432,7 @@ class Stage2Trainer:
         self.best_metric = float("-inf")
         self.best_step: Optional[int] = None
         self.val_history: list = []
+        self._async: Optional[AsyncCheckpointer] = None
 
     def resume(self) -> int:
         """Load the newest `ckpt_<step>.pkl` of out_dir (written by either
@@ -448,9 +450,21 @@ class Stage2Trainer:
 
     def save(self) -> None:
         """`<out_dir>/ckpt_<step>.pkl` with the parameters (no optimizer
-        state, as in the JAX package's stage 2)."""
-        if self.out_dir:
+        state, as in the JAX package's stage 2); with async_ckpt written on a
+        background thread from a host copy taken before this returns."""
+        if not self.out_dir:
+            return
+        if self.cfg.async_ckpt:
+            if self._async is None:
+                self._async = AsyncCheckpointer(self.out_dir)
+            self._async.save(self.step, self.params)
+        else:
             save_checkpoint(self.out_dir, self.step, self.params)
+
+    def wait_for_saves(self) -> None:
+        """Join the async checkpoint in flight, if any (raises its error)."""
+        if self._async is not None:
+            self._async.wait()
 
     def _validate(self, val_fn) -> float:
         """Run `val_fn(self)` (a float metric, higher is better, or a dict

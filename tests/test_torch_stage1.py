@@ -285,9 +285,9 @@ def test_remat_core_step_matches_the_kept_step(scene, monkeypatch, route):
 def test_trainer_run_occupancy_and_unported_options(scene, tmp_path):
     """Stage1Trainer.run on the CPU: the draws' shapes, the step count,
     finite metrics, the occupancy grid refreshed on its schedule, a save /
-    resume round trip (Adam's moments and count included), the validation
-    and novel-view renders; CUDA without a card, steps_per_call > 1 and
-    async_ckpt raise."""
+    resume round trip (Adam's moments and count included), an async save
+    equal to the blocking one, the validation and novel-view renders; CUDA
+    without a card and steps_per_call > 1 raise."""
     _, cfg = _cfgs(use_occupancy=True, occupancy_update_every=2,
                    render=NeuSRenderConfig(n_samples=16, n_importance=16, n_outside=8,
                                            up_sample_steps=2))
@@ -320,8 +320,16 @@ def test_trainer_run_occupancy_and_unported_options(scene, tmp_path):
         Stage1Trainer(cfg, tt.dataset, device="cuda")
     with pytest.raises(NotImplementedError):
         tt.run(num_iters=2, steps_per_call=2)
-    with pytest.raises(NotImplementedError):
-        Stage1Trainer(dataclasses.replace(cfg, async_ckpt=True), tt.dataset, device="cpu")
+    ta = Stage1Trainer(dataclasses.replace(cfg, async_ckpt=True), tt.dataset, device="cpu",
+                       out_dir=str(tmp_path / "async"))
+    ta.params, ta.opt, ta.opt_count, ta.step = tt.params, tt.opt, tt.opt_count, tt.step
+    ta.save()
+    ta.wait_for_saves()
+    got = load_checkpoint(str(tmp_path / "async" / "ckpt_0000003.pkl"))
+    want = load_checkpoint(str(tmp_path / "ckpt_0000003.pkl"))
+    assert _leaves(got).keys() == _leaves(want).keys()
+    for k, a in _leaves(want).items():
+        np.testing.assert_array_equal(_leaves(got)[k], a, err_msg=k)
 
 
 def test_unported_modes_raise_on_a_cuda_device(scene, monkeypatch):

@@ -221,9 +221,10 @@ def test_optimizer_groups_freezing_and_clipping():
                               after["materials"]["diffuse_albedo_network"]["layers"][0]["v"])
 
 
-def test_run_draws_crops_as_the_jax_trainer():
+def test_run_draws_crops_as_the_jax_trainer(tmp_path):
     """Stage2Trainer.run: the JAX package's host crop formula, the step
-    count, finite metrics, and the unported options raising."""
+    count, finite metrics, an async checkpoint holding the parameters as
+    they were when save() returned, and the unported option raising."""
     d = render_synthetic_dataset("sphere", n_views=2, H=40, W=40, rig_kwargs={"focal": 50.0},
                                  device="cpu")
     cfg = Stage2Config(renderer_name="ggx", patch_size=24, sdf=SDFConfig(**NARROW),
@@ -239,9 +240,17 @@ def test_run_draws_crops_as_the_jax_trainer():
     assert tt.step == 2 and all(np.isfinite(v) for v in m.values())
     with pytest.raises(NotImplementedError):
         tt.run(num_iters=2, steps_per_call=2)
-    with pytest.raises(NotImplementedError):
-        Stage2Trainer(dataclasses.replace(cfg, async_ckpt=True), d["images"], d["Ks"],
-                      d["W2Cs"], device="cpu")
+    tt.cfg, tt.out_dir = dataclasses.replace(cfg, async_ckpt=True), str(tmp_path)
+    want = jax.tree_util.tree_map(np.copy, params_to_numpy(tt.params))
+    tt.save()
+    with torch.no_grad():
+        for p in tt.params.parameters():
+            p.add_(1.0)
+    tt.wait_for_saves()
+    ck = j_load_checkpoint(os.path.join(str(tmp_path), "ckpt_0000002.pkl"))
+    assert ck["step"] == 2 and ck["opt_state"] is None
+    for a, b in zip(jax.tree_util.tree_leaves(want), jax.tree_util.tree_leaves(ck["params"])):
+        np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError):
         Stage2Trainer(dataclasses.replace(cfg, silhouette_weight=0.1), d["images"], d["Ks"],
                       d["W2Cs"], device="cpu")
