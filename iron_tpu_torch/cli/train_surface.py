@@ -30,7 +30,7 @@ def main(argv=None):
     p.add_argument("--neus_ckpt_fpath", default=None)
     p.add_argument("--renderer_name", default="comp",
                    choices=["ggx", "multi", "comp", "comp2"],
-                   help="material flavour (multi is not ported yet and raises)")
+                   help="material flavour")
     p.add_argument("--num_iters", type=int, default=50001)
     p.add_argument("--patch_size", type=int, default=128)
     p.add_argument("--eik_weight", type=float, default=0.1)

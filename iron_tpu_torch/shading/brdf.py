@@ -1,5 +1,8 @@
-"""Co-located camera+flash BRDFs (counterpart of iron_tpu/shading/brdf.py):
-`ggx_colocated` and `composite_colocated` with the lobes they use.
+"""Co-located camera+flash BRDF family (counterpart of
+iron_tpu/shading/brdf.py): the const-Fresnel roughplastic `ggx_colocated`,
+the exact-Fresnel `rough_plastic_colocated`, the smooth and thin
+dielectrics, the smooth and rough conductors, their 4-way per-point
+`mixture_colocated` and the fork's `composite_colocated`.
 
 All take (light, distance, normal, viewdir, params) with normal and viewdir
 pointing away from the surface; co-located, <n,v> = <n,l> = <n,h>, so each
@@ -15,6 +18,13 @@ import torch
 from iron_tpu_torch.shading.fresnel import (fresnel_conductor_exact, fresnel_dielectric,
                                             ggx_ndf, smith_g1)
 from iron_tpu_torch.shading.tables import lookup_Fdr, lookup_T12
+
+# conductor IOR (eta, k) at 850 nm
+CONDUCTOR_IOR_850NM = {
+    "Cu": (0.280000, 5.485625),
+    "Au": (0.198125, 5.631250),
+    "Al": (2.580000, 8.210000),
+}
 
 PLASTIC_ETA = 1.48958738  # IOR['polypropylene'] / IOR['air']
 
@@ -53,6 +63,79 @@ def ggx_colocated(light, distance, normal, viewdir, params: Dict) -> Dict:
     diffuse_rgb = _table_diffuse(li, dot, alpha, diffuse_albedo)
     return {"diffuse_rgb": diffuse_rgb, "specular_rgb": specular_rgb,
             "rgb": diffuse_rgb + specular_rgb}
+
+
+def rough_plastic_colocated(light, distance, normal, viewdir, params: Dict) -> Dict:
+    """Exact-Fresnel roughplastic."""
+    diffuse_albedo = params["diffuse_albedo"]
+    specular_albedo = params["specular_albedo"]
+    alpha = torch.clamp(params["specular_roughness"], min=0.0001)
+    li = _light_falloff(light, distance)
+    dot = _cos(normal, viewdir)
+
+    D = ggx_ndf(dot, alpha)
+    F = fresnel_dielectric(dot, PLASTIC_ETA)
+    G = smith_g1(dot, alpha) ** 2
+    specular_rgb = li * specular_albedo * F * D * G / (4.0 * dot + 1e-10)
+    diffuse_rgb = _table_diffuse(li, dot, alpha, diffuse_albedo)
+    return {"diffuse_rgb": diffuse_rgb, "specular_rgb": specular_rgb,
+            "rgb": diffuse_rgb + specular_rgb}
+
+
+def _lobes(li, diffuse_albedo, specular_rgb) -> Dict:
+    """A specular lobe over the 1e-4 diffuse floor of the mirror BRDFs."""
+    diffuse_rgb = li * diffuse_albedo * 0.0001
+    return {"diffuse_rgb": diffuse_rgb, "specular_rgb": specular_rgb,
+            "rgb": diffuse_rgb + specular_rgb}
+
+
+def smooth_dielectric(light, distance, normal, viewdir, params: Dict) -> Dict:
+    """Constant-F (0.04) mirror dielectric."""
+    li = _light_falloff(light, distance)
+    return _lobes(li, params["diffuse_albedo"], li * params["specular_albedo"] * 0.04)
+
+
+def thin_dielectric(light, distance, normal, viewdir, params: Dict) -> Dict:
+    """Thin-slab dielectric: R' = R + T^2 R / (1 - R^2) at R = 0.04."""
+    li = _light_falloff(light, distance)
+    R = 0.04
+    T = 1 - R
+    R = R + T * T * R / (1 - R * R)
+    return _lobes(li, params["diffuse_albedo"], li * params["specular_albedo"] * R)
+
+
+def smooth_conductor_colocated(light, distance, normal, viewdir, params: Dict,
+                               eta: float = 2.58, k: float = 8.21) -> Dict:
+    """Smooth conductor mirror, Al at 850 nm by default."""
+    li = _light_falloff(light, distance)
+    F = fresnel_conductor_exact(_cos(normal, viewdir), eta, k)
+    return _lobes(li, params["diffuse_albedo"], li * params["specular_albedo"] * F)
+
+
+def rough_conductor_colocated(light, distance, normal, viewdir, params: Dict,
+                              eta: float = 2.58, k: float = 8.21) -> Dict:
+    """Rough (GGX) conductor, Al at 850 nm by default."""
+    alpha = torch.clamp(params["specular_roughness"], min=0.0001)
+    li = _light_falloff(light, distance)
+    dot = _cos(normal, viewdir)
+    D = ggx_ndf(dot, alpha)
+    F = fresnel_conductor_exact(dot, eta, k)
+    G = smith_g1(dot, alpha) ** 2
+    return _lobes(li, params["diffuse_albedo"],
+                  li * params["specular_albedo"] * F * D * G / (4.0 * dot + 1e-10))
+
+
+def mixture_colocated(light, distance, normal, viewdir, params: Dict) -> Dict:
+    """4-way per-point blend by params["material_vector"], in the order
+    [rough_plastic, smooth_dielectric, rough_conductor, smooth_conductor]."""
+    mv = params["material_vector"]
+    parts = [f(light, distance, normal, viewdir, params)
+             for f in (rough_plastic_colocated, smooth_dielectric,
+                       rough_conductor_colocated, smooth_conductor_colocated)]
+    diffuse = sum(mv[..., i:i + 1] * p["diffuse_rgb"] for i, p in enumerate(parts))
+    specular = sum(mv[..., i:i + 1] * p["specular_rgb"] for i, p in enumerate(parts))
+    return {"diffuse_rgb": diffuse, "specular_rgb": specular,
+            "rgb": diffuse + specular, "material_map": mv}
 
 
 def composite_colocated(light, distance, normal, viewdir, params: Dict,

@@ -33,6 +33,16 @@ def _table(name: str, like: torch.Tensor) -> torch.Tensor:
     return _load(name, str(like.device))
 
 
+def mts_trans_table(device="cpu") -> torch.Tensor:
+    """5000-entry external-IOR transmission table (a copy)."""
+    return _load("ext_mts_rtrans_data.txt", str(torch.device(device))).clone()
+
+
+def mts_diff_trans_table(device="cpu") -> torch.Tensor:
+    """50-entry internal diffuse transmission table (a copy)."""
+    return _load("int_mts_diff_rtrans_data.txt", str(torch.device(device))).clone()
+
+
 def lookup_T12(dot: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """T12 transmission factor, shapes [..., 1]."""
     table = _table("ext_mts_rtrans_data.txt", dot)

@@ -282,6 +282,26 @@ class Stage1Draws:
     occ_u: Optional[torch.Tensor] = None           # [B, n_samples] in [0, 1)
 
 
+def draw_stage1(cfg: Stage1Config, dataset: RayDataset,
+                generator: torch.Generator) -> Stage1Draws:
+    """The random inputs of one step on `dataset`, drawn on its device from
+    `generator` (no host sync)."""
+    dev = dataset.device
+    B, (H, W) = cfg.batch_size, dataset.hw
+    u = lambda *shape: torch.rand(shape, generator=generator, device=dev)
+    d = Stage1Draws(
+        img_idx=torch.randint(0, dataset.n_images, (), generator=generator, device=dev),
+        px=torch.randint(0, W, (B,), generator=generator, device=dev),
+        py=torch.randint(0, H, (B,), generator=generator, device=dev))
+    if cfg.render.perturb > 0:
+        d.t_rand = u(B, 1) - 0.5
+        if cfg.render.n_outside > 0:
+            d.t_rand_outside = u(B, cfg.render.n_outside)
+    if cfg.use_occupancy:
+        d.occ_u = u(B, cfg.render.n_samples)
+    return d
+
+
 class Stage1Trainer:
     """Stage-1 training of one scene on one device: parameters (drawn from
     `generator`, or resumed from `out_dir`), one Adam, `run`, checkpoints and
@@ -390,20 +410,7 @@ class Stage1Trainer:
 
     def draw(self, generator: torch.Generator) -> Stage1Draws:
         """One step's random inputs, drawn on the device (no host sync)."""
-        cfg, dev = self.cfg, self.device
-        B, (H, W) = cfg.batch_size, self.dataset.hw
-        u = lambda *shape: torch.rand(shape, generator=generator, device=dev)
-        d = Stage1Draws(
-            img_idx=torch.randint(0, self.dataset.n_images, (), generator=generator, device=dev),
-            px=torch.randint(0, W, (B,), generator=generator, device=dev),
-            py=torch.randint(0, H, (B,), generator=generator, device=dev))
-        if cfg.render.perturb > 0:
-            d.t_rand = u(B, 1) - 0.5
-            if cfg.render.n_outside > 0:
-                d.t_rand_outside = u(B, cfg.render.n_outside)
-        if cfg.use_occupancy:
-            d.occ_u = u(B, cfg.render.n_samples)
-        return d
+        return draw_stage1(self.cfg, self.dataset, generator)
 
     def train_step(self, draws: Stage1Draws) -> Dict[str, torch.Tensor]:
         """One step on the given draws: loss, backward, the Adam update at

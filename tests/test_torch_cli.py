@@ -363,9 +363,49 @@ def test_two_stage_workflow_through_the_cli(tmp_path, monkeypatch, capsys):
         cli_volume.main(["--mode", "train", "--conf", conf_path, "--num_iters", "1"])
 
 
+# the modules added or extended by the research trainers' slice
+RESEARCH_MODULES = [f"iron_tpu_torch.{m}" for m in (
+    "shading.tables", "shading.brdf", "shading.disney", "shading.materials",
+    "train.checkpoints", "cli.train_surface", "train.curriculum",
+    "train.stage1_multispectral", "fields.hashgrid", "train.nerf_runner",
+    "eval.independent_gt", "utils.profiling", "utils.visualize")]
+
+
+def test_train_surface_runs_the_multi_flavour(tmp_path):
+    """`python -m iron_tpu_torch.cli.train_surface --renderer_name multi
+    --device cpu` trains 2 narrow steps from a stage-1 checkpoint: the
+    checkpoint holds the flavour's networks (the 4-way material_network)
+    and finite parameters."""
+    data = render_synthetic_dataset("sphere", n_views=2, H=32, W=32, light=30.0,
+                                    rig_kwargs={"focal": 40.0}, device="cpu")
+    scene = write_scene_dir(data, str(tmp_path / "scene" / "train"))
+    from iron_tpu_torch.config import stage1_config_from_dict
+    from iron_tpu_torch.data.dataset import RayDataset
+    from iron_tpu_torch.train.stage1 import Stage1Trainer
+    s1 = Stage1Trainer(stage1_config_from_dict(DRY_CONF),
+                       RayDataset.from_arrays(data["images"], data["Ks"], data["W2Cs"],
+                                              data["masks"], device="cpu"),
+                       out_dir=str(tmp_path / "exp1"), device="cpu")
+    s1.save()
+    exp2 = str(tmp_path / "exp2")
+    out = subprocess.run(
+        [sys.executable, "-m", "iron_tpu_torch.cli.train_surface", "--data_dir", scene,
+         "--out_dir", exp2, "--neus_ckpt_fpath", str(tmp_path / "exp1" / "ckpt_0000000.pkl"),
+         "--renderer_name", "multi", "--num_iters", "2", "--patch_size", "16",
+         "--skip_final_export", "--device", "cpu"],
+        env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    ck = load_checkpoint(os.path.join(exp2, "ckpt_0000002.pkl"))
+    mats = ck["params"]["materials"]
+    assert ck["step"] == 2 and "material_network" in mats and "metallic_network" not in mats
+    for leaf in jax.tree_util.tree_leaves(ck["params"]):
+        assert np.isfinite(leaf).all()
+
+
 def test_port_imports_with_jax_and_the_jax_package_blocked():
     """Every module of iron_tpu_torch imports in a process where importing
-    jax or iron_tpu fails."""
+    jax or iron_tpu fails, the research trainers' modules among them."""
     code = ("import pkgutil, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['iron_tpu'] = None\n"
@@ -375,6 +415,7 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
             "for n in names:\n"
             "    __import__(n)\n"
             "assert 'iron_tpu_torch.cli.train_surface' in names, names\n"
+            f"assert not set({RESEARCH_MODULES!r}) - set(names), names\n"
             "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], env=dict(os.environ, PYTHONPATH=REPO),
                          cwd=REPO, capture_output=True, text=True, timeout=120)
