@@ -66,6 +66,17 @@ with the launch counts set to 0 just before it and read just after:
     the RGB phase, the checkpoint hand-off bit for bit) and the hash-grid
     NeRF runner (30 steps at the default grids, plain PyTorch, a falling
     loss, its memory);
+  * data-parallel training and rendering (phase 8g, `dp_phase`,
+    iron_tpu_torch/dist/): NCCL at a world of 1 (3 dp steps of each stage
+    bit-equal to the single-device trainers'), then two ranks on the one
+    card over gloo, subprocesses of this script (`--dp-worker`): 10 stage-1
+    steps at Stage1Config()'s width (512 rays split 256 a rank; the first
+    step's gradients against the single-device step on the whole batch),
+    10 stage-2 steps at the training cell's configuration (the first on one
+    crop on both ranks, against the single-device step), the parameters
+    bit-equal on both ranks after every step, every kernel of each path
+    launched at every step; the dp stage-1 render against render_image and
+    the dp band render against render_full;
 
 then times each kernel beside its plain version and its bound, and prints:
 
@@ -78,10 +89,14 @@ then times each kernel beside its plain version and its bound, and prints:
     instead of 100,001 / 50,001 steps and 512);
   * one JSON line {"research": {...}}: phase 8f's step medians, launches,
     render times, the runner's memory, and its cuts;
+  * one JSON line {"dp": {...}}: phase 8g's bit-equality, the step medians
+    a rank beside the single-device steps of this call, the all-reduce time
+    a step, the launches a rank a step (two processes time-slicing one
+    card, gloo through the host: not a multi-GPU speed figure);
   * one JSON line {"kernels": [...]} on the six kernels (launches: K1-K3
     from the default training run, K4 from the trace_pallas training run,
     K5 from the sweep; beside them each kernel's launches on phase 8f's
-    paths);
+    paths and a rank's on phase 8g's);
   * last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -1212,6 +1227,484 @@ def research_phase(args, dev, card, data, kernels, h) -> dict:
     log(f"phase 8f: {rec['wall_s']:.1f} s")
     return rec
 
+# ---------------------------------------------------------------------------
+# phase 8g: data-parallel training and rendering (iron_tpu_torch/dist/)
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2        # ranks of phase 8g's gloo group, both on the one card
+DP_STEPS = 10       # steps of each stage a rank
+DP_TIMEOUT = 300    # seconds for both ranks to finish (their group's timeout: 120 s)
+
+
+def dp_configs():
+    """Phase 8g's configurations: stage 1 at Stage1Config()'s width (the
+    womask_iron width, 1,777,983 parameters; the warm-up cut to 2 steps so
+    that 10 steps train), stage 2 at the training cell's (phase 8: comp,
+    128x128 crops), and the band render's: Stage2Config() with the fallback
+    sweep on every ray and no edge pass (tests/test_dist.py's render), so
+    that a band traces as the whole frame does."""
+    from iron_tpu_torch.surface.render import SurfaceRenderConfig
+    from iron_tpu_torch.train.stage1 import Stage1Config
+    from iron_tpu_torch.train.stage2 import Stage2Config
+    s1 = dataclasses.replace(Stage1Config(), warm_up_end=2)
+    s2 = Stage2Config(renderer_name="comp", patch_size=128,
+                      surface=SurfaceRenderConfig(edge_budget=1024, interior_budget=4096))
+    base = Stage2Config()
+    r2 = dataclasses.replace(base, surface=dataclasses.replace(
+        base.surface, handle_edges=False,
+        tracer=dataclasses.replace(base.surface.tracer, fallback_budget=None)))
+    return s1, s2, r2
+
+
+def params_sha(params) -> str:
+    """sha256 of every parameter's bytes, in named_parameters order."""
+    import hashlib
+    h = hashlib.sha256()
+    for p in params.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_rank(spec: dict, data, rank: int, dev, store: str) -> dict:
+    """Phase 8g (b) and (c) on one rank of the gloo group: 10 dp stage-1
+    steps (256 rays a rank), 10 dp stage-2 steps (the first on the same crop
+    on every rank, then each rank's own), the dp stage-1 render of view 0 at
+    resolution level 4 and the dp band render of the render cell's view 0.
+    Each step's time, all-reduce time, launches and parameter hash; rank 0
+    saves the first steps' gradients and the renders into `store`."""
+    import torch
+    from iron_tpu_torch import kernels
+    from iron_tpu_torch.data.dataset import RayDataset
+    from iron_tpu_torch.dist.mesh import make_mesh, replicate
+    from iron_tpu_torch.dist.train import (draw_dp_stage1, make_dp_stage1_render,
+                                           make_dp_stage1_step, make_dp_stage2_render,
+                                           make_dp_stage2_step)
+    from iron_tpu_torch.train.schedules import cos_anneal_ratio
+    from iron_tpu_torch.train.stage1 import init_stage1_params, stage1_loss
+    from iron_tpu_torch.train.stage2 import Stage2Trainer
+
+    mesh = make_mesh(device=dev)
+    c1, c2, r2 = dp_configs()
+    seed = spec["seed"]
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)
+    ar_s = []
+    reduce = mesh.all_reduce_sum
+
+    def timed_reduce(t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce(t)
+        torch.cuda.synchronize()
+        ar_s.append(time.perf_counter() - t0)
+        return out
+
+    mesh.all_reduce_sum = timed_reduce
+
+    def run(step, params, label):
+        """DP_STEPS steps of step(i) -> metrics, each synchronised and
+        counted (the launch counts set to 0 just before it)."""
+        rows = []
+        for i in range(DP_STEPS):
+            kernels.reset_launch_counts()
+            del ar_s[:]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(i)
+            torch.cuda.synchronize()
+            rows.append({"s": time.perf_counter() - t0, "allreduce_s": sum(ar_s),
+                         "allreduces": len(ar_s), "launches": kernels.launch_counts(),
+                         "sha": params_sha(params),
+                         "metrics": {k: float(v) for k, v in m.items()}})
+            print(f"rank {rank} {label} step {i}: {rows[-1]['s'] * 1e3:.2f} ms, all-reduce "
+                  f"{rows[-1]['allreduce_s'] * 1e3:.2f} ms, loss {rows[-1]['metrics']['loss']:.6f}",
+                  flush=True)
+        return rows
+
+    save = lambda obj, name: rank == 0 and torch.save(obj, os.path.join(store, name))
+    grads = lambda params: {n: p.grad.detach().cpu() for n, p in params.named_parameters()
+                            if p.grad is not None}
+    rec = {"rank": rank, "device": str(dev)}
+
+    # stage 1: every rank draws the global step and keeps its rows
+    ds = RayDataset.from_arrays(data["images"], data["Ks"], data["W2Cs"], data["masks"],
+                                device=dev)
+    p1 = replicate(init_stage1_params(c1, gen(seed + 3 + rank), dev), mesh)
+    opt1 = torch.optim.Adam(p1.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+    step1 = make_dp_stage1_step(c1, mesh)
+    first = draw_dp_stage1(c1, ds, gen(seed + 40), mesh)
+
+    def fixed_loss() -> float:
+        """The global loss of the first step's rays and draws now."""
+        with torch.no_grad():
+            loss, _ = stage1_loss(p1, c1, first[0], cos_anneal_ratio(0, c1.anneal_end),
+                                  t_rand=first[1].t_rand, t_rand_outside=first[1].t_rand_outside,
+                                  reduce_sums=reduce)
+            return float(reduce(loss.reshape(1).clone()))
+
+    g1 = gen(seed + 40)
+    before = fixed_loss()
+
+    def s1_step(i):
+        batch, draws = draw_dp_stage1(c1, ds, g1, mesh)
+        m = step1(p1, opt1, batch, i, draws)
+        if i == 0:
+            save(grads(p1), "s1_grads.pt")
+        return m
+
+    rec["stage1"] = {"rows": run(s1_step, p1, "stage 1"), "fixed_loss": [before, fixed_loss()],
+                     "rays_a_rank": first[0].shape[0]}
+
+    # stage 2: the first step on the same crop and eikonal points on every
+    # rank, then each rank's own crop of one draw for all ranks
+    tr2 = Stage2Trainer(c2, data["images"], data["Ks"], data["W2Cs"],
+                        generator=gen(seed + 50 + rank), device=dev)
+    replicate(tr2.params, mesh)
+    step2 = make_dp_stage2_step(c2, tr2.mat_cfgs, mesh, data["images"], data["Ks"],
+                                data["W2Cs"])
+    ps = c2.patch_size
+    n_eik = ps * ps // 2
+    eik_same = torch.rand((n_eik, 3), generator=gen(spec["eik_seed"]), device=dev) * 2 - 1
+    g_eik = gen(seed + 60 + rank)
+    g_crop = np.random.default_rng(seed + 70)
+    n_views, H, W = data["images"].shape[:3]
+
+    def s2_step(i):
+        crops = [(int(g_crop.integers(0, n_views)), int(g_crop.integers(0, W - ps)),
+                  int(g_crop.integers(0, H - ps))) for _ in range(mesh.size)]
+        eik = torch.rand((n_eik, 3), generator=g_eik, device=dev) * 2 - 1
+        if i == 0:
+            crop, eik = tuple(spec["crop"]), eik_same
+        else:
+            crop = crops[rank]
+        m = step2(tr2.params, tr2.opt, *crop, eik)
+        if i == 0:
+            save(grads(tr2.params), "s2_grads.pt")
+        return m
+
+    rec["stage2"] = {"rows": run(s2_step, tr2.params, "stage 2")}
+
+    # the renders
+    p_r = init_stage1_params(c1, gen(seed + 3), dev)
+    ro, rd = ds.gen_rays_grid(0, 4)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    color, normal = make_dp_stage1_render(c1, mesh)(p_r, ro.reshape(-1, 3), rd.reshape(-1, 3))
+    torch.cuda.synchronize()
+    rec["render1"] = {"s": time.perf_counter() - t0, "launches": kernels.launch_counts(),
+                      "rays": ro.numel() // 3}
+    save({"color": color.cpu(), "normal": normal.cpu()}, "render1.pt")
+    Ks_r, W2Cs_r = ring_cameras(spec["views"], spec["res"])
+    res = spec["res"]
+    tr_r = Stage2Trainer(r2, np.zeros((spec["views"], res, res, 3), np.float32), Ks_r, W2Cs_r,
+                         generator=gen(seed), device=dev)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buf = make_dp_stage2_render(r2, tr_r.mat_cfgs, mesh, res, res)(tr_r.params, Ks_r[0],
+                                                                   W2Cs_r[0])
+    torch.cuda.synchronize()
+    rec["render2"] = {"s": time.perf_counter() - t0, "launches": kernels.launch_counts()}
+    save({k: v.cpu() for k, v in buf.items()}, "render2.pt")
+    return rec
+
+
+def dp_worker(args) -> int:
+    """`chip_smoke.py --dp-worker RANK --dp-store DIR`: one rank of phase
+    8g's gloo group on the card (its spec and data in DIR, written by the
+    phase); prints one JSON line {"dp_rank": ...} and exits 0, or raises."""
+    import torch.distributed as dist
+    from iron_tpu_torch.dist.mesh import initialize_distributed
+
+    with open(os.path.join(args.dp_store, "spec.json")) as f:
+        spec = json.load(f)
+    data = dict(np.load(os.path.join(args.dp_store, "data.npz")))
+    dev = initialize_distributed(backend="gloo", device="cuda",
+                                 init_method="file://" + os.path.join(args.dp_store, "init"),
+                                 rank=args.dp_worker, world_size=spec["world"],
+                                 local_rank=args.dp_worker, timeout=spec["group_timeout"])
+    try:
+        rec = dp_rank(spec, data, args.dp_worker, dev, args.dp_store)
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"dp_rank": rec}), flush=True)
+    return 0
+
+
+def dp_phase(args, dev, card, data, kernels, h) -> dict:
+    """Phase 8g, data-parallel training and rendering (iron_tpu_torch/dist/)
+    at full width on phase 8's data:
+
+      (a) NCCL at a world of 1 in this process: 3 dp stage-1 steps and 3 dp
+          stage-2 steps bit-equal to the single-device trainers' steps from
+          the same state (and each trainer's steps run twice, bit-equal: the
+          single-device step is reproducible);
+      (b) two ranks on the one card over gloo (subprocesses of this script,
+          `--dp-worker`): 10 stage-1 steps of 256 rays a rank (the global
+          batch 512), the first step's summed gradients against the
+          single-device step on the global batch and draws at phase 8d's
+          holds, the parameters bit-equal on both ranks after every step
+          (sha256), the loss of the first step's rays falling; 10 stage-2
+          steps, the first on the same crop on both ranks (its averaged
+          gradients against the single-device step: bit-equal, or within
+          phase 8's 5e-3 hold, reported), then each rank's own crop, the
+          parameters bit-equal after every step; every kernel of each path
+          launched at every step and no other;
+      (c) the dp stage-1 render of view 0 at resolution level 4 against
+          Stage1Trainer.render_image at 1e-5, and the dp band render of the
+          render cell's view 0 (args.res square, fallback_budget None, no
+          edge pass) against Stage2Trainer.render_full, away from the band
+          seam at tests/test_dist.py's holds (colour 1e-2, masks 0.5%).
+
+    `h` holds phase 8's helpers and this call's single-device step medians.
+    Two processes on one card time-slice it and their all-reduce goes
+    through the host (gloo): the times are a correctness run's, not a
+    multi-GPU speed figure.  Returns the {"dp"} record."""
+    import signal
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from iron_tpu_torch.data.dataset import RayDataset
+    from iron_tpu_torch.dist.mesh import initialize_distributed, make_mesh
+    from iron_tpu_torch.dist.train import make_dp_stage1_step, make_dp_stage2_step
+    from iron_tpu_torch.train.schedules import cos_anneal_ratio
+    from iron_tpu_torch.train.stage1 import Stage1Trainer, draw_stage1, stage1_loss
+    from iron_tpu_torch.train.stage2 import Stage2Trainer, make_optimizer, stage2_loss
+
+    t_phase = time.perf_counter()
+    c1, c2, r2 = dp_configs()
+    seed = args.seed
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)
+    ds = RayDataset.from_arrays(data["images"], data["Ks"], data["W2Cs"], data["masks"],
+                                device=dev)
+    new_s1 = lambda: Stage1Trainer(c1, ds, generator=gen(seed + 3), device=dev)
+    new_s2 = lambda: Stage2Trainer(c2, data["images"], data["Ks"], data["W2Cs"],
+                                   generator=gen(seed + 50), device=dev)
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
+    rec = {"card": card, "note": (
+        "(b) and (c) are two processes time-slicing one card, their all-reduce through "
+        "gloo (host memory): a correctness run, not a multi-GPU speed figure")}
+
+    # (a) NCCL at a world of 1
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        initialize_distributed(backend="nccl", device=dev,
+                               init_method="file://" + os.path.join(tmp, "init"), rank=0,
+                               world_size=1, local_rank=dev.index or 0)
+        try:
+            mesh = make_mesh(device=dev)
+            tr, tr_again = new_s1(), new_s1()
+            p_dp = copy.deepcopy(tr.params)
+            opt_dp = torch.optim.Adam(p_dp.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+            step1 = make_dp_stage1_step(c1, mesh)
+            g = gen(seed + 41)
+            s1_same, s1_repro = [], []
+            for i in range(3):
+                d = tr.draw(g)
+                batch = ds.gen_random_rays(d.img_idx, c1.batch_size, px=d.px, py=d.py)
+                tr.train_step(d)
+                tr_again.train_step(d)
+                step1(p_dp, opt_dp, batch, i, d)
+                s1_same.append(same(tr.params, p_dp))
+                s1_repro.append(same(tr.params, tr_again.params))
+            tr, tr_again = new_s2(), new_s2()
+            p_dp = copy.deepcopy(tr.params)
+            opt_dp = make_optimizer(c2, p_dp)
+            step2 = make_dp_stage2_step(c2, tr.mat_cfgs, mesh, data["images"], data["Ks"],
+                                        data["W2Cs"])
+            g_crop, g_eik = np.random.default_rng(seed + 42), gen(seed + 43)
+            n_views, H, W = data["images"].shape[:3]
+            ps = c2.patch_size
+            s2_same, s2_repro = [], []
+            for i in range(3):
+                crop = (int(g_crop.integers(0, n_views)), int(g_crop.integers(0, W - ps)),
+                        int(g_crop.integers(0, H - ps)))
+                eik = torch.rand((ps * ps // 2, 3), generator=g_eik, device=dev) * 2 - 1
+                tr.train_step(*crop, eik)
+                tr_again.train_step(*crop, eik)
+                step2(p_dp, opt_dp, *crop, eik)
+                s2_same.append(same(tr.params, p_dp))
+                s2_repro.append(same(tr.params, tr_again.params))
+        finally:
+            dist.destroy_process_group()
+    rec["nccl_world_1"] = {"stage1_bit_equal": s1_same, "stage2_bit_equal": s2_same,
+                           "single_device_reproducible": {"stage1": s1_repro,
+                                                          "stage2": s2_repro}}
+    log(f"phase 8g (a) NCCL at a world of 1: after each of 3 steps the dp parameters "
+        f"bit-equal to the single-device trainer's: stage 1 {s1_same}, stage 2 {s2_same} (the "
+        f"single-device steps run twice bit-equal: stage 1 {s1_repro}, stage 2 {s2_repro})")
+    assert all(s1_same) and all(s2_same)
+
+    # (b), (c) two ranks on the card over gloo
+    with tempfile.TemporaryDirectory(dir=HERE) as store:
+        np.savez(os.path.join(store, "data.npz"), **{k: np.asarray(data[k]) for k in
+                                                     ("images", "Ks", "W2Cs", "masks")})
+        spec = {"world": DP_WORLD, "seed": seed, "views": args.views, "res": args.res,
+                "crop": list(h["crop"]), "eik_seed": h["eik_seed"], "group_timeout": 120}
+        with open(os.path.join(store, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker",
+                                   str(r), "--dp-store", store], cwd=HERE, text=True,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  start_new_session=True) for r in range(DP_WORLD)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+        workers_s = time.perf_counter() - t0
+        for r, out in enumerate(outs):
+            for line in out.splitlines():
+                if not line.startswith('{"dp_rank"'):
+                    log(f"  [rank {r}] {line}")
+        assert all(p.returncode == 0 for p in procs), [p.returncode for p in procs]
+        ranks = [json.loads([ln for ln in out.splitlines() if ln.startswith('{"dp_rank"')][-1])
+                 ["dp_rank"] for out in outs]
+        load = lambda name, loc: torch.load(os.path.join(store, name), map_location=loc)
+        s1_grads, s2_grads = load("s1_grads.pt", dev), load("s2_grads.pt", dev)
+        render1, render2 = load("render1.pt", "cpu"), load("render2.pt", "cpu")
+
+    # both ranks: the same parameters after every step, the same metrics
+    for stage in ("stage1", "stage2"):
+        a, b = (rk[stage]["rows"] for rk in ranks)
+        assert [x["sha"] for x in a] == [x["sha"] for x in b], stage
+        assert [x["metrics"] for x in a] == [x["metrics"] for x in b], stage
+        assert all(np.isfinite(v) for x in a for v in x["metrics"].values()), stage
+    rows1, rows2 = ranks[0]["stage1"]["rows"], ranks[0]["stage2"]["rows"]
+    for rk in ranks:
+        for x in rk["stage1"]["rows"]:
+            assert {k: v for k, v in x["launches"].items() if v} == {
+                "sdf_value_feat_grad": 1, "sdf_value_feat_grad_bwd": 1}, x["launches"]
+        for x in rk["stage2"]["rows"]:
+            assert all(x["launches"][k] >= 1 for k in h["step_path"]), x["launches"]
+            assert all(v == 0 for k, v in x["launches"].items() if k not in h["step_path"])
+    before, after = ranks[0]["stage1"]["fixed_loss"]
+    log(f"phase 8g (b) two ranks on the card over gloo ({workers_s:.1f} s): parameters "
+        f"bit-equal on both ranks after each of {DP_STEPS} steps of each stage; stage-1 loss "
+        f"{[round(x['metrics']['loss'], 4) for x in rows1]}, the first step's rays' loss "
+        f"{before:.6f} before, {after:.6f} after; stage-2 loss "
+        f"{[round(x['metrics']['loss'], 4) for x in rows2]}")
+    assert after < before
+
+    # the first stage-1 step against the single-device step on the global
+    # batch and draws (phase 8d's holds: 1e-5 loss, 1e-4 metrics, 1e-4 of
+    # each leaf's largest entry + 1e-7 of the step's)
+    tr1 = new_s1()
+    d = draw_stage1(c1, ds, gen(seed + 40))
+    batch = ds.gen_random_rays(d.img_idx, c1.batch_size, px=d.px, py=d.py)
+    loss, m = stage1_loss(tr1.params, c1, batch, cos_anneal_ratio(0, c1.anneal_end),
+                          t_rand=d.t_rand, t_rand_outside=d.t_rand_outside)
+    loss.backward()
+    g1 = {n: p.grad for n, p in tr1.params.named_parameters()}
+    errs = h["leaf_errs"](s1_grads, g1, 1e-4)
+    worst = max(errs, key=errs.get)
+    m1 = rows1[0]["metrics"]
+    m_rel = {k: abs(m1[k] - float(v.detach())) / max(abs(float(v.detach())), 1e-6)
+             for k, v in m.items()}
+    log(f"  stage 1, the first step (2 x {ranks[0]['stage1']['rays_a_rank']} rays) against the "
+        f"single-device step on its {c1.batch_size} rays and draws: loss rel diff "
+        f"{m_rel['loss']:.3e} (tol 1e-5), largest metric rel diff {max(m_rel.values()):.3e} (tol "
+        f"1e-4), worst gradient leaf {worst} at {errs[worst]:.3f} of its tolerance")
+    assert set(s1_grads) == set(g1) and m_rel["loss"] <= 1e-5
+    assert max(m_rel.values()) <= 1e-4 and errs[worst] <= 1.0
+
+    # the first stage-2 step (the same crop on both ranks) against the
+    # single-device step: bit-equal if the step is deterministic, else at
+    # phase 8's 5e-3
+    tr2 = new_s2()
+    cam, gt, _ = tr2.crop(*h["crop"])
+    eik = torch.rand((c2.patch_size ** 2 // 2, 3), generator=gen(h["eik_seed"]),
+                     device=dev) * 2 - 1
+    loss2, _ = stage2_loss(tr2.params, tr2.mat_cfgs, c2, cam, gt, eik)
+    loss2.backward()
+    g2 = {n: p.grad for n, p in tr2.params.named_parameters() if p.grad is not None}
+    bit_equal2 = set(g2) <= set(s2_grads) and all(torch.equal(s2_grads[n], g2[n]) for n in g2)
+    errs2 = h["leaf_errs"]({n: s2_grads[n] for n in g2}, g2, 5e-3)
+    worst2 = max(errs2, key=errs2.get)
+    log(f"  stage 2, the first step (crop {h['crop']} on both ranks) against the single-device "
+        f"step: loss {rows2[0]['metrics']['loss']:.6f} vs {float(loss2.detach()):.6f}, averaged "
+        f"gradients bit-equal: {bit_equal2}; worst leaf {worst2} at {errs2[worst2]:.3e} of phase "
+        f"8's 5e-3 hold; leaves without a gradient on the single device: "
+        f"{len(s2_grads) - len(g2)}, all zero in the dp step: "
+        f"{all(not bool(s2_grads[n].any()) for n in s2_grads if n not in g2)}")
+    assert errs2[worst2] <= 1.0
+    assert all(not bool(s2_grads[n].any()) for n in s2_grads if n not in g2)
+
+    # (c) the renders
+    r1 = new_s1().render_image(0, resolution_level=4)
+    got_c = render1["color"].reshape(r1["color"].shape).numpy()
+    got_n = render1["normal"].reshape(r1["normal"].shape).numpy()
+    dc, dn = float(np.abs(got_c - r1["color"]).max()), float(np.abs(got_n - r1["normal"]).max())
+    l1 = ranks[0]["render1"]["launches"]
+    log(f"phase 8g (c) dp stage-1 render of view 0 at level 4 ({ranks[0]['render1']['rays']} rays, "
+        f"{ranks[0]['render1']['s']:.3f} s, launches a rank {l1}) against render_image: colour "
+        f"within {dc:.3e}, normal within {dn:.3e} (tol 1e-5)")
+    assert dc <= 1e-5 and dn <= 1e-5
+    assert {k: v for k, v in l1.items() if v} == {"sdf_value_feat_grad": l1["sdf_value_feat_grad"]}
+    assert l1["sdf_value_feat_grad"] >= 1
+    res = args.res
+    Ks_r, W2Cs_r = ring_cameras(args.views, res)
+    tr_r = Stage2Trainer(r2, np.zeros((args.views, res, res, 3), np.float32), Ks_r, W2Cs_r,
+                         generator=gen(seed), device=dev)
+    t0 = time.perf_counter()
+    full = tr_r.render_full(0)
+    full_s = time.perf_counter() - t0
+    band = res // DP_WORLD
+    rows = np.setdiff1d(np.arange(res), np.concatenate([np.arange(res, step=band),
+                                                        np.arange(res, step=band) - 1]))
+    got = {k: v.numpy() for k, v in render2.items()}
+    dcol = float(np.abs(got["color"][rows] - full["color"][rows]).max())
+    mdiff = float((got["convergent_mask"][rows] != full["convergent_mask"][rows]).mean())
+    hit = float(full["convergent_mask"].mean())
+    l2 = ranks[0]["render2"]["launches"]
+    log(f"  dp band render of view 0 at {res}x{res} ({band} rows a rank, "
+        f"{ranks[0]['render2']['s']:.3f} s; render_full {full_s:.3f} s; launches a rank {l2}) "
+        f"against render_full, fallback_budget None and no edge pass in both, away from the "
+        f"seam: colour within {dcol:.3e} (tol 1e-2), masks apart on {mdiff:.2e} of the pixels "
+        f"(tol 5e-3), {hit:.4f} of the frame hit")
+    assert got["color"].shape == full["color"].shape and hit > 0.01
+    assert dcol <= 1e-2 and mdiff < 5e-3
+    assert all(l2[k] >= 1 for k in ("coarse_march", "sdf_only_bf16", "sdf_value_feat_grad"))
+
+    med = lambda rows_, key: float(np.median([x[key] for x in rows_[1:]]))
+    per_step = lambda rows_: {k: float(np.mean([x["launches"][k] for x in rows_]))
+                              for k in rows_[0]["launches"]}
+    rec.update({
+        "stage1": {"rays_a_rank": ranks[0]["stage1"]["rays_a_rank"],
+                   "step_ms_median_a_rank": [med(rk["stage1"]["rows"], "s") * 1e3
+                                             for rk in ranks],
+                   "single_device_step_ms_median": h["s1_median_s"] * 1e3,
+                   "allreduce_ms_a_step": med(rows1, "allreduce_s") * 1e3,
+                   "allreduces_a_step": rows1[0]["allreduces"],
+                   "launches_a_rank_a_step": per_step(rows1),
+                   "loss": [x["metrics"]["loss"] for x in rows1],
+                   "first_step_grad_err": errs[worst]},
+        "stage2": {"step_ms_median_a_rank": [med(rk["stage2"]["rows"], "s") * 1e3
+                                             for rk in ranks],
+                   "single_device_step_ms_median": h["s2_median_s"] * 1e3,
+                   "allreduce_ms_a_step": med(rows2, "allreduce_s") * 1e3,
+                   "allreduces_a_step": rows2[0]["allreduces"],
+                   "launches_a_rank_a_step": per_step(rows2),
+                   "loss": [x["metrics"]["loss"] for x in rows2],
+                   "same_crop_grads_bit_equal": bit_equal2,
+                   "same_crop_grad_err_of_5e-3": errs2[worst2]},
+        "render1": {**ranks[0]["render1"], "color_err": dc, "normal_err": dn},
+        "render2": {**ranks[0]["render2"], "color_err": dcol, "mask_diff": mdiff,
+                    "render_full_s": full_s},
+        "workers_s": workers_s, "steps": DP_STEPS, "world": DP_WORLD})
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 8g: {rec['wall_s']:.1f} s; stage-1 step median a rank "
+        f"{rec['stage1']['step_ms_median_a_rank']} ms (single device {h['s1_median_s'] * 1e3:.2f} "
+        f"ms), all-reduce {rec['stage1']['allreduce_ms_a_step']:.2f} ms a step; stage-2 "
+        f"{rec['stage2']['step_ms_median_a_rank']} ms (single device "
+        f"{h['s2_median_s'] * 1e3:.2f} ms), all-reduce {rec['stage2']['allreduce_ms_a_step']:.2f} "
+        f"ms a step; card {card}")
+    return rec
+
 
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list tree, in key order."""
@@ -1230,6 +1723,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train-steps", type=int, default=30,
                     help="timed training steps after the 8 warm-up steps (at least 10)")
     ap.add_argument("--no-timing", action="store_true", help="skip phase 9")
+    ap.add_argument("--dp-worker", type=int, default=None, metavar="RANK",
+                    help="run one rank of phase 8g's gloo group (started by the phase)")
+    ap.add_argument("--dp-store", default=None, help="phase 8g's directory for its ranks")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "iron_tpu_torch", "kernels", "csrc")):
@@ -1241,6 +1737,8 @@ def main(argv=None) -> int:
         print("no CUDA device visible: chip_smoke.py runs only on a GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if args.dp_worker is not None:
+        return dp_worker(args)
 
     from iron_tpu_torch import kernels, resolve_device
     from iron_tpu_torch.core.rays import intersect_sphere
@@ -1813,7 +2311,9 @@ def main(argv=None) -> int:
 
     g0 = np.random.default_rng((args.seed + 1) * 1_000_003)   # run()'s first crop
     crop = (int(g0.integers(0, 4)), int(g0.integers(0, 128)), int(g0.integers(0, 128)))
-    eik = torch.rand((128 * 128 // 2, 3), generator=torch.Generator(device=dev).manual_seed(5),
+    eik_seed = 5
+    eik = torch.rand((128 * 128 // 2, 3),
+                     generator=torch.Generator(device=dev).manual_seed(eik_seed),
                      device=dev) * 2 - 1
 
     def one_step(trainer, fns=None):
@@ -2060,7 +2560,7 @@ def main(argv=None) -> int:
             assert torch.isfinite(p).all()
         return run_launches, med
 
-    launches, _ = train_run(tr, step_path, "")
+    launches, s2_median = train_run(tr, step_path, "")
 
     # ---- 8b. the training step with trace_pallas, the dataset's masks and
     # the silhouette term: the trace, the edge-side traces and the
@@ -2143,6 +2643,12 @@ def main(argv=None) -> int:
         "hold_retraced": hold_retraced,
         "leaf_errs": leaf_errs, "train_run": train_run, "refuse": refuse,
         "plain_names": plain_names, "step_path": step_path, "tcfg": tcfg, "crop": crop})
+
+    # ---- 8g. data-parallel training and rendering (dist/): NCCL at a world
+    # of 1, then two ranks on the card over gloo ----
+    dp = dp_phase(args, dev, card, data, kernels, {
+        "leaf_errs": leaf_errs, "step_path": step_path, "crop": crop, "eik_seed": eik_seed,
+        "s1_median_s": s1["median_s"], "s2_median_s": s2_median})
 
     # ---- 9. timings at the slice's shapes ----
     kernel_rows = []
@@ -2382,13 +2888,20 @@ def main(argv=None) -> int:
                           for p in ("rgb", "refrac", "env")),
         "multispectral": research["multispectral"]["launches_total"][name],
         "runner": 0} for name in kernels.KERNELS}
+    # and each kernel's launches a rank a step on phase 8g's dp paths
+    dp_launches = {name: {
+        "stage1_step": dp["stage1"]["launches_a_rank_a_step"][name],
+        "stage2_step": dp["stage2"]["launches_a_rank_a_step"][name],
+        "stage1_render": dp["render1"]["launches"][name],
+        "stage2_band_render": dp["render2"]["launches"][name]} for name in kernels.KERNELS}
     rows = [{"name": r[0], "route": "cuda", "source": r[1], "replaces": r[2],
              "launches": launches[r[0]], "max_abs_err": max_err[r[0]], "ms": r[3],
              "plain_ms": r[4], "bound_ms": r[5], "bound_by": r[6], "library_ms": None,
-             "research_launches": research_launches[r[0]]}
+             "research_launches": research_launches[r[0]], "dp_launches": dp_launches[r[0]]}
             for r in kernel_rows]
     log(json.dumps({"cli": cli}))
     log(json.dumps({"research": research}))
+    log(json.dumps({"dp": dp}))
     log(json.dumps({"kernels": rows}))
     log(card)
     # ---- 11. result ----

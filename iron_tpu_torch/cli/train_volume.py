@@ -36,9 +36,10 @@ def main(argv=None):
                    help="blocking checkpoints instead of the async (background "
                         "thread) pickle saves")
     p.add_argument("--per_host_shard", action="store_true",
-                   help="multi-host: each process loads only its image shard; the "
-                        "port runs one process, where it loads every image (there "
-                        "is no multi-process port yet)")
+                   help="multi-process: each process loads only its image shard. This "
+                        "CLI trains on one process, which loads every image; a run of "
+                        "more than one process raises (train with "
+                        "iron_tpu_torch.dist.train.make_dp_stage1_step)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu for a dry run)")
     args = p.parse_args(argv)
@@ -47,6 +48,7 @@ def main(argv=None):
     from iron_tpu_torch.config import load_config_file, stage1_config_from_dict
     from iron_tpu_torch.data.dataset import RayDataset
     from iron_tpu_torch.data.io import write_image
+    from iron_tpu_torch.dist.mesh import process_index_count
     from iron_tpu_torch.train.stage1 import Stage1Trainer
     from iron_tpu_torch.utils.logging import ExperimentDir, concatenate_result
 
@@ -59,8 +61,16 @@ def main(argv=None):
     folder = args.folder_name or conf.get("dataset", {}).get("folder_name", "image")
     out_dir = args.out_dir or conf.get("general", {}).get("base_exp_dir", "./exp")
 
+    if args.per_host_shard and process_index_count()[1] > 1:
+        # the single-process Stage1Trainer does not reduce gradients over the
+        # processes: sharded data would train divergent models racing on one
+        # out_dir
+        p.error("--per_host_shard requires the distributed dp step; this CLI is "
+                "single-process. Use iron_tpu_torch.dist.train.make_dp_stage1_step "
+                "for multi-process runs.")
     exp = ExperimentDir(out_dir, vars(args))
-    ds = RayDataset.from_folder(data_dir, folder_name=folder, device=dev)
+    ds = RayDataset.from_folder(data_dir, folder_name=folder,
+                                per_host_shard=args.per_host_shard, device=dev)
     trainer = Stage1Trainer(cfg, ds, out_dir=out_dir, device=dev)
     start = trainer.resume()
     if start == 0 and args.init_ckpt_dir:

@@ -89,9 +89,19 @@ class RayDataset:
     @classmethod
     def from_folder(cls, data_dir: str, folder_name: str = "image",
                     cam_dict_name: str = "cam_dict_norm.json",
-                    mask_dir: Optional[str] = None, device="cuda") -> "RayDataset":
+                    mask_dir: Optional[str] = None, per_host_shard: bool = False,
+                    device="cuda") -> "RayDataset":
+        """With per_host_shard, in a run of more than one process
+        (dist.mesh.process_index_count) each rank reads and keeps only the
+        images i % world == rank: data parallelism over views, each rank
+        drawing its rays from its own."""
+        shard = None
+        if per_host_shard:
+            from iron_tpu_torch.dist.mesh import process_index_count
+            rank, world = process_index_count()
+            shard = (rank, world) if world > 1 else None
         fpaths, imgs, Ks, W2Cs, masks = load_image_folder(data_dir, folder_name,
-                                                          cam_dict_name, mask_dir)
+                                                          cam_dict_name, mask_dir, shard=shard)
         return cls.from_arrays(imgs, Ks, W2Cs, masks[..., :1], fpaths, device=device)
 
     @classmethod

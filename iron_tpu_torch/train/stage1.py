@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -220,17 +220,27 @@ def stage1_render(params: nn.ModuleDict, cfg: Stage1Config, rays_o, rays_d, near
 def stage1_loss(params: nn.ModuleDict, cfg: Stage1Config, batch: torch.Tensor,
                 cos_anneal: float, t_rand=None, t_rand_outside=None,
                 generator: Optional[torch.Generator] = None, occ_grid=None, occ_u=None,
-                fns: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                fns: Optional[Dict] = None,
+                reduce_sums: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch [B, 10] = rays_o | rays_d | rgb | mask -> (loss, metrics), as
     tensors.  The jitter (t_rand, t_rand_outside) and the occupancy-guided
     samples' u (occ_u, with occ_grid) are the tensors given or are drawn
-    from `generator`."""
+    from `generator`.
+
+    `reduce_sums` sums a 1-D tensor over the ranks of a data-parallel step
+    (dist/train.py); without it the sum is over this process alone.  The
+    normalisers (the mask sum, the eikonal count, the rows) and the squared
+    colour error go through it in one call, so with it, where batch is this
+    rank's rows of the step's global batch, the loss and each metric are
+    this rank's share: summed over the ranks they give the global batch's
+    (psnr, the global batch's, times this rank's share of the rows).  On one
+    process every share is the whole."""
     rays_o, rays_d = batch[:, :3], batch[:, 3:6]
     true_rgb, mask = batch[:, 6:9], batch[:, 9:10]
     near, far = near_far_from_sphere(rays_o, rays_d)
     background_rgb = torch.ones((1, 3), device=batch.device) if cfg.use_white_bkgd else None
     mask = (mask > 0.5).to(torch.float32) if cfg.mask_weight > 0.0 else torch.ones_like(mask)
-    mask_sum = torch.sum(mask) + 1e-5
 
     init_z = None
     if occ_grid is not None:
@@ -241,14 +251,21 @@ def stage1_loss(params: nn.ModuleDict, cfg: Stage1Config, batch: torch.Tensor,
                         t_rand_outside=t_rand_outside, fns=fns)
 
     color_err = (out["color_fine"] - true_rgb) * mask
+    rows = torch.full((), float(batch.shape[0]), device=batch.device)
+    sums = torch.stack([torch.sum(mask), out["eik_count"], rows,
+                        torch.sum(color_err ** 2)]).detach()
+    if reduce_sums is not None:
+        sums = reduce_sums(sums)
+    mask_sum = sums[0] + 1e-5
+    share = rows / sums[2]     # the means over rows: this rank's rows over all
     color_loss = torch.sum(torch.abs(color_err)) / mask_sum
-    psnr = 20.0 * torch.log10(
-        1.0 / torch.sqrt(torch.sum(color_err ** 2) / (mask_sum * 3.0) + 1e-12))
-    eik_loss = out["gradient_error"]
-    m_loss = mask_bce_loss(out["weight_sum"], mask)
+    psnr = 20.0 * torch.log10(1.0 / torch.sqrt(sums[3] / (mask_sum * 3.0) + 1e-12))
+    eik_loss = out["eik_sum"] / (sums[1] + 1e-5)
+    m_loss = mask_bce_loss(out["weight_sum"], mask) * share
     loss = color_loss + eik_loss * cfg.igr_weight + m_loss * cfg.mask_weight
     metrics = {"loss": loss, "color_loss": color_loss, "eikonal_loss": eik_loss,
-               "mask_loss": m_loss, "psnr": psnr, "s_val": torch.mean(out["s_val"]),
+               "mask_loss": m_loss, "psnr": psnr * share,
+               "s_val": torch.mean(out["s_val"]) * share,
                "cdf": torch.sum(out["cdf_fine"][:, :1] * mask) / mask_sum,
                "weight_max": torch.sum(out["weight_max"] * mask) / mask_sum}
     return loss, metrics

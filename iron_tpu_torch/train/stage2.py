@@ -165,6 +165,18 @@ def build_stage2_fns(params: nn.ModuleDict, mat_cfgs, cfg: Stage2Config) -> Dict
     return out
 
 
+def render_with_fns(params: nn.ModuleDict, mat_cfgs, cfg: Stage2Config, cam: Camera,
+                    surf_cfg: SurfaceRenderConfig, is_training: bool = False,
+                    fns: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    """render_camera of `cam` through the evaluators of build_stage2_fns
+    (or the `fns` given)."""
+    f = fns if fns is not None else build_stage2_fns(params, mat_cfgs, cfg)
+    return render_camera(f["sdf_fn"], f["sdf_all_fn"], f["shade_fn"], cam, surf_cfg,
+                         is_training=is_training, trace_sdf_fn=f["trace_sdf_fn"],
+                         trace_sdf_all_fn=f["trace_sdf_all_fn"],
+                         coarse_sdf_fn=f["coarse_sdf_fn"], coarse_march_fn=f["coarse_march_fn"])
+
+
 def stage2_render_buffers(params: nn.ModuleDict, mat_cfgs, cfg: Stage2Config,
                           cam: Camera) -> Dict[str, torch.Tensor]:
     """The plain f32 evaluation render of one camera -> color / normal /
@@ -302,10 +314,7 @@ def stage2_loss(params: nn.ModuleDict, mat_cfgs, cfg: Stage2Config, cam: Camera,
     from U(-1, 1)^3.  `fns` replaces the evaluators of build_stage2_fns
     (a check that runs the step through other evaluators)."""
     f = fns if fns is not None else build_stage2_fns(params, mat_cfgs, cfg)
-    res = render_camera(f["sdf_fn"], f["sdf_all_fn"], f["shade_fn"], cam, cfg.surface,
-                        is_training=True, trace_sdf_fn=f["trace_sdf_fn"],
-                        trace_sdf_all_fn=f["trace_sdf_all_fn"],
-                        coarse_sdf_fn=f["coarse_sdf_fn"], coarse_march_fn=f["coarse_march_fn"])
+    res = render_with_fns(params, mat_cfgs, cfg, cam, cfg.surface, is_training=True, fns=f)
     color = res["color"]
     if cfg.gamma_pred:
         color = _gamma(color)
@@ -563,11 +572,7 @@ class Stage2Trainer:
         surf_cfg = scale_config_for_resolution(self.cfg.surface, cam.H, cam.W,
                                                train_patch=self.cfg.patch_size)
         with torch.no_grad():
-            f = build_stage2_fns(self.params, self.mat_cfgs, self.cfg)
-            res = render_camera(f["sdf_fn"], f["sdf_all_fn"], f["shade_fn"], cam, surf_cfg,
-                                is_training=is_training, trace_sdf_fn=f["trace_sdf_fn"],
-                                trace_sdf_all_fn=f["trace_sdf_all_fn"],
-                                coarse_sdf_fn=f["coarse_sdf_fn"],
-                                coarse_march_fn=f["coarse_march_fn"])
+            res = render_with_fns(self.params, self.mat_cfgs, self.cfg, cam, surf_cfg,
+                                  is_training=is_training)
         return {k: v.cpu().numpy() for k, v in res.items()
                 if isinstance(v, torch.Tensor) and (keys is None or k in keys)}

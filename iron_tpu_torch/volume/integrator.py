@@ -150,11 +150,15 @@ def render_core(rays_o, rays_d, z_vals, sample_dist: float, sdf_all_fn: Callable
     if background_rgb is not None:
         color = color + background_rgb * (1.0 - weights_sum)
 
-    gradient_error = (torch.linalg.norm(gradients, dim=-1) - 1.0) ** 2
-    gradient_error = torch.sum(relax_inside * gradient_error) / (torch.sum(relax_inside) + 1e-5)
+    # the eikonal mean over the points inside radius 1.2, and its sum and
+    # count, which a data-parallel step reduces over the ranks before dividing
+    eik_sum = torch.sum(relax_inside * (torch.linalg.norm(gradients, dim=-1) - 1.0) ** 2)
+    eik_count = torch.sum(relax_inside)
+    gradient_error = eik_sum / (eik_count + 1e-5)
     return {"color": color, "sdf": sdf, "dists": dists, "gradients": gradients,
             "s_val": 1.0 / inv_s, "mid_z_vals": mid_z, "weights": weights, "cdf": prev_cdf,
-            "gradient_error": gradient_error, "inside_sphere": inside_sphere}
+            "gradient_error": gradient_error, "eik_sum": eik_sum, "eik_count": eik_count,
+            "inside_sphere": inside_sphere}
 
 
 def neus_render(rays_o, rays_d, near, far, *, sdf_fn: Callable, sdf_all_fn: Callable,
@@ -236,5 +240,5 @@ def neus_render(rays_o, rays_d, near, far, *, sdf_fn: Callable, sdf_all_fn: Call
             "weight_sum": torch.sum(weights, dim=-1, keepdim=True),
             "weight_max": torch.max(weights, dim=-1, keepdim=True).values,
             "gradients": ret["gradients"], "weights": weights,
-            "gradient_error": ret["gradient_error"],
-            "inside_sphere": ret["inside_sphere"], "z_vals": z_vals}
+            "gradient_error": ret["gradient_error"], "eik_sum": ret["eik_sum"],
+            "eik_count": ret["eik_count"], "inside_sphere": ret["inside_sphere"], "z_vals": z_vals}

@@ -371,6 +371,34 @@ RESEARCH_MODULES = [f"iron_tpu_torch.{m}" for m in (
     "eval.independent_gt", "utils.profiling", "utils.visualize")]
 
 
+# the data-parallel slice's modules
+DIST_MODULES = [f"iron_tpu_torch.dist.{m}" for m in ("mesh", "train", "dryrun")]
+
+
+def test_train_volume_per_host_shard(tmp_path, monkeypatch, capsys):
+    """train_volume --per_host_shard: one process loads every image; in a
+    run of more than one process (torchrun's WORLD_SIZE) it exits with the
+    usage error of the JAX CLI (iron_tpu/cli/train_volume.py:55-63), naming
+    the port's dp step, before it loads anything."""
+    data = render_synthetic_dataset("sphere", n_views=3, H=16, W=16, light=30.0, device="cpu")
+    scene = write_scene_dir(data, str(tmp_path / "scene"))
+    conf = dict(DRY_CONF, general={"base_exp_dir": str(tmp_path / "exp")},
+                dataset={"data_dir": scene, "folder_name": "image"})
+    conf_path = str(tmp_path / "conf.json")
+    with open(conf_path, "w") as f:
+        json.dump(conf, f)
+    argv = ["--mode", "validate_image", "--conf", conf_path, "--per_host_shard",
+            "--device", "cpu"]
+    cli_volume.main(argv)
+    assert "dataset 3 images (16, 16)" in capsys.readouterr().out
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit) as e:
+        cli_volume.main(argv)
+    assert e.value.code == 2
+    assert "iron_tpu_torch.dist.train.make_dp_stage1_step" in capsys.readouterr().err
+
+
 def test_train_surface_runs_the_multi_flavour(tmp_path):
     """`python -m iron_tpu_torch.cli.train_surface --renderer_name multi
     --device cpu` trains 2 narrow steps from a stage-1 checkpoint: the
@@ -405,7 +433,8 @@ def test_train_surface_runs_the_multi_flavour(tmp_path):
 
 def test_port_imports_with_jax_and_the_jax_package_blocked():
     """Every module of iron_tpu_torch imports in a process where importing
-    jax or iron_tpu fails, the research trainers' modules among them."""
+    jax or iron_tpu fails, the research trainers' and the data-parallel
+    modules among them."""
     code = ("import pkgutil, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['iron_tpu'] = None\n"
@@ -415,7 +444,7 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
             "for n in names:\n"
             "    __import__(n)\n"
             "assert 'iron_tpu_torch.cli.train_surface' in names, names\n"
-            f"assert not set({RESEARCH_MODULES!r}) - set(names), names\n"
+            f"assert not set({RESEARCH_MODULES + DIST_MODULES!r}) - set(names), names\n"
             "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], env=dict(os.environ, PYTHONPATH=REPO),
                          cwd=REPO, capture_output=True, text=True, timeout=120)

@@ -184,14 +184,17 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 def test_port_imports_without_jax_nvcc_or_triton():
     """Every module of the port imports in a process without nvcc on PATH,
-    and none of them imports JAX, the JAX package, optax or OpenCV (cv2):
-    the card's machine has none of them."""
+    the data-parallel ones (dist/) among them, and none of them imports JAX,
+    the JAX package, optax or OpenCV (cv2): the card's machine has none of
+    them."""
     code = ("import pkgutil, sys, iron_tpu_torch\n"
             "for m in pkgutil.walk_packages(iron_tpu_torch.__path__, 'iron_tpu_torch.'):\n"
             "    __import__(m.name)\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'iron_tpu', 'optax', 'cv2', 'triton')]\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "dist = {'iron_tpu_torch.dist.' + m for m in ('mesh', 'train', 'dryrun')}\n"
+            "assert dist <= set(sys.modules), dist - set(sys.modules)\n")
     env = dict(os.environ, PATH="/usr/bin:/bin", PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
