@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py              # the full run: 4 views at 512x512, 3 x 38 training steps
+    python3 chip_smoke.py --only-8h    # the build, then phase 8h alone (no result line)
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, and drives the port's main
@@ -77,6 +78,18 @@ with the launch counts set to 0 just before it and read just after:
     bit-equal on both ranks after every step, every kernel of each path
     launched at every step; the dp stage-1 render against render_image and
     the dp band render against render_full;
+  * the last slice's paths (phase 8h, `graph_phase`): Stage1Trainer.run in
+    chunks, each step of a chunk a replay of the step captured as a CUDA
+    graph (8 replays bit-equal to 8 eager steps from the same state with the
+    learning rate and the anneal changing on every step, the draws differing
+    between replays; a 16-step chunk with the occupancy grid and a chunk
+    with upsample_pallas, bit-equal to their eager loops), Stage2Trainer.run
+    in chunks of 4 with the crops drawn on the device, the JAX package's
+    orbax checkpoints (whether tensorstore imports; with it the committed
+    fixture read and train_surface warm-started from it, without it the
+    reader's raise), the interpolation video (Motion-JPEG AVI decoded by the
+    port's reader) and tp = 2 on two gloo ranks of the card, bit-equal to one
+    device;
 
 then times each kernel beside its plain version and its bound, and prints:
 
@@ -93,10 +106,15 @@ then times each kernel beside its plain version and its bound, and prints:
     a rank beside the single-device steps of this call, the all-reduce time
     a step, the launches a rank a step (two processes time-slicing one
     card, gloo through the host: not a multi-GPU speed figure);
+  * one JSON line {"graph": {...}}: phase 8h's bit-equality, the eager and
+    replayed stage-1 step medians, the kernels a replay ran (counted in
+    torch.profiler's device trace: a replay runs no wrapper), the video,
+    orbax and tp records;
   * one JSON line {"kernels": [...]} on the six kernels (launches: K1-K3
     from the default training run, K4 from the trace_pallas training run,
     K5 from the sweep; beside them each kernel's launches on phase 8f's
-    paths and a rank's on phase 8g's);
+    paths, a rank's on phase 8g's and a step's on phase 8h's, a stage-1
+    replay's from the device trace);
   * last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -468,8 +486,10 @@ def stage1_phase(args, dev, card, data, kernels, K12, K3, PlainCore, leaf_errs, 
         for (m, n), fn in saved.items():
             setattr(m, n, refuse(n, fn))
         try:
-            trainer.run(num_iters=n_warm, seed=args.seed, history=history)
-            trainer.run(num_iters=n_timed, seed=args.seed, history=history)
+            # one step a call: each step timed and its syncs counted (the
+            # chunked run's graph is phase 8h's)
+            trainer.run(num_iters=n_warm, seed=args.seed, history=history, steps_per_call=1)
+            trainer.run(num_iters=n_timed, seed=args.seed, history=history, steps_per_call=1)
             torch.cuda.synchronize()
         finally:
             for (m, n), fn in saved.items():
@@ -637,10 +657,14 @@ def cli_phase(args, dev, card, kernels, refuse, plain_names) -> dict:
       5. evaluate images (the renders against the scene's images), mesh (the
          exported mesh against the analytic sphere's) and relight.
 
-    Holds: every stage-1 step launched K3-fwd and K3-bwd once and nothing
-    else, every stage-2 step K1, K2, K3-fwd and K3-bwd and no K4 or K5, every
-    view of the renders K1, K2 and K3-fwd alone, the export K3-fwd alone and
-    validate_mesh no kernel; no plain version reached by a CUDA tensor; every
+    Holds: every stage-1 step ran K3-fwd and K3-bwd once and nothing else
+    (train_volume's run takes chunks of 16 steps, replays of the captured
+    step, which run no wrapper: the eager steps and the capture counted by
+    the wrappers, and what a replay of the CLI trainer's graph runs counted
+    in torch.profiler's device trace at the script's end), every stage-2
+    step K1, K2, K3-fwd and K3-bwd and no K4 or K5, every view of the renders
+    K1, K2 and K3-fwd alone, the export K3-fwd alone and validate_mesh no
+    kernel; no plain version reached by a CUDA tensor; every
     async checkpoint reads back bit for bit as the trainer's parameters at
     its step; the stage-2 trainer starts from the stage-1 SDF bit for bit;
     the mesh and the atlases exist and are not empty; the renders are JPEGs
@@ -668,7 +692,8 @@ def cli_phase(args, dev, card, kernels, refuse, plain_names) -> dict:
            "cuts": {"stage1_steps": [steps, 100001], "stage2_steps": [steps, 50001],
                     "export_res": [256, 512]},
            "wall_s": {}, "launches": {}, "card": card}
-    step_log = {"stage1": [], "stage2": []}      # (seconds, launches) a step
+    step_log = {"stage1": [], "stage2": []}      # (seconds, launches) a step (stage 1: seconds)
+    chunk_log, s1_trainers = [], []              # stage 1's chunks; the last trainer
     view_log = []                                # (seconds, launches) a view
     saved_params = {"stage1": {}, "stage2": {}}  # step -> the parameters at the save
     adopted = []
@@ -711,8 +736,31 @@ def cli_phase(args, dev, card, kernels, refuse, plain_names) -> dict:
                                {k: after[k] - before[k] for k in after}, export_dir))
         return call
 
-    patches = [(S1.Stage1Trainer, "train_step", counted(S1.Stage1Trainer.train_step,
-                                                        step_log["stage1"])),
+    def counted_chunk(fn):
+        """Stage1Trainer.run_chunk: the CLI's chunks of 16 steps, the first
+        an eager warm-up step, the capture and replays of the captured step
+        (phase 8h), the others replays, which run no wrapper: each chunk
+        timed (logged as its steps' mean), its wrapper launches and its
+        replays counted, the trainer kept for the device trace of its
+        graph's replays."""
+        def call(self, n, generator, history=None):
+            graph = self._graph
+            before = kernels.launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(self, n, generator, history)
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            step_log["stage1"].extend([(time.perf_counter() - t) / n] * n)
+            captured = self._graph is not graph
+            chunk_log.append({"steps": n, "captured": captured,
+                              "replays": 0 if n == 1 else n - captured,
+                              "wrapper": {k_: after[k_] - before[k_] for k_ in after}})
+            s1_trainers[:] = [self]
+            return out
+        return call
+
+    patches = [(S1.Stage1Trainer, "run_chunk", counted_chunk(S1.Stage1Trainer.run_chunk)),
                (S1.Stage1Trainer, "save", recorded_save(S1.Stage1Trainer.save, "stage1",
                                                         S1.stage1_params_to_numpy)),
                (S2.Stage2Trainer, "train_step", counted(S2.Stage2Trainer.train_step,
@@ -738,7 +786,7 @@ def cli_phase(args, dev, card, kernels, refuse, plain_names) -> dict:
         rec["wall_s"][label] = time.perf_counter() - t
         rec["launches"][label] = kernels.launch_counts()
         text = out.getvalue()
-        log(f"  {label}: {rec['wall_s'][label]:.2f} s, launches {rec['launches'][label]}; "
+        log(f"  {label}: {rec['wall_s'][label]:.2f} s, wrapper launches {rec['launches'][label]}; "
             f"stdout: {text.strip().splitlines()[-1] if text.strip() else ''}")
         return text
 
@@ -790,9 +838,15 @@ def cli_phase(args, dev, card, kernels, refuse, plain_names) -> dict:
                 setattr(o, n, fn)
 
         # the kernels of each call
+        # stage 1: each chunk's wrapper launches are its eager steps' and
+        # its capture's (K3-fwd and K3-bwd once a step); a replay's kernels
+        # come from the device trace at the script's end
         s1_path = {"sdf_value_feat_grad": 1, "sdf_value_feat_grad_bwd": 1}
-        for i, (_, d) in enumerate(step_log["stage1"]):
-            assert all(d[k] == s1_path.get(k, 0) for k in d), ("stage-1 step", i, d)
+        for i, c in enumerate(chunk_log):
+            calls = c["steps"] - c["replays"] + c["captured"]
+            assert all(v == s1_path.get(k, 0) * calls for k, v in c["wrapper"].items()), \
+                ("stage-1 chunk", i, c)
+        assert any(c["captured"] for c in chunk_log) and len(s1_trainers) == 1
         s2_path = ("coarse_march", "sdf_only_bf16", "sdf_value_feat_grad",
                    "sdf_value_feat_grad_bwd")
         for i, (_, d) in enumerate(step_log["stage2"]):
@@ -809,7 +863,7 @@ def cli_phase(args, dev, card, kernels, refuse, plain_names) -> dict:
         assert exp_d["sdf_value_feat_grad"] >= 1 and all(
             v == 0 for k, v in exp_d.items() if k != "sdf_value_feat_grad"), exp_d
         assert sum(rec["launches"]["validate_mesh"].values()) == 0, rec["launches"]
-        assert rec["launches"]["train_volume"]["sdf_value_feat_grad_bwd"] == steps
+        assert sum(c["steps"] for c in chunk_log) == steps
 
         # the async checkpoints, bit for bit; the stage-1 SDF adopted
         for stage, out_dir in (("stage1", exp1), ("stage2", exp2)):
@@ -845,7 +899,7 @@ def cli_phase(args, dev, card, kernels, refuse, plain_names) -> dict:
         assert summary["n_images"] == n_views and np.isfinite(summary["psnr"])
         assert np.isfinite(chamfer)
 
-    s1_t = [t for t, _ in step_log["stage1"]]
+    s1_t = step_log["stage1"]
     s2_t = [t for t, _ in step_log["stage2"]]
     rec.update({
         "stage1_steps_per_s": len(s1_t) / sum(s1_t), "stage1_step_median_ms":
@@ -856,7 +910,7 @@ def cli_phase(args, dev, card, kernels, refuse, plain_names) -> dict:
         "export_256_s": exp_s, "export_launches": exp_d,
         "psnr": summary["psnr"], "ssim": summary["ssim"], "chamfer": chamfer,
         "mesh_triangles": int(len(tris)), "atlas_coverage": atlas_cover,
-        "view_launches": views[0][1]})
+        "view_launches": views[0][1], "stage1_chunks": chunk_log})
     rec["wall_s"]["phase"] = time.perf_counter() - t_phase
     log(f"phase 8e: stage 1 {rec['stage1_steps_per_s']:.2f} steps/s (median "
         f"{rec['stage1_step_median_ms']:.2f} ms), stage 2 {rec['stage2_steps_per_s']:.2f} "
@@ -864,6 +918,28 @@ def cli_phase(args, dev, card, kernels, refuse, plain_names) -> dict:
         f" ms a {res}x{res} view, export at 256 {exp_s:.2f} s ({len(tris)} triangles, atlas "
         f"coverage {atlas_cover:.3f}), PSNR {summary['psnr']:.3f}, chamfer {chamfer:.5f}; "
         f"{rec['wall_s']['phase']:.1f} s")
+
+    def trace_cli_replays():
+        """Two replays of the CLI trainer's graph under the device trace:
+        the kernels a replay ran; with the eager steps' (K3-fwd and K3-bwd
+        once each), the stage-1 launches of train_volume's run."""
+        tr = s1_trainers[0]
+        kernels.reset_launch_counts()
+        traced = traced_launches(lambda: tr.run_chunk(2, tr._graph.generator), kernels.KERNELS)
+        assert sum(kernels.launch_counts().values()) == 0
+        per = {k: v / 2 for k, v in traced.items() if v}
+        eager = sum(c["steps"] - c["replays"] for c in chunk_log)
+        replays = sum(c["replays"] for c in chunk_log)
+        total = {k: eager * s1_path.get(k, 0) + replays * v for k, v in per.items()}
+        log(f"phase 8e, traced at the script's end: a replay of train_volume's graph ran {per}; "
+            f"its run: {eager} eager steps and {replays} replays, {total}")
+        assert per == {"sdf_value_feat_grad": 1, "sdf_value_feat_grad_bwd": 1,
+                       "reduce_partials": 1}, per
+        assert total["sdf_value_feat_grad_bwd"] == steps, total
+        rec["stage1_replay_kernels"] = per
+        rec["stage1_run_kernels"] = {"eager_steps": eager, "replays": replays, "kernels": total}
+
+    DEFERRED_TRACES.append(trace_cli_replays)
     return rec
 
 
@@ -1280,7 +1356,7 @@ def dp_rank(spec: dict, data, rank: int, dev, store: str) -> dict:
                                            make_dp_stage1_step, make_dp_stage2_render,
                                            make_dp_stage2_step)
     from iron_tpu_torch.train.schedules import cos_anneal_ratio
-    from iron_tpu_torch.train.stage1 import init_stage1_params, stage1_loss
+    from iron_tpu_torch.train.stage1 import init_stage1_params, stage1_adam, stage1_loss
     from iron_tpu_torch.train.stage2 import Stage2Trainer
 
     mesh = make_mesh(device=dev)
@@ -1329,7 +1405,7 @@ def dp_rank(spec: dict, data, rank: int, dev, store: str) -> dict:
     ds = RayDataset.from_arrays(data["images"], data["Ks"], data["W2Cs"], data["masks"],
                                 device=dev)
     p1 = replicate(init_stage1_params(c1, gen(seed + 3 + rank), dev), mesh)
-    opt1 = torch.optim.Adam(p1.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+    opt1 = stage1_adam(p1.parameters(), dev)
     step1 = make_dp_stage1_step(c1, mesh)
     first = draw_dp_stage1(c1, ds, gen(seed + 40), mesh)
 
@@ -1409,10 +1485,63 @@ def dp_rank(spec: dict, data, rank: int, dev, store: str) -> dict:
     return rec
 
 
+TP_STEPS = 5         # phase 8h (e): stage-1 steps of the tp ranks
+
+
+def tp_rank(spec: dict, data, rank: int, dev) -> dict:
+    """Phase 8h (e) on one rank of a (dp 1, tp 2) gloo group on the card:
+    TP_STEPS stage-1 steps at Stage1Config()'s width (every rank the whole
+    512-ray batch), Adam over this rank's tp shards; after each step the
+    sha256 of the whole tree (all-gathered over tp by the step), at the end
+    that of Adam's moments all-gathered over tp, and this rank's Adam-state
+    bytes."""
+    import hashlib
+    import torch
+    from iron_tpu_torch import kernels
+    from iron_tpu_torch.data.dataset import RayDataset
+    from iron_tpu_torch.dist.mesh import make_mesh
+    from iron_tpu_torch.dist.train import (draw_dp_stage1, make_dp_stage1_step, tp_dims,
+                                           tp_shards)
+    from iron_tpu_torch.train.stage1 import init_stage1_params, stage1_adam
+
+    mesh = make_mesh(dp=1, tp=spec["world"], device=dev)
+    c1 = dp_configs()[0]
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)
+    ds = RayDataset.from_arrays(data["images"], data["Ks"], data["W2Cs"], data["masks"],
+                                device=dev)
+    params = init_stage1_params(c1, gen(spec["seed"]), dev)
+    shards = tp_shards(params, mesh)
+    opt = stage1_adam(shards.values(), dev)
+    step = make_dp_stage1_step(c1, mesh)
+    g = gen(spec["seed"] + 1)
+    rows = []
+    for i in range(spec["steps"]):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch, draws = draw_dp_stage1(c1, ds, g, mesh)
+        m = step(params, opt, batch, i, draws)
+        torch.cuda.synchronize()
+        rows.append({"s": time.perf_counter() - t0, "sha": params_sha(params),
+                     "launches": kernels.launch_counts(), "loss": float(m["loss"])})
+    dims = tp_dims(params, mesh)
+    h = hashlib.sha256()
+    for q, d in zip(shards.values(), dims.values()):
+        for key in ("exp_avg", "exp_avg_sq"):
+            t = opt.state[q][key]
+            h.update((mesh.all_gather(t, "tp", d) if d is not None else t).cpu().numpy().tobytes())
+    adam_bytes = sum(t.numel() * t.element_size() for st in opt.state.values()
+                     for k, t in st.items() if k != "step")
+    return {"rank": rank, "tp_rank": mesh.tp_rank, "rows": rows, "adam_sha": h.hexdigest(),
+            "adam_bytes": adam_bytes,
+            "sharded_leaves": sum(1 for d in dims.values() if d is not None)}
+
+
 def dp_worker(args) -> int:
     """`chip_smoke.py --dp-worker RANK --dp-store DIR`: one rank of phase
-    8g's gloo group on the card (its spec and data in DIR, written by the
-    phase); prints one JSON line {"dp_rank": ...} and exits 0, or raises."""
+    8g's gloo group on the card, or of phase 8h (e)'s tp group (its spec
+    and data in DIR, written by the phase); prints one JSON line
+    {"dp_rank": ...} and exits 0, or raises."""
     import torch.distributed as dist
     from iron_tpu_torch.dist.mesh import initialize_distributed
 
@@ -1424,7 +1553,10 @@ def dp_worker(args) -> int:
                                  rank=args.dp_worker, world_size=spec["world"],
                                  local_rank=args.dp_worker, timeout=spec["group_timeout"])
     try:
-        rec = dp_rank(spec, data, args.dp_worker, dev, args.dp_store)
+        if spec.get("kind") == "tp":
+            rec = tp_rank(spec, data, args.dp_worker, dev)
+        else:
+            rec = dp_rank(spec, data, args.dp_worker, dev, args.dp_store)
     finally:
         dist.destroy_process_group()
     print(json.dumps({"dp_rank": rec}), flush=True)
@@ -1468,7 +1600,8 @@ def dp_phase(args, dev, card, data, kernels, h) -> dict:
     from iron_tpu_torch.dist.mesh import initialize_distributed, make_mesh
     from iron_tpu_torch.dist.train import make_dp_stage1_step, make_dp_stage2_step
     from iron_tpu_torch.train.schedules import cos_anneal_ratio
-    from iron_tpu_torch.train.stage1 import Stage1Trainer, draw_stage1, stage1_loss
+    from iron_tpu_torch.train.stage1 import (Stage1Trainer, draw_stage1, stage1_adam,
+                                             stage1_loss)
     from iron_tpu_torch.train.stage2 import Stage2Trainer, make_optimizer, stage2_loss
 
     t_phase = time.perf_counter()
@@ -1494,7 +1627,7 @@ def dp_phase(args, dev, card, data, kernels, h) -> dict:
             mesh = make_mesh(device=dev)
             tr, tr_again = new_s1(), new_s1()
             p_dp = copy.deepcopy(tr.params)
-            opt_dp = torch.optim.Adam(p_dp.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+            opt_dp = stage1_adam(p_dp.parameters(), dev)
             step1 = make_dp_stage1_step(c1, mesh)
             g = gen(seed + 41)
             s1_same, s1_repro = [], []
@@ -1706,6 +1839,534 @@ def dp_phase(args, dev, card, data, kernels, h) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 8h: the chunked runs (stage 1 as a replayed CUDA graph), orbax, the
+# video and tp
+# ---------------------------------------------------------------------------
+
+def _trainer_state(tr) -> tuple:
+    """Copies of a Stage1Trainer's parameters and Adam state (in parameter
+    order) and its step and count."""
+    params = [p.detach().clone() for p in tr.params.parameters()]
+    adam = [{k: v.clone() for k, v in tr.opt.state[p].items()} for p in tr.params.parameters()]
+    return params, adam, tr.step, tr.opt_count
+
+
+def _restore_trainer(tr, state) -> None:
+    """Put a _trainer_state back in place: the same tensors, so that a
+    captured step reads them."""
+    params, adam, tr.step, tr.opt_count = state
+    import torch
+    with torch.no_grad():
+        for p, v, st in zip(tr.params.parameters(), params, adam):
+            p.copy_(v)
+            for k, t in st.items():
+                tr.opt.state[p][k].copy_(t)
+
+
+def _states_equal(a, b) -> bool:
+    import torch
+    return (a[2:] == b[2:] and all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+            and all(torch.equal(x[k], y[k]) for x, y in zip(a[1], b[1]) for k in x))
+
+
+def _metrics_equal(ha, hb) -> bool:
+    import torch
+    return len(ha) == len(hb) and all(torch.equal(a[k], b[k]) for a, b in zip(ha, hb) for k in a)
+
+
+# each kernel's name on the device and the wrapper that launches it; K3-bwd
+# launches two kernels, its reduction counted apart; K5 is K3-fwd's kernel
+# without the gradient (GRAD false: "false>" demangled, "Lb0E" mangled)
+_DEVICE_KERNELS = (("coarse_march_kernel", "coarse_march"),
+                   ("sdf_only_bf16_kernel", "sdf_only_bf16"),
+                   ("sdf_only_3pass_kernel", "sdf_only_3pass"),
+                   ("sdf_grad_bwd_kernel", "sdf_value_feat_grad_bwd"),
+                   ("reduce_partials_kernel", "reduce_partials"),
+                   ("sdf_grad_fwd_kernel", None))
+
+
+# the device traces, run after every timed phase (run_deferred_traces): once
+# CUPTI has traced in a process, the host's later launches can run slower,
+# which would skew each phase timed after a trace
+DEFERRED_TRACES = []
+
+
+def run_deferred_traces() -> None:
+    while DEFERRED_TRACES:
+        DEFERRED_TRACES.pop(0)()
+
+
+def traced_launches(fn, names) -> dict:
+    """Run fn() under torch.profiler's device trace (CUPTI's kernel records,
+    which a CUDA graph's replays make as eager launches do) and count the
+    kernels it ran by their names on the device: {wrapper name: count} for
+    `names`, and "reduce_partials" (K3-bwd's reduction).  The measure of
+    what a replay launches: a replay runs no wrapper, so no wrapper counts
+    it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(list(names) + ["reduce_partials"], 0)
+    for e in prof.key_averages():
+        for dev_name, name in _DEVICE_KERNELS:
+            if dev_name in e.key:
+                if name is None:
+                    name = ("sdf_full" if "false>" in e.key or "Lb0E" in e.key
+                            else "sdf_value_feat_grad")
+                counts[name] += e.count
+                break
+    return counts
+
+
+def orbax_check(dev) -> dict:
+    """Phase 8h (c).  With tensorstore: tests/data_orbax (a JAX stage-1 run
+    saved through orbax by scripts/make_orbax_fixture.py) read by
+    read_orbax_checkpoint, every leaf of params and optax state bit-equal to
+    the same checkpoint's pickle, and train_surface --neus_ckpt_fpath on the
+    run directory adopting its SDF bit for bit (in process, --device cpu,
+    --num_iters 0: the fixture's 16-wide SDF is below the kernels' width of
+    256).  Without: the reader raises, naming tensorstore and --sync_ckpt."""
+    import contextlib
+    import io
+    import tempfile
+    from iron_tpu_torch.train.checkpoints import load_checkpoint, read_orbax_checkpoint
+    fixture = os.path.join(HERE, "tests", "data_orbax")
+    step_dir = os.path.join(fixture, "stage1", "orbax", "0000002")
+    import importlib.util
+    have = importlib.util.find_spec("tensorstore") is not None
+    log(f"phase 8h (c) orbax: tensorstore importable on this machine: {have}")
+    if not have:
+        try:
+            read_orbax_checkpoint(step_dir)
+        except ImportError as e:
+            msg = str(e)
+        else:
+            raise AssertionError("read_orbax_checkpoint read without tensorstore")
+        log(f"  the reader raised, as it must without tensorstore: {msg}")
+        assert "tensorstore" in msg and "--sync_ckpt" in msg
+        return {"tensorstore": False, "did": "checked the raise", "message": msg}
+    got = read_orbax_checkpoint(step_dir)
+    ref = load_checkpoint(os.path.join(fixture, "stage1_step2.pkl"))
+    a, b = _leaves([got["params"], got["opt_state"]]), _leaves([ref["params"], ref["opt_state"]])
+    read_equal = (len(a) == len(b) and all(x.dtype == y.dtype and np.array_equal(x, y)
+                                           for x, y in zip(a, b))
+                  and got["step"] == ref["step"] and got["extra"] == ref["extra"])
+    from iron_tpu_torch.cli import train_surface
+    from iron_tpu_torch.data.synthetic import render_synthetic_dataset, write_scene_dir
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        scene = write_scene_dir(render_synthetic_dataset("sphere", n_views=2, H=24, W=24,
+                                                         light=30.0, device="cpu"),
+                                os.path.join(tmp, "scene"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_surface.main(["--data_dir", scene, "--out_dir", os.path.join(tmp, "exp"),
+                                "--neus_ckpt_fpath", os.path.join(fixture, "stage1"),
+                                "--renderer_name", "ggx", "--num_iters", "0",
+                                "--patch_size", "16", "--skip_final_export", "--sync_ckpt",
+                                "--device", "cpu"])
+        sdf = load_checkpoint(os.path.join(tmp, "exp", "ckpt_0000000.pkl"))["params"]["sdf"]
+    a, b = _leaves(sdf), _leaves(ref["params"]["sdf"])
+    adopted = len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+    log(f"  read the fixture (step {got['step']}, {len(_leaves(got['params']))} parameter "
+        f"leaves, optax state {[type(s_).__name__ for s_ in got['opt_state']]}) bit-equal to its "
+        f"pickle: {read_equal}; train_surface warm-started from the orbax run, its SDF the "
+        f"fixture's bit for bit: {adopted}")
+    assert read_equal and adopted
+    return {"tensorstore": True, "did": "read the fixture and warm-started train_surface",
+            "read_bit_equal": read_equal, "warm_start_sdf_bit_equal": adopted}
+
+
+def video_check(tr, kernels) -> dict:
+    """Phase 8h (d): Stage1Trainer.interpolate_view_video of views 0 and 1,
+    8 frames at resolution level 4, written to .avi; the RIFF `00dc` chunks
+    parsed and decoded by the port's JPEG reader, each frame within a mean
+    of 2/255 of the same frame rendered again (the JPEG writer's hold in
+    tests/test_torch_cli.py), 16 frames (ping-pong)."""
+    import tempfile
+    import torch
+    from iron_tpu_torch.data.jpeg import decode_jpeg
+    from iron_tpu_torch.data.video import avi_frames
+    n = 8
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        path = os.path.join(tmp, "interp.avi")
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.interpolate_view_video(0, 1, path, n_frames=n, resolution_level=4)
+        write_s = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        size = os.path.getsize(path)
+        decoded = [decode_jpeg(j) for j in avi_frames(path)]
+    frames = []
+    for i in range(n):
+        ratio = np.sin(((i / n) - 0.5) * np.pi) * 0.5 + 0.5
+        frames.append((np.clip(tr.render_novel_view(0, 1, ratio, 4), 0, 1) * 255)
+                      .astype(np.uint8))
+    frames = frames + frames[::-1]
+    errs = [float(np.abs(a.astype(np.float64) - b).mean()) for a, b in zip(decoded, frames)]
+    log(f"phase 8h (d) interpolate_view_video: {len(decoded)} frames of {decoded[0].shape} in "
+        f"{size} bytes of AVI, {write_s:.2f} s; launches {launches}; each decoded frame's mean "
+        f"difference from the render, in 1/255: max {max(errs):.3f} (hold 2)")
+    assert len(decoded) == 2 * n and max(errs) <= 2.0
+    assert set(launches) == {"sdf_value_feat_grad"}, launches
+    return {"frames": len(decoded), "shape": list(decoded[0].shape), "bytes": size,
+            "write_s": write_s, "launches": launches, "max_mean_err_255": max(errs)}
+
+
+def tp_check(args, dev, data) -> dict:
+    """Phase 8h (e): two ranks on the card over gloo, a (dp 1, tp 2) mesh,
+    TP_STEPS stage-1 steps (tp_rank), against the same steps on one device
+    in this process (make_dp_stage1_step on a mesh of one rank, Adam over
+    the whole tree): the parameters bit-equal after every step on both
+    ranks, Adam's moments (gathered over tp) bit-equal at the end; each
+    rank's Adam-state bytes against one device's."""
+    import hashlib
+    import signal
+    import tempfile
+    import torch
+    from iron_tpu_torch.data.dataset import RayDataset
+    from iron_tpu_torch.dist.mesh import Mesh
+    from iron_tpu_torch.dist.train import draw_dp_stage1, make_dp_stage1_step
+    from iron_tpu_torch.train.stage1 import init_stage1_params, stage1_adam
+
+    spec = {"kind": "tp", "world": 2, "seed": args.seed + 90, "steps": TP_STEPS,
+            "group_timeout": 120}
+    with tempfile.TemporaryDirectory(dir=HERE) as store:
+        np.savez(os.path.join(store, "data.npz"), **{k: np.asarray(data[k]) for k in
+                                                     ("images", "Ks", "W2Cs", "masks")})
+        with open(os.path.join(store, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker",
+                                   str(r), "--dp-store", store], cwd=HERE, text=True,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  start_new_session=True) for r in range(spec["world"])]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+        workers_s = time.perf_counter() - t0
+    for r, out in enumerate(outs):
+        for line in out.splitlines():
+            if not line.startswith('{"dp_rank"'):
+                log(f"  [tp rank {r}] {line}")
+    assert all(p.returncode == 0 for p in procs), [p.returncode for p in procs]
+    ranks = [json.loads([ln for ln in out.splitlines() if ln.startswith('{"dp_rank"')][-1])
+             ["dp_rank"] for out in outs]
+
+    # one device: the same initial tree and draws, Adam over the whole tree
+    c1 = dp_configs()[0]
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)
+    ds = RayDataset.from_arrays(data["images"], data["Ks"], data["W2Cs"], data["masks"],
+                                device=dev)
+    mesh1 = Mesh(None, 0, 1, dev, {"dp": 1, "tp": 1})
+    params = init_stage1_params(c1, gen(spec["seed"]), dev)
+    opt = stage1_adam(params.parameters(), dev)
+    step = make_dp_stage1_step(c1, mesh1)
+    g = gen(spec["seed"] + 1)
+    shas = []
+    for i in range(TP_STEPS):
+        batch, draws = draw_dp_stage1(c1, ds, g, mesh1)
+        step(params, opt, batch, i, draws)
+        shas.append(params_sha(params))
+    h = hashlib.sha256()
+    for p in params.parameters():
+        for key in ("exp_avg", "exp_avg_sq"):
+            h.update(opt.state[p][key].cpu().numpy().tobytes())
+    one_bytes = sum(t.numel() * t.element_size() for st in opt.state.values()
+                    for k, t in st.items() if k != "step")
+    params_equal = all([x["sha"] for x in rk["rows"]] == shas for rk in ranks)
+    medians = [round(float(np.median([x["s"] for x in rk["rows"][1:]])) * 1e3, 2)
+               for rk in ranks]
+    adam_equal = all(rk["adam_sha"] == h.hexdigest() for rk in ranks)
+    launches = [{k: v for k, v in x["launches"].items() if v} for x in ranks[0]["rows"]]
+    log(f"phase 8h (e) tp = 2 over gloo on the card ({workers_s:.1f} s for both ranks): "
+        f"{ranks[0]['sharded_leaves']} leaves sharded; the whole tree after each of "
+        f"{TP_STEPS} steps bit-equal to one device's on both ranks: {params_equal}; Adam's "
+        f"moments gathered over tp bit-equal: {adam_equal}; losses "
+        f"{[round(x['loss'], 5) for x in ranks[0]['rows']]}; Adam-state bytes a rank "
+        f"{[rk['adam_bytes'] for rk in ranks]} against {one_bytes} on one device; step "
+        f"median a rank {medians} "
+        f"ms (two processes time-slicing one card); launches a step {launches[-1]}")
+    assert params_equal and adam_equal
+    assert all(d == {"sdf_value_feat_grad": 1, "sdf_value_feat_grad_bwd": 1} for d in launches)
+    assert all(rk["adam_bytes"] < one_bytes for rk in ranks)
+    return {"params_bit_equal": params_equal, "adam_bit_equal": adam_equal,
+            "launches_a_step": launches[-1], "sharded_leaves": ranks[0]["sharded_leaves"],
+            "adam_bytes_a_rank": [rk["adam_bytes"] for rk in ranks],
+            "adam_bytes_one_device": one_bytes, "workers_s": workers_s,
+            "step_ms_a_rank": [[x["s"] * 1e3 for x in rk["rows"]] for rk in ranks],
+            "losses": [x["loss"] for x in ranks[0]["rows"]]}
+
+
+def graph_phase(args, dev, card, data, kernels) -> dict:
+    """Phase 8h, the chunked runs and the rest of the port's last slice, on
+    phase 8's data:
+
+      (a) Stage1Trainer.run(steps_per_call > 1) at Stage1Config()'s width,
+          warm_up_end 100 and anneal_end 200, so that from step 1 the
+          learning rate and the anneal change on every step: a first chunk
+          of 8 (an eager warm-up step, the capture, 7 replays); then from
+          the same state 8 eager steps, one a call, and the same 8 steps as
+          8 replays: parameters, Adam state and metrics bit-equal, the
+          replays' draws (read from the graph after each replay) equal to
+          the eager draws and different from one replay to the next; each
+          step timed (synchronised), no wrapper run by the replays, and
+          (at the script's end) what 4 more replays ran in torch.profiler's
+          device trace: K3-fwd and K3-bwd (its two kernels) once a replay.
+          Then a 16-step
+          chunk with use_occupancy and occupancy_update_every 8 against the
+          eager loop under the JAX package's chunk rule (the grid refreshed
+          once, at the chunk's start), and a 3-step chunk with
+          upsample_pallas against 3 eager steps, both bit-equal, and 2
+          replays of the latter traced at the end (K2 four times a
+          replay);
+      (b) Stage2Trainer.run(4, steps_per_call=4) at Stage2Config() (128x128
+          crops): the crops drawn on the device within the JAX package's
+          bounds, each step launching K1 2, K2 2, K3-fwd 3 and K3-bwd 3
+          times and no K4 or K5, finite metrics;
+      (c) orbax (orbax_check): whether this machine can import tensorstore;
+          with it the committed fixture read bit for bit as its pickle and
+          train_surface warm-started from it, without it the reader's raise;
+      (d) the interpolation video (video_check);
+      (e) tp (tp_check): two gloo ranks on the card, dp 1 and tp 2, against
+          one device.
+    Returns the {"graph"} record."""
+    import torch
+    from iron_tpu_torch.data.dataset import RayDataset
+    from iron_tpu_torch.train.stage1 import Stage1Config, Stage1Trainer
+    from iron_tpu_torch.train.stage2 import Stage2Config, Stage2Trainer
+
+    t_phase = time.perf_counter()
+    seed = args.seed
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)
+    ds = RayDataset.from_arrays(data["images"], data["Ks"], data["W2Cs"], data["masks"],
+                                device=dev)
+    rec = {"card": card, "wall_s": {}}
+
+    # (a) the stage-1 graph
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(Stage1Config(), warm_up_end=100, anneal_end=200)
+    tr = Stage1Trainer(cfg, ds, generator=gen(seed + 80), device=dev)
+    tr.run(1, seed=seed, steps_per_call=1)              # step 1: Adam's state made
+    start = _trainer_state(tr)
+    lrs = [float(tr.schedule(torch.tensor(c))) for c in range(1, 9)]
+    anneals = [min(1.0, k / cfg.anneal_end) for k in range(1, 9)]
+    assert len(set(lrs)) == 8 and len(set(anneals)) == 8
+    h_first = []
+    torch.cuda.synchronize()
+    tc = time.perf_counter()
+    tr.run(8, seed=seed, steps_per_call=8, history=h_first)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - tc
+    first = _trainer_state(tr)
+    g = tr._graph
+    assert g is not None and g.generator is tr._gen
+    # 8 eager steps from the same state, each timed, their draws kept
+    _restore_trainer(tr, start)
+    eager_s, eager_px, h_eager = [], [], []
+    draw, train_step = tr.draw, tr.train_step
+
+    def kept_draw(generator):
+        d = draw(generator)
+        eager_px.append(d.px.clone())
+        return d
+
+    def timed_step(d):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(d)
+        torch.cuda.synchronize()
+        eager_s.append(time.perf_counter() - t)
+        return out
+
+    tr.draw, tr.train_step = kept_draw, timed_step
+    try:
+        tr.run(8, seed=seed, steps_per_call=1, history=h_eager)
+    finally:
+        tr.draw, tr.train_step = draw, train_step
+    eager = _trainer_state(tr)
+    # the same 8 steps as 8 replays from the same state, each timed
+    _restore_trainer(tr, start)
+    replay_s, replay_px, h_replay = [], [], []
+    real = g.graph
+
+    class TimedReplay:
+        def replay(self):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            real.replay()
+            torch.cuda.synchronize()
+            replay_s.append(time.perf_counter() - t)
+            replay_px.append(g.draws.px.clone())
+
+    g.graph = TimedReplay()
+    kernels.reset_launch_counts()
+    try:
+        tr.run(8, seed=seed, steps_per_call=8, history=h_replay)
+    finally:
+        g.graph = real
+    replay_wrapped = sum(kernels.launch_counts().values())
+    replayed = _trainer_state(tr)
+    assert tr._graph is g, "the second chunk captured again"
+    bit_equal = _states_equal(eager, replayed) and _metrics_equal(h_eager, h_replay)
+    first_equal = _states_equal(eager, first) and _metrics_equal(h_eager, h_first)
+    draws_differ = all(not torch.equal(a, b) for a, b in zip(replay_px, replay_px[1:]))
+    draws_eager = all(torch.equal(a, b) for a, b in zip(replay_px, eager_px))
+    med_e, med_r = float(np.median(eager_s)), float(np.median(replay_s))
+    log(f"phase 8h (a) stage-1 graph at {cfg.batch_size} rays (womask width), steps 1-8 at "
+        f"learning rates {[f'{v:.3e}' for v in lrs]} and anneal {anneals}: 8 replays bit-equal "
+        f"to 8 eager steps from the same state (parameters, Adam state, metrics): {bit_equal}; "
+        f"the first chunk (eager warm-up, capture, 7 replays) too: {first_equal}; replays' draws "
+        f"equal to the eager draws {draws_eager}, different from one replay to the next "
+        f"{draws_differ}; wrapper launches in the 8 replays {replay_wrapped}; step median eager "
+        f"{med_e * 1e3:.2f} ms, replayed {med_r * 1e3:.2f} ms (each synchronised), the first "
+        f"chunk {first_s:.2f} s with its capture; card {card}")
+    assert bit_equal and first_equal and draws_differ and draws_eager and replay_wrapped == 0
+    assert all(np.isfinite(float(m["loss"])) for m in h_replay)
+    rec["stage1"] = {"bit_equal_8_replays": bit_equal, "first_chunk_bit_equal": first_equal,
+                     "draws_differ": draws_differ,
+                     "eager_step_ms_median": med_e * 1e3, "replay_step_ms_median": med_r * 1e3,
+                     "eager_step_ms": [v * 1e3 for v in eager_s],
+                     "replay_step_ms": [v * 1e3 for v in replay_s],
+                     "first_chunk_s": first_s, "lr": lrs, "anneal": anneals}
+
+    # the 16-step chunk with the occupancy grid, against the eager loop under
+    # JAX's chunk rule: the grid refreshed once, at the chunk's start
+    cfg_o = dataclasses.replace(cfg, use_occupancy=True, occupancy_update_every=8)
+    to = Stage1Trainer(cfg_o, ds, generator=gen(seed + 81), device=dev)
+    to.run(1, seed=seed, steps_per_call=1)
+    start_o = _trainer_state(to)
+    refreshes = []
+    update = to.update_occupancy
+    to.update_occupancy = lambda: refreshes.append(to.step) or update()
+    h_g = []
+    torch.cuda.synchronize()
+    tc = time.perf_counter()
+    try:
+        to.run(16, seed=seed, steps_per_call=16, history=h_g)
+    finally:
+        to.update_occupancy = update
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - tc
+    graph_o = _trainer_state(to)
+    _restore_trainer(to, start_o)
+    to.update_occupancy()
+    gen_o = to._generator(seed)
+    h_e = [to.train_step(to.draw(gen_o)) for _ in range(16)]
+    occ_equal = _states_equal(graph_o, _trainer_state(to)) and _metrics_equal(h_e, h_g)
+    log(f"  16-step chunk with use_occupancy (occupancy_update_every 8; grid refreshed at steps "
+        f"{refreshes}): bit-equal to the eager loop under the chunk rule {occ_equal}; the "
+        f"chunk {chunk_s:.2f} s with its capture")
+    assert occ_equal and refreshes == [1]
+    rec["occupancy_chunk"] = {"bit_equal": occ_equal, "refreshed_at": refreshes,
+                              "chunk_s": chunk_s}
+
+    # upsample_pallas: K2 in the graph, four sweeps a step
+    tu = Stage1Trainer(dataclasses.replace(cfg, upsample_pallas=True), ds,
+                       generator=gen(seed + 82), device=dev)
+    tu.run(1, seed=seed, steps_per_call=1)
+    start_u = _trainer_state(tu)
+    h_g = []
+    tu.run(3, seed=seed, steps_per_call=3, history=h_g)
+    graph_u = _trainer_state(tu)
+    _restore_trainer(tu, start_u)
+    h_e = []
+    tu.run(3, seed=seed, steps_per_call=1, history=h_e)
+    up_equal = _states_equal(graph_u, _trainer_state(tu)) and _metrics_equal(h_e, h_g)
+    log(f"  3-step chunk with upsample_pallas: bit-equal to 3 eager steps {up_equal}")
+    assert up_equal
+    rec["upsample_pallas_chunk"] = {"bit_equal": up_equal}
+
+    def trace_replays():
+        """What a replay launches, from the device trace: 4 more replays of
+        (a)'s graph, 2 of the upsample_pallas graph; no wrapper runs."""
+        k3 = {"sdf_value_feat_grad": 1, "sdf_value_feat_grad_bwd": 1, "reduce_partials": 1}
+        for key, t, n, want in (
+                ("stage1", tr, 4, k3),
+                ("upsample_pallas_chunk", tu, 2,
+                 dict(k3, sdf_only_bf16=cfg.render.up_sample_steps))):
+            graph = t._graph
+            kernels.reset_launch_counts()
+            traced = traced_launches(lambda: t.run(n, seed=seed, steps_per_call=n),
+                                     kernels.KERNELS)
+            assert t._graph is graph and sum(kernels.launch_counts().values()) == 0
+            per = {k: v / n for k, v in traced.items() if v}
+            log(f"phase 8h (a), traced at the script's end: {key}, kernels a replay in the "
+                f"device trace of {n} replays {per}")
+            assert per == want, (key, per)
+            rec[key]["launches_a_replay"] = per
+
+    DEFERRED_TRACES.append(trace_replays)
+    rec["wall_s"]["a"] = time.perf_counter() - t0
+
+    # (b) stage 2 in chunks of 4, the crops drawn on the device
+    t0 = time.perf_counter()
+    c2 = Stage2Config()
+    t2 = Stage2Trainer(c2, data["images"], data["Ks"], data["W2Cs"], generator=gen(seed + 83),
+                       device=dev)
+    crops, per_step = [], []
+    step2 = t2.train_step
+
+    def counted_step2(idx, col, row, eik):
+        crops.append((idx, col, row))
+        before = kernels.launch_counts()
+        out = step2(idx, col, row, eik)
+        after = kernels.launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        return out
+
+    t2.train_step = counted_step2
+    h2 = []
+    try:
+        m2 = t2.run(4, seed=seed, steps_per_call=4, history=h2)
+    finally:
+        t2.train_step = step2
+    n_views, H, W = data["images"].shape[:3]
+    ps = c2.patch_size
+    in_bounds = all(0 <= i < n_views and 0 <= c < max(W - ps, 1) and 0 <= r < max(H - ps, 1)
+                    for i, c, r in crops)
+    log(f"phase 8h (b) Stage2Trainer.run(4, steps_per_call=4): crops {crops} (in JAX's bounds "
+        f"{in_bounds}), launches a step {[{k: v for k, v in d.items() if v} for d in per_step]}, "
+        f"losses {[round(float(h['loss']), 5) for h in h2]}, last metrics {m2}")
+    step_launches = {"coarse_march": 2, "sdf_only_bf16": 2, "sdf_value_feat_grad": 3,
+                     "sdf_value_feat_grad_bwd": 3, "sdf_only_3pass": 0, "sdf_full": 0}
+    assert len(crops) == 4 and in_bounds and all(np.isfinite(v) for v in m2.values())
+    for d in per_step:
+        assert d == step_launches, d
+    rec["stage2"] = {"crops": crops, "launches_a_step": per_step,
+                     "losses": [float(h["loss"]) for h in h2]}
+    rec["wall_s"]["b"] = time.perf_counter() - t0
+
+    # (c) orbax: the JAX package's async saves, read through tensorstore
+    t0 = time.perf_counter()
+    rec["orbax"] = orbax_check(dev)
+    rec["wall_s"]["c"] = time.perf_counter() - t0
+
+    # (d) the interpolation video of (a)'s trainer: 8 frames at level 4,
+    # ping-pong, Motion-JPEG in an AVI, decoded by the port's reader
+    t0 = time.perf_counter()
+    rec["video"] = video_check(tr, kernels)
+    rec["wall_s"]["d"] = time.perf_counter() - t0
+
+    # (e) tp = 2 on two gloo ranks of the card against one device
+    t0 = time.perf_counter()
+    rec["tp"] = tp_check(args, dev, data)
+    rec["wall_s"]["e"] = time.perf_counter() - t0
+    rec["wall_s"]["phase"] = time.perf_counter() - t_phase
+    parts = ", ".join(f"{k} {v:.1f} s" for k, v in rec["wall_s"].items() if k != "phase")
+    log(f"phase 8h: {rec['wall_s']['phase']:.1f} s ({parts})")
+    return rec
+
+
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list tree, in key order."""
     if isinstance(tree, dict):
@@ -1726,6 +2387,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dp-worker", type=int, default=None, metavar="RANK",
                     help="run one rank of phase 8g's gloo group (started by the phase)")
     ap.add_argument("--dp-store", default=None, help="phase 8g's directory for its ranks")
+    ap.add_argument("--only-8h", action="store_true",
+                    help="build, then run phase 8h alone on phase 8's data (a shorter "
+                         "compile-and-check call; prints no result line)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "iron_tpu_torch", "kernels", "csrc")):
@@ -1769,6 +2433,14 @@ def main(argv=None) -> int:
         + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
     for line in build.ptxas_reports():
         log(f"  ptxas {line}")
+
+    if args.only_8h:
+        from iron_tpu_torch.data.synthetic import render_synthetic_dataset
+        data = render_synthetic_dataset("sphere", n_views=4, H=256, W=256, light=30.0, device=dev)
+        graph = graph_phase(args, dev, card, data, kernels)
+        run_deferred_traces()
+        log(json.dumps({"graph": graph}))
+        return 0
 
     cfg = Stage2Config()
     Ks, W2Cs = ring_cameras(args.views, args.res)
@@ -2650,6 +3322,10 @@ def main(argv=None) -> int:
         "leaf_errs": leaf_errs, "step_path": step_path, "crop": crop, "eik_seed": eik_seed,
         "s1_median_s": s1["median_s"], "s2_median_s": s2_median})
 
+    # ---- 8h. the chunked runs (stage 1 as a replayed CUDA graph, stage 2's
+    # crops drawn on the device), orbax, the video and tp ----
+    graph = graph_phase(args, dev, card, data, kernels)
+
     # ---- 9. timings at the slice's shapes ----
     kernel_rows = []
     work = sdf_work(cfg.sdf)
@@ -2878,6 +3554,10 @@ def main(argv=None) -> int:
         stage1["k2_step_bound_ms"] = sum(v[3][0] for v in k2)
     log(json.dumps({"stage1": stage1}))
 
+    # ---- 9b. the device traces of the graph replays (phases 8e and 8h),
+    # last, after every timed phase ----
+    run_deferred_traces()
+
     # ---- 10. the kernels line (launches: the training run of phase 8 for K1-K3,
     # of phase 8b for K4, the sweep of phase 8c for K5) ----
     # each kernel's launches on phase 8f's paths beside those of phase 8
@@ -2894,14 +3574,25 @@ def main(argv=None) -> int:
         "stage2_step": dp["stage2"]["launches_a_rank_a_step"][name],
         "stage1_render": dp["render1"]["launches"][name],
         "stage2_band_render": dp["render2"]["launches"][name]} for name in kernels.KERNELS}
+    # and a step's launches on phase 8h's paths
+    graph_launches = {name: {
+        "stage1_replay_a_step": graph["stage1"]["launches_a_replay"].get(name, 0),
+        "stage1_upsample_replay_a_step":
+            graph["upsample_pallas_chunk"]["launches_a_replay"].get(name, 0),
+        "stage2_chunk_a_step": graph["stage2"]["launches_a_step"][-1][name],
+        "video_16_frames": graph["video"]["launches"].get(name, 0),
+        "tp_a_rank_a_step": graph["tp"]["launches_a_step"].get(name, 0)}
+        for name in kernels.KERNELS}
     rows = [{"name": r[0], "route": "cuda", "source": r[1], "replaces": r[2],
              "launches": launches[r[0]], "max_abs_err": max_err[r[0]], "ms": r[3],
              "plain_ms": r[4], "bound_ms": r[5], "bound_by": r[6], "library_ms": None,
-             "research_launches": research_launches[r[0]], "dp_launches": dp_launches[r[0]]}
+             "research_launches": research_launches[r[0]], "dp_launches": dp_launches[r[0]],
+             "graph_launches": graph_launches[r[0]]}
             for r in kernel_rows]
     log(json.dumps({"cli": cli}))
     log(json.dumps({"research": research}))
     log(json.dumps({"dp": dp}))
+    log(json.dumps({"graph": graph}))
     log(json.dumps({"kernels": rows}))
     log(card)
     # ---- 11. result ----

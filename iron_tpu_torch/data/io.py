@@ -1,13 +1,17 @@
 """Image IO without OpenCV (counterpart of iron_tpu/data/io.py).
 
-PNG is read and written here on numpy and zlib: 8- and 16-bit gray, gray +
-alpha, RGB and RGBA, non-interlaced, scanline filters 0-4 (none, sub, up,
-average, Paeth).  EXR goes through the port's own codec (`exr.py`), JPEG
-through its baseline codec (`jpeg.py`: written at quality 95 as cv2 writes
-it; progressive and arithmetic-coded files raise).  The float conversion is
-the JAX package's: alpha dropped, gray repeated to RGB, 8/16-bit content
-divided by 255 / 65535, EXR given a 1/2.2 gamma on read.  Palette and
-interlaced PNGs raise: the port has no decoder for them.
+PNG is read and written here on numpy and zlib.  Read: every colour type
+and bit depth of the standard (gray at 1, 2, 4, 8 and 16 bits, palette at
+1-8 bits, gray + alpha, RGB and RGBA at 8 and 16), scanline filters 0-4
+(none, sub, up, average, Paeth), plain or Adam7-interlaced; the samples
+come out as cv2.imread(IMREAD_UNCHANGED) gives them: gray below 8 bits
+scaled to 8, a palette expanded to RGB (RGBA when the file has a tRNS
+chunk).  Written: 8- and 16-bit gray, gray + alpha, RGB and RGBA.  EXR goes
+through the port's own codec (`exr.py`), JPEG through `jpeg.py` (written at
+quality 95 as cv2 writes it; baseline and progressive read, arithmetic-coded
+files raise).  The float conversion is the JAX package's: alpha dropped,
+gray repeated to RGB, 8/16-bit content divided by 255 / 65535, EXR given a
+1/2.2 gamma on read.
 """
 from __future__ import annotations
 
@@ -17,8 +21,12 @@ import zlib
 import numpy as np
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}      # colour type -> channels
-_PNG_COLOR_TYPE = {v: k for k, v in _PNG_CHANNELS.items()}
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}      # colour type -> samples a pixel
+_PNG_COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}            # channels -> colour type written
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 
 
 def to8b(x: np.ndarray) -> np.ndarray:
@@ -75,19 +83,38 @@ def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
     return out
 
 
+def _samples(lines: np.ndarray, width: int, C: int, depth: int) -> np.ndarray:
+    """Reconstructed scanlines [h, stride] -> samples [h, width, C] (uint8,
+    or uint16 at 16 bits; below 8 bits the values as stored)."""
+    h = lines.shape[0]
+    if depth == 16:
+        return lines.reshape(h, -1, 2).copy().view(">u2")[..., 0].astype(
+            np.uint16)[:, :width * C].reshape(h, width, C)
+    if depth < 8:
+        lines = np.unpackbits(lines, axis=1).reshape(h, -1, depth)
+        lines = lines.dot(1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return lines[:, :width * C].reshape(h, width, C)
+
+
 def read_png(path: str) -> np.ndarray:
     """A PNG as [H, W, C] uint8 or uint16 (C = 1 gray, 2 gray + alpha, 3 RGB,
-    4 RGBA), channels in the file's order."""
+    4 RGBA), channels in the file's order, as cv2.imread(IMREAD_UNCHANGED)
+    reads it (gray below 8 bits scaled to 8 bits; a palette expanded to
+    RGB, or to RGBA by its tRNS chunk)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"not a PNG file: {path}")
-    pos, header, idat = 8, None, []
+    pos, header, idat, palette, trns = 8, None, [], None, None
     while pos + 8 <= len(data):
         n, ctype = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
         if ctype == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif ctype == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
         elif ctype == b"IDAT":
             idat.append(body)
         elif ctype == b"IEND":
@@ -96,19 +123,41 @@ def read_png(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"PNG without IHDR: {path}")
     W, H, depth, color, _, _, interlace = header
-    if depth not in (8, 16) or color not in _PNG_CHANNELS or interlace != 0:
+    if color not in _PNG_DEPTHS or depth not in _PNG_DEPTHS[color] or interlace not in (0, 1):
         raise ValueError(f"{path}: PNG with bit depth {depth}, colour type {color}, interlace "
-                         f"{interlace}; supported are 8/16-bit gray, gray + alpha, RGB and "
-                         f"RGBA, not interlaced")
+                         f"{interlace} is not a valid PNG")
+    if color == 3 and palette is None:
+        raise ValueError(f"{path}: palette PNG without a PLTE chunk")
     C = _PNG_CHANNELS[color]
-    bpp = C * depth // 8
+    bpp = max(1, C * depth // 8)                 # the filters' byte distance
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < H * (W * bpp + 1):
-        raise ValueError(f"{path}: truncated PNG image data")
-    lines = _unfilter(raw[:H * (W * bpp + 1)].reshape(H, W * bpp + 1), bpp)
-    if depth == 8:
-        return lines.reshape(H, W, C)
-    return lines.reshape(H, W * C, 2).copy().view(">u2").reshape(H, W, C).astype(np.uint16)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    dt = np.uint16 if depth == 16 else np.uint8
+    out = np.empty((H, W, C), dt)
+    o = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(W - x0) // dx), -(-(H - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue                             # an empty pass has no scanlines
+        stride = -(-pw * C * depth // 8)
+        if raw.size < o + ph * (stride + 1):
+            raise ValueError(f"{path}: truncated PNG image data")
+        lines = _unfilter(raw[o:o + ph * (stride + 1)].reshape(ph, stride + 1), bpp)
+        out[y0::dy, x0::dx] = _samples(lines, pw, C, depth)
+        o += ph * (stride + 1)
+    if color == 3:
+        idx = out[..., 0]
+        if idx.max(initial=0) >= len(palette):
+            raise ValueError(f"{path}: a palette index beyond the {len(palette)}-entry PLTE")
+        rgb = palette[idx]
+        if trns is None:
+            return rgb
+        alpha = np.full(len(palette), 255, np.uint8)
+        alpha[:min(len(trns), len(palette))] = trns[:len(palette)]
+        return np.concatenate([rgb, alpha[idx][..., None]], axis=-1)
+    if depth < 8:
+        out = (out.astype(np.uint16) * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    return out
 
 
 def _png_chunk(ctype: bytes, body: bytes) -> bytes:

@@ -8,13 +8,15 @@ as libjpeg scales them (95, cv2's default); the standard's Huffman tables.
 The colour conversion and the chroma downsampling are libjpeg's fixed-point
 ones; the DCT is the exact orthonormal one (scipy.fft).
 
-Reader: 8-bit sequential Huffman files (SOF0, SOF1) of 1 or 3 components,
-interleaved or not, any sampling factors, restart intervals.  Chroma is
-upsampled as libjpeg does by default (triangle filter for 2x2, 2x1 and 1x2,
-replication otherwise) and converted to RGB with libjpeg's fixed-point
-tables; the inverse DCT is the exact one.  Progressive, arithmetic-coded,
-lossless, hierarchical and 12-bit files raise: the port has no decoder for
-them.
+Reader: 8-bit Huffman files of 1 or 3 components, sequential (SOF0, SOF1)
+or progressive (SOF2: spectral selection and successive approximation, DC
+and AC first scans and refinements, end-of-band runs), interleaved or not,
+any sampling factors, restart intervals.  Chroma is upsampled as libjpeg
+does by default (triangle filter for 2x2, 2x1 and 1x2, replication
+otherwise) and converted to RGB with libjpeg's fixed-point tables; the
+inverse DCT is the exact one.  Arithmetic-coded, lossless, hierarchical
+and 12-bit files raise: the port has no decoder for them (nothing in
+reach writes one to hold a reader against).
 """
 from __future__ import annotations
 
@@ -70,7 +72,7 @@ _AC_CHROMA = ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], [
     0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
     0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa])
 
-_SOF_NAMES = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
+_SOF_NAMES = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
               0xC7: "hierarchical", 0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded "
               "progressive", 0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded "
               "hierarchical", 0xCE: "arithmetic-coded hierarchical", 0xCF: "arithmetic-coded "
@@ -304,54 +306,147 @@ def _unstuff(seg: bytes) -> bytes:
     return seg.replace(b"\xff\x00", b"\xff")
 
 
-def _decode_blocks(data: bytes, plan: List[Tuple[int, List[int], List[int]]],
-                   n_mcus: int, out: Dict[int, list], preds: Dict[int, int]) -> None:
-    """Decode n_mcus MCUs of one restart interval.  plan: one (component,
-    dc table, ac table) a block of the MCU; out[c] receives each block's 64
-    coefficients (zigzag order) in turn."""
+# what a scan codes (T.81 G.1.2): every coefficient at once (sequential),
+# or, progressively, the DC or a band of AC coefficients, first or a
+# refinement bit
+_SEQUENTIAL, _DC_FIRST, _DC_REFINE, _AC_FIRST, _AC_REFINE = range(5)
+
+
+def _decode_interval(data: bytes, units, mode: int, ss: int, se: int, al: int) -> None:
+    """Decode the MCUs `units` of one restart interval of a scan into their
+    blocks.  A unit is a list of (block, component, DC table, AC table), a
+    block the 64 coefficients of an 8x8 block in zigzag order (a list,
+    updated in place).  DC predictors and the end-of-band run start at 0."""
     win = _windows(data)
     n_bits = 8 * len(data)
-    pos = 0
-    for _ in range(n_mcus):
-        for c, dct, act in plan:
-            blk = [0] * 64
-            look = dct[win[pos]]
-            if not look:
-                raise ValueError("JPEG: corrupt entropy-coded data (bad DC code)")
-            pos += look >> 8
-            s = look & 255
-            v = 0
-            if s:
-                v = win[pos] >> (16 - s)
-                pos += s
-                if v < (1 << (s - 1)):
-                    v -= (1 << s) - 1
-            preds[c] += v
-            blk[0] = preds[c]
-            k = 1
-            while k < 64:
-                look = act[win[pos]]
+    pos, eobrun = 0, 0
+    preds: Dict[int, int] = {}
+    p1, m1 = 1 << al, -1 << al
+
+    def bits(n: int) -> int:
+        nonlocal pos
+        v = win[pos] >> (16 - n)
+        pos += n
+        return v
+
+    def huff(table, what: str) -> int:
+        nonlocal pos
+        look = table[win[pos]]
+        if not look:
+            raise ValueError(f"JPEG: corrupt entropy-coded data (bad {what} code)")
+        pos += look >> 8
+        return look & 255
+
+    def extend(v: int, s: int) -> int:
+        return v - (1 << s) + 1 if v < (1 << (s - 1)) else v
+
+    if mode == _SEQUENTIAL:
+        # the baseline scan, once per coefficient: the table look-ups, the
+        # bit reads and the sign extension written out in the loop
+        for unit in units:
+            for blk, c, dct, act in unit:
+                look = dct[win[pos]]
                 if not look:
-                    raise ValueError("JPEG: corrupt entropy-coded data (bad AC code)")
+                    raise ValueError("JPEG: corrupt entropy-coded data (bad DC code)")
                 pos += look >> 8
-                rs = look & 255
-                r, s = rs >> 4, rs & 15
-                if s == 0:
-                    if r != 15:
-                        break
-                    k += 16
-                    continue
-                k += r
-                v = win[pos] >> (16 - s)
-                pos += s
-                if v < (1 << (s - 1)):
-                    v -= (1 << s) - 1
-                if k < 64:
-                    blk[k] = v
-                k += 1
-            out[c].append(blk)
+                s = look & 255
+                v = 0
+                if s:
+                    v = win[pos] >> (16 - s)
+                    pos += s
+                    if v < (1 << (s - 1)):
+                        v -= (1 << s) - 1
+                v += preds.get(c, 0)
+                preds[c] = v
+                blk[0] = v
+                k = 1
+                while k < 64:
+                    look = act[win[pos]]
+                    if not look:
+                        raise ValueError("JPEG: corrupt entropy-coded data (bad AC code)")
+                    pos += look >> 8
+                    s = look & 15
+                    if s == 0:
+                        if look & 255 != 0xF0:
+                            break
+                        k += 16
+                        continue
+                    k += (look >> 4) & 15
+                    v = win[pos] >> (16 - s)
+                    pos += s
+                    if v < (1 << (s - 1)):
+                        v -= (1 << s) - 1
+                    if k < 64:
+                        blk[k] = v
+                    k += 1
             if pos > n_bits:
                 raise ValueError("JPEG: entropy-coded data ends early")
+        return
+
+    for unit in units:
+        for blk, c, dct, act in unit:
+            if mode == _DC_FIRST:
+                s = huff(dct, "DC")
+                preds[c] = preds.get(c, 0) + (extend(bits(s), s) if s else 0)
+                blk[0] = preds[c] << al
+            elif mode == _DC_REFINE:
+                if bits(1):
+                    blk[0] |= p1
+            elif mode == _AC_FIRST:
+                if eobrun:
+                    eobrun -= 1
+                    continue
+                k = ss
+                while k <= se:
+                    rs = huff(act, "AC")
+                    r, s = rs >> 4, rs & 15
+                    if s:
+                        k += r
+                        if k > 63:
+                            raise ValueError("JPEG: corrupt progressive AC scan")
+                        blk[k] = extend(bits(s), s) << al
+                        k += 1
+                    elif r == 15:
+                        k += 16
+                    else:
+                        eobrun = (1 << r) - 1 + (bits(r) if r else 0)
+                        break
+            else:                       # AC refinement (libjpeg's decode_mcu_AC_refine)
+                k = ss
+                if not eobrun:
+                    while k <= se:
+                        rs = huff(act, "AC")
+                        r, s = rs >> 4, rs & 15
+                        if s:
+                            s = p1 if bits(1) else m1
+                        elif r != 15:
+                            eobrun = (1 << r) + (bits(r) if r else 0)
+                            break
+                        # pass r zero coefficients, refining the nonzero ones
+                        while k <= se:
+                            if blk[k]:
+                                if bits(1) and not blk[k] & p1:
+                                    blk[k] += p1 if blk[k] >= 0 else m1
+                            elif r:
+                                r -= 1
+                            else:
+                                break
+                            k += 1
+                        if s:
+                            if k > 63:
+                                raise ValueError("JPEG: corrupt progressive AC scan")
+                            blk[k] = s
+                        k += 1
+                if eobrun:
+                    # the band's end lies in an end-of-band run: refine the
+                    # nonzero coefficients left
+                    while k <= se:
+                        if blk[k] and bits(1) and not blk[k] & p1:
+                            blk[k] += p1 if blk[k] >= 0 else m1
+                        k += 1
+                    eobrun -= 1
+        if pos > n_bits:
+            raise ValueError("JPEG: entropy-coded data ends early")
 
 
 def _upsample(p: np.ndarray, fy: int, fx: int) -> np.ndarray:
@@ -400,17 +495,41 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
+def _scan_segments(data: bytes, pos: int) -> Tuple[List[bytes], int]:
+    """The entropy-coded data of a scan from `pos`, cut at its RSTn
+    markers, and the position of the marker that ends it."""
+    segs, start, end = [], pos, pos
+    while True:
+        end = data.find(b"\xff", end)
+        if end < 0 or end + 1 >= len(data):
+            raise ValueError("JPEG: the scan runs past the end of the file")
+        nxt = data[end + 1]
+        if nxt == 0x00 or nxt == 0xFF:
+            end += 1 if nxt == 0xFF else 2
+            continue
+        segs.append(data[start:end])
+        if 0xD0 <= nxt <= 0xD7:
+            start = end = end + 2
+            continue
+        return segs, end
+
+
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """Baseline JPEG bytes -> uint8 [H, W, 1] (gray) or [H, W, 3] (RGB)."""
+    """Baseline, extended sequential or progressive Huffman JPEG bytes ->
+    uint8 [H, W, 1] (gray) or [H, W, 3] (RGB)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     qt: Dict[int, np.ndarray] = {}
     dc_t: Dict[int, List[int]] = {}
     ac_t: Dict[int, List[int]] = {}
     frame = None
+    progressive = False
     restart = 0
-    coefs: Dict[int, list] = {}
-    interleaved: Dict[int, bool] = {}
+    # per component: its blocks (64 zigzag coefficients each) over the grid
+    # of whole MCUs, row-major, and the grid's (rows, columns)
+    coefs: Dict[int, List[List[int]]] = {}
+    grids: Dict[int, Tuple[int, int]] = {}
+    coded = set()
     pos = 2
     while pos < len(data):
         if data[pos] != 0xFF:
@@ -431,10 +550,12 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         pos += n
         if marker in _SOF_NAMES:
             raise ValueError(f"JPEG: {_SOF_NAMES[marker]} files are not supported (the port "
-                             f"decodes baseline and extended sequential Huffman JPEG)")
+                             f"decodes baseline, extended sequential and progressive Huffman "
+                             f"JPEG)")
         if marker == 0xCC:
             raise ValueError("JPEG: arithmetic-coded files are not supported (the port "
-                             "decodes baseline and extended sequential Huffman JPEG)")
+                             "decodes baseline, extended sequential and progressive Huffman "
+                             "JPEG)")
         if marker == 0xDB:
             i = 0
             while i < len(body):
@@ -456,7 +577,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 (ac_t if cls else dc_t)[tid] = _lookup(bits, vals)
         elif marker == 0xDD:
             (restart,) = struct.unpack(">H", body[:2])
-        elif marker in (0xC0, 0xC1):
+        elif marker in (0xC0, 0xC1, 0xC2):
             prec, H, W, nc = struct.unpack(">BHHB", body[:6])
             if prec != 8:
                 raise ValueError(f"JPEG: {prec}-bit samples are not supported (8-bit only)")
@@ -465,56 +586,57 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             comps = [(body[6 + 3 * i], body[7 + 3 * i] >> 4, body[7 + 3 * i] & 15,
                       body[8 + 3 * i]) for i in range(nc)]
             frame = (H, W, comps)
-            coefs = {c[0]: [] for c in comps}
+            progressive = marker == 0xC2
+            hmax = max(c[1] for c in comps)
+            vmax = max(c[2] for c in comps)
+            for cid, h, v, _ in comps:
+                grids[cid] = (-(-H // (8 * vmax)) * v, -(-W // (8 * hmax)) * h)
+                coefs[cid] = [[0] * 64 for _ in range(grids[cid][0] * grids[cid][1])]
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError("JPEG: scan before the frame header")
             H, W, comps = frame
             ns = body[0]
             sel = {body[1 + 2 * i]: body[2 + 2 * i] for i in range(ns)}
+            ss, se, ah, al = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns] >> 4, \
+                body[3 + 2 * ns] & 15
+            if not progressive:
+                mode = _SEQUENTIAL
+            elif ss == 0:
+                mode = _DC_REFINE if ah else _DC_FIRST
+            else:
+                mode = _AC_REFINE if ah else _AC_FIRST
+            if progressive and (se > 63 or ss > se or (ss > 0 and ns != 1) or
+                                (ss == 0 and se != 0)):
+                raise ValueError(f"JPEG: bad progressive scan (Ss {ss}, Se {se}, {ns} "
+                                 f"components)")
             hmax = max(c[1] for c in comps)
             vmax = max(c[2] for c in comps)
             scomps = [c for c in comps if c[0] in sel]
+            tab = lambda cid: (dc_t.get(sel[cid] >> 4), ac_t.get(sel[cid] & 15))
             if ns == 1:
+                # one block an MCU, over the component's own blocks
                 cid, h, v, _ = scomps[0]
+                cols = grids[cid][1]
                 bw = -(-(-(-W * h // hmax)) // 8)
                 bh = -(-(-(-H * v // vmax)) // 8)
-                plan = [(cid, dc_t[sel[cid] >> 4], ac_t[sel[cid] & 15])]
-                n_mcus = bw * bh
+                units = [[(coefs[cid][r * cols + c], cid, *tab(cid))]
+                         for r in range(bh) for c in range(bw)]
             else:
-                plan = [(cid, dc_t[sel[cid] >> 4], ac_t[sel[cid] & 15])
-                        for cid, h, v, _ in scomps for _ in range(h * v)]
-                n_mcus = -(-W // (8 * hmax)) * -(-H // (8 * vmax))
-            # the entropy-coded data runs to the next marker other than RSTn
-            end = pos
-            segs = []
-            start = pos
-            while True:
-                end = data.find(b"\xff", end)
-                if end < 0 or end + 1 >= len(data):
-                    raise ValueError("JPEG: the scan runs past the end of the file")
-                nxt = data[end + 1]
-                if nxt == 0x00 or nxt == 0xFF:
-                    end += 1 if nxt == 0xFF else 2
-                    continue
-                segs.append(data[start:end])
-                if 0xD0 <= nxt <= 0xD7:
-                    start = end = end + 2
-                    continue
-                break
-            pos = end
-            per = restart if restart else n_mcus
+                units = [[(coefs[cid][(my * v + r) * grids[cid][1] + mx * h + c], cid, *tab(cid))
+                          for cid, h, v, _ in scomps for r in range(v) for c in range(h)]
+                         for my in range(-(-H // (8 * vmax))) for mx in range(-(-W // (8 * hmax)))]
+            segs, pos = _scan_segments(data, pos)
+            per = restart if restart else len(units)
             done = 0
             for seg in segs:
-                if done >= n_mcus:
+                if done >= len(units):
                     break
-                count = min(per, n_mcus - done)
-                _decode_blocks(_unstuff(seg), plan, count, coefs, {c[0]: 0 for c in comps})
-                done += count
-            if done < n_mcus:
+                _decode_interval(_unstuff(seg), units[done:done + per], mode, ss, se, al)
+                done += per
+            if done < len(units):
                 raise ValueError("JPEG: fewer MCUs in the scan than the frame needs")
-            for c in scomps:
-                interleaved[c[0]] = ns > 1
+            coded.update(c[0] for c in scomps)
     if frame is None:
         raise ValueError("JPEG: no frame header")
     H, W, comps = frame
@@ -524,17 +646,11 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     for cid, h, v, tq in comps:
         if tq not in qt:
             raise ValueError(f"JPEG: quantisation table {tq} missing")
-        blocks = np.asarray(coefs[cid], np.int64)
-        cw, ch = -(-W * h // hmax), -(-H * v // vmax)
-        if cid not in interleaved:
+        if cid not in coded:
             raise ValueError(f"JPEG: no scan holds component {cid}")
-        if interleaved[cid]:
-            bx, by = -(-W // (8 * hmax)) * h, -(-H // (8 * vmax)) * v
-            mcus = blocks.reshape(by // v, bx // h, v, h, 64)
-            grid = mcus.transpose(0, 2, 1, 3, 4).reshape(by, bx, 64)
-        else:
-            bx, by = -(-cw // 8), -(-ch // 8)
-            grid = blocks[:bx * by].reshape(by, bx, 64)
+        by, bx = grids[cid]
+        grid = np.asarray(coefs[cid], np.int64).reshape(by, bx, 64)
+        cw, ch = -(-W * h // hmax), -(-H * v // vmax)
         nat = np.zeros(grid.shape, np.float64)
         nat[..., ZIGZAG] = grid * qt[tq]
         pix = idctn(nat.reshape(by, bx, 8, 8), type=2, norm="ortho", axes=(2, 3))

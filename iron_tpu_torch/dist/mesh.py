@@ -1,16 +1,20 @@
-"""Process groups and the data-parallel mesh (counterpart of
+"""Process groups and the (dp, tp) mesh (counterpart of
 iron_tpu/dist/mesh.py).
 
 The JAX package lays a (dp, tp) `jax.sharding.Mesh` over its devices and lets
 XLA's partitioner insert the collectives.  Here every rank is one process
 with one device, and the collectives are explicit `torch.distributed` calls
-on the mesh's process group:
+on the mesh's process groups:
 
   * `initialize_distributed` joins the group (torchrun's environment, or an
     explicit init_method / store), NCCL on CUDA and gloo on the CPU unless
     the caller names the backend;
-  * `make_mesh` returns a `Mesh`: the group, this rank, the world and the
-    device, with `shape = {"dp": dp, "tp": tp}` as the JAX mesh has;
+  * `make_mesh(dp, tp)` returns a `Mesh`: the world's group, this rank, the
+    world and the device, with `shape = {"dp": dp, "tp": tp}` as the JAX
+    mesh has, ranks laid out as JAX's devices.reshape(dp, tp) lays them out
+    (rank r at dp index r // tp, tp index r % tp), and with tp > 1 a process
+    group for each axis (`dist.new_group`): the ranks of r's dp group share
+    its tp index, those of its tp group its dp index;
   * `replicate` broadcasts rank 0's parameters and optimiser state in place
     (the counterpart of device_put(..., P()));
   * `shard_batch` takes this rank's rows of a leading axis (P("dp")).
@@ -30,10 +34,6 @@ import torch
 import torch.distributed as dist
 
 from iron_tpu_torch import resolve_device
-
-TP_NOT_PORTED = ("tp > 1 (the MLP hidden dims sharded over ranks) is not ported: ROADMAP.md, "
-                 "section 1, slice 7, 'tp over the hidden dims'")
-
 
 def _env_int(name: str) -> Optional[int]:
     v = os.environ.get(name)
@@ -98,47 +98,69 @@ def initialize_distributed(backend: Optional[str] = None, device="cuda",
 
 @dataclasses.dataclass
 class Mesh:
-    """A data-parallel mesh: this rank's place in `group` (None: one rank,
-    no group) and its device.  `shape` is {"dp": ..., "tp": ...} as the JAX
-    mesh's.  The collectives act on tensors in place (or return new ones)
-    and are the identity without a group; under NCCL the tensors lie on the
-    mesh's device."""
+    """A (dp, tp) mesh: this rank's place in `group` (the world's; None:
+    one rank, no group) and its device.  `shape` is {"dp": ..., "tp": ...}
+    as the JAX mesh's; `groups` holds the process group of each axis of
+    more than one rank when tp > 1 (with tp = 1 the dp axis is the world).
+    The collectives act on tensors in place (or return new ones) along an
+    axis and are the identity over one rank; under NCCL the tensors lie on
+    the mesh's device."""
     group: Optional[dist.ProcessGroup]
     rank: int
     size: int
     device: torch.device
     shape: Dict[str, int]
+    groups: Dict[str, Optional[dist.ProcessGroup]] = dataclasses.field(default_factory=dict)
 
-    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum t over the ranks, in place; returns t."""
-        if self.group is not None:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.shape["tp"]
+
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.shape["tp"]
+
+    def _axis(self, axis: str) -> Optional[dist.ProcessGroup]:
+        """The group of `axis` ("dp", "tp", or "world": every rank)."""
+        if self.group is None or (axis != "world" and self.shape[axis] == 1):
+            return None
+        return self.group if axis == "world" or self.shape["tp"] == 1 else self.groups[axis]
+
+    def all_reduce_sum(self, t: torch.Tensor, axis: str = "dp") -> torch.Tensor:
+        """Sum t over the ranks of this rank's `axis` group ("dp", "tp" or
+        "world"), in place; returns t."""
+        group = self._axis(axis)
+        if group is not None:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
         return t
 
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
-        """Rank 0's t on every rank, in place; returns t."""
+        """Rank 0's t on every rank of the world, in place; returns t."""
         if self.group is not None:
             dist.broadcast(t, src=0, group=self.group)
         return t
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's t (each of the same shape), in rank order along
-        dim 0."""
-        if self.group is None:
+    def all_gather(self, t: torch.Tensor, axis: str = "dp", dim: int = 0) -> torch.Tensor:
+        """The t of every rank of this rank's `axis` group (each of the same
+        shape), in the group's order along `dim`."""
+        group = self._axis(axis)
+        if group is None:
             return t
         t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(parts, t, group=self.group)
-        return torch.cat(parts)
+        n = self.size if axis == "world" else self.shape[axis]
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=group)
+        return torch.cat(parts, dim=dim)
 
 
 def make_mesh(dp: Optional[int] = None, tp: int = 1, device="cuda") -> Mesh:
-    """The mesh of the default group (or of this process alone): dp ranks,
-    all of them by default.  tp > 1 raises (not ported)."""
-    if tp != 1:
-        raise NotImplementedError(TP_NOT_PORTED)
+    """The (dp, tp) mesh of the default group (or of this process alone):
+    dp * tp ranks, dp = world / tp by default.  With tp > 1 every rank
+    makes every axis group, in the same order (dist.new_group's rule)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
-    dp = world if dp is None else dp
+    if tp < 1 or world % tp:
+        raise ValueError(f"tp = {tp} does not divide the world of {world} ranks")
+    dp = world // tp if dp is None else dp
     if dp * tp != world:
         raise ValueError(f"dp * tp = {dp * tp} != the world of {world} ranks")
     dev = resolve_device(device)
@@ -146,8 +168,17 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1, device="cuda") -> Mesh:
         dev = torch.device("cuda", torch.cuda.current_device())
     if not dist.is_initialized():
         return Mesh(group=None, rank=0, size=1, device=dev, shape={"dp": 1, "tp": 1})
-    return Mesh(group=dist.group.WORLD, rank=dist.get_rank(), size=world, device=dev,
-                shape={"dp": dp, "tp": tp})
+    rank = dist.get_rank()
+    groups: Dict[str, Optional[dist.ProcessGroup]] = {}
+    if tp > 1:
+        for axis, members in (("tp", [[i * tp + j for j in range(tp)] for i in range(dp)]),
+                              ("dp", [[i * tp + j for i in range(dp)] for j in range(tp)])):
+            for ranks in members:
+                g = dist.new_group(ranks) if len(ranks) > 1 else None
+                if rank in ranks:
+                    groups[axis] = g
+    return Mesh(group=dist.group.WORLD, rank=rank, size=world, device=dev,
+                shape={"dp": dp, "tp": tp}, groups=groups)
 
 
 def _state_tensors(obj) -> Iterator[torch.Tensor]:
@@ -183,7 +214,7 @@ def replicate(obj, mesh: Mesh):
     tensors: List[torch.Tensor] = list(_state_tensors(obj))
     if mesh.group is None:
         return obj
-    counts = mesh.all_gather(torch.tensor([len(tensors)], device=mesh.device))
+    counts = mesh.all_gather(torch.tensor([len(tensors)], device=mesh.device), "world")
     if bool((counts != len(tensors)).any()):
         raise ValueError(f"replicate: the ranks hold {counts.tolist()} tensors; every rank "
                          f"must hold the same structure")
@@ -194,10 +225,11 @@ def replicate(obj, mesh: Mesh):
 
 def shard_batch(batch, mesh: Mesh):
     """This rank's rows of the leading axis of a tensor or array: rows
-    [r B/D, (r+1) B/D) for rank r of D.  The axis must divide by dp."""
+    [r B/D, (r+1) B/D) for dp index r of D (replicated over tp).  The axis
+    must divide by dp."""
     D = mesh.shape["dp"]
     n = batch.shape[0]
     if n % D:
         raise ValueError(f"a leading axis of {n} does not divide over dp={D}")
     b = n // D
-    return batch[mesh.rank * b:(mesh.rank + 1) * b]
+    return batch[mesh.dp_rank * b:(mesh.dp_rank + 1) * b]

@@ -1,12 +1,12 @@
-"""Data-parallel training steps and renders (counterpart of
-iron_tpu/dist/train.py).
+"""Data-parallel and tensor-parallel training steps and renders
+(counterpart of iron_tpu/dist/train.py).
 
-Every rank holds the whole parameter tree and optimiser; a step runs the
-port's single-device loss on this rank's share of the work, then one
-coalesced all-reduce carries every optimised parameter's gradient (zeros
-where a rank's graph gave it none: every rank calls the same collectives
-every step) and the step's metric sums, and every rank takes the same
-optimiser step, so the parameters stay bit-equal across ranks.
+Every rank holds the whole parameter tree; a step runs the port's
+single-device loss on this rank's share of the work, then one coalesced
+all-reduce over the dp axis carries every optimised parameter's gradient
+(zeros where a rank's graph gave it none: every rank calls the same
+collectives every step) and the step's metric sums, and every rank takes
+the same optimiser step, so the parameters stay bit-equal across ranks.
 
   * stage 1 (`make_dp_stage1_step`): the rays of one global batch are split
     over the ranks.  The JAX step is the single-device step on the whole
@@ -28,12 +28,20 @@ upsample_pallas False), each rank here runs the config as given: K3-fwd and
 K3-bwd on stage 1's core, K2 with upsample_pallas, and K1-K3 (K4 with
 trace_pallas) on stage 2, as the single-device trainers do.
 
-tp (the hidden dims sharded over ranks) is not ported: `make_mesh(tp > 1)`
-raises; `stage1_param_shardings` keeps the JAX package's rule for it.
+tp (stage 1 on a mesh with tp > 1, JAX's make_dp_stage1_step(tp_shard=
+True)): Adam holds, for each leaf that `stage1_param_shardings` splits,
+this rank's tp slice (`tp_shards`), and its moments only for that slice.
+The step runs on the whole tree (the fused kernels take whole layers),
+all-reduces the gradients over dp, gives each shard its slice of the
+gradient, takes Adam's step on the shards and all-gathers them over tp
+into the whole tree.  Adam works element by element, so the step is
+bit-equal to the tp = 1 step on the same batch.  The stage-2 step and the
+renders run over dp and are replicated over tp: the ranks of one tp group
+pass the same crop.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +51,7 @@ from iron_tpu_torch.core.camera import crop_camera, make_camera
 from iron_tpu_torch.dist.mesh import Mesh, shard_batch
 from iron_tpu_torch.train.schedules import cos_anneal_ratio, warmup_cosine_schedule
 from iron_tpu_torch.train.stage1 import (Stage1Config, Stage1Draws, build_stage1_fns,
-                                         draw_stage1, stage1_loss,
+                                         draw_stage1, set_lr, stage1_loss,
                                          stage1_render_color_normal)
 from iron_tpu_torch.train.stage2 import Stage2Config, render_with_fns, stage2_loss
 
@@ -67,23 +75,44 @@ def stage1_param_shardings(params: nn.Module, mesh: Mesh, tp_shard: bool = True
     return {name: spec(p) for name, p in params.named_parameters()}
 
 
-def _reduce_grads(params: nn.Module, opt, mesh: Mesh, metrics: Dict[str, torch.Tensor],
+def tp_dims(params: nn.Module, mesh: Mesh) -> Dict[str, Optional[int]]:
+    """Each stage-1 parameter's axis split over tp under
+    stage1_param_shardings, by name; None for a leaf kept whole (every leaf
+    when tp = 1)."""
+    if mesh.shape["tp"] == 1:
+        return {name: None for name, _ in params.named_parameters()}
+    return {name: spec.index("tp") if "tp" in spec else None
+            for name, spec in stage1_param_shardings(params, mesh).items()}
+
+
+def tp_shards(params: nn.Module, mesh: Mesh) -> Dict[str, nn.Parameter]:
+    """This rank's share of the stage-1 parameters, by name, for the Adam
+    of make_dp_stage1_step: a leaf split over tp (tp_dims) becomes a new
+    parameter holding this rank's tp slice of it; every other leaf is the
+    module's own parameter."""
+    out = {}
+    for (name, p), d in zip(params.named_parameters(), tp_dims(params, mesh).values()):
+        if d is None:
+            out[name] = p
+        else:
+            k = p.shape[d] // mesh.shape["tp"]
+            out[name] = nn.Parameter(p.detach().narrow(d, mesh.tp_rank * k, k).clone())
+    return out
+
+
+def _reduce_grads(leaves, mesh: Mesh, metrics: Dict[str, torch.Tensor],
                   average: bool) -> Dict[str, torch.Tensor]:
-    """One all-reduce (sum; with `average`, over the world's size) of every
-    parameter the optimiser updates, in named_parameters order, and of the
-    metrics; the results become the parameters' gradients.  A parameter
-    without a gradient takes part with zeros and leaves with the reduced
-    ones.  Returns the reduced metrics."""
-    adam = opt if isinstance(opt, torch.optim.Optimizer) else opt.opt    # GroupAdam's
-    updated = {id(p) for g in adam.param_groups for p in g["params"]}
-    leaves = [p for _, p in params.named_parameters() if id(p) in updated]
+    """One all-reduce over dp (sum; with `average`, over dp's size) of the
+    gradients of `leaves` and of the metrics; the results become the
+    leaves' gradients.  A leaf without a gradient takes part with zeros and
+    leaves with the reduced ones.  Returns the reduced metrics."""
     keys = sorted(metrics)
     flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
                       for p in leaves]
                      + [torch.stack([metrics[k].detach().to(torch.float32) for k in keys])])
     mesh.all_reduce_sum(flat)
     if average:
-        flat.div_(mesh.size)
+        flat.div_(mesh.shape["dp"])
     o = 0
     for p in leaves:
         p.grad = flat[o:o + p.numel()].view_as(p)
@@ -111,25 +140,49 @@ def make_dp_stage1_step(cfg: Stage1Config, mesh: Mesh) -> Callable:
     stage-1 step on this rank's rows of the global batch, with this rank's
     rows of the draws (draw_dp_stage1), without the occupancy grid (as the
     JAX dp step).  The metrics are the global batch's (0-d tensors), the
-    same on every rank.  opt is a torch.optim.Adam over params; its
-    learning rate is the trainer's warm-up + cosine schedule at the count of
-    updates Adam has applied (optax's count); step sets the cos anneal."""
+    same on every rank.  opt is a torch.optim.Adam over
+    tp_shards(params, mesh).values() (params.parameters() when
+    tp = 1), in that order, as train.stage1.stage1_adam builds the
+    trainer's (capturable on a CUDA device); its learning rate is the
+    trainer's warm-up + cosine schedule at the count of updates Adam has
+    applied (optax's count) and step sets the cos anneal, both computed as
+    the trainer computes them (f32 on the device).  After the step params
+    hold the whole updated tree on every rank."""
     schedule = warmup_cosine_schedule(cfg.learning_rate, cfg.warm_up_end, cfg.end_iter,
                                       cfg.learning_rate_alpha)
 
     def step_fn(params: nn.ModuleDict, opt: torch.optim.Adam, batch: torch.Tensor, step: int,
                 draws: Stage1Draws) -> Dict[str, torch.Tensor]:
-        st = opt.state.get(next(iter(params.parameters())))
-        count = int(st["step"]) if st else 0
-        for g in opt.param_groups:
-            g["lr"] = schedule(count)
+        named = list(params.named_parameters())
+        shards = [q for g in opt.param_groups for q in g["params"]]
+        dims = list(tp_dims(params, mesh).values())
+        want = [tuple(p.shape[:d]) + (p.shape[d] // mesh.shape["tp"],) + tuple(p.shape[d + 1:])
+                if d is not None else tuple(p.shape) for (_, p), d in zip(named, dims)]
+        if [tuple(q.shape) for q in shards] != want:
+            raise ValueError("the optimizer's parameters are not tp_shards(params, mesh) in "
+                             "named_parameters order")
+        st = opt.state.get(shards[0])
+        dev = shards[0].device
+        count = st["step"] if st else torch.zeros((), device=dev)
+        set_lr(opt, schedule(count))
         opt.zero_grad(set_to_none=True)
-        loss, shares = stage1_loss(params, cfg, batch, cos_anneal_ratio(step, cfg.anneal_end),
+        for _, p in named:
+            p.grad = None
+        step_t = torch.full((), step, dtype=torch.int64, device=dev)
+        loss, shares = stage1_loss(params, cfg, batch, cos_anneal_ratio(step_t, cfg.anneal_end),
                                    t_rand=draws.t_rand, t_rand_outside=draws.t_rand_outside,
                                    reduce_sums=mesh.all_reduce_sum)
         loss.backward()
-        metrics = _reduce_grads(params, opt, mesh, shares, average=False)
+        metrics = _reduce_grads([p for _, p in named], mesh, shares, average=False)
+        for (_, p), q, d in zip(named, shards, dims):
+            if d is not None:
+                k = q.shape[d]
+                q.grad = p.grad.narrow(d, mesh.tp_rank * k, k).contiguous()
         opt.step()
+        with torch.no_grad():
+            for (_, p), q, d in zip(named, shards, dims):
+                if d is not None:
+                    p.copy_(mesh.all_gather(q.detach(), "tp", d))
         return metrics
 
     return step_fn
@@ -160,7 +213,10 @@ def make_dp_stage2_step(cfg: Stage2Config, mat_cfgs, mesh: Mesh, images=None, Ks
         opt.zero_grad()
         loss, metrics = stage2_loss(params, mat_cfgs, cfg, cam, gt, eik_pts)
         loss.backward()
-        metrics = _reduce_grads(params, opt, mesh, metrics, average=True)
+        adam = opt if isinstance(opt, torch.optim.Optimizer) else opt.opt    # GroupAdam's
+        updated = {id(p) for g in adam.param_groups for p in g["params"]}
+        metrics = _reduce_grads([p for _, p in params.named_parameters() if id(p) in updated],
+                                mesh, metrics, average=True)
         opt.step()
         return metrics
 
@@ -221,8 +277,8 @@ def make_dp_stage2_render(cfg: Stage2Config, mat_cfgs, mesh: Mesh, H: int, W: in
     band = H // D
 
     def render(params, K, W2C):
-        cam = crop_camera(make_camera(K, W2C, H, W, device=mesh.device), 0, mesh.rank * band,
-                          W, band)
+        cam = crop_camera(make_camera(K, W2C, H, W, device=mesh.device), 0,
+                          mesh.dp_rank * band, W, band)
         with torch.no_grad():
             res = render_with_fns(params, mat_cfgs, cfg, cam, cfg.surface)
         local = torch.cat([res["color"], res["normal"], res["depth"][..., None],

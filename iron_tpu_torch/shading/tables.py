@@ -15,6 +15,8 @@ import os
 import numpy as np
 import torch
 
+from iron_tpu_torch import resolve_device
+
 ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "assets", "ggx")
 
@@ -33,14 +35,16 @@ def _table(name: str, like: torch.Tensor) -> torch.Tensor:
     return _load(name, str(like.device))
 
 
-def mts_trans_table(device="cpu") -> torch.Tensor:
-    """5000-entry external-IOR transmission table (a copy)."""
-    return _load("ext_mts_rtrans_data.txt", str(torch.device(device))).clone()
+def mts_trans_table(device="cuda") -> torch.Tensor:
+    """5000-entry external-IOR transmission table (a copy), on the CUDA
+    device unless device="cpu"."""
+    return _load("ext_mts_rtrans_data.txt", str(resolve_device(device))).clone()
 
 
-def mts_diff_trans_table(device="cpu") -> torch.Tensor:
-    """50-entry internal diffuse transmission table (a copy)."""
-    return _load("int_mts_diff_rtrans_data.txt", str(torch.device(device))).clone()
+def mts_diff_trans_table(device="cuda") -> torch.Tensor:
+    """50-entry internal diffuse transmission table (a copy), on the CUDA
+    device unless device="cpu"."""
+    return _load("int_mts_diff_rtrans_data.txt", str(resolve_device(device))).clone()
 
 
 def lookup_T12(dot: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,12 @@ iron_tpu/train/checkpoints.py).
 
 Where the JAX package saves asynchronously through orbax, the port's
 `AsyncCheckpointer` writes the same pickles on a background thread.  The
-JAX package's orbax directories are not read (they need jax and orbax):
-`load_any_checkpoint` raises on them, naming the gap.
+JAX package's orbax saves (`<out>/orbax/<step:07d>/`, zarr arrays in an
+OCDBT key-value store, and `<step:07d>.extra.json`) are read by
+`read_orbax_checkpoint` through `tensorstore`, imported inside it, without
+jax or orbax; without tensorstore it raises, naming it and `--sync_ckpt`.
+`load_any_checkpoint` and `resume_checkpoint` choose between the two kinds
+as the JAX package does.
 
 The stage-2 parameter tree is {"sdf": {"layers": [{"v", "g", "b"}, ...]},
 "materials": {<net>: {"layers": [...]}, "point_light_network": {"light"}}},
@@ -23,11 +27,13 @@ same fields, so that it needs neither optax nor JAX; it maps no other class.
 from __future__ import annotations
 
 import glob
+import json
+import logging
 import os
 import pickle
 import re
 import threading
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 from torch import nn
@@ -147,30 +153,131 @@ def load_checkpoint(path: str) -> Dict:
         return _Unpickler(f).load()
 
 
+def _tensorstore():
+    try:
+        import tensorstore
+    except ImportError as e:
+        raise ImportError("reading an orbax checkpoint (the JAX package's async saves) needs "
+                          "the tensorstore package, which cannot be imported here; save the "
+                          "run with --sync_ckpt (ckpt_*.pkl pickles) instead") from e
+    return tensorstore
+
+
+def _rebuild(node):
+    """The tree of (key_type, key) -> node maps: sequence keys (type 1)
+    make tuples in index order, dict keys (type 2) dicts."""
+    if not isinstance(node, dict):
+        return node
+    if node and all(t == 1 for t, _ in node):
+        items = {int(k): v for (_, k), v in node.items()}
+        return tuple(_rebuild(items.get(i)) for i in range(max(items) + 1))
+    return {k: _rebuild(v) for (_, k), v in node.items()}
+
+
+def _optax_state(state):
+    """optax's Adam chain read as the stand-ins: an element with (count,
+    mu, nu) is ScaleByAdamState, one with (count) alone
+    ScaleByScheduleState; any other element stays as read."""
+    def one(s):
+        if isinstance(s, dict) and set(s) == {"count", "mu", "nu"}:
+            return ScaleByAdamState(s["count"], s["mu"], s["nu"])
+        if isinstance(s, dict) and set(s) == {"count"}:
+            return ScaleByScheduleState(s["count"])
+        return s
+    return tuple(one(s) for s in state) if isinstance(state, tuple) else one(state)
+
+
+def read_orbax_checkpoint(step_dir: str) -> Dict:
+    """A step directory of the JAX package's AsyncCheckpointer
+    (`<out>/orbax/<step:07d>/`) -> {"params", "opt_state", "step",
+    "extra"} as numpy arrays, as its `restore` returns them: the tree from
+    `_METADATA`'s tree_metadata (sequence keys as tuples), each leaf a zarr
+    array of the OCDBT store read through tensorstore; the step and the
+    config dicts from `<step:07d>.extra.json`; optax's Adam state as the
+    stand-ins above (opt_state None when the save has none).  Raises
+    without tensorstore."""
+    ts = _tensorstore()
+    step_dir = os.path.abspath(os.path.normpath(step_dir))
+    with open(os.path.join(step_dir, "_METADATA")) as f:
+        meta = json.load(f)
+    if not meta.get("use_ocdbt") or meta.get("use_zarr3"):
+        raise ValueError(f"{step_dir}: an orbax save without OCDBT or with zarr3 (use_ocdbt "
+                         f"{meta.get('use_ocdbt')}, use_zarr3 {meta.get('use_zarr3')}); the "
+                         f"port reads the JAX package's layout, OCDBT with zarr v2")
+    kvstore = {"driver": "ocdbt", "base": "file://" + step_dir + "/"}
+    root: Dict = {}
+    for entry in meta["tree_metadata"].values():
+        keys = [(k["key_type"], k["key"]) for k in entry["key_metadata"]]
+        name = ".".join(k for _, k in keys)
+        store = ts.open({"driver": "zarr", "kvstore": kvstore, "path": name},
+                        open=True).result()
+        node = root
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = np.asarray(store.read().result())
+    tree = _rebuild(root)
+    extra: Dict = {}
+    if os.path.exists(step_dir + ".extra.json"):
+        with open(step_dir + ".extra.json") as f:
+            extra = json.load(f)
+    opt_state = tree.get("opt_state")
+    return {"params": tree["params"],
+            "opt_state": None if opt_state is None else _optax_state(opt_state),
+            "step": int(extra.get("step", int(os.path.basename(step_dir)))), "extra": extra}
+
+
+def orbax_steps(out_dir: str) -> List[int]:
+    """The steps saved under `<out_dir>/orbax/`, ascending."""
+    root = os.path.join(out_dir, "orbax")
+    if not os.path.isdir(root):
+        return []
+    return sorted(int(p) for p in os.listdir(root)
+                  if p.isdigit() and os.path.isdir(os.path.join(root, p)))
+
+
+def _orbax_step_dir(out_dir: str, step: int) -> str:
+    return os.path.join(out_dir, "orbax", f"{step:07d}")
+
+
 def load_any_checkpoint(path: str) -> Optional[Dict]:
-    """A checkpoint from a `ckpt_*.pkl` file, or the newest numbered pickle
-    of an experiment directory; None when the path does not exist or holds
-    no checkpoint.  An orbax step directory, or an experiment directory
-    whose `orbax/` holds a step as new as its newest pickle (the JAX
-    package's async saves), raises: the port does not read orbax."""
+    """A checkpoint from a `ckpt_*.pkl` file, an orbax step directory, or
+    an experiment directory holding either, where the newest step wins
+    (orbax on a tie), as the JAX package's load_any_checkpoint; None when
+    the path does not exist or holds no checkpoint."""
     if os.path.isfile(path):
         return load_checkpoint(path)
     if not os.path.isdir(path):
         return None
     norm = os.path.normpath(path)
-    gap = ("orbax checkpoints (the JAX package's async saves) are not read by the port; "
-           "resave the run with --sync_ckpt, or pass a ckpt_*.pkl")
     if os.path.basename(norm).isdigit() and os.path.basename(os.path.dirname(norm)) == "orbax":
-        raise NotImplementedError(f"{path}: {gap}")
+        return read_orbax_checkpoint(norm)
     pkl = latest_checkpoint(path)
     pkl_step = int(re.search(r"ckpt_(\d+)\.pkl$", pkl).group(1)) if pkl else -1
-    root = os.path.join(path, "orbax")
-    steps = ([int(p) for p in os.listdir(root)
-              if p.isdigit() and os.path.isdir(os.path.join(root, p))]
-             if os.path.isdir(root) else [])
-    if steps and max(steps) >= pkl_step:
-        raise NotImplementedError(f"{root}: step {max(steps)} is an orbax checkpoint, newer "
-                                  f"than the newest pickle (step {pkl_step}): {gap}")
+    steps = orbax_steps(path)
+    if steps and steps[-1] >= pkl_step:
+        return read_orbax_checkpoint(_orbax_step_dir(path, steps[-1]))
+    return load_checkpoint(pkl) if pkl else None
+
+
+def resume_checkpoint(out_dir: str, orbax_first: bool) -> Optional[Dict]:
+    """The checkpoint a trainer resumes from, as the JAX trainers choose
+    it: with orbax_first (their async_ckpt) the newest orbax step, and when
+    there is none, or it does not read (a warning), the newest numbered
+    pickle.  A missing tensorstore raises rather than resume from an older
+    pickle."""
+    if orbax_first:
+        steps = orbax_steps(out_dir)
+        if steps:
+            step_dir = _orbax_step_dir(out_dir, steps[-1])
+            try:
+                return read_orbax_checkpoint(step_dir)
+            except ImportError:
+                raise
+            except Exception as e:      # a partial or foreign save: the pickles
+                logging.getLogger(__name__).warning(
+                    "orbax restore of %s failed (%s); falling back to pickle checkpoints",
+                    step_dir, e)
+    pkl = latest_checkpoint(out_dir)
     return load_checkpoint(pkl) if pkl else None
 
 

@@ -21,13 +21,22 @@ Randomness is drawn on the device from a torch.Generator (`draw`): the
 image, the pixels, the per-ray and background jitter and the
 occupancy-guided samples' u, all passed to `train_step` as a Stage1Draws,
 so that a check can inject other draws (JAX's).  The step's shapes are
-static and its host code reads no device value.
+static and its host code reads no device value: the learning rate and the
+cos anneal are computed on the device, in f32 as the JAX package computes
+them, from step counters held there, and on a CUDA device Adam is
+`capturable` (its step counts on the device too).
 
-`async_ckpt` saves the same pickles on a background thread
-(train/checkpoints.py::AsyncCheckpointer), where the JAX package uses orbax.
+`run` takes `steps_per_call` steps a call (16 by default, as the JAX
+package's lax.scan): on a CUDA device one step (`draw` + the step) is
+captured once as a torch.cuda.CUDAGraph, after one eager warm-up step, and
+replayed once a step with no host work between replays; the occupancy grid
+is refreshed at a chunk's start, as in the JAX package.  On the CPU a chunk
+is a loop of `train_step` calls.
 
-Not ported (each raises): `steps_per_call > 1` (the JAX package's lax.scan
-over steps) and `interpolate_view_video` (an OpenCV video writer).
+Checkpoints: `ckpt_<step>.pkl` pickles, written on a background thread
+with `async_ckpt` (train/checkpoints.py::AsyncCheckpointer); `resume` also
+reads the JAX package's orbax saves.  `interpolate_view_video` writes the
+ping-pong novel-view video as Motion-JPEG (data/video.py).
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from iron_tpu_torch import resolve_device
 from iron_tpu_torch.data.dataset import RayDataset, near_far_from_sphere
+from iron_tpu_torch.data.video import write_mjpeg_video
 from iron_tpu_torch.fields.nerf import NeRFConfig, init_nerf, nerf_apply, nerf_from_numpy
 from iron_tpu_torch.fields.rendering import (RenderingConfig, init_rendering, rendering_apply,
                                              rendering_from_numpy)
@@ -52,8 +62,8 @@ from iron_tpu_torch.kernels.fused_sdf import make_sdf_only_bf16_fn
 from iron_tpu_torch.kernels.fused_sdf_grad import make_fused_sdf_grad_fn
 from iron_tpu_torch.losses.regularizers import mask_bce_loss
 from iron_tpu_torch.train.checkpoints import (AsyncCheckpointer, ScaleByAdamState,
-                                              ScaleByScheduleState, latest_checkpoint,
-                                              load_checkpoint, save_checkpoint)
+                                              ScaleByScheduleState, resume_checkpoint,
+                                              save_checkpoint)
 from iron_tpu_torch.train.schedules import cos_anneal_ratio, warmup_cosine_schedule
 from iron_tpu_torch.volume.integrator import NeuSRenderConfig, neus_render
 from iron_tpu_torch.volume.occupancy import (OccupancyGridConfig, occupancy_guided_z,
@@ -191,7 +201,7 @@ def build_stage1_fns(params: nn.ModuleDict, cfg: Stage1Config) -> Dict:
 
 
 def stage1_render(params: nn.ModuleDict, cfg: Stage1Config, rays_o, rays_d, near, far,
-                  cos_anneal: float, background_rgb=None, perturb_overwrite: float = -1.0,
+                  cos_anneal, background_rgb=None, perturb_overwrite: float = -1.0,
                   init_z=None, generator: Optional[torch.Generator] = None, t_rand=None,
                   t_rand_outside=None, fns: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     """neus_render with the stage-1 networks; `fns` replaces the evaluators
@@ -218,7 +228,7 @@ def stage1_render(params: nn.ModuleDict, cfg: Stage1Config, rays_o, rays_d, near
 
 
 def stage1_loss(params: nn.ModuleDict, cfg: Stage1Config, batch: torch.Tensor,
-                cos_anneal: float, t_rand=None, t_rand_outside=None,
+                cos_anneal, t_rand=None, t_rand_outside=None,
                 generator: Optional[torch.Generator] = None, occ_grid=None, occ_u=None,
                 fns: Optional[Dict] = None,
                 reduce_sums: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
@@ -288,6 +298,23 @@ def stage1_render_color_normal(params: nn.ModuleDict, cfg: Stage1Config, rays_o,
 # trainer
 # ---------------------------------------------------------------------------
 
+def stage1_adam(params, device) -> torch.optim.Adam:
+    """Stage 1's Adam (b1 0.9, b2 0.999, eps 1e-8) over `params`:
+    capturable on a CUDA device (its step count on the device, a tensor
+    learning rate read at each step), as the trainer and the dp step take
+    it."""
+    return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=torch.device(device).type == "cuda")
+
+
+def set_lr(opt: torch.optim.Adam, lr: torch.Tensor) -> None:
+    """Give Adam the learning rate `lr` (an f32 tensor): as it is when Adam
+    is capturable, else as the host float of its value (a CPU tensor's)."""
+    value = lr if opt.defaults["capturable"] else float(lr)
+    for g in opt.param_groups:
+        g["lr"] = value
+
+
 @dataclass
 class Stage1Draws:
     """The random inputs of one training step, on the device."""
@@ -319,6 +346,17 @@ def draw_stage1(cfg: Stage1Config, dataset: RayDataset,
     return d
 
 
+@dataclass
+class StepGraph:
+    """A stage-1 step captured as a CUDA graph (Stage1Trainer.run_chunk):
+    each replay draws from `generator` into `draws` and overwrites
+    `metrics`."""
+    graph: "torch.cuda.CUDAGraph"
+    generator: torch.Generator
+    metrics: Dict[str, torch.Tensor]
+    draws: Stage1Draws
+
+
 class Stage1Trainer:
     """Stage-1 training of one scene on one device: parameters (drawn from
     `generator`, or resumed from `out_dir`), one Adam, `run`, checkpoints and
@@ -345,21 +383,31 @@ class Stage1Trainer:
         self.opt = self._adam()
         self.opt_count = 0        # optax's count: the updates applied so far
         self.step = 0
+        # the step and optax's count on the device, set from the host values
+        # before a step or a chunk's replays and advanced by the step itself
+        self._counts = torch.zeros(2, dtype=torch.int64, device=self.device)
         self._occ_grid: Optional[torch.Tensor] = None
         self._async: Optional[AsyncCheckpointer] = None
+        self._gen: Optional[torch.Generator] = None
+        self._graph: Optional[StepGraph] = None
 
     def _adam(self) -> torch.optim.Adam:
-        return torch.optim.Adam(self.params.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+        # the graph is of this optimizer's state: a new one needs a new capture
+        self._graph = None
+        return stage1_adam(self.params.parameters(), self.device)
 
     def _seed_adam(self, count: int, mu: Dict, nu: Dict) -> None:
         """Adam's state from an optax state: exp_avg = mu, exp_avg_sq = nu,
-        step = count, each leaf at its parameter's path."""
+        step = count, each leaf at its parameter's path (the step on the
+        device when Adam is capturable)."""
+        step_dev = self.device if self.opt.defaults["capturable"] else "cpu"
+        self._graph = None        # the state tensors a capture read are replaced
         for name, p in self.params.named_parameters():
             path = _jax_path(name)
             as_p = lambda tree: torch.as_tensor(np.asarray(_leaf(tree, path), np.float32),
                                                 device=p.device).reshape(p.shape).clone()
-            self.opt.state[p] = {"step": torch.tensor(float(count)), "exp_avg": as_p(mu),
-                                 "exp_avg_sq": as_p(nu)}
+            self.opt.state[p] = {"step": torch.tensor(float(count), device=step_dev),
+                                 "exp_avg": as_p(mu), "exp_avg_sq": as_p(nu)}
 
     def warm_start(self, tree: Dict) -> None:
         """Take the parameters of a JAX stage-1 tree (of either package's
@@ -369,17 +417,18 @@ class Stage1Trainer:
         self.opt_count = 0
 
     def resume(self) -> int:
-        """Load the newest `ckpt_<step>.pkl` of out_dir (written by either
-        package): the parameters, Adam's moments and count (from the JAX
-        package's optax state, or from the port's own record) and the
-        step."""
+        """Load the newest checkpoint of out_dir (written by either
+        package), as the JAX trainer resumes: with async_ckpt the newest
+        orbax step first, else (or when there is none) the newest
+        `ckpt_<step>.pkl`.  The parameters, Adam's moments and count (from
+        the JAX package's optax state, or from the port's own record) and
+        the step."""
         if self.out_dir:
-            path = latest_checkpoint(self.out_dir)
-            if path:
-                ck = load_checkpoint(path)
+            ck = resume_checkpoint(self.out_dir, orbax_first=self.cfg.async_ckpt)
+            if ck is not None:
                 self.warm_start(ck["params"])
                 adam = (ck.get("extra") or {}).get("adam")
-                if ck["opt_state"] is not None:
+                if ck.get("opt_state") is not None:
                     st = {type(s): s for s in ck["opt_state"]}
                     a = st[ScaleByAdamState]
                     adam = {"count": int(a.count), "mu": a.mu, "nu": a.nu,
@@ -420,59 +469,163 @@ class Stage1Trainer:
             self._async.wait()
 
     def update_occupancy(self) -> None:
-        """Refresh the occupancy grid from the current SDF (f32 sdf_only)."""
+        """Refresh the occupancy grid from the current SDF (f32 sdf_only),
+        in place once it exists (a captured step reads it where it lies)."""
         sdf = self.params["sdf"]
-        self._occ_grid = update_occupancy_grid(lambda p: sdf_only(sdf, p),
-                                               OccupancyGridConfig(), self.device)
+        grid = update_occupancy_grid(lambda p: sdf_only(sdf, p), OccupancyGridConfig(),
+                                     self.device)
+        if self._occ_grid is None:
+            self._occ_grid, self._graph = grid, None
+        else:
+            self._occ_grid.copy_(grid)
 
     def draw(self, generator: torch.Generator) -> Stage1Draws:
         """One step's random inputs, drawn on the device (no host sync)."""
         return draw_stage1(self.cfg, self.dataset, generator)
 
-    def train_step(self, draws: Stage1Draws) -> Dict[str, torch.Tensor]:
-        """One step on the given draws: loss, backward, the Adam update at
-        the schedule's learning rate.  Returns the metrics as tensors."""
+    def _step(self, draws: Stage1Draws) -> Dict[str, torch.Tensor]:
+        """The step on the device: the learning rate at optax's count and
+        the anneal at the step, both from the device counters, the loss,
+        backward, the Adam update, the counters advanced.  What a CUDA
+        graph captures."""
         cfg = self.cfg
         batch = self.dataset.gen_random_rays(draws.img_idx, cfg.batch_size, px=draws.px,
                                              py=draws.py)
-        for g in self.opt.param_groups:
-            g["lr"] = self.schedule(self.opt_count)
+        set_lr(self.opt, self.schedule(self._counts[1]))
         self.opt.zero_grad(set_to_none=True)
         loss, metrics = stage1_loss(self.params, cfg, batch,
-                                    cos_anneal_ratio(self.step, cfg.anneal_end),
+                                    cos_anneal_ratio(self._counts[0], cfg.anneal_end),
                                     t_rand=draws.t_rand, t_rand_outside=draws.t_rand_outside,
                                     occ_grid=self._occ_grid, occ_u=draws.occ_u)
         loss.backward()
         self.opt.step()
-        self.opt_count += 1
-        self.step += 1
+        self._counts.add_(1)
         return {k: v.detach() for k, v in metrics.items()}
 
-    def run(self, num_iters: Optional[int] = None, log_every: int = 0, seed: int = 0,
-            steps_per_call: int = 1, history: Optional[list] = None) -> Dict[str, float]:
-        """Train `num_iters` steps (the rest of cfg.end_iter by default), the
-        draws from a generator on the device seeded from `seed` and the
-        step.  Returns the last step's metrics; `history`, if given,
-        receives every step's metrics as device tensors (no host sync)."""
-        if steps_per_call != 1:
-            raise NotImplementedError("steps_per_call > 1 (an on-device loop over steps) is "
-                                      "not ported; the port dispatches one step per call")
-        n = num_iters if num_iters is not None else (self.cfg.end_iter - self.step)
-        gen = torch.Generator(device=self.device).manual_seed(seed * 1_000_003 + self.step)
-        metrics = {}
+    def _set_counts(self) -> None:
+        """The device counters from the host's step and count (two fills,
+        no host sync)."""
+        self._counts[0].fill_(self.step)
+        self._counts[1].fill_(self.opt_count)
+
+    def train_step(self, draws: Stage1Draws) -> Dict[str, torch.Tensor]:
+        """One step on the given draws: loss, backward, the Adam update at
+        the schedule's learning rate.  Returns the metrics as tensors."""
+        self._set_counts()
+        metrics = self._step(draws)
+        self.opt_count += 1
+        self.step += 1
+        return metrics
+
+    def _capture(self, generator: torch.Generator, history: Optional[list]):
+        """One eager warm-up step (a real step: the kernels built, their
+        device queries cached, Adam's state made) on a side stream, then the
+        step captured on that stream as a CUDA graph with `generator`
+        registered, so that each replay draws anew.  Returns the warm-up
+        step's metrics."""
+        dev = self.device
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            metrics = self.train_step(self.draw(generator))
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        if history is not None:
+            history.append(metrics)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        self.opt.zero_grad(set_to_none=True)     # the gradients from the graph's pool
+        self._set_counts()
+        with torch.cuda.graph(graph, stream=stream):
+            draws = self.draw(generator)
+            static = self._step(draws)
+        self._graph = StepGraph(graph, generator, static, draws)
+        return metrics
+
+    def run_chunk(self, n: int, generator: torch.Generator,
+                  history: Optional[list] = None) -> Dict[str, torch.Tensor]:
+        """n steps on draws from `generator`: on a CUDA device (n > 1) the
+        captured step replayed n times (captured at the first call, or
+        again for another generator or optimizer), else n train_step calls.
+        Returns the last step's metrics as tensors; `history`, if given,
+        receives every step's."""
+        if self.device.type != "cuda" or n == 1:
+            for _ in range(n):
+                metrics = self.train_step(self.draw(generator))
+                if history is not None:
+                    history.append(metrics)
+            return metrics
+        if self._graph is None or self._graph.generator is not generator:
+            metrics = self._capture(generator, history)
+            n -= 1
+        g = self._graph
+        self._set_counts()
         for _ in range(n):
-            if self.cfg.use_occupancy and (
-                    self._occ_grid is None or self.step % self.cfg.occupancy_update_every == 0):
-                self.update_occupancy()
-            metrics = self.train_step(self.draw(gen))
+            g.graph.replay()
+            metrics = {k: v.clone() for k, v in g.metrics.items()}
             if history is not None:
                 history.append(metrics)
+        self.opt_count += n
+        self.step += n
+        return metrics
+
+    def _generator(self, seed: int) -> torch.Generator:
+        """run's generator, seeded from `seed` and the step: one generator a
+        trainer, re-seeded at each run (on a CUDA device the graph's,
+        registered at its capture)."""
+        if self._gen is None:
+            self._gen = torch.Generator(device=self.device)
+        return self._gen.manual_seed(seed * 1_000_003 + self.step)
+
+    def run(self, num_iters: Optional[int] = None, log_every: int = 0, seed: int = 0,
+            steps_per_call: int = 16, history: Optional[list] = None) -> Dict[str, float]:
+        """Train `num_iters` steps (the rest of cfg.end_iter by default) in
+        chunks of `steps_per_call` (run_chunk), each bounded so that the
+        log and save cadence falls on a chunk's end, as the JAX package's
+        chunked run.  The occupancy grid is refreshed at a chunk's start
+        when one of its steps is due (step % occupancy_update_every <
+        chunk).  The draws come from a generator on the device seeded from
+        `seed` and the step.  Returns the last step's metrics; `history`,
+        if given, receives every step's metrics as device tensors (no host
+        sync)."""
+        if steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be at least 1, got {steps_per_call}")
+        cfg = self.cfg
+        n = num_iters if num_iters is not None else (cfg.end_iter - self.step)
+        gen = self._generator(seed)
+        metrics, done = {}, 0
+        while done < n:
+            chunk = min(steps_per_call, n - done)
+            if log_every:
+                chunk = min(chunk, log_every - self.step % log_every)
+            if self.out_dir:
+                chunk = min(chunk, cfg.save_freq - self.step % cfg.save_freq)
+            chunk = max(chunk, 1)
+            if cfg.use_occupancy and (self._occ_grid is None or
+                                      self.step % cfg.occupancy_update_every < chunk):
+                self.update_occupancy()
+            metrics = self.run_chunk(chunk, gen, history)
+            done += chunk
             if log_every and self.step % log_every == 0:
                 print(f"[stage1 {self.step}] " + " ".join(
                     f"{k}={float(v):.4f}" for k, v in metrics.items()))
-            if self.out_dir and self.step % self.cfg.save_freq == 0:
+            if self.out_dir and self.step % cfg.save_freq == 0:
                 self.save()
         return {k: float(v) for k, v in metrics.items()}
+
+    def interpolate_view_video(self, idx_0: int, idx_1: int, out_path: str,
+                               n_frames: int = 60, resolution_level: int = 4,
+                               fps: int = 30) -> None:
+        """The ping-pong interpolation video of the JAX trainer
+        (render_volume.py:815-848): n_frames novel views at ratios
+        sin((i / n - 0.5) pi) / 2 + 1 / 2 between the two cameras, clipped
+        to [0, 1] and cast to uint8, then the same frames reversed; written
+        as Motion-JPEG (.avi or .mp4 / .mov, data/video.py)."""
+        frames = []
+        for i in range(n_frames):
+            ratio = np.sin(((i / n_frames) - 0.5) * np.pi) * 0.5 + 0.5
+            img = self.render_novel_view(idx_0, idx_1, ratio, resolution_level)
+            frames.append((np.clip(img, 0, 1) * 255).astype(np.uint8))
+        write_mjpeg_video(out_path, frames + frames[::-1], fps)
 
     def render_novel_view(self, idx_0: int, idx_1: int, ratio: float,
                           resolution_level: int = 4, chunk: int = 1024) -> np.ndarray:

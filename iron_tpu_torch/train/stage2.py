@@ -18,10 +18,12 @@ runs on plain autograd (create_graph) on both, as in the JAX package, where
 it is plain XLA.  `mat_bf16` runs the material networks in bf16 on both.
 
 `async_ckpt` saves the same pickles on a background thread
-(train/checkpoints.py::AsyncCheckpointer), where the JAX package uses orbax.
-
-Not ported (raises): `steps_per_call > 1` (the JAX package's lax.scan over
-steps).
+(train/checkpoints.py::AsyncCheckpointer), where the JAX package uses orbax;
+`resume` reads the JAX package's orbax saves too.  `run(steps_per_call >
+1)` draws a chunk's crops on the device, as the JAX package's lax.scan over
+steps does, and runs the chunk's steps eagerly: the tracer's masked loops
+read a device value each iteration, so a stage-2 step is not captured as a
+graph.
 """
 from __future__ import annotations
 
@@ -51,10 +53,9 @@ from iron_tpu_torch.shading.materials import (init_material_networks, material_l
 from iron_tpu_torch.surface.render import (SurfaceRenderConfig, render_camera,
                                            scale_config_for_resolution)
 from iron_tpu_torch.surface.tracer import budget_select, linspace01
-from iron_tpu_torch.train.checkpoints import (AsyncCheckpointer, latest_checkpoint,
-                                              load_checkpoint, params_from_numpy,
-                                              params_to_numpy, save_checkpoint,
-                                              stage1_to_stage2)
+from iron_tpu_torch.train.checkpoints import (AsyncCheckpointer, params_from_numpy,
+                                              params_to_numpy, resume_checkpoint,
+                                              save_checkpoint, stage1_to_stage2)
 
 
 @dataclass(frozen=True)
@@ -444,13 +445,14 @@ class Stage2Trainer:
         self._async: Optional[AsyncCheckpointer] = None
 
     def resume(self) -> int:
-        """Load the newest `ckpt_<step>.pkl` of out_dir (written by either
-        package); returns the step.  The optimizer starts afresh, as the
-        stage-2 checkpoints hold no optimizer state."""
+        """Load the newest checkpoint of out_dir (written by either
+        package), as the JAX trainer resumes: with async_ckpt the newest
+        orbax step first, else (or when there is none) the newest
+        `ckpt_<step>.pkl`; returns the step.  The optimizer starts afresh,
+        as the stage-2 checkpoints hold no optimizer state."""
         if self.out_dir:
-            path = latest_checkpoint(self.out_dir)
-            if path:
-                ck = load_checkpoint(path)
+            ck = resume_checkpoint(self.out_dir, orbax_first=self.cfg.async_ckpt)
+            if ck is not None:
                 self.params = params_from_numpy(ck["params"], self.device, self.cfg.sdf,
                                                 self.cfg.renderer_name)
                 self.opt = make_optimizer(self.cfg, self.params, self.trainable)
@@ -525,31 +527,52 @@ class Stage2Trainer:
     def run(self, num_iters: Optional[int] = None, log_every: int = 0, seed: int = 0,
             steps_per_call: int = 1, val_fn=None, val_every: int = 0,
             history: Optional[list] = None) -> Dict[str, float]:
-        """Train `num_iters` steps (the rest of cfg.num_iters by default) on
-        crops drawn by the JAX package's host RNG formula; the eikonal
-        points come from a torch.Generator seeded with seed + 1.  Returns
-        the last step's metrics; `history`, if given, receives every step's
-        metrics as device tensors (no host sync)."""
-        if steps_per_call != 1:
-            raise NotImplementedError("steps_per_call > 1 (an on-device loop over steps) is "
-                                      "not ported; the port dispatches one step per call")
+        """Train `num_iters` steps (the rest of cfg.num_iters by default).
+        One step a call draws its crop by the JAX package's host RNG
+        formula; steps_per_call > 1 runs chunks of that many steps, each
+        bounded so that the log, save and validation cadence falls on a
+        chunk's end, with the chunk's crops (image in [0, n_imgs), corner in
+        [0, max_col) x [0, max_row), JAX's bounds) drawn on the device in
+        one [chunk, 3] draw from a torch.Generator seeded from `seed` and the
+        step, and read back at once.  The eikonal points come from a
+        torch.Generator seeded with seed + 1.  Returns the last step's
+        metrics; `history`, if given, receives every step's metrics as
+        device tensors."""
+        if steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be at least 1, got {steps_per_call}")
         n = num_iters if num_iters is not None else (self.cfg.num_iters - self.step)
         if val_fn is not None and not val_every:
             val_every = self.cfg.save_freq
-        g = np.random.default_rng((seed + 1) * 1_000_003 + self.step)
         eik_gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         n_imgs = self.images.shape[0]
         ps = self.cfg.patch_size
         max_col, max_row = max(self.W - ps, 1), max(self.H - ps, 1)
         n_eik = (ps * ps) // 2
-        metrics = {}
-        for _ in range(n):
-            idx, col, row = (int(g.integers(0, n_imgs)), int(g.integers(0, max_col)),
-                             int(g.integers(0, max_row)))
-            eik_pts = torch.rand((n_eik, 3), generator=eik_gen, device=self.device) * 2 - 1
-            metrics = self.train_step(idx, col, row, eik_pts)
-            if history is not None:
-                history.append(metrics)
+        if steps_per_call == 1:
+            g = np.random.default_rng((seed + 1) * 1_000_003 + self.step)
+            crops = lambda k: [(int(g.integers(0, n_imgs)), int(g.integers(0, max_col)),
+                                int(g.integers(0, max_row)))]
+        else:
+            crop_gen = torch.Generator(device=self.device).manual_seed(
+                (seed + 1) * 1_000_003 + self.step)
+            bounds = torch.tensor([n_imgs, max_col, max_row], device=self.device)
+            crops = lambda k: (torch.randint(0, 1 << 31, (k, 3), generator=crop_gen,
+                                             device=self.device) % bounds).tolist()
+        metrics, done = {}, 0
+        while done < n:
+            chunk = min(steps_per_call, n - done)
+            if log_every:
+                chunk = min(chunk, log_every - self.step % log_every)
+            if self.out_dir:
+                chunk = min(chunk, self.cfg.save_freq - self.step % self.cfg.save_freq)
+            if val_fn is not None:
+                chunk = min(chunk, val_every - self.step % val_every)
+            for idx, col, row in crops(chunk):
+                eik_pts = torch.rand((n_eik, 3), generator=eik_gen, device=self.device) * 2 - 1
+                metrics = self.train_step(idx, col, row, eik_pts)
+                if history is not None:
+                    history.append(metrics)
+            done += chunk
             if log_every and self.step % log_every == 0:
                 print(f"[stage2 {self.step}] " + " ".join(
                     f"{k}={float(v):.4f}" for k, v in metrics.items()))

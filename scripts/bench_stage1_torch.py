@@ -14,9 +14,11 @@ sphere, 4 views at 256x256) with weights from torch.Generator seed 0:
     mask_weight 0.1).
 
 Each: 32 warm-up steps of Stage1Trainer.run, then 3 windows of `--iters`
-steps, each ended by a device synchronise; one JSON line with it/s and
-rays/s of the best window (the median beside it).  Then `--profile-steps`
-steps of each configuration traced with torch.profiler, reported as
+steps, each ended by a device synchronise (run's default chunks of 16
+steps, each step a replay of the captured CUDA graph); one JSON line with
+it/s and rays/s of the best window (the median beside it).  Then
+`--profile-steps` eager steps (steps_per_call=1) of each configuration
+traced with torch.profiler, reported as
 scripts/profile_render_torch.py reports a training step (device time by
 group, idle share, host syncs).  Prints the card's name and power limit
 first.  Needs a CUDA device.
@@ -89,7 +91,7 @@ def main(argv=None) -> int:
         for name, tr in trainers.items():
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                tr.run(num_iters=args.profile_steps)
+                tr.run(num_iters=args.profile_steps, steps_per_call=1)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
             report(prof, wall_ms, f"stage 1 ({name}), {args.profile_steps} step(s)",

@@ -79,10 +79,14 @@ def test_conductors_at_850nm_match_jax(metal):
 
 
 def test_tables_bit_equal():
-    np.testing.assert_array_equal(N(ttab.mts_trans_table()), np.asarray(jtab.mts_trans_table()))
-    np.testing.assert_array_equal(N(ttab.mts_diff_trans_table()),
+    np.testing.assert_array_equal(N(ttab.mts_trans_table(device="cpu")),
+                                  np.asarray(jtab.mts_trans_table()))
+    np.testing.assert_array_equal(N(ttab.mts_diff_trans_table(device="cpu")),
                                   np.asarray(jtab.mts_diff_trans_table()))
-    assert ttab.mts_trans_table().shape == (5000,) and ttab.mts_diff_trans_table().shape == (50,)
+    assert ttab.mts_trans_table(device="cpu").shape == (5000,)
+    assert ttab.mts_diff_trans_table(device="cpu").shape == (50,)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttab.mts_trans_table()
 
 
 def _disney_inputs(seed=3, n=96):

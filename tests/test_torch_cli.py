@@ -139,7 +139,8 @@ def test_jpeg_writer_against_opencv(shape):
 def test_jpeg_reader_against_opencv(tmp_path, flags):
     """A cv2-written JPEG (4:2:0, restart markers, 4:4:4, 4:2:2, gray) read
     by the port within 1/255 on average of cv2.imread; read_image and
-    write_image through .jpg; progressive files raise, naming the gap."""
+    write_image through .jpg; the same image written progressive with the
+    same flags read within 1/255 of cv2.imread too."""
     img = _photo(np.random.default_rng(2), 45, 61)
     path = str(tmp_path / "a.jpg")
     if flags == "gray":
@@ -154,17 +155,28 @@ def test_jpeg_reader_against_opencv(tmp_path, flags):
     tio.write_image(str(tmp_path / "b.jpeg"), got)
     back = cv2.imread(str(tmp_path / "b.jpeg"), cv2.IMREAD_UNCHANGED)
     assert back.shape == ref.shape
-    cv2.imwrite(str(tmp_path / "p.jpg"), img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(ValueError, match="progressive"):
-        tio.read_image(str(tmp_path / "p.jpg"))
+    prog = str(tmp_path / "p.jpg")
+    if flags == "gray":
+        cv2.imwrite(prog, img[..., 0], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+        ref = np.repeat(cv2.imread(prog, cv2.IMREAD_UNCHANGED)[..., None], 3, -1)
+    else:
+        cv2.imwrite(prog, img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 90,
+                                           cv2.IMWRITE_JPEG_PROGRESSIVE, 1] + flags)
+        ref = cv2.imread(prog, cv2.IMREAD_UNCHANGED)[..., ::-1]
+    with open(prog, "rb") as f:
+        assert f.read()[2:].find(b"\xff\xc2") >= 0          # an SOF2 frame
+    got = tio.read_image(prog)
+    assert got.shape == ref.shape and np.abs(got * 255.0 - ref).mean() <= 1.0
     with open(str(tmp_path / "b.jpeg"), "rb") as f:
         assert decode_jpeg(f.read()).shape == ref.shape
 
 
 def test_load_any_checkpoint_reads_jax_pickles_and_refuses_orbax(tmp_path):
     """A JAX pickle directory read by the port (the newest step); None where
-    the JAX package returns None; an orbax step directory, or an orbax step
-    as new as the newest pickle, raises rather than falling back."""
+    the JAX package returns None; the JAX package's orbax saves read as its
+    load_any_checkpoint reads them: an older orbax step loses to the newest
+    pickle, a newer one wins, and a step directory reads alone."""
+    from iron_tpu.train.checkpoints import AsyncCheckpointer as JAsync
     g = np.random.default_rng(3)
     tree = {"sdf": {"layers": [{"v": g.normal(size=(3, 4)).astype(np.float32)}]}}
     for step in (3, 7):
@@ -178,13 +190,22 @@ def test_load_any_checkpoint_reads_jax_pickles_and_refuses_orbax(tmp_path):
     os.makedirs(tmp_path / "empty")
     assert load_any_checkpoint(str(tmp_path / "empty")) is None
     assert j_load_any_checkpoint(str(tmp_path / "empty")) is None
-    os.makedirs(tmp_path / "exp" / "orbax" / "0000005")
+    ckptr = JAsync(str(tmp_path / "exp"))
+    trees = {s: {"sdf": {"layers": [{"v": jax.numpy.asarray(
+        g.normal(size=(3, 4)).astype(np.float32))}]}} for s in (5, 9)}
+    ckptr.save(5, trees[5], extra={"k": 5})
+    ckptr.wait()
     assert load_any_checkpoint(str(tmp_path / "exp"))["step"] == 7   # older orbax step
-    os.makedirs(tmp_path / "exp" / "orbax" / "0000009")
-    with pytest.raises(NotImplementedError, match="orbax"):
-        load_any_checkpoint(str(tmp_path / "exp"))
-    with pytest.raises(NotImplementedError, match="orbax"):
-        load_any_checkpoint(str(tmp_path / "exp" / "orbax" / "0000009"))
+    ckptr.save(9, trees[9], extra={"k": 9})
+    ckptr.wait()
+    for path in (str(tmp_path / "exp"), str(tmp_path / "exp" / "orbax" / "0000009")):
+        got, ref = load_any_checkpoint(path), j_load_any_checkpoint(path)
+        assert got["step"] == ref["step"] == 9 and got["extra"] == ref["extra"] == {"step": 9,
+                                                                                   "k": 9}
+        np.testing.assert_array_equal(got["params"]["sdf"]["layers"][0]["v"],
+                                      np.asarray(ref["params"]["sdf"]["layers"][0]["v"]))
+        np.testing.assert_array_equal(got["params"]["sdf"]["layers"][0]["v"],
+                                      np.asarray(trees[9]["sdf"]["layers"][0]["v"]))
 
 
 def test_async_checkpointer_copies_before_returning_and_raises_in_wait(tmp_path):
@@ -433,11 +454,12 @@ def test_train_surface_runs_the_multi_flavour(tmp_path):
 
 def test_port_imports_with_jax_and_the_jax_package_blocked():
     """Every module of iron_tpu_torch imports in a process where importing
-    jax or iron_tpu fails, the research trainers' and the data-parallel
-    modules among them."""
+    jax, optax, orbax or iron_tpu fails, the research trainers' and the
+    data-parallel modules among them; there the orbax reader reads the
+    committed fixture (tests/data_orbax) with its configs."""
     code = ("import pkgutil, sys\n"
-            "sys.modules['jax'] = None\n"
-            "sys.modules['iron_tpu'] = None\n"
+            "for m in ('jax', 'optax', 'orbax', 'iron_tpu'):\n"
+            "    sys.modules[m] = None\n"
             "import iron_tpu_torch\n"
             "names = [m.name for m in pkgutil.walk_packages(iron_tpu_torch.__path__,"
             " 'iron_tpu_torch.')]\n"
@@ -445,6 +467,9 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
             "    __import__(n)\n"
             "assert 'iron_tpu_torch.cli.train_surface' in names, names\n"
             f"assert not set({RESEARCH_MODULES + DIST_MODULES!r}) - set(names), names\n"
+            "from iron_tpu_torch.train.checkpoints import read_orbax_checkpoint\n"
+            "ck = read_orbax_checkpoint('tests/data_orbax/stage1/orbax/0000002')\n"
+            "assert ck['step'] == 2 and ck['extra']['sdf_config']['d_hidden'] == 16\n"
             "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], env=dict(os.environ, PYTHONPATH=REPO),
                          cwd=REPO, capture_output=True, text=True, timeout=120)

@@ -1,9 +1,10 @@
 """The port's data-parallel training and rendering (iron_tpu_torch/dist/)
 on the CPU: two gloo ranks (subprocesses of tests/torch_dist_workers.py, one
 run of every case) against the JAX package's dp steps on a dp=2 CPU mesh and
-against the port's single-device steps and renders; the mesh utilities, the
-tp spec table, per-host image shards, the dry run under torchrun and the
-backend rules."""
+against the port's single-device steps and renders; four gloo ranks on a
+(dp 2, tp 2) mesh against the JAX package's tp step on a 2x2 CPU mesh and
+against the port's dp=2, tp=1 step; the mesh utilities, the tp spec table,
+per-host image shards, the dry run under torchrun and the backend rules."""
 import os
 import pickle
 import subprocess
@@ -56,6 +57,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = torch.as_tensor
 to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
 WORLD = 2
+TP_WORLD = 4
 S1_STEP = dict(step=3, key=11)
 # each rank's crop (view, column, row) on the 48x48 views: both see the
 # sphere's silhouette
@@ -73,6 +75,12 @@ def keystr(name: str) -> str:
 def _leaves(tree):
     return {jax.tree_util.keystr(k): np.asarray(v)
             for k, v in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def _jax_wide_cfg():
+    return JStage1Config(sdf=JSDFConfig(**W.WIDE), color=JRenderingConfig(**W.WIDE_COLOR),
+                         nerf=JNeRFConfig(**W.WIDE_NERF), render=JNeuSRenderConfig(**W.S1_RENDER),
+                         **W.S1)
 
 
 def _jax_cfgs():
@@ -124,6 +132,12 @@ def inputs(tmp_path_factory):
                "t_rand": np.asarray(jax.random.uniform(k1, (B, 1)) - 0.5),
                "t_rand_outside": np.asarray(jax.random.uniform(k2, (B, W.S1_RENDER["n_outside"]))),
                "step": S1_STEP["step"]},
+        "s1_wide": {"params": to_np(j_init_stage1(jax.random.PRNGKey(0), _jax_wide_cfg())),
+                    "batch": batch,
+                    "t_rand": np.asarray(jax.random.uniform(k1, (B, 1)) - 0.5),
+                    "t_rand_outside": np.asarray(jax.random.uniform(
+                        k2, (B, W.S1_RENDER["n_outside"]))),
+                    "step": S1_STEP["step"]},
         "s2": {"params": _stage2_params(j2, scene["W2Cs"], 0), "images": scene["images"],
                "Ks": scene["Ks"], "W2Cs": scene["W2Cs"],
                "same": SAME + (_eik(jax.random.PRNGKey(17)),),
@@ -154,6 +168,38 @@ def rank_procs(inputs, tmp_path_factory):
         if p.poll() is None:
             p.kill()
             p.wait()
+
+
+@pytest.fixture(scope="module")
+def tp_procs(rank_procs):
+    """The four ranks of the (dp 2, tp 2) mesh (tests/torch_dist_workers.py
+    ... tp), started beside the two dp ranks, on the same inputs."""
+    work, _ = rank_procs
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, os.path.join(REPO, "tests",
+                                                            "torch_dist_workers.py"),
+                               str(r), str(TP_WORLD), work, "tp"], env=env, cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(TP_WORLD)]
+    yield work, procs
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+@pytest.fixture(scope="module")
+def tp_ranks(tp_procs):
+    """The four tp ranks' results (120 s for the ranks to finish)."""
+    work, procs = tp_procs
+    for p in procs:
+        log = p.communicate(timeout=120)[0]
+        assert p.returncode == 0, log[-4000:]
+    out = []
+    for r in range(TP_WORLD):
+        with open(os.path.join(work, f"tp_rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -243,6 +289,70 @@ def test_dp_stage1_step_is_the_single_device_step_on_the_whole_batch(inputs, ran
         ref = p.grad.numpy()
         np.testing.assert_allclose(ranks[0]["s1"]["grads"][n], ref, rtol=0,
                                    atol=1e-5 * float(np.abs(ref).max()), err_msg=n)
+
+
+@pytest.fixture(scope="module")
+def jax_tp_stage1(inputs, rank_procs, tp_procs):
+    """JAX's make_dp_stage1_step(tp_shard=True) on a (dp 2, tp 2) CPU mesh,
+    the parameters placed by its stage1_param_shardings, from a fresh Adam
+    (its gradients read back from optax's first moment, mu = 0.1 g)."""
+    j1 = _jax_wide_cfg()
+    mesh = j_make_mesh(dp=2, tp=2, devices=jax.devices()[:TP_WORLD])
+    tx = optax.adam(j_schedule(j1.learning_rate, j1.warm_up_end, j1.end_iter,
+                               j1.learning_rate_alpha))
+    params = jax.tree_util.tree_map(jnp.asarray, inputs["s1_wide"]["params"])
+    params = jax.device_put(params, j_param_shardings(params, mesh))
+    step = j_dp_stage1_step(j1, tx, mesh, tp_shard=True)
+    _, new_opt, m = step(params, tx.init(params),
+                         j_shard_batch(jnp.asarray(inputs["s1_wide"]["batch"]), mesh),
+                         jnp.asarray(S1_STEP["step"]), jax.random.PRNGKey(S1_STEP["key"]))
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "grads": {k: v / np.float32(0.1) for k, v in _leaves(new_opt[0].mu).items()}}
+
+
+def test_tp_stage1_step_matches_jax_tp_step(jax_tp_stage1, tp_ranks):
+    """Four ranks on a (dp 2, tp 2) mesh (rank r at dp r // 2, tp r % 2, as
+    JAX's devices.reshape(dp, tp)), each dp pair of ranks on its 32 rays,
+    Adam over its tp shards, against JAX's tp step on the 64-ray batch with
+    the draws injected: the loss and every metric within 2e-4 relative, every
+    gradient leaf within 2e-3 of its largest entry (+ 2e-3 relative), the dp
+    test's holds; the parameters after the step bit-equal on every rank."""
+    jm, jg = jax_tp_stage1["metrics"], jax_tp_stage1["grads"]
+    for r, rk in enumerate(tp_ranks):
+        assert (rk["rank"], rk["dp_rank"], rk["tp_rank"]) == (r, r // 2, r % 2)
+        assert rk["shape"] == {"dp": 2, "tp": 2}
+        assert rk["s1_wide"]["metrics"] == tp_ranks[0]["s1_wide"]["metrics"]
+        for k, v in jm.items():
+            np.testing.assert_allclose(rk["s1_wide"]["metrics"][k], v, rtol=2e-4, atol=1e-7,
+                                       err_msg=k)
+    got = tp_ranks[0]["s1_wide"]["grads"]
+    assert {keystr(n) for n in got} == set(jg)
+    for n, a in got.items():
+        ref = jg[keystr(n)]
+        np.testing.assert_allclose(a, ref, rtol=2e-3, atol=2e-3 * float(np.abs(ref).max())
+                                   + 1e-10, err_msg=n)
+    for name, a in tp_ranks[0]["s1_wide"]["params"].items():
+        for other in tp_ranks[1:]:
+            np.testing.assert_array_equal(other["s1_wide"]["params"][name], a, err_msg=name)
+
+
+def test_tp_stage1_step_is_bit_equal_to_the_tp1_step(tp_ranks, ranks):
+    """The tp = 2 step against the port's dp = 2, tp = 1 step on the same
+    batch: the whole tree after the step, Adam's moments (gathered over tp)
+    and the metrics bit-equal; each tp rank's Adam holds only its slices of
+    the split leaves (the hidden layers' v, g and b)."""
+    ref = ranks[0]["s1_wide"]
+    sharded = tp_ranks[0]["s1_wide"]["sharded"]
+    assert "sdf.layers.0.v" in sharded and "color.layers.0.b" in sharded
+    for rk in tp_ranks:
+        got = rk["s1_wide"]
+        assert got["metrics"] == ref["metrics"] and got["sharded"] == sharded
+        for key in ("params", "moments"):
+            assert set(got[key]) == set(ref[key])
+            for n, a in ref[key].items():
+                np.testing.assert_array_equal(got[key][n], a, err_msg=n)
+        assert got["adam_numel"] < 0.75 * ref["adam_numel"]
+    assert ranks[0]["s1_wide"]["sharded"] == []
 
 
 # ---------------------------------------------------------------------------
@@ -454,24 +564,43 @@ def test_per_host_shard_keeps_the_jax_image_list(inputs, ranks, monkeypatch):
 # the dry run and the backend rules
 # ---------------------------------------------------------------------------
 
-def test_dryrun_under_torchrun_on_two_cpu_ranks():
-    """python -m torch.distributed.run --standalone --nproc_per_node 2 -m
-    iron_tpu_torch.dist.dryrun --device cpu exits 0, both ranks reporting
-    finite losses and equal parameters."""
+def _dryrun(ranks: int) -> str:
+    """python -m torch.distributed.run --standalone --nproc_per_node <ranks>
+    -m iron_tpu_torch.dist.dryrun --device cpu: its exit code checked, its
+    stdout returned."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                          "--nproc_per_node", "2", "-m", "iron_tpu_torch.dist.dryrun",
+                          "--nproc_per_node", str(ranks), "-m", "iron_tpu_torch.dist.dryrun",
                           "--device", "cpu"], env=env, cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, (out.stdout + out.stderr)[-4000:]
-    assert out.stdout.count("parameters equal on every rank") == 2, out.stdout
+    return out.stdout
 
 
-def test_backend_rules_and_single_process(monkeypatch, tmp_path):
+def test_dryrun_under_torchrun_on_two_cpu_ranks():
+    """The dry run on two gloo ranks exits 0, both ranks reporting finite
+    losses and equal parameters (a (dp 1, tp 2) mesh: the tp collectives)."""
+    out = _dryrun(2)
+    assert out.count("parameters equal on every rank") == 2, out
+    assert out.count("(dp 1, tp 2)") == 2, out
+
+
+def test_dryrun_under_torchrun_on_four_cpu_ranks():
+    """The dry run on four gloo ranks, a (dp 2, tp 2) mesh, so that the dp
+    all-reduces of both stages and the tp all-gathers of stage 1 run under
+    torchrun: exits 0, every rank reporting finite losses and equal
+    parameters."""
+    out = _dryrun(4)
+    assert out.count("parameters equal on every rank") == 4, out
+    assert out.count("(dp 2, tp 2)") == 4, out
+
+
+def test_backend_rules_and_single_process(monkeypatch, tmp_path, tp_ranks):
     """NCCL with two ranks on one card raises before joining, naming
     backend='gloo' (CUDA faked: one device, as tests/test_torch_kernels_k2_k5.py
     fakes it); NCCL on the CPU raises; one process joins nothing and its
-    mesh is one rank; tp > 1 raises, naming ROADMAP."""
+    mesh is one rank, which holds no tp = 2 mesh; the tp ranks' groups: a
+    rank's dp group shares its tp index, its tp group its dp index."""
     import torch.distributed as dist
     init = "file://" + str(tmp_path / "init")
     assert initialize_distributed(device="cpu") == torch.device("cpu")
@@ -480,8 +609,8 @@ def test_backend_rules_and_single_process(monkeypatch, tmp_path):
     assert (mesh.group, mesh.rank, mesh.size, mesh.shape) == (None, 0, 1, {"dp": 1, "tp": 1})
     t = torch.arange(3.0)
     assert mesh.all_reduce_sum(t) is t and torch.equal(mesh.all_gather(t), t)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh(tp=2, device="cpu")
+    with pytest.raises(ValueError, match="does not divide"):
+        make_mesh(tp=2, device="cpu")          # one process holds no tp = 2 mesh
     with pytest.raises(ValueError, match="gloo"):
         initialize_distributed(backend="nccl", device="cpu", init_method=init, rank=0,
                                world_size=1)
@@ -496,3 +625,7 @@ def test_backend_rules_and_single_process(monkeypatch, tmp_path):
         initialize_distributed(init_method=init, rank=0, world_size=2, local_rank=0)
     assert not dist.is_initialized()
     assert tmesh.process_index_count() == (0, 1)
+    for rk in tp_ranks:       # rank r's dp group {r % 2, r % 2 + 2}, tp group {2 (r // 2), +1}
+        r = rk["rank"]
+        assert rk["group_sums"] == {"dp": 2.0 * (r % 2) + 2, "tp": 4.0 * (r // 2) + 1,
+                                    "world": 6.0}

@@ -284,10 +284,12 @@ def test_remat_core_step_matches_the_kept_step(scene, monkeypatch, route):
 
 def test_trainer_run_occupancy_and_unported_options(scene, tmp_path):
     """Stage1Trainer.run on the CPU: the draws' shapes, the step count,
-    finite metrics, the occupancy grid refreshed on its schedule, a save /
-    resume round trip (Adam's moments and count included), an async save
-    equal to the blocking one, the validation and novel-view renders; CUDA
-    without a card and steps_per_call > 1 raise."""
+    finite metrics, the occupancy grid refreshed on its schedule (one step
+    a call: every occupancy_update_every-th step), a save / resume round
+    trip (Adam's moments and count included), an async save equal to the
+    blocking one, the validation and novel-view renders; CUDA without a
+    card raises; steps_per_call=2 runs two steps a chunk with the grid
+    refreshed at the chunk's start (JAX's rule)."""
     _, cfg = _cfgs(use_occupancy=True, occupancy_update_every=2,
                    render=NeuSRenderConfig(n_samples=16, n_importance=16, n_outside=8,
                                            up_sample_steps=2))
@@ -302,7 +304,7 @@ def test_trainer_run_occupancy_and_unported_options(scene, tmp_path):
     update = tt.update_occupancy
     tt.update_occupancy = lambda: grids.append(tt.step) or update()
     history = []
-    m = tt.run(num_iters=3, seed=1, history=history)
+    m = tt.run(num_iters=3, seed=1, history=history, steps_per_call=1)
     assert tt.step == 3 and len(history) == 3 and grids == [0, 2]
     assert all(np.isfinite(v) for v in m.values()) and tt._occ_grid.shape == (64, 64, 64)
     tt.save()
@@ -318,8 +320,6 @@ def test_trainer_run_occupancy_and_unported_options(scene, tmp_path):
     assert np.isfinite(tt.render_novel_view(0, 1, 0.5, resolution_level=8)).all()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Stage1Trainer(cfg, tt.dataset, device="cuda")
-    with pytest.raises(NotImplementedError):
-        tt.run(num_iters=2, steps_per_call=2)
     ta = Stage1Trainer(dataclasses.replace(cfg, async_ckpt=True), tt.dataset, device="cpu",
                        out_dir=str(tmp_path / "async"))
     ta.params, ta.opt, ta.opt_count, ta.step = tt.params, tt.opt, tt.opt_count, tt.step
@@ -330,6 +330,8 @@ def test_trainer_run_occupancy_and_unported_options(scene, tmp_path):
     assert _leaves(got).keys() == _leaves(want).keys()
     for k, a in _leaves(want).items():
         np.testing.assert_array_equal(_leaves(got)[k], a, err_msg=k)
+    tt.run(num_iters=2, steps_per_call=2, history=history)
+    assert tt.step == 5 and len(history) == 5 and grids == [0, 2, 3]
 
 
 def test_unported_modes_raise_on_a_cuda_device(scene, monkeypatch):
@@ -440,7 +442,8 @@ def test_png_codec_filters_channels_and_depths(tmp_path, depth):
     fifth row) for gray, gray + alpha, RGB and RGBA gives the pixels back;
     write_png's files decode to the same pixels in cv2; read_image converts
     as the JAX package does (alpha dropped, gray to RGB, / 255 or / 65535);
-    palette files raise."""
+    a palette file (PIL's, with PLTE) reads as cv2 reads it, to RGB, and
+    converts as the JAX package converts it."""
     import cv2
     g = np.random.default_rng(depth)
     dt = np.uint8 if depth == 8 else np.uint16
@@ -460,12 +463,15 @@ def test_png_codec_filters_channels_and_depths(tmp_path, depth):
             np.testing.assert_array_equal(rgb, img[..., :3])
         if C != 2:   # cv2 expands gray + alpha to BGRA
             np.testing.assert_array_equal(jio.read_image(w_path), tio.read_image(w_path))
-    with open(str(tmp_path / "p.png"), "wb") as f:
-        f.write(_png_with_filters(np.zeros((2, 2, 1), np.uint8), (0,)).replace(
-            struct.pack(">IIBBBBB", 2, 2, 8, 0, 0, 0, 0),
-            struct.pack(">IIBBBBB", 2, 2, 8, 3, 0, 0, 0)))
-    with pytest.raises(ValueError):
-        tio.read_png(str(tmp_path / "p.png"))
+    from PIL import Image
+    rgb = g.integers(0, 256, size=(7, 11, 3)).astype(np.uint8)
+    Image.fromarray(rgb).quantize(5).save(str(tmp_path / "p.png"))
+    got = tio.read_png(str(tmp_path / "p.png"))
+    assert got.shape == (7, 11, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, cv2.imread(str(tmp_path / "p.png"),
+                                                  cv2.IMREAD_UNCHANGED)[..., ::-1])
+    np.testing.assert_array_equal(tio.read_image(str(tmp_path / "p.png")),
+                                  jio.read_image(str(tmp_path / "p.png")))
 
 
 def test_exr_round_trip_both_packages(tmp_path):

@@ -224,7 +224,8 @@ def test_optimizer_groups_freezing_and_clipping():
 def test_run_draws_crops_as_the_jax_trainer(tmp_path):
     """Stage2Trainer.run: the JAX package's host crop formula, the step
     count, finite metrics, an async checkpoint holding the parameters as
-    they were when save() returned, and the unported option raising."""
+    they were when save() returned, and steps_per_call=2: a chunk of two
+    steps on crops drawn on the device, within JAX's bounds."""
     d = render_synthetic_dataset("sphere", n_views=2, H=40, W=40, rig_kwargs={"focal": 50.0},
                                  device="cpu")
     cfg = Stage2Config(renderer_name="ggx", patch_size=24, sdf=SDFConfig(**NARROW),
@@ -238,8 +239,6 @@ def test_run_draws_crops_as_the_jax_trainer(tmp_path):
     assert seen == [(int(g.integers(0, 2)), int(g.integers(0, 16)), int(g.integers(0, 16)),
                      (288, 3)) for _ in range(2)]
     assert tt.step == 2 and all(np.isfinite(v) for v in m.values())
-    with pytest.raises(NotImplementedError):
-        tt.run(num_iters=2, steps_per_call=2)
     tt.cfg, tt.out_dir = dataclasses.replace(cfg, async_ckpt=True), str(tmp_path)
     want = jax.tree_util.tree_map(np.copy, params_to_numpy(tt.params))
     tt.save()
@@ -251,6 +250,11 @@ def test_run_draws_crops_as_the_jax_trainer(tmp_path):
     assert ck["step"] == 2 and ck["opt_state"] is None
     for a, b in zip(jax.tree_util.tree_leaves(want), jax.tree_util.tree_leaves(ck["params"])):
         np.testing.assert_array_equal(a, b)
+    tt.out_dir = None
+    m = tt.run(num_iters=2, seed=3, steps_per_call=2)
+    assert tt.step == 4 and len(seen) == 4 and all(np.isfinite(v) for v in m.values())
+    assert all(0 <= i < 2 and 0 <= c < 16 and 0 <= r < 16 and e == (288, 3)
+               for i, c, r, e in seen[2:])
     with pytest.raises(ValueError):
         Stage2Trainer(dataclasses.replace(cfg, silhouette_weight=0.1), d["images"], d["Ks"],
                       d["W2Cs"], device="cpu")

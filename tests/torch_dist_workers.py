@@ -1,13 +1,14 @@
 """The rank processes of tests/test_torch_dist.py and the configurations both
 share.  Run as
 
-    python tests/torch_dist_workers.py RANK WORLD WORKDIR
+    python tests/torch_dist_workers.py RANK WORLD WORKDIR [tp]
 
 A worker reads WORKDIR/inputs.pkl (written by the test: parameter trees,
 data, draws and crops as numpy), joins a gloo group of WORLD ranks through
 the file WORKDIR/init (60 s timeout), runs every data-parallel case of the
-port on its rank on the CPU, one torch thread, and writes its results to
-WORKDIR/rank<RANK>.pkl.  It imports nothing of JAX."""
+port on its rank on the CPU, one torch thread (with `tp`: the stage-1 step
+on a (dp 2, tp 2) mesh of WORLD = 4 ranks), and writes its results to
+WORKDIR/rank<RANK>.pkl (tp_rank<RANK>.pkl).  It imports nothing of JAX."""
 import os
 import pickle
 import sys
@@ -23,6 +24,12 @@ NERF = dict(D=2, W=32, skips=(0,))
 # and the mask term on (so that the halves of a batch hold other mask sums)
 S1 = dict(end_iter=10, warm_up_end=2, anneal_end=5, batch_size=64, mask_weight=0.1)
 S1_RENDER = dict(n_samples=8, n_importance=8, n_outside=4, up_sample_steps=2, perturb=1.0)
+# the tp step: networks wide enough that the JAX rule splits their hidden
+# layers (outputs of 128 or more)
+WIDE = dict(d_out=129, d_hidden=128, n_layers=3, skip_in=(), multires=2)
+WIDE_COLOR = dict(d_feature=128, mode="idr", d_in=9, d_out=3, d_hidden=128, n_layers=2,
+                  multires=2, multires_view=2, squeeze_out=True, skip_in=())
+WIDE_NERF = dict(D=2, W=128, skips=(0,), multires=2, multires_view=2)
 # the stage-2 step: comp on 16x16 crops, tests/test_dist.py's budgets
 PS = 16
 S2_SURF = dict(edge_budget=64, edge_side_fallback_budget=16)
@@ -31,6 +38,50 @@ S2_TRACE = dict(sphere_tracing_iters=16, dense_iters=8, fallback_budget=64)
 # fallback sweep on every ray, so that a band and the whole frame trace alike)
 R2_SURF = dict(edge_budget=64, edge_side_fallback_budget=16, handle_edges=False)
 R2_TRACE = dict(sphere_tracing_iters=24, dense_iters=24, fallback_budget=None)
+
+
+def wide_cfg():
+    """The port's stage-1 config of the tp step."""
+    from iron_tpu_torch.fields.nerf import NeRFConfig
+    from iron_tpu_torch.fields.rendering import RenderingConfig
+    from iron_tpu_torch.fields.sdf import SDFConfig
+    from iron_tpu_torch.train.stage1 import Stage1Config
+    from iron_tpu_torch.volume.integrator import NeuSRenderConfig
+    return Stage1Config(sdf=SDFConfig(**WIDE), color=RenderingConfig(**WIDE_COLOR),
+                        nerf=NeRFConfig(**WIDE_NERF), render=NeuSRenderConfig(**S1_RENDER),
+                        **S1)
+
+
+def stage1_step_case(mesh, s1: dict, cfg) -> dict:
+    """One stage-1 step of make_dp_stage1_step on this rank's rows of the
+    global batch and draws of `s1`, Adam over tp_shards (the whole tree when
+    tp = 1): the metrics, the whole tree's gradients and parameters after
+    the step, Adam's moments gathered over tp, and this rank's Adam-state
+    sizes."""
+    from iron_tpu_torch.dist.mesh import shard_batch
+    from iron_tpu_torch.dist.train import make_dp_stage1_step, tp_dims, tp_shards
+    from iron_tpu_torch.train.stage1 import (Stage1Draws, stage1_adam,
+                                             stage1_params_from_numpy)
+    T = torch.as_tensor
+    params = stage1_params_from_numpy(s1["params"], cfg, "cpu")
+    shards = tp_shards(params, mesh)
+    opt = stage1_adam(shards.values(), "cpu")
+    rows = lambda a: shard_batch(T(a), mesh)
+    draws = Stage1Draws(img_idx=T(0), px=None, py=None, t_rand=rows(s1["t_rand"]),
+                        t_rand_outside=rows(s1["t_rand_outside"]))
+    m = make_dp_stage1_step(cfg, mesh)(params, opt, rows(s1["batch"]), s1["step"], draws)
+    dims = tp_dims(params, mesh)
+    moments = {}
+    for (name, q), d in zip(shards.items(), dims.values()):
+        for key in ("exp_avg", "exp_avg_sq"):
+            t = opt.state[q][key]
+            moments[f"{name}.{key}"] = (mesh.all_gather(t, "tp", d) if d is not None
+                                        else t).numpy().copy()
+    return {"metrics": {k: float(v) for k, v in m.items()}, "grads": grads(params),
+            "params": named(params), "moments": moments,
+            "adam_numel": sum(t.numel() for st in opt.state.values()
+                              for k, t in st.items() if k != "step"),
+            "sharded": sorted(n for n, d in dims.items() if d is not None)}
 
 
 def port_cfgs():
@@ -106,6 +157,9 @@ def run_cases(mesh, inp: dict) -> dict:
     out["s1"] = {"metrics": {k: float(v) for k, v in m.items()}, "grads": grads(params),
                  "params": named(params)}
 
+    # the tp = 1 reference of the tp step: the wide networks on dp = 2
+    out["s1_wide"] = stage1_step_case(mesh, inp["s1_wide"], wide_cfg())
+
     # the dp stage-2 step: the same crop on every rank, then each rank's own
     s2 = inp["s2"]
     step2 = make_dp_stage2_step(c2, mat_cfgs["comp"], mesh, s2["images"], s2["Ks"], s2["W2Cs"])
@@ -147,25 +201,37 @@ def run_cases(mesh, inp: dict) -> dict:
     return out
 
 
-def main(rank: int, world: int, workdir: str) -> None:
+def run_tp_cases(mesh, inp: dict) -> dict:
+    """The stage-1 step on a (dp 2, tp 2) mesh: this rank's place, the sum
+    of the ranks of each of its groups, and its step."""
+    group_sums = {axis: float(mesh.all_reduce_sum(torch.tensor([float(mesh.rank)]), axis))
+                  for axis in ("dp", "tp", "world")}
+    return {"rank": mesh.rank, "dp_rank": mesh.dp_rank, "tp_rank": mesh.tp_rank,
+            "shape": dict(mesh.shape), "group_sums": group_sums,
+            "s1_wide": stage1_step_case(mesh, inp["s1_wide"], wide_cfg())}
+
+
+def main(rank: int, world: int, workdir: str, tp: bool = False) -> None:
     import torch.distributed as dist
     from iron_tpu_torch.dist.mesh import initialize_distributed, make_mesh
 
     torch.set_num_threads(1)
     with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
+    prefix = "tp_" if tp else ""
     initialize_distributed(backend="gloo", device="cpu",
-                           init_method="file://" + os.path.join(workdir, "init"),
+                           init_method="file://" + os.path.join(workdir, prefix + "init"),
                            rank=rank, world_size=world, timeout=60)
     try:
-        out = run_cases(make_mesh(device="cpu"), inp)
+        out = (run_tp_cases(make_mesh(tp=2, device="cpu"), inp) if tp
+               else run_cases(make_mesh(device="cpu"), inp))
     finally:
         dist.destroy_process_group()
-    with open(os.path.join(workdir, f"rank{rank}.pkl.tmp"), "wb") as f:
+    path = os.path.join(workdir, f"{prefix}rank{rank}.pkl")
+    with open(path + ".tmp", "wb") as f:
         pickle.dump(out, f)
-    os.replace(os.path.join(workdir, f"rank{rank}.pkl.tmp"),
-               os.path.join(workdir, f"rank{rank}.pkl"))
+    os.replace(path + ".tmp", path)
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4:] == ["tp"])
