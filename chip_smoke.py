@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # the full run: 4 views at 512x512, 3 x 38 training steps
     python3 chip_smoke.py --only-8h    # the build, then phase 8h alone (no result line)
+    python3 chip_smoke.py --only-8i    # the build, then phase 8i alone (no result line)
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, and drives the port's main
@@ -90,6 +91,13 @@ with the launch counts set to 0 just before it and read just after:
     reader's raise), the interpolation video (Motion-JPEG AVI decoded by the
     port's reader) and tp = 2 on two gloo ranks of the card, bit-equal to one
     device;
+  * a stage-1 run from the image formats the JAX package reads through
+    OpenCV (phase 8i, `formats_phase`): tests/data_formats/ (CMYK, lossless
+    and arithmetic-coded JPEG views; BMP, TIFF and PGM masks) decoded by the
+    port bit-equal to OpenCV's decode recorded beside it, loaded by
+    RayDataset.from_folder with its masks, and 8 steps of Stage1Trainer at
+    Stage1Config()'s width with K3-fwd and K3-bwd once a step and a falling
+    loss on a fixed batch;
 
 then times each kernel beside its plain version and its bound, and prints:
 
@@ -110,6 +118,8 @@ then times each kernel beside its plain version and its bound, and prints:
     replayed stage-1 step medians, the kernels a replay ran (counted in
     torch.profiler's device trace: a replay runs no wrapper), the video,
     orbax and tp records;
+  * one JSON line {"formats": {...}}: phase 8i's decode times, step times,
+    losses and launches, beside the card's name and power limit;
   * one JSON line {"kernels": [...]} on the six kernels (launches: K1-K3
     from the default training run, K4 from the trace_pallas training run,
     K5 from the sweep; beside them each kernel's launches on phase 8f's
@@ -2367,6 +2377,135 @@ def graph_phase(args, dev, card, data, kernels) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 8i: the image formats the JAX package reads through OpenCV
+# ---------------------------------------------------------------------------
+
+FORMAT_STEPS = 8     # phase 8i's stage-1 steps on the fixture scene
+
+
+def formats_phase(args, dev, card, kernels) -> dict:
+    """Phase 8i, a stage-1 run from files that the JAX package reads through
+    OpenCV and the port with its own decoders (this machine has neither
+    OpenCV nor PIL): tests/data_formats/ (scripts/make_format_fixtures.py),
+    three 256x256 views of one camera as an Adobe CMYK JPEG, a lossless JPEG
+    and an arithmetic-coded progressive JPEG, their masks as an RLE8 BMP, a
+    16-bit LZW TIFF and a binary PGM:
+
+      (a) each file decoded by the port (decode_image, then read_image),
+          each decode timed on the host, the decoded array's sha256 equal to
+          that of OpenCV's decode recorded beside the fixture, the three
+          masks equal, the lossy views within 3/255 on average of the
+          lossless one;
+      (b) RayDataset.from_folder(..., mask_dir=...) on the card;
+      (c) Stage1Trainer at Stage1Config()'s width (the learning-rate
+          warm-up cut to 2 steps) takes 8 steps, one a call: K3-fwd and
+          K3-bwd launched once a step and no other kernel, every loss
+          finite, and the loss of one fixed batch of rays (its draws fixed)
+          lower after the 8 steps than before."""
+    import hashlib
+    import torch
+    from iron_tpu_torch.data import io as tio
+    from iron_tpu_torch.data.dataset import RayDataset
+    from iron_tpu_torch.train.schedules import cos_anneal_ratio
+    from iron_tpu_torch.train.stage1 import Stage1Config, Stage1Trainer, stage1_loss
+
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, "tests", "data_formats")
+    with open(os.path.join(root, "opencv_sha256.json")) as f:
+        expected = json.load(f)
+    decode_ms, decoded = {}, {}
+    for key in sorted(expected):
+        path = os.path.join(root, key)
+        with open(path, "rb") as f:
+            data = f.read()
+        t = time.perf_counter()
+        raw = np.ascontiguousarray(tio.decode_image(data, key))
+        decode_ms[key] = (time.perf_counter() - t) * 1e3
+        want = expected[key]
+        got = {"shape": list(raw.shape), "dtype": str(raw.dtype),
+               "sha256": hashlib.sha256(raw.tobytes()).hexdigest()}
+        assert got == want, (key, got, want)
+        decoded[key] = tio.read_image(path)
+        assert decoded[key].shape == (256, 256, 3) and np.isfinite(decoded[key]).all()
+    masks = [v for k, v in sorted(decoded.items()) if k.startswith("mask/")]
+    views = {k: v for k, v in decoded.items() if k.startswith("image/")}
+    assert all(np.array_equal(masks[0], m) for m in masks[1:])
+    assert set(np.unique(masks[0]).tolist()) == {0.0, 1.0}
+    lossless = views["image/view1.jpg"]
+    lossy_err = {k: float(np.abs(v - lossless).mean() * 255) for k, v in views.items()
+                 if k != "image/view1.jpg"}
+    assert all(e <= 3.0 for e in lossy_err.values()), lossy_err
+    log(f"phase 8i (a) decodes of tests/data_formats/ (host, ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items())
+        + f"; every array's sha256 is OpenCV's; the lossy views' mean |difference| from the "
+        f"lossless one (of 255): {lossy_err}; card {card}")
+
+    t = time.perf_counter()
+    ds = RayDataset.from_folder(root, mask_dir=os.path.join(root, "mask"), device=dev)
+    load_s = time.perf_counter() - t
+    assert tuple(ds.images.shape) == (3, 256, 256, 3) and tuple(ds.masks.shape) == (3, 256, 256, 1)
+    assert ds.images.device.type == dev.type and [os.path.basename(p) for p in ds.fpaths] == [
+        "view0.jpg", "view1.jpg", "view2.jpg"]
+
+    cfg = dataclasses.replace(Stage1Config(), warm_up_end=2)
+    tr = Stage1Trainer(cfg, ds, generator=torch.Generator(device=dev).manual_seed(args.seed + 9),
+                       device=dev)
+    draws = tr.draw(torch.Generator(device=dev).manual_seed(args.seed + 10))
+    batch = ds.gen_random_rays(draws.img_idx, cfg.batch_size, px=draws.px, py=draws.py)
+    anneal = cos_anneal_ratio(1000, cfg.anneal_end)
+
+    def fixed_loss() -> float:
+        with torch.no_grad():
+            return float(stage1_loss(tr.params, cfg, batch, anneal, t_rand=draws.t_rand,
+                                     t_rand_outside=draws.t_rand_outside)[0])
+
+    before = fixed_loss()
+    step_ms, per_step, history = [], [], []
+    train_step = tr.train_step
+
+    def counted_step(d):
+        counts = kernels.launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(d)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        after = kernels.launch_counts()
+        per_step.append({k: after[k] - counts[k] for k in after if after[k] != counts[k]})
+        return out
+
+    tr.train_step = counted_step
+    kernels.reset_launch_counts()
+    try:
+        tr.run(num_iters=FORMAT_STEPS, seed=args.seed, history=history, steps_per_call=1)
+        torch.cuda.synchronize()
+    finally:
+        tr.train_step = train_step
+    launches = kernels.launch_counts()
+    after = fixed_loss()
+    losses = [float(h["loss"]) for h in history]
+    log(f"phase 8i (c) Stage1Trainer on the fixture, {len(losses)} steps: losses "
+        f"{[round(v, 5) for v in losses]}; the fixed batch's loss {before:.5f} -> {after:.5f}; "
+        f"launches a step {per_step[-1]}, in all {launches}; step ms "
+        f"{[round(v, 2) for v in step_ms]}; card {card}")
+    assert len(losses) == FORMAT_STEPS and all(np.isfinite(v) for v in losses)
+    assert all(s == {"sdf_value_feat_grad": 1, "sdf_value_feat_grad_bwd": 1}
+               for s in per_step), per_step
+    assert launches["sdf_value_feat_grad"] == launches["sdf_value_feat_grad_bwd"] == FORMAT_STEPS
+    assert after < before, (before, after)
+    for p in tr.params.parameters():
+        assert torch.isfinite(p).all()
+    rec = {"card": card, "decode_ms": decode_ms, "dataset_load_s": load_s,
+           "lossy_mean_abs_err_255": lossy_err, "steps": FORMAT_STEPS,
+           "step_ms": step_ms, "step_ms_median": float(np.median(step_ms)),
+           "losses": losses, "fixed_batch_loss": [before, after],
+           "launches": {k: v for k, v in launches.items() if v},
+           "wall_s": time.perf_counter() - t0}
+    log(f"phase 8i: {rec['wall_s']:.1f} s")
+    return rec
+
+
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list tree, in key order."""
     if isinstance(tree, dict):
@@ -2390,6 +2529,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-8h", action="store_true",
                     help="build, then run phase 8h alone on phase 8's data (a shorter "
                          "compile-and-check call; prints no result line)")
+    ap.add_argument("--only-8i", action="store_true",
+                    help="build, then run phase 8i alone (the image formats; prints no "
+                         "result line)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "iron_tpu_torch", "kernels", "csrc")):
@@ -2433,6 +2575,10 @@ def main(argv=None) -> int:
         + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
     for line in build.ptxas_reports():
         log(f"  ptxas {line}")
+
+    if args.only_8i:
+        log(json.dumps({"formats": formats_phase(args, dev, card, kernels)}))
+        return 0
 
     if args.only_8h:
         from iron_tpu_torch.data.synthetic import render_synthetic_dataset
@@ -3326,6 +3472,10 @@ def main(argv=None) -> int:
     # crops drawn on the device), orbax, the video and tp ----
     graph = graph_phase(args, dev, card, data, kernels)
 
+    # ---- 8i. the image formats the JAX package reads through OpenCV: a
+    # stage-1 run from tests/data_formats/ ----
+    formats = formats_phase(args, dev, card, kernels)
+
     # ---- 9. timings at the slice's shapes ----
     kernel_rows = []
     work = sdf_work(cfg.sdf)
@@ -3593,6 +3743,7 @@ def main(argv=None) -> int:
     log(json.dumps({"research": research}))
     log(json.dumps({"dp": dp}))
     log(json.dumps({"graph": graph}))
+    log(json.dumps({"formats": formats}))
     log(json.dumps({"kernels": rows}))
     log(card)
     # ---- 11. result ----

@@ -1,0 +1,680 @@
+"""The image formats the JAX package reads through OpenCV besides PNG, JPEG,
+EXR and TIFF, on numpy: BMP, PNM (PBM, PGM, PPM), PFM, Radiance HDR, Sun
+raster and GIF; and the BMP and PNM writers.
+
+Each reader takes the file's bytes and returns what cv2.imread(path,
+IMREAD_UNCHANGED) returns, bit for bit, with the channels in RGB(A) order
+(OpenCV's are BGR(A)): [H, W] for a gray image, [H, W, 3] or [H, W, 4].
+Where OpenCV's decoder departs from the format's documents, the reader
+follows OpenCV (each such place says so), since the JAX package reads
+through it.  What OpenCV refuses raises ValueError.
+"""
+from __future__ import annotations
+
+import struct
+from typing import List
+
+import numpy as np
+
+
+def _gray(bgr: np.ndarray) -> np.ndarray:
+    """OpenCV's icvCvt_BGR2Gray_8u_C3C1R (14-bit fixed point): the gray of
+    BGR samples [..., 3]."""
+    b, g, r = (bgr[..., i].astype(np.int64) for i in range(3))
+    return ((b * 1868 + g * 9617 + r * 4899 + 8192) >> 14).astype(np.uint8)
+
+
+def _rgb(bgr: np.ndarray) -> np.ndarray:
+    return bgr[..., [2, 1, 0, 3][:bgr.shape[-1]]]
+
+
+def _unpack(rows: np.ndarray, bpp: int, width: int) -> np.ndarray:
+    """Rows of packed samples (uint8 [h, pitch], most significant first)
+    -> the sample values [h, width]."""
+    if bpp == 8:
+        return rows[:, :width]
+    bits = np.unpackbits(rows, axis=1).reshape(rows.shape[0], -1, bpp)
+    return bits.dot(1 << np.arange(bpp - 1, -1, -1))[:, :width].astype(np.uint8)
+
+
+def _is_color(palette_bgr: np.ndarray) -> bool:
+    """OpenCV's IsColorPalette: any entry whose three samples differ."""
+    return bool(np.any(palette_bgr != palette_bgr[:, :1]))
+
+
+# ---------------------------------------------------------------------------
+# BMP (OpenCV's grfmt_bmp.cpp)
+# ---------------------------------------------------------------------------
+
+def _bmp_rle(data: bytes, pos: int, W: int, H: int, four: bool) -> np.ndarray:
+    """RLE8 / RLE4 data -> palette indices [H, W] in file row order
+    (bottom row first).  As OpenCV decodes it: a pixel the codes skip
+    (end of line, delta, end of bitmap) takes index 0; an RLE8 run that
+    ends at the end of its row moves to the next row, and an end-of-line
+    right after it is then ignored; a run past the end of its row ends the
+    decoding."""
+    idx = np.zeros(H * W, np.uint8)
+    x = y = 0
+    line_end_flag = 0
+    n = len(data)
+
+    def skip(count: int) -> None:
+        nonlocal x, y
+        while True:                          # OpenCV's FillUniColor
+            take = min(count, W - x)
+            x += take
+            count -= take
+            if x >= W:
+                x, y = 0, y + 1
+                if y >= H:
+                    return
+            if count <= 0:
+                return
+
+    while y < H:
+        if pos + 2 > n:
+            raise ValueError("BMP: the RLE data ends before the image")
+        length, code = data[pos], data[pos + 1]
+        pos += 2
+        if length:                           # a run
+            if x + length > W:
+                break
+            if four:
+                vals = np.array([code >> 4, code & 15], np.uint8)[np.arange(length) & 1]
+            else:
+                vals = code
+            idx[y * W + x:y * W + x + length] = vals
+            x += length
+            prev = y
+            if x >= W and not four:
+                x, y = 0, y + 1
+            line_end_flag = y - prev
+        elif code > 2:                       # absolute mode
+            if x + code > W:
+                break
+            if four:
+                size = (((code + 1) >> 1) + 1) & ~1
+                raw = np.frombuffer(data[pos:pos + size], np.uint8)
+                vals = np.stack([raw >> 4, raw & 15], -1).reshape(-1)[:code]
+            else:
+                size = (code + 1) & ~1
+                vals = np.frombuffer(data[pos:pos + code], np.uint8)
+            if pos + size > n:
+                raise ValueError("BMP: the RLE data ends before the image")
+            pos += size
+            idx[y * W + x:y * W + x + code] = vals
+            x += code
+            line_end_flag = 0
+        else:                                # end of line, end of bitmap, delta
+            count, dy = W - x, H - y
+            if four or code or not line_end_flag or count < W:
+                if code == 2:
+                    count, dy = data[pos], data[pos + 1]
+                    pos += 2
+                if code:
+                    count += dy * W
+                skip(count)
+            line_end_flag = 0
+    return idx.reshape(H, W)
+
+
+def read_bmp(data: bytes) -> np.ndarray:
+    """Windows BMP: 1, 4, 8 bits with a palette (RLE4 / RLE8 too), 16 bits
+    (5-5-5, or 5-6-5 by its bit fields), 24 and 32 bits; bottom-up or
+    top-down; the OS/2 12-byte header.  As OpenCV: a palette of grays gives
+    one channel (so does every OS/2 file: OpenCV's 12-byte branch never
+    marks a file colour); 32 bits with bit fields keep their fourth byte as
+    alpha, 32 bits without drop it."""
+    if data[:2] != b"BM" or len(data) < 26:
+        raise ValueError("not a BMP file")
+    offset, size = struct.unpack("<II", data[10:18])
+    color, bitfields = False, False
+    if size >= 36:
+        W, H, planes_bpp, comp = struct.unpack("<iiII", data[18:34])
+        bpp = planes_bpp >> 16
+        clrused = struct.unpack("<I", data[46:50])[0]
+        ok = (((bpp in (1, 4, 8, 16, 24, 32)) and comp == 0) or (bpp in (16, 32) and comp == 3)
+              or (bpp == 4 and comp == 2) or (bpp == 8 and comp == 1))
+        if not (W > 0 and H != 0 and ok):
+            raise ValueError(f"BMP: {bpp} bits a pixel with compression {comp} is not read "
+                             f"(OpenCV reads 1/4/8/16/24/32 bits, RLE4 / RLE8, 16 / 32-bit "
+                             f"bit fields)")
+        color = True
+        pal_at = 14 + size
+        if bpp <= 8:
+            if clrused > 256:
+                raise ValueError("BMP: more than 256 palette entries")
+            count = clrused or 1 << bpp
+            palette = np.zeros((256, 4), np.uint8)
+            raw = np.frombuffer(data[pal_at:pal_at + 4 * count], np.uint8)
+            palette[:len(raw) // 4] = raw[:len(raw) // 4 * 4].reshape(-1, 4)
+            palette = palette[:, :3]
+            color = _is_color(palette[:1 << bpp])
+        elif bpp == 16 and comp == 3:
+            # OpenCV reads the masks from just past the header, wherever the
+            # header keeps them
+            r, g, b = struct.unpack("<III", data[pal_at:pal_at + 12])
+            if (b, g, r) == (0x1F, 0x3E0, 0x7C00):
+                bpp = 15
+            elif (b, g, r) != (0x1F, 0x7E0, 0xF800):
+                raise ValueError("BMP: 16-bit bit fields other than 5-5-5 and 5-6-5")
+        elif bpp == 16:
+            bpp = 15
+        bitfields = comp == 3
+    elif size == 12:
+        W, H, planes_bpp = struct.unpack("<HHI", data[18:26])
+        bpp = planes_bpp >> 16
+        comp = 0
+        if not (W > 0 and H != 0 and bpp in (1, 4, 8, 24, 32)):
+            raise ValueError(f"BMP: OS/2 file with {bpp} bits a pixel")
+        if bpp <= 8:
+            raw = np.frombuffer(data[26:26 + 3 * (1 << bpp)], np.uint8).reshape(-1, 3)
+            palette = np.zeros((256, 3), np.uint8)
+            palette[:len(raw)] = raw
+    else:
+        raise ValueError(f"BMP: an info header of {size} bytes")
+    top_down, H = H < 0, abs(H)
+    pitch = ((W * (16 if bpp == 15 else bpp) + 7) // 8 + 3) & ~3
+    if comp in (1, 2):
+        idx = _bmp_rle(data, offset, W, H, four=comp == 2)
+        bgr = palette[idx]
+    else:
+        if offset + pitch * H > len(data):
+            raise ValueError("BMP: the pixel data ends before the image")
+        rows = np.frombuffer(data[offset:offset + pitch * H], np.uint8).reshape(H, pitch)
+        if bpp <= 8:
+            bgr = palette[_unpack(rows, bpp, W)]
+        elif bpp in (15, 16):
+            t = rows[:, :2 * W].copy().view("<u2").astype(np.int64)
+            if bpp == 15:
+                bgr = np.stack([t << 3, (t >> 2) & ~7, (t >> 7) & ~7], -1)
+            else:
+                bgr = np.stack([t << 3, (t >> 3) & ~3, (t >> 8) & ~7], -1)
+            bgr = (bgr & 255).astype(np.uint8)
+        else:
+            bgr = rows[:, :W * bpp // 8].reshape(H, W, bpp // 8)
+            if not (bpp == 32 and bitfields and color):
+                bgr = bgr[..., :3]
+    if not top_down:
+        bgr = bgr[::-1]
+    if not color:
+        return _gray(bgr[..., :3])
+    return np.ascontiguousarray(_rgb(bgr))
+
+
+def write_bmp(img: np.ndarray) -> bytes:
+    """uint8 [H, W] or [H, W, 1] (8 bits with a gray palette) or [H, W, 3]
+    (RGB, 24 bits) as cv2.imwrite writes BMP: 40-byte header, bottom-up,
+    rows padded to 4 bytes."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.dtype != np.uint8 or not (img.ndim == 2 or img.shape[2] in (3, 4)):
+        raise ValueError(f"write_bmp takes uint8 [H, W] or [H, W, 3 / 4], got {img.dtype} "
+                         f"{img.shape}")
+    H, W = img.shape[:2]
+    if img.ndim == 2:
+        bpp, pixels = 8, img
+        palette = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 4, 1)
+        palette[:, 3] = 0
+        pal = palette.tobytes()
+    elif img.shape[2] == 3:
+        bpp, pixels, pal = 24, img[..., ::-1].reshape(H, W * 3), b""
+    else:
+        raise ValueError("write_bmp: 4-channel images are written by OpenCV with a V5 header; "
+                         "the port writes 1 or 3 channels")
+    pitch = (W * bpp // 8 + 3) & ~3
+    rows = np.zeros((H, pitch), np.uint8)
+    rows[:, :pixels.shape[1]] = pixels
+    offset = 14 + 40 + len(pal)
+    size = offset + pitch * H
+    head = b"BM" + struct.pack("<IHHI", size, 0, 0, offset)
+    info = struct.pack("<IiiHHIIiiII", 40, W, H, 1, bpp, 0, 0, 0, 0,
+                       256 if bpp == 8 else 0, 0)
+    return head + info + pal + rows[::-1].tobytes()
+
+
+# ---------------------------------------------------------------------------
+# PNM: PBM, PGM, PPM (OpenCV's grfmt_pxm.cpp)
+# ---------------------------------------------------------------------------
+
+class _Tokens:
+    """OpenCV's ReadNumber over a PNM file: skip blanks and '#' comments,
+    read decimal digits (at most `maxdigits`), and swallow the one byte
+    that ends a number (so a number may not end the file)."""
+
+    def __init__(self, data: bytes, pos: int):
+        self.data, self.pos = data, pos
+
+    def byte(self) -> int:
+        if self.pos >= len(self.data):
+            raise ValueError("PNM: unexpected end of the file")
+        b = self.data[self.pos]
+        self.pos += 1
+        return b
+
+    def number(self, maxdigits: int = 0) -> int:
+        c = self.byte()
+        while not 48 <= c <= 57:
+            if c == ord("#"):
+                while c not in (10, 13):
+                    c = self.byte()
+                c = self.byte()
+            elif c in b" \t\n\v\f\r":
+                while c in b" \t\n\v\f\r":
+                    c = self.byte()
+            else:
+                raise ValueError(f"PNM: unexpected byte {c:#x} where a number should be")
+        val, digits = 0, 0
+        while True:
+            val = 10 * val + c - 48
+            digits += 1
+            if maxdigits and digits >= maxdigits:
+                break
+            c = self.byte()
+            if not 48 <= c <= 57:
+                break
+        return val
+
+
+def read_pnm(data: bytes) -> np.ndarray:
+    """PBM, PGM and PPM, ASCII (P1-P3) or binary (P4-P6), 8 or 16 bits a
+    sample.  As OpenCV reads them: a bitmap's 1 is black (0) and 0 white
+    (255); an ASCII sample of at most 8 bits is scaled to 255 by its
+    maxval (x 255 / maxval, truncated, clamped to maxval first), a binary
+    one is kept as stored, and 16-bit samples (maxval above 255) are kept
+    as stored."""
+    if len(data) < 3 or data[0] != ord("P") or data[1] not in b"123456":
+        raise ValueError("not a PNM file")
+    kind = data[1] - 48
+    binary = kind >= 4
+    bpp = {1: 1, 4: 1, 2: 8, 5: 8, 3: 24, 6: 24}[kind]
+    tok = _Tokens(data, 2)
+    W, H = tok.number(), tok.number()
+    maxval = 1 if bpp == 1 else tok.number()
+    if W <= 0 or H <= 0 or not 0 < maxval <= 65535:
+        raise ValueError(f"PNM: a {W}x{H} image with maxval {maxval}")
+    C = 3 if bpp == 24 else 1
+    wide = maxval > 255
+    if bpp == 1:
+        if binary:
+            pitch = (W + 7) // 8
+            start = tok.pos
+            if start + pitch * H > len(data):
+                raise ValueError("PNM: the pixel data ends before the image")
+            rows = np.frombuffer(data[start:start + pitch * H], np.uint8).reshape(H, pitch)
+            bits = _unpack(rows, 1, W)
+        else:
+            bits = np.array([tok.number(1) != 0 for _ in range(W * H)], np.uint8).reshape(H, W)
+        return np.where(bits == 1, 0, 255).astype(np.uint8)
+    if binary:
+        start = tok.pos
+        n = W * H * C * (2 if wide else 1)
+        if start + n > len(data):
+            raise ValueError("PNM: the pixel data ends before the image")
+        img = np.frombuffer(data[start:start + n], ">u2" if wide else np.uint8)
+        img = img.astype(np.uint16 if wide else np.uint8)
+    else:
+        vals = np.minimum([tok.number() for _ in range(W * H * C)], maxval)
+        if wide:
+            img = vals.astype(np.uint16)
+        else:
+            img = (vals * 255 // maxval).astype(np.uint8)
+    img = img.reshape(H, W, C)
+    return img[..., 0] if C == 1 else img
+
+
+def write_pnm(img: np.ndarray, kind: str) -> bytes:
+    """uint8 / uint16 [H, W] or [H, W, 3] as cv2.imwrite writes `kind`
+    ("pbm", "pgm", "ppm" or "pnm"): binary P4 (a pixel of 0 black, any
+    other white), P5 or P6 (".pnm": P5 for one channel, P6 for three).  A
+    PGM or PBM takes one channel and a PPM three, as OpenCV requires."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    C = 1 if img.ndim == 2 else img.shape[2]
+    if img.dtype not in (np.uint8, np.uint16) or C not in (1, 3):
+        raise ValueError(f"write_pnm takes uint8 / uint16 [H, W] or [H, W, 3], got {img.dtype} "
+                         f"{img.shape}")
+    if kind == "pnm":
+        kind = "pgm" if C == 1 else "ppm"
+    if (kind == "ppm") != (C == 3):
+        raise ValueError(f"a .{kind} file holds {'three channels' if kind == 'ppm' else 'one'}"
+                         f"; the image has {C}")
+    H, W = img.shape[:2]
+    if kind == "pbm":
+        if img.dtype != np.uint8:
+            raise ValueError("a .pbm file is written from 8-bit samples")
+        bits = np.packbits((img == 0).astype(np.uint8), axis=1)
+        return b"P4\n%d %d\n" % (W, H) + bits.tobytes()
+    maxval = 255 if img.dtype == np.uint8 else 65535
+    head = b"%s\n%d %d\n%d\n" % (b"P5" if C == 1 else b"P6", W, H, maxval)
+    return head + img.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+
+
+# ---------------------------------------------------------------------------
+# PFM (OpenCV's grfmt_pfm.cpp)
+# ---------------------------------------------------------------------------
+
+def read_pfm(data: bytes) -> np.ndarray:
+    """Portable float map: "PF" (three channels) or "Pf" (one), rows bottom
+    first, little-endian when the scale is negative.  As OpenCV: the
+    samples come out multiplied by the float 1 / |scale|."""
+    if len(data) < 3 or data[:2] not in (b"PF", b"Pf") or data[2:3] not in b" \t\n\v\f\r":
+        raise ValueError("not a PFM file")
+    C = 3 if data[1:2] == b"F" else 1
+    pos, fields = 3, []
+    for _ in range(3):                       # each field ends at one blank
+        end = pos
+        while end < len(data) and data[end] not in b" \t\n\v\f\r":
+            end += 1
+        fields.append(data[pos:end].decode("ascii", "replace"))
+        pos = end + 1
+    try:
+        W, H, scale = int(fields[0]), int(fields[1]), float(fields[2])
+    except ValueError:
+        raise ValueError(f"PFM: a bad header {fields}") from None
+    if W <= 0 or H <= 0 or scale == 0:
+        raise ValueError(f"PFM: a {W}x{H} image with scale {scale}")
+    n = W * H * C * 4
+    if pos + n > len(data):
+        raise ValueError("PFM: the pixel data ends before the image")
+    img = np.frombuffer(data[pos:pos + n], "<f4" if scale < 0 else ">f4").astype(np.float32)
+    img = img.reshape(H, W, C)[::-1] * np.float32(1.0 / abs(scale))
+    return img[..., 0] if C == 1 else np.ascontiguousarray(img)
+
+
+# ---------------------------------------------------------------------------
+# Radiance HDR (OpenCV's rgbe.cpp, after Bruce Walter's rgbe.c)
+# ---------------------------------------------------------------------------
+
+def _rgbe_float(rgbe: np.ndarray) -> np.ndarray:
+    """rgbe2float: [..., 4] uint8 -> float32 [..., 3]: each of R, G, B
+    times the float 2^(E - 136), or 0 where E is 0."""
+    e = rgbe[..., 3].astype(np.int64)
+    f = np.ldexp(1.0, e - 136).astype(np.float32)
+    out = rgbe[..., :3].astype(np.float32) * f[..., None]
+    return np.where((e > 0)[..., None], out, np.float32(0)).astype(np.float32)
+
+
+def read_hdr(data: bytes) -> np.ndarray:
+    """Radiance RGBE ("#?RADIANCE" / "#?RGBE", FORMAT=32-bit_rle_rgbe,
+    "-Y H +X W") -> float32 [H, W, 3] (RGB), flat or with the new-style
+    run-length scanlines (OpenCV refuses FORMAT=32-bit_rle_xyze).  As OpenCV's rgbe.c: a file whose first
+    scanline is not new-style RLE is read flat from there on (old-style
+    run pixels, (1, 1, 1, n), are taken as the pixels they spell)."""
+    if not (data.startswith(b"#?RGBE") or data.startswith(b"#?RADIANCE")):
+        raise ValueError("not a Radiance HDR file")
+    lines, pos = [], 0
+    while True:                              # fgets: lines of at most 127 bytes
+        end = data.find(b"\n", pos, pos + 127)
+        end = pos + 127 if end < 0 else end + 1
+        if pos >= len(data):
+            raise ValueError("HDR: the header ends early")
+        lines.append(data[pos:end])
+        pos = end
+        line = lines[-1]
+        if line == b"\n" or line[:1] == b"\x00":
+            break
+    if b"FORMAT=32-bit_rle_rgbe\n" not in lines[1:] or lines[-1] != b"\n":
+        raise ValueError("HDR: no FORMAT=32-bit_rle_rgbe line or no blank line after the "
+                         "header (OpenCV reads no other)")
+    end = data.find(b"\n", pos, pos + 127)
+    end = pos + 127 if end < 0 else end + 1
+    size = data[pos:end].decode("ascii", "replace").split()
+    pos = end
+    if len(size) < 4 or size[0] != "-Y" or size[2] != "+X":
+        raise ValueError(f"HDR: an image size other than '-Y H +X W': {size}")
+    H, W = int(size[1]), int(size[3])
+    out = np.zeros((H * W, 4), np.uint8)
+    row = 0
+    if 8 <= W <= 0x7FFF:
+        while row < H:
+            if pos + 4 > len(data):
+                raise ValueError("HDR: the pixel data ends before the image")
+            head = data[pos:pos + 4]
+            if head[0] != 2 or head[1] != 2 or head[2] & 0x80:
+                break                        # not new-style RLE: flat from here
+            if (head[2] << 8 | head[3]) != W:
+                raise ValueError("HDR: a scanline of the wrong width")
+            pos += 4
+            line = np.empty(4 * W, np.uint8)
+            p = 0
+            for ch in range(4):
+                stop = (ch + 1) * W
+                while p < stop:
+                    if pos + 2 > len(data):
+                        raise ValueError("HDR: the pixel data ends before the image")
+                    count = data[pos]
+                    if count > 128:
+                        count -= 128
+                        if count > stop - p:
+                            raise ValueError("HDR: bad scanline data")
+                        line[p:p + count] = data[pos + 1]
+                        pos += 2
+                    else:
+                        if count == 0 or count > stop - p:
+                            raise ValueError("HDR: bad scanline data")
+                        line[p:p + count] = np.frombuffer(data[pos + 1:pos + 1 + count],
+                                                          np.uint8)
+                        pos += 1 + count
+                    p += count
+            out[row * W:(row + 1) * W] = line.reshape(4, W).T
+            row += 1
+    rest = (H - row) * W
+    if rest:
+        if pos + 4 * rest > len(data):
+            raise ValueError("HDR: the pixel data ends before the image")
+        out[row * W:] = np.frombuffer(data[pos:pos + 4 * rest], np.uint8).reshape(-1, 4)
+    return _rgbe_float(out).reshape(H, W, 3)
+
+
+# ---------------------------------------------------------------------------
+# Sun raster (OpenCV's grfmt_sunras.cpp)
+# ---------------------------------------------------------------------------
+
+_RAS_MAGIC = b"\x59\xa6\x6a\x95"
+
+
+def read_sunras(data: bytes) -> np.ndarray:
+    """Sun raster, old or standard type: 1 or 8 bits with or without a
+    colour map, 24 and 32 bits (BGR; a 32-bit pixel's first byte dropped).
+    As OpenCV: a map of grays gives one channel; a gray image without a
+    map (1 or 8 bits) reads as all zeros, since OpenCV fills its gray
+    look-up table only from a map; byte-encoded (RLE) and RGB-order files
+    give no image."""
+    if data[:4] != _RAS_MAGIC or len(data) < 32:
+        raise ValueError("not a Sun raster file")
+    W, H, bpp, _, enc, maptype, maplen = struct.unpack(">7I", data[4:32])
+    if enc in (2, 3):
+        raise ValueError(f"Sun raster: {('byte-encoded (RLE)', 'RGB-order')[enc - 2]} files are "
+                         f"not read (OpenCV returns no image for them)")
+    if not (W > 0 and H > 0 and bpp in (1, 8, 24, 32) and enc in (0, 1) and
+            ((maptype == 0 and maplen == 0) or
+             (maptype == 1 and 0 < maplen <= 3 * (1 << bpp) and bpp <= 8))):
+        raise ValueError(f"Sun raster: {bpp} bits, type {enc}, map type {maptype} "
+                         f"({maplen} bytes) is not read")
+    pos = 32 + maplen
+    rowlen = (W * bpp + 7) // 8
+    pitch = (rowlen + 1) & ~1
+    if pos + pitch * H > len(data):
+        raise ValueError("Sun raster: the pixel data ends before the image")
+    rows = np.frombuffer(data[pos:pos + pitch * H], np.uint8).reshape(H, pitch)
+    if bpp > 8:
+        bgr = rows[:, :rowlen].reshape(H, W, bpp // 8)[..., -3:]
+        return np.ascontiguousarray(_rgb(bgr))
+    if not maplen:
+        return np.zeros((H, W), np.uint8)
+    m = np.frombuffer(data[32:pos], np.uint8)
+    k = maplen // 3
+    palette = np.zeros((256, 3), np.uint8)
+    palette[:k] = np.stack([m[2 * k:3 * k], m[k:2 * k], m[:k]], -1)   # BGR
+    bgr = palette[_unpack(rows, bpp, W)]
+    if not _is_color(palette[:1 << bpp]):
+        return _gray(bgr)
+    return np.ascontiguousarray(_rgb(bgr))
+
+
+# ---------------------------------------------------------------------------
+# GIF (OpenCV's grfmt_gif.cpp): the first frame
+# ---------------------------------------------------------------------------
+
+def _lzw_gif(data: bytes, min_size: int, count: int) -> np.ndarray:
+    """GIF's LZW (codes least significant bit first, growing to 12 bits)
+    -> the first `count` indices."""
+    clear, eoi = 1 << min_size, (1 << min_size) + 1
+    bits = np.unpackbits(np.frombuffer(data, np.uint8), bitorder="little")
+    nbits = len(bits)
+    weights = 1 << np.arange(12)
+    prefix: List[int] = []
+    suffix: List[int] = []
+    first: List[int] = []
+    out = bytearray()
+    size, pos, prev = min_size + 1, 0, -1
+
+    def reset():
+        nonlocal prefix, suffix, first
+        prefix = [-1] * (eoi + 1)
+        suffix = list(range(clear)) + [0, 0]
+        first = list(range(clear)) + [0, 0]
+
+    def string(code: int) -> bytes:
+        s = bytearray()
+        while code >= 0:
+            s.append(suffix[code])
+            code = prefix[code]
+        return bytes(s[::-1])
+
+    reset()
+    while len(out) < count and pos + size <= nbits:
+        code = int(bits[pos:pos + size].dot(weights[:size]))
+        pos += size
+        if code == clear:
+            reset()
+            size, prev = min_size + 1, -1
+            continue
+        if code == eoi:
+            break
+        if prev < 0:
+            if code >= clear:
+                raise ValueError("GIF: corrupt LZW data")
+            out += string(code)
+            prev = code
+            continue
+        if code < len(prefix):
+            s = string(code)
+            new_first = s[0]
+        elif code == len(prefix):
+            new_first = first[prev]
+            s = string(prev) + bytes([new_first])
+        else:
+            raise ValueError("GIF: corrupt LZW data")
+        if len(prefix) < 4096:
+            prefix.append(prev)
+            suffix.append(new_first)
+            first.append(first[prev])
+            if len(prefix) == 1 << size and size < 12:
+                size += 1
+        out += s
+        prev = code
+    if len(out) < count:
+        raise ValueError("GIF: the image data ends early")
+    return np.frombuffer(bytes(out[:count]), np.uint8)
+
+
+def read_gif(data: bytes) -> np.ndarray:
+    """The first frame of a GIF (87a / 89a): LZW, global or local colour
+    table, interlaced or not, placed on the logical screen.  As OpenCV: the
+    screen starts as the global table's background colour; the frame's
+    pixels are drawn on it except its transparent index; four channels
+    (alpha 255 where the frame drew, 0 elsewhere) when any graphic control
+    extension of the file names a transparent index, else three."""
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise ValueError("not a GIF file")
+    SW, SH, flags, bg, _ = struct.unpack("<HHBBB", data[6:13])
+    pos = 13
+    gct = None
+    if flags & 0x80:
+        n = 2 << (flags & 7)
+        gct = np.frombuffer(data[pos:pos + 3 * n], np.uint8).reshape(n, 3)
+        pos += 3 * n
+    transparent = None
+    while True:
+        if pos >= len(data):
+            raise ValueError("GIF: no image in the file")
+        block = data[pos]
+        if block == 0x21:                    # an extension
+            label = data[pos + 1]
+            pos += 2
+            if label == 0xF9 and data[pos] >= 4 and data[pos + 1] & 1:
+                transparent = data[pos + 4]
+            while data[pos]:
+                pos += 1 + data[pos]
+            pos += 1
+        elif block == 0x2C:
+            break
+        elif block == 0x3B:
+            raise ValueError("GIF: no image in the file")
+        else:
+            raise ValueError(f"GIF: unknown block {block:#x}")
+    left, top, w, h, iflags = struct.unpack("<HHHHB", data[pos + 1:pos + 10])
+    pos += 10
+    table = gct
+    if iflags & 0x80:
+        n = 2 << (iflags & 7)
+        table = np.frombuffer(data[pos:pos + 3 * n], np.uint8).reshape(n, 3)
+        pos += 3 * n
+    if table is None:
+        raise ValueError("GIF: a frame without a colour table")
+    min_size = data[pos]
+    pos += 1
+    chunks = []
+    while pos < len(data) and data[pos]:
+        chunks.append(data[pos + 1:pos + 1 + data[pos]])
+        pos += 1 + data[pos]
+    idx = _lzw_gif(b"".join(chunks), min_size, w * h).reshape(h, w)
+    any_transparent = transparent is not None or _gif_has_transparency(data, pos)
+    if iflags & 0x40:                        # interlaced: rows in 4 passes
+        order = np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8), np.arange(2, h, 4),
+                                np.arange(1, h, 2)])
+        rows = np.empty_like(idx)
+        rows[order] = idx
+        idx = rows
+    pal = np.zeros((256, 3), np.uint8)
+    pal[:len(table)] = table
+    out = np.zeros((SH, SW, 4), np.uint8)
+    if gct is not None and bg < len(gct):
+        out[..., :3] = gct[bg]
+    idx = idx[:SH - top, :SW - left]
+    drawn = np.ones(idx.shape, bool) if transparent is None else idx != transparent
+    region = out[top:top + idx.shape[0], left:left + idx.shape[1]]
+    region[drawn] = np.concatenate([pal[idx[drawn]], np.full((int(drawn.sum()), 1), 255,
+                                                               np.uint8)], -1)
+    return out if any_transparent else out[..., :3].copy()
+
+
+def _gif_has_transparency(data: bytes, pos: int) -> bool:
+    """Whether a graphic control extension after `pos` (a data sub-block
+    chain) names a transparent index."""
+    while pos < len(data) and data[pos]:             # the rest of the frame's data
+        pos += 1 + data[pos]
+    pos += 1
+    while pos < len(data):
+        block = data[pos]
+        if block == 0x21:
+            label = data[pos + 1]
+            pos += 2
+            if label == 0xF9 and pos + 1 < len(data) and data[pos] >= 4 and data[pos + 1] & 1:
+                return True
+            while pos < len(data) and data[pos]:
+                pos += 1 + data[pos]
+            pos += 1
+        elif block == 0x2C and pos + 10 <= len(data):
+            iflags = data[pos + 9]
+            pos += 10 + (3 * (2 << (iflags & 7)) if iflags & 0x80 else 0) + 1
+            while pos < len(data) and data[pos]:
+                pos += 1 + data[pos]
+            pos += 1
+        else:
+            return False
+    return False

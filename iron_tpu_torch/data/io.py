@@ -1,20 +1,29 @@
 """Image IO without OpenCV (counterpart of iron_tpu/data/io.py).
 
-PNG is read and written here on numpy and zlib.  Read: every colour type
-and bit depth of the standard (gray at 1, 2, 4, 8 and 16 bits, palette at
-1-8 bits, gray + alpha, RGB and RGBA at 8 and 16), scanline filters 0-4
-(none, sub, up, average, Paeth), plain or Adam7-interlaced; the samples
-come out as cv2.imread(IMREAD_UNCHANGED) gives them: gray below 8 bits
-scaled to 8, a palette expanded to RGB (RGBA when the file has a tRNS
-chunk).  Written: 8- and 16-bit gray, gray + alpha, RGB and RGBA.  EXR goes
-through the port's own codec (`exr.py`), JPEG through `jpeg.py` (written at
-quality 95 as cv2 writes it; baseline and progressive read, arithmetic-coded
-files raise).  The float conversion is the JAX package's: alpha dropped,
-gray repeated to RGB, 8/16-bit content divided by 255 / 65535, EXR given a
-1/2.2 gamma on read.
+The JAX package reads every image but EXR through cv2.imread(path,
+IMREAD_UNCHANGED), which picks its decoder by the file's first bytes, not
+its name.  `read_image` does the same (`decode_image`): PNG (here, on numpy
+and zlib: every colour type and bit depth, filters 0-4, Adam7), JPEG
+(`jpeg.py`: baseline, progressive, arithmetic-coded, lossless, 1/3/4
+components), TIFF (`tiff.py`), BMP, PBM/PGM/PPM, PFM, Radiance HDR, Sun
+raster and GIF (`formats.py`), each bit-equal to OpenCV's decoder; WebP,
+JPEG 2000 and AVIF, which OpenCV also reads, raise naming the format, as
+does a file no OpenCV decoder takes.  EXR is chosen by the name, as in the
+JAX package, and goes through the port's own codec (`exr.py`).  Then the
+JAX package's float conversion: gray repeated to RGB, a fourth channel
+dropped, BGR -> RGB, and content whose maximum passes 1.5 divided by 255
+(or 65535 past 255.5) -- float PFM and HDR content too; EXR gets a 1/2.2
+gamma.
+
+`write_image` writes what the JAX package's cv2.imwrite writes for .png,
+.jpg / .jpeg / .jpe (baseline JPEG at quality 95), .bmp / .dib, .tif /
+.tiff (uncompressed), .pbm / .pgm / .ppm / .pnm and .exr, and raises for
+any other extension (OpenCV writes some of them: WebP, GIF, PFM, HDR, Sun
+raster, AVIF).
 """
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -102,7 +111,11 @@ def read_png(path: str) -> np.ndarray:
     reads it (gray below 8 bits scaled to 8 bits; a palette expanded to
     RGB, or to RGBA by its tRNS chunk)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return read_png_bytes(f.read(), path)
+
+
+def read_png_bytes(data: bytes, path: str = "PNG") -> np.ndarray:
+    """`read_png` of the file's bytes (`path` names it in errors)."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"not a PNG file: {path}")
     pos, header, idat, palette, trns = 8, None, [], None, None
@@ -185,9 +198,76 @@ def write_png(path: str, img: np.ndarray) -> None:
                 + _png_chunk(b"IDAT", zlib.compress(raw, 6)) + _png_chunk(b"IEND", b""))
 
 
+# leading bytes -> the format, in the order of OpenCV's decoders
+# (findDecoder); the three formats OpenCV reads that the port does not are
+# named in their errors
+_BLANK = b" \t\n\v\f\r"
+
+
+def sniff(data: bytes) -> str:
+    """The format OpenCV's findDecoder would pick for a file starting with
+    `data`, or "" if none would."""
+    if data[:2] == b"BM":
+        return "bmp"
+    if data[:3] == b"\xff\xd8\xff":
+        return "jpeg"
+    if data[:8] == _PNG_SIGNATURE:
+        return "png"
+    if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
+        return "tiff"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    if data[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or data[:4] == b"\xff\x4f\xff\x51":
+        return "JPEG 2000"
+    if data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis"):
+        return "AVIF"
+    if len(data) >= 3 and data[:1] == b"P" and data[2] in _BLANK:
+        if data[1:2] in b"123456":
+            return "pnm"
+        if data[1:2] in (b"F", b"f"):
+            return "pfm"
+        if data[1:2] == b"7":
+            return "PAM"
+    if data.startswith((b"#?RGBE", b"#?RADIANCE")):
+        return "hdr"
+    if data[:4] == b"\x59\xa6\x6a\x95":
+        return "sunras"
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return "gif"
+    return ""
+
+
+def decode_image(data: bytes, name: str = "image") -> np.ndarray:
+    """Image bytes -> the array cv2.imread(IMREAD_UNCHANGED) gives, with its
+    channels in RGB(A) order: uint8 / uint16 / float32, [H, W] or
+    [H, W, C]."""
+    kind = sniff(data)
+    if kind in ("png", "jpeg"):
+        if kind == "png":
+            img = read_png_bytes(data, name)
+        else:
+            from iron_tpu_torch.data.jpeg import decode_jpeg
+            img = decode_jpeg(data)
+        if img.shape[-1] == 2:              # gray + alpha comes out of OpenCV as BGRA
+            img = img[..., [0, 0, 0, 1]]
+        return img[..., 0] if img.shape[-1] == 1 else img
+    if kind == "tiff":
+        from iron_tpu_torch.data.tiff import read_tiff
+        return read_tiff(data)
+    if kind in ("bmp", "pnm", "pfm", "hdr", "sunras", "gif"):
+        from iron_tpu_torch.data import formats
+        return getattr(formats, f"read_{kind}")(data)
+    if kind:
+        raise ValueError(f"{name}: {kind} content, which the JAX package reads through OpenCV; "
+                         f"the port has no {kind} decoder yet")
+    raise ValueError(f"{name}: no image format recognised in the first bytes (OpenCV reads no "
+                     f"image from it either)")
+
+
 def read_image(path: str, apply_exr_gamma: bool = True) -> np.ndarray:
-    """An image as float32 RGB [H, W, 3] in [0, 1] (EXR: linear, with an
-    optional 1/2.2 gamma)."""
+    """An image as float32 RGB [H, W, 3] (8/16-bit content in [0, 1]; EXR
+    linear, with an optional 1/2.2 gamma), the format told by its content
+    (EXR by the name)."""
     if path.endswith(".exr"):
         from iron_tpu_torch.data.exr import read_exr
         img = read_exr(path)
@@ -197,13 +277,10 @@ def read_image(path: str, apply_exr_gamma: bool = True) -> np.ndarray:
         if apply_exr_gamma:
             img = np.power(np.clip(img, 0, None) + 1e-6, 1.0 / 2.2)
         return img
-    if path.lower().endswith((".jpg", ".jpeg")):
-        from iron_tpu_torch.data.jpeg import read_jpeg
-        img = read_jpeg(path)
-    elif path.lower().endswith(".png"):
-        img = read_png(path)
-    else:
-        raise ValueError(f"{path}: the port reads PNG, JPEG and EXR images only")
+    with open(path, "rb") as f:
+        img = decode_image(f.read(), path)
+    if img.ndim == 2:
+        img = img[..., None]
     img = np.repeat(img[..., :1], 3, axis=-1) if img.shape[-1] <= 2 else img[..., :3]
     img = img.astype(np.float32)
     if img.max() > 1.5:  # 8/16-bit content
@@ -211,17 +288,42 @@ def read_image(path: str, apply_exr_gamma: bool = True) -> np.ndarray:
     return img
 
 
+# extension (lower case) -> the writer's format, as cv2.imwrite picks it
+_WRITERS = {".png": "png", ".jpg": "jpeg", ".jpeg": "jpeg", ".jpe": "jpeg", ".bmp": "bmp",
+            ".dib": "bmp", ".tif": "tiff", ".tiff": "tiff", ".pbm": "pbm", ".pgm": "pgm",
+            ".ppm": "ppm", ".pnm": "pnm"}
+
+
 def write_image(path: str, img: np.ndarray) -> None:
-    """Write float [0, 1] or uint8 RGB (.exr: linear float, the port's
-    codec; .jpg / .jpeg: baseline JPEG at quality 95; otherwise PNG)."""
+    """Write float [0, 1] or uint8 RGB (or gray [H, W]) as the JAX
+    package's cv2.imwrite would: .exr linear float through the port's
+    codec; .png, .jpg / .jpeg / .jpe (baseline, quality 95), .bmp / .dib,
+    .tif / .tiff (uncompressed), .pbm / .pgm (gray) / .ppm (RGB) / .pnm.
+    Any other extension raises."""
     if path.endswith(".exr"):
         from iron_tpu_torch.data.exr import write_exr
         write_exr(path, np.asarray(img, np.float32))
         return
+    ext = os.path.splitext(path)[1].lower()
+    kind = _WRITERS.get(ext)
+    if kind is None:
+        raise ValueError(f"{path}: the port writes {', '.join(sorted(_WRITERS))} and .exr images, "
+                         f"not '{ext}'")
+    img = np.asarray(img)
     if img.dtype != np.uint8:
         img = to8b(img)
-    if path.lower().endswith((".jpg", ".jpeg")):
-        from iron_tpu_torch.data.jpeg import write_jpeg
-        write_jpeg(path, img)
+    if kind == "png":
+        write_png(path, img)
         return
-    write_png(path, img)
+    if kind == "jpeg":
+        from iron_tpu_torch.data.jpeg import encode_jpeg as encode
+    elif kind == "bmp":
+        from iron_tpu_torch.data.formats import write_bmp as encode
+    elif kind == "tiff":
+        from iron_tpu_torch.data.tiff import write_tiff as encode
+    else:
+        from iron_tpu_torch.data.formats import write_pnm
+        encode = lambda im: write_pnm(im, kind)
+    data = encode(img)
+    with open(path, "wb") as f:
+        f.write(data)

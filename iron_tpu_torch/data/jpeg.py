@@ -1,5 +1,5 @@
-"""Baseline JPEG on numpy and scipy (the port's replacement for OpenCV's
-JPEG codec; the JAX package reads and writes JPEG through cv2).
+"""JPEG on numpy and scipy (the port's replacement for OpenCV's JPEG codec;
+the JAX package reads and writes JPEG through cv2).
 
 Writer: JFIF, 8-bit, sequential DCT with Huffman coding (SOF0); colour as
 YCbCr with 2x2 chroma subsampling (4:2:0), gray as one component; the
@@ -8,15 +8,20 @@ as libjpeg scales them (95, cv2's default); the standard's Huffman tables.
 The colour conversion and the chroma downsampling are libjpeg's fixed-point
 ones; the DCT is the exact orthonormal one (scipy.fft).
 
-Reader: 8-bit Huffman files of 1 or 3 components, sequential (SOF0, SOF1)
-or progressive (SOF2: spectral selection and successive approximation, DC
-and AC first scans and refinements, end-of-band runs), interleaved or not,
-any sampling factors, restart intervals.  Chroma is upsampled as libjpeg
-does by default (triangle filter for 2x2, 2x1 and 1x2, replication
-otherwise) and converted to RGB with libjpeg's fixed-point tables; the
-inverse DCT is the exact one.  Arithmetic-coded, lossless, hierarchical
-and 12-bit files raise: the port has no decoder for them (nothing in
-reach writes one to hold a reader against).
+Reader, bit-equal to cv2.imread(IMREAD_UNCHANGED) (libjpeg-turbo): 8-bit
+DCT files, sequential (SOF0, SOF1) or progressive (SOF2: spectral selection
+and successive approximation, end-of-band runs), Huffman- or
+arithmetic-coded (SOF9, SOF10: T.81's QM coder with the DAC conditioning);
+lossless files (SOF3: predictors 1-7, point transform, 2-8 bits, no
+subsampling); 1, 3 or 4 components, interleaved or not, any sampling
+factors (DCT files), restart intervals.
+The inverse DCT is libjpeg's integer one (jidctint.c); chroma is upsampled
+as libjpeg does by default (triangle filters for 2x2, 2x1 and 1x2,
+replication otherwise); the colour space follows libjpeg's JFIF / Adobe /
+component-id rules, and four components (CMYK, YCCK) go to BGR as OpenCV
+converts them.  Hierarchical, arithmetic-coded lossless and 12-bit DCT
+files raise, as do lossless files of more than 8 bits (OpenCV gives no
+image for them).
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import struct
 from typing import Dict, List, Tuple
 
 import numpy as np
-from scipy.fft import dctn, idctn
+from scipy.fft import dctn
 
 # zigzag scan order: ZIGZAG[k] is the natural (row-major) index of the k-th
 # coefficient in the stream
@@ -449,13 +454,308 @@ def _decode_interval(data: bytes, units, mode: int, ss: int, se: int, al: int) -
             raise ValueError("JPEG: entropy-coded data ends early")
 
 
+# T.81 Table D.2, the QM coder's probability estimation: Qe, the next state
+# after an LPS and after an MPS, and the states that switch the MPS sense.
+# State 113 is libjpeg's fixed 0.5 estimate (T.851), used for signs and for
+# the refinement bits of progressive DC scans.
+_QE = [
+    0x5a1d, 0x2586, 0x1114, 0x080b, 0x03d8, 0x01da, 0x00e5, 0x006f, 0x0036, 0x001a, 0x000d,
+    0x0006, 0x0003, 0x0001, 0x5a7f, 0x3f25, 0x2cf2, 0x207c, 0x17b9, 0x1182, 0x0cef, 0x09a1,
+    0x072f, 0x055c, 0x0406, 0x0303, 0x0240, 0x01b1, 0x0144, 0x00f5, 0x00b7, 0x008a, 0x0068,
+    0x004e, 0x003b, 0x002c, 0x5ae1, 0x484c, 0x3a0d, 0x2ef1, 0x261f, 0x1f33, 0x19a8, 0x1518,
+    0x1177, 0x0e74, 0x0bfb, 0x09f8, 0x0861, 0x0706, 0x05cd, 0x04de, 0x040f, 0x0363, 0x02d4,
+    0x025c, 0x01f8, 0x01a4, 0x0160, 0x0125, 0x00f6, 0x00cb, 0x00ab, 0x008f, 0x5b12, 0x4d04,
+    0x412c, 0x37d8, 0x2fe8, 0x293c, 0x2379, 0x1edf, 0x1aa9, 0x174e, 0x1424, 0x119c, 0x0f6b,
+    0x0d51, 0x0bb6, 0x0a40, 0x5832, 0x4d1c, 0x438e, 0x3bdd, 0x34ee, 0x2eae, 0x299a, 0x2516,
+    0x5570, 0x4ca9, 0x44d9, 0x3e22, 0x3824, 0x32b4, 0x2e17, 0x56a8, 0x4f46, 0x47e5, 0x41cf,
+    0x3c3d, 0x375e, 0x5231, 0x4c0f, 0x4639, 0x415e, 0x5627, 0x50e7, 0x4b85, 0x5597, 0x504f,
+    0x5a10, 0x5522, 0x59eb, 0x5a1d]
+_NLPS = [
+    1, 14, 16, 18, 20, 23, 25, 28, 30, 33, 35, 9, 10, 12, 15, 36, 38, 39, 40, 42, 43, 45, 46, 48,
+    49, 51, 52, 54, 56, 57, 59, 60, 62, 63, 32, 33, 37, 64, 65, 67, 68, 69, 70, 72, 73, 74, 75,
+    77, 78, 79, 48, 50, 50, 51, 52, 53, 54, 55, 56, 57, 58, 59, 61, 61, 65, 80, 81, 82, 83, 84,
+    86, 87, 87, 72, 72, 74, 74, 75, 77, 77, 80, 88, 89, 90, 91, 92, 93, 86, 88, 95, 96, 97, 99,
+    99, 93, 95, 101, 102, 103, 104, 99, 105, 106, 107, 103, 105, 108, 109, 110, 111, 110, 112,
+    112, 113]
+# the next state after an MPS is the next index, but at the end of each run
+_NMPS_JUMP = {13: 13, 35: 9, 63: 32, 79: 48, 87: 71, 94: 86, 100: 93, 104: 99, 107: 103,
+              109: 107, 111: 109, 112: 111, 113: 113}
+_SWITCH = (0, 14, 36, 64, 80, 88, 95, 105, 110, 112)
+# libjpeg's packing (jaricom.c): Qe << 16 | next MPS << 8 | switch << 7 | next LPS
+ARITAB = [(_QE[i] << 16) | (_NMPS_JUMP.get(i, i + 1) << 8) | ((i in _SWITCH) << 7) | _NLPS[i]
+          for i in range(114)]
+
+
+def _arith_interval(data: bytes, units, mode: int, ss: int, se: int, al: int,
+                    cond_dc: Dict[int, Tuple[int, int]], cond_ac: Dict[int, int]) -> None:
+    """Decode the MCUs `units` of one restart interval of an arithmetic-coded
+    scan (T.81 Annex D, F.1.4 / F.2.4 and G.1.3; libjpeg's jdarith.c).  A
+    unit is a list of (block, component, DC table, AC table), a block's 64
+    coefficients in zigzag order; `cond_dc` and `cond_ac` map a table to the
+    conditioning of the DAC segment ((L, U) and Kx).  Statistics, DC predictors and contexts
+    start at zero; past the end of `data` the coder reads zeros, as libjpeg
+    does once it meets a marker."""
+    n = len(data)
+    pos, c, a, ct = 0, 0, 0, -16
+    dc_stats: Dict[int, List[int]] = {}
+    ac_stats: Dict[int, List[int]] = {}
+    last: Dict[int, int] = {}
+    ctx: Dict[int, int] = {}
+    fixed = [113]
+
+    def decode(st: List[int], i: int) -> int:
+        nonlocal pos, c, a, ct
+        while a < 0x8000:                   # renormalise, reading bytes (D.2.6)
+            ct -= 1
+            if ct < 0:
+                c = (c << 8) | (data[pos] if pos < n else 0)
+                pos += 1
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000          # the two initial bytes are in
+            a <<= 1
+        sv = st[i]
+        e = ARITAB[sv & 0x7F]
+        qe, nl, nm = e >> 16, e & 0xFF, (e >> 8) & 0xFF
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:                      # conditional exchange
+                a = qe
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                a = qe
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        return sv >> 7
+
+    def bits_of(st: List[int], i: int, m: int) -> int:
+        """Figure F.24: the bits of |v| - 1 below its top bit m, all from
+        bin i + 14; -> |v|."""
+        v, i = m, i + 14
+        while m > 1:
+            m >>= 1
+            if decode(st, i):
+                v |= m
+        return v + 1
+
+    def category(st: List[int], i: int, m: int) -> Tuple[int, int]:
+        """Figure F.23 from bin i on: -> (top bit of |v| - 1, last bin)."""
+        while decode(st, i):
+            m <<= 1
+            if m == 0x8000:
+                raise ValueError("JPEG: corrupt arithmetic-coded data (magnitude overflow)")
+            i += 1
+        return m, i
+
+    def dc_diff(comp: int, t: int) -> int:
+        st = dc_stats.setdefault(t, [0] * 64)
+        s0 = ctx.get(comp, 0)
+        if not decode(st, s0):
+            ctx[comp] = 0
+            return 0
+        sign = decode(st, s0 + 1)
+        i = s0 + 2 + sign
+        m = decode(st, i)
+        if m:
+            m, i = category(st, 20, 1)
+        lo, hi = cond_dc.get(t, (0, 1))
+        # the conditioning category of the next difference (F.1.4.4.1.2)
+        if m < (1 << lo) >> 1:
+            ctx[comp] = 0
+        elif m > (1 << hi) >> 1:
+            ctx[comp] = 12 + 4 * sign
+        else:
+            ctx[comp] = 4 + 4 * sign
+        v = bits_of(st, i, m)
+        return -v if sign else v
+
+    def ac_first(blk: List[int], t: int, k: int, se: int) -> None:
+        st = ac_stats.setdefault(t, [0] * 256)
+        kx = cond_ac.get(t, 5)
+        while k <= se:
+            i = 3 * (k - 1)
+            if decode(st, i):               # end of block
+                return
+            while not decode(st, i + 1):
+                i += 3
+                k += 1
+                if k > se:
+                    raise ValueError("JPEG: corrupt arithmetic-coded data (spectral overflow)")
+            sign = decode(fixed, 0)
+            i += 2
+            m = decode(st, i)
+            if m and decode(st, i):
+                m, i = category(st, 189 if k <= kx else 217, 2)
+            v = bits_of(st, i, m)
+            blk[k] = (-v if sign else v) << al
+            k += 1
+
+    def ac_refine(blk: List[int], t: int) -> None:
+        st = ac_stats.setdefault(t, [0] * 256)
+        p1, m1 = 1 << al, -1 << al
+        kex = se
+        while kex > 0 and not blk[kex]:
+            kex -= 1
+        k = ss
+        while k <= se:
+            i = 3 * (k - 1)
+            if k > kex and decode(st, i):   # end of band
+                return
+            while True:
+                if blk[k]:                  # a correction bit
+                    if decode(st, i + 2):
+                        blk[k] += m1 if blk[k] < 0 else p1
+                    break
+                if decode(st, i + 1):       # a newly nonzero coefficient
+                    blk[k] = m1 if decode(fixed, 0) else p1
+                    break
+                i += 3
+                k += 1
+                if k > se:
+                    raise ValueError("JPEG: corrupt arithmetic-coded data (spectral overflow)")
+            k += 1
+
+    for unit in units:
+        for blk, comp, dct, act in unit:
+            if mode in (_SEQUENTIAL, _DC_FIRST):
+                v = (last.get(comp, 0) + dc_diff(comp, dct)) & 0xFFFF
+                last[comp] = v
+                blk[0] = (v - 0x10000 if v >= 0x8000 else v) << (al if mode == _DC_FIRST else 0)
+                if mode == _SEQUENTIAL:
+                    ac_first(blk, act, 1, 63)
+            elif mode == _DC_REFINE:
+                if decode(fixed, 0):
+                    blk[0] |= 1 << al
+            elif mode == _AC_FIRST:
+                ac_first(blk, act, ss, se)
+            else:
+                ac_refine(blk, act)
+
+
+def _lossless_interval(data: bytes, units, tables) -> List[int]:
+    """The sample differences of one restart interval of a Huffman-coded
+    lossless scan (T.81 H.1.2.2; libjpeg-turbo's jdlhuff.c), in the order
+    of `units`, each unit the list of the components of its samples, and
+    `tables` the DC look-up table of each component."""
+    win = _windows(data)
+    pos = 0
+    out = []
+    for unit in units:
+        for comp in unit:
+            look = tables[comp][win[pos]]
+            if not look:
+                raise ValueError("JPEG: corrupt lossless data (bad difference code)")
+            pos += look >> 8
+            s = look & 255
+            if s == 16:
+                v = 32768
+            elif s:
+                v = win[pos] >> (16 - s)
+                pos += s
+                if v < (1 << (s - 1)):
+                    v -= (1 << s) - 1
+            else:
+                v = 0
+            out.append(v)
+    if pos > 8 * len(data):
+        raise ValueError("JPEG: lossless data ends early")
+    return out
+
+
+def _undifference(diff: np.ndarray, predictor: int, first: int, restart_rows: int) -> np.ndarray:
+    """libjpeg-turbo's jdpred.c: samples [h, w] from their differences.  A
+    row that starts a restart interval (and the first row) predicts each
+    sample from its left neighbour, its first sample from `first`; every
+    other row's first sample from the one above, the rest by `predictor`
+    (1: a, 2: b, 3: c, 4: a + b - c, 5: a + (b - c) / 2, 6: b + (a - c) / 2,
+    7: (a + b) / 2; a left, b above, c above left), modulo 2^16."""
+    h, w = diff.shape
+    out = np.empty((h, w), np.int64)
+    for y in range(h):
+        d = diff[y]
+        if y == 0 or (restart_rows and y % restart_rows == 0):
+            d = d.copy()
+            d[0] += first
+            out[y] = np.cumsum(d) & 0xFFFF
+            continue
+        b = out[y - 1]
+        cc = np.concatenate([b[:1], b[:-1]])       # c; the first column uses b
+        if predictor in (1, 4, 5):
+            step = {1: 0, 4: b - cc, 5: (b - cc) >> 1}[predictor]
+            row = d + step
+            row[0] = d[0] + b[0]
+            out[y] = np.cumsum(row) & 0xFFFF
+        elif predictor in (2, 3):
+            out[y] = (d + (b if predictor == 2 else cc)) & 0xFFFF
+        else:
+            r, bl, cl, dl = [0] * w, b.tolist(), cc.tolist(), d.tolist()
+            ra = r[0] = (dl[0] + bl[0]) & 0xFFFF
+            for x in range(1, w):
+                p = bl[x] + ((ra - cl[x]) >> 1) if predictor == 6 else (ra + bl[x]) >> 1
+                ra = r[x] = (dl[x] + p) & 0xFFFF
+            out[y] = r
+    return out
+
+
+_FIX_Q = {n: v for n, v in zip(
+    ("0_298", "0_390", "0_541", "0_765", "0_899", "1_175", "1_501", "1_847", "1_961", "2_053",
+     "2_562", "3_072"),
+    (2446, 3196, 4433, 6270, 7373, 9633, 12299, 15137, 16069, 16819, 20995, 25172))}
+
+
+def _islow_1d(d: List[np.ndarray], shift: int) -> List[np.ndarray]:
+    """One pass of libjpeg's jpeg_idct_islow (jidctint.c: 13-bit constants,
+    the Loeffler-Ligtenberg-Moschytz butterfly) over the 8 inputs d, each
+    output descaled by `shift` bits with rounding."""
+    f = _FIX_Q
+    z2, z3 = d[2], d[6]
+    z1 = (z2 + z3) * f["0_541"]
+    tmp2, tmp3 = z1 - z3 * f["1_847"], z1 + z2 * f["0_765"]
+    tmp0, tmp1 = (d[0] + d[4]) << 13, (d[0] - d[4]) << 13
+    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = d[7], d[5], d[3], d[1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * f["1_175"]
+    t0, t1, t2, t3 = t0 * f["0_298"], t1 * f["2_053"], t2 * f["3_072"], t3 * f["1_501"]
+    z1, z2 = z1 * -f["0_899"], z2 * -f["2_562"]
+    z3, z4 = z3 * -f["1_961"] + z5, z4 * -f["0_390"] + z5
+    t0, t1, t2, t3 = t0 + z1 + z3, t1 + z2 + z4, t2 + z2 + z3, t3 + z1 + z4
+    r = 1 << (shift - 1)
+    return [(x + r) >> shift for x in (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+                                       tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)]
+
+
+def idct_islow(coef: np.ndarray) -> np.ndarray:
+    """Dequantised coefficients [..., 8, 8] (natural order, int64) -> the
+    8-bit samples [..., 8, 8] as libjpeg's default (JDCT_ISLOW) inverse DCT
+    gives them, bit for bit: columns then rows, and its range limit (the
+    result taken modulo 1024 as a signed 10-bit value, plus 128, clamped)."""
+    cols = _islow_1d([coef[..., k, :] for k in range(8)], 13 - 2)
+    ws = np.stack(cols, axis=-2)
+    rows = _islow_1d([ws[..., k] for k in range(8)], 13 + 2 + 3)
+    out = np.stack(rows, axis=-1) & 1023
+    out = np.where(out >= 512, out - 1024, out) + 128
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
 def _upsample(p: np.ndarray, fy: int, fx: int) -> np.ndarray:
     """libjpeg's default upsampling of a component by (fy, fx): the
-    triangle ("fancy") filters for 2x2, 2x1 and 1x2, replication otherwise."""
+    triangle ("fancy") filters for 2x2 and 2x1 (on components more than 2
+    samples wide) and 1x2, replication otherwise."""
     p = p.astype(np.int64)
     if (fy, fx) == (1, 1):
         return p
-    if (fy, fx) in ((2, 2), (1, 2)):
+    if fx == 2 and fy in (1, 2) and p.shape[1] > 2:
         if fy == 2:
             up = np.concatenate([p[:1], p[:-1]])
             down = np.concatenate([p[1:], p[-1:]])
@@ -486,13 +786,52 @@ def _upsample(p: np.ndarray, fy: int, fx: int) -> np.ndarray:
 
 
 def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
-    """libjpeg's ycc_rgb_convert (16-bit fixed point, clamped)."""
+    """libjpeg's ycc_rgb_convert (16-bit fixed point, clamped) -> int64
+    [H, W, 3]."""
     cb, cr = cb - 128, cr - 128
     half = 1 << 15
     r = y + ((_FIX(1.402) * cr + half) >> 16)
     b = y + ((_FIX(1.772) * cb + half) >> 16)
     g = y + ((-_FIX(0.34414) * cb - _FIX(0.71414) * cr + half) >> 16)
-    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+    return np.clip(np.stack([r, g, b], -1), 0, 255)
+
+
+def _color_space(nc: int, ids: List[int], jfif: bool, adobe, lossless: bool) -> str:
+    """The colour space libjpeg-turbo assumes (jdapimin.c
+    default_decompress_parms): JFIF means YCbCr; an Adobe APP14 segment's
+    transform picks RGB / YCbCr (3 components) or CMYK / YCCK (4); without
+    either, component ids 1, 2, 3 mean YCbCr (RGB in a lossless file) and
+    'R', 'G', 'B' mean RGB."""
+    if nc == 1:
+        return "gray"
+    if nc == 4:
+        return "cmyk" if adobe == 0 or adobe is None else "ycck"
+    if jfif:
+        return "ycc"
+    if adobe is not None:
+        return "rgb" if adobe == 0 else "ycc"
+    if ids == [82, 71, 66]:
+        return "rgb"
+    return "rgb" if lossless else "ycc"
+
+
+def _to_output(planes: List[np.ndarray], space: str) -> np.ndarray:
+    """Full-size component planes -> what cv2.imread(IMREAD_UNCHANGED)
+    gives, channels in RGB order: gray [H, W, 1], colour [H, W, 3].  Four
+    components come out of libjpeg as CMYK (YCCK converted to it: C, M, Y
+    = 255 - R, G, B) and go to colour as OpenCV's icvCvt_CMYK2BGR does (the
+    samples taken as Adobe's inverted CMYK: k - ((255 - c) k >> 8))."""
+    if space == "gray":
+        return planes[0].astype(np.uint8)[..., None]
+    if space == "rgb":
+        return np.stack(planes[:3], -1).astype(np.uint8)
+    if space == "ycc":
+        return _ycc_to_rgb(*planes).astype(np.uint8)
+    cmy = np.stack(planes[:3], -1)
+    if space == "ycck":
+        cmy = 255 - _ycc_to_rgb(*planes[:3])
+    k = planes[3][..., None].astype(np.int64)
+    return (k - (((255 - cmy) * k) >> 8)).astype(np.uint8)
 
 
 def _scan_segments(data: bytes, pos: int) -> Tuple[List[bytes], int]:
@@ -514,21 +853,40 @@ def _scan_segments(data: bytes, pos: int) -> Tuple[List[bytes], int]:
         return segs, end
 
 
+# frame markers: SOFn -> (coding, progressive); the rest of the SOF range
+# (hierarchical, arithmetic-coded lossless) raises
+_FRAMES = {0xC0: ("huffman", False), 0xC1: ("huffman", False), 0xC2: ("huffman", True),
+           0xC3: ("lossless", False), 0xC9: ("arithmetic", False),
+           0xCA: ("arithmetic", True)}
+_UNREAD = {0xC5: "hierarchical", 0xC6: "hierarchical", 0xC7: "hierarchical",
+           0xCB: "arithmetic-coded lossless", 0xCD: "hierarchical", 0xCE: "hierarchical",
+           0xCF: "hierarchical"}
+
+
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """Baseline, extended sequential or progressive Huffman JPEG bytes ->
-    uint8 [H, W, 1] (gray) or [H, W, 3] (RGB)."""
+    """JPEG bytes -> uint8 [H, W, 1] (gray) or [H, W, 3] (RGB), as
+    cv2.imread(IMREAD_UNCHANGED) decodes them (channels in RGB order).
+    Reads 8-bit sequential and progressive files, Huffman- or
+    arithmetic-coded, and lossless (Huffman) files of 2-8 bits; 1, 3 or 4
+    components.  Hierarchical, arithmetic-coded lossless and 12-bit files
+    raise."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     qt: Dict[int, np.ndarray] = {}
     dc_t: Dict[int, List[int]] = {}
     ac_t: Dict[int, List[int]] = {}
+    cond_dc: Dict[int, Tuple[int, int]] = {}
+    cond_ac: Dict[int, int] = {}
     frame = None
-    progressive = False
+    coding, progressive = "huffman", False
     restart = 0
+    jfif, adobe = False, None
     # per component: its blocks (64 zigzag coefficients each) over the grid
-    # of whole MCUs, row-major, and the grid's (rows, columns)
+    # of whole MCUs, row-major, and the grid's (rows, columns); a lossless
+    # frame's components hold one difference a sample instead
     coefs: Dict[int, List[List[int]]] = {}
     grids: Dict[int, Tuple[int, int]] = {}
+    samples: Dict[int, np.ndarray] = {}
     coded = set()
     pos = 2
     while pos < len(data):
@@ -548,15 +906,14 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         (n,) = struct.unpack(">H", data[pos:pos + 2])
         body = data[pos + 2:pos + n]
         pos += n
-        if marker in _SOF_NAMES:
-            raise ValueError(f"JPEG: {_SOF_NAMES[marker]} files are not supported (the port "
-                             f"decodes baseline, extended sequential and progressive Huffman "
-                             f"JPEG)")
-        if marker == 0xCC:
-            raise ValueError("JPEG: arithmetic-coded files are not supported (the port "
-                             "decodes baseline, extended sequential and progressive Huffman "
-                             "JPEG)")
-        if marker == 0xDB:
+        if marker in _UNREAD:
+            raise ValueError(f"JPEG: {_UNREAD[marker]} files are not read (OpenCV's libjpeg-turbo "
+                             f"decodes no such file either)")
+        if marker == 0xE0 and len(body) >= 14 and body[:5] == b"JFIF\x00":
+            jfif = True
+        elif marker == 0xEE and len(body) >= 12 and body[:5] == b"Adobe":
+            adobe = body[11]
+        elif marker == 0xDB:
             i = 0
             while i < len(body):
                 prec, tid = body[i] >> 4, body[i] & 15
@@ -575,31 +932,59 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 vals = list(body[i + 17:i + 17 + sum(bits)])
                 i += 17 + sum(bits)
                 (ac_t if cls else dc_t)[tid] = _lookup(bits, vals)
+        elif marker == 0xCC:                 # arithmetic conditioning (DAC)
+            for i in range(0, len(body) - 1, 2):
+                cls, tid, v = body[i] >> 4, body[i] & 15, body[i + 1]
+                if cls:
+                    cond_ac[tid] = v
+                else:
+                    cond_dc[tid] = (v & 15, v >> 4)
         elif marker == 0xDD:
             (restart,) = struct.unpack(">H", body[:2])
-        elif marker in (0xC0, 0xC1, 0xC2):
+        elif marker in _FRAMES:
+            coding, progressive = _FRAMES[marker]
             prec, H, W, nc = struct.unpack(">BHHB", body[:6])
-            if prec != 8:
+            if coding == "lossless" and not 2 <= prec <= 8:
+                raise ValueError(f"JPEG: {prec}-bit lossless files are not read (OpenCV returns "
+                                 f"no image for them)")
+            if coding != "lossless" and prec != 8:
                 raise ValueError(f"JPEG: {prec}-bit samples are not supported (8-bit only)")
-            if nc not in (1, 3):
-                raise ValueError(f"JPEG: {nc} components are not supported (1 or 3)")
+            if nc not in (1, 3, 4):
+                raise ValueError(f"JPEG: {nc} components are not supported (1, 3 or 4)")
             comps = [(body[6 + 3 * i], body[7 + 3 * i] >> 4, body[7 + 3 * i] & 15,
                       body[8 + 3 * i]) for i in range(nc)]
-            frame = (H, W, comps)
-            progressive = marker == 0xC2
+            frame = (H, W, comps, prec)
             hmax = max(c[1] for c in comps)
             vmax = max(c[2] for c in comps)
+            unit = 1 if coding == "lossless" else 8
             for cid, h, v, _ in comps:
-                grids[cid] = (-(-H // (8 * vmax)) * v, -(-W // (8 * hmax)) * h)
-                coefs[cid] = [[0] * 64 for _ in range(grids[cid][0] * grids[cid][1])]
+                grids[cid] = (-(-H // (unit * vmax)) * v, -(-W // (unit * hmax)) * h)
+                if coding == "lossless":
+                    samples[cid] = np.zeros(grids[cid], np.int64)
+                else:
+                    coefs[cid] = [[0] * 64 for _ in range(grids[cid][0] * grids[cid][1])]
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError("JPEG: scan before the frame header")
-            H, W, comps = frame
+            H, W, comps, prec = frame
             ns = body[0]
             sel = {body[1 + 2 * i]: body[2 + 2 * i] for i in range(ns)}
             ss, se, ah, al = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns] >> 4, \
                 body[3 + 2 * ns] & 15
+            hmax = max(c[1] for c in comps)
+            vmax = max(c[2] for c in comps)
+            scomps = [c for c in comps if c[0] in sel]
+            segs, pos = _scan_segments(data, pos)
+            if coding == "lossless":
+                if any((c[1], c[2]) != (1, 1) for c in comps):
+                    raise ValueError("JPEG: lossless files with subsampled components are not "
+                                     "read by the port")
+                if not 1 <= ss <= 7:
+                    raise ValueError(f"JPEG: lossless scan with predictor {ss}")
+                _lossless_scan(segs, scomps, sel, dc_t, samples, grids, restart, H, W, hmax,
+                               vmax, ss, al, prec)
+                coded.update(c[0] for c in scomps)
+                continue
             if not progressive:
                 mode = _SEQUENTIAL
             elif ss == 0:
@@ -610,10 +995,10 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                                 (ss == 0 and se != 0)):
                 raise ValueError(f"JPEG: bad progressive scan (Ss {ss}, Se {se}, {ns} "
                                  f"components)")
-            hmax = max(c[1] for c in comps)
-            vmax = max(c[2] for c in comps)
-            scomps = [c for c in comps if c[0] in sel]
-            tab = lambda cid: (dc_t.get(sel[cid] >> 4), ac_t.get(sel[cid] & 15))
+            if coding == "arithmetic":
+                tab = lambda cid: (sel[cid] >> 4, sel[cid] & 15)
+            else:
+                tab = lambda cid: (dc_t.get(sel[cid] >> 4), ac_t.get(sel[cid] & 15))
             if ns == 1:
                 # one block an MCU, over the component's own blocks
                 cid, h, v, _ = scomps[0]
@@ -626,40 +1011,91 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 units = [[(coefs[cid][(my * v + r) * grids[cid][1] + mx * h + c], cid, *tab(cid))
                           for cid, h, v, _ in scomps for r in range(v) for c in range(h)]
                          for my in range(-(-H // (8 * vmax))) for mx in range(-(-W // (8 * hmax)))]
-            segs, pos = _scan_segments(data, pos)
             per = restart if restart else len(units)
             done = 0
             for seg in segs:
                 if done >= len(units):
                     break
-                _decode_interval(_unstuff(seg), units[done:done + per], mode, ss, se, al)
+                if coding == "arithmetic":
+                    # fill bytes before the marker are no data; past the end
+                    # the coder reads zeros
+                    _arith_interval(_unstuff(seg.rstrip(b"\xff")), units[done:done + per], mode,
+                                    ss, se, al, cond_dc, cond_ac)
+                else:
+                    _decode_interval(_unstuff(seg), units[done:done + per], mode, ss, se, al)
                 done += per
             if done < len(units):
                 raise ValueError("JPEG: fewer MCUs in the scan than the frame needs")
             coded.update(c[0] for c in scomps)
     if frame is None:
         raise ValueError("JPEG: no frame header")
-    H, W, comps = frame
+    H, W, comps, prec = frame
     hmax = max(c[1] for c in comps)
     vmax = max(c[2] for c in comps)
     planes = []
     for cid, h, v, tq in comps:
-        if tq not in qt:
-            raise ValueError(f"JPEG: quantisation table {tq} missing")
         if cid not in coded:
             raise ValueError(f"JPEG: no scan holds component {cid}")
-        by, bx = grids[cid]
-        grid = np.asarray(coefs[cid], np.int64).reshape(by, bx, 64)
         cw, ch = -(-W * h // hmax), -(-H * v // vmax)
-        nat = np.zeros(grid.shape, np.float64)
-        nat[..., ZIGZAG] = grid * qt[tq]
-        pix = idctn(nat.reshape(by, bx, 8, 8), type=2, norm="ortho", axes=(2, 3))
-        pix = np.clip(np.floor(pix + 128.5), 0, 255).astype(np.int64)
-        plane = pix.transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)[:ch, :cw]
+        if coding == "lossless":
+            plane = samples[cid][:ch, :cw]
+        else:
+            if tq not in qt:
+                raise ValueError(f"JPEG: quantisation table {tq} missing")
+            by, bx = grids[cid]
+            grid = np.asarray(coefs[cid], np.int64).reshape(by, bx, 64)
+            nat = np.zeros(grid.shape, np.int64)
+            nat[..., ZIGZAG] = grid * qt[tq]
+            pix = idct_islow(nat.reshape(by, bx, 8, 8)).astype(np.int64)
+            plane = pix.transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)[:ch, :cw]
         planes.append(_upsample(plane, vmax // v, hmax // h)[:H, :W])
-    if len(planes) == 1:
-        return planes[0].astype(np.uint8)[..., None]
-    return _ycc_to_rgb(*planes)
+    space = _color_space(len(comps), [c[0] for c in comps], jfif, adobe, coding == "lossless")
+    if coding == "lossless" and space in ("ycc", "ycck"):
+        raise ValueError("JPEG: a lossless file in YCbCr or YCCK needs a colour conversion that "
+                         "libjpeg-turbo refuses in lossless mode (OpenCV returns no image)")
+    return _to_output(planes, space)
+
+
+def _lossless_scan(segs, scomps, sel, dc_t, samples, grids, restart, H, W, hmax, vmax,
+                   predictor, pt, prec) -> None:
+    """Decode one lossless scan into `samples` (per component, over its
+    grid of whole MCUs): the differences of every restart interval, then
+    the prediction, then the point transform (x << Pt, kept to 8 bits)."""
+    if len(scomps) == 1:
+        cid, h, v, _ = scomps[0]
+        ch, cw = -(-H * v // vmax), -(-W * h // hmax)
+        pattern, mrows, mcols, shapes = [cid], ch, cw, {cid: (1, 1)}
+    else:
+        pattern = [cid for cid, h, v, _ in scomps for _ in range(h * v)]
+        mrows, mcols = -(-H // vmax), -(-W // hmax)
+        shapes = {cid: (v, h) for cid, h, v, _ in scomps}
+    tables = {cid: dc_t.get(sel[cid] >> 4) for cid in sel}
+    if any(t is None for t in tables.values()):
+        raise ValueError("JPEG: a lossless scan names a Huffman table that is not defined")
+    n_mcu = mrows * mcols
+    per = restart if restart else n_mcu
+    diffs: List[int] = []
+    for seg in segs:
+        if len(diffs) >= n_mcu * len(pattern):
+            break
+        count = min(per, n_mcu - len(diffs) // len(pattern))
+        diffs += _lossless_interval(_unstuff(seg), [pattern] * count, tables)
+    if len(diffs) < n_mcu * len(pattern):
+        raise ValueError("JPEG: fewer samples in the lossless scan than the frame needs")
+    flat = np.asarray(diffs, np.int64).reshape(n_mcu, len(pattern))
+    col = 0
+    restart_rows = restart // mcols if restart else 0
+    for cid in dict.fromkeys(pattern):
+        v, h = shapes[cid]
+        part = flat[:, col:col + v * h].reshape(mrows, mcols, v, h)
+        col += v * h
+        grid = part.transpose(0, 2, 1, 3).reshape(mrows * v, mcols * h)
+        cv_ = next(c for c in scomps if c[0] == cid)
+        ch = -(-H * cv_[2] // vmax)
+        cw = -(-W * cv_[1] // hmax)
+        plane = _undifference(grid[:ch, :cw], predictor, 1 << (prec - pt - 1),
+                              restart_rows * v)
+        samples[cid][:ch, :cw] = (plane << pt) & 0xFF
 
 
 def read_jpeg(path: str) -> np.ndarray:

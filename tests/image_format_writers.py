@@ -1,0 +1,535 @@
+"""Writers of image files that neither OpenCV nor PIL writes, for the tests
+of the port's image readers (tests/test_torch_image_formats.py) and for
+scripts/make_format_fixtures.py: lossless JPEG (SOF3), arithmetic-coded and
+YCCK JPEG through the system's libjpeg (ctypes), TIFF layouts by hand
+(tiles, planar, any compression), RLE BMP, old-style RLE Radiance HDR, Sun
+raster layouts and GIF frames.  OpenCV stays the reference decoder of every file
+written here."""
+from __future__ import annotations
+
+import ctypes
+import ctypes.util
+import struct
+import zlib
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+# ---------------------------------------------------------------------------
+# JPEG through libjpeg (jpeglib.h, JPEG_LIB_VERSION 62)
+# ---------------------------------------------------------------------------
+
+_J_COLOR = {"gray": 1, "rgb": 2, "ycc": 3, "cmyk": 4, "ycck": 5}
+
+
+def _libjpeg():
+    """The system's libjpeg of the version-62 ABI (libjpeg-turbo's
+    libjpeg.so.62), which jpeglib.h's layout below assumes."""
+    lib = ctypes.CDLL(ctypes.util.find_library("jpeg") or "libjpeg.so.62")
+    lib.jpeg_std_error.restype = ctypes.c_void_p
+    return lib
+
+
+def libjpeg_aritab() -> List[int]:
+    """libjpeg's own QM-coder table (jaricom.c's jpeg_aritab)."""
+    return list((ctypes.c_long * 114).in_dll(_libjpeg(), "jpeg_aritab"))
+
+
+def libjpeg_encode(img: np.ndarray, space: str = "ycc", arith: bool = False,
+                   progressive: bool = False, restart: int = 0, quality: int = 90) -> bytes:
+    """uint8 [H, W] (gray) or [H, W, 3] (RGB) or [H, W, 4] (CMYK) written by
+    the system's libjpeg into the JPEG colour space `space` (gray, ycc,
+    rgb: 3 components with an Adobe segment; cmyk, ycck: 4 components),
+    arithmetic-coded (SOF9 / SOF10) or Huffman, sequential or progressive
+    (jpeg_simple_progression), with a restart interval of `restart` MCUs.
+
+    The fields of jpeg_compress_struct that jpeglib.h sets no function for
+    are found by layout: the common fields and the destination pointer
+    (48 bytes), then image_width, image_height, input_components and
+    in_color_space; arith_code and restart_interval after the conditioning
+    tables, which jpeg_set_defaults fills with 16 x 0, 16 x 1, 16 x 5."""
+    img = np.ascontiguousarray(img, np.uint8)
+    H, W = img.shape[:2]
+    C = 1 if img.ndim == 2 else img.shape[2]
+    lib = _libjpeg()
+    err = ctypes.create_string_buffer(1024)
+    cinfo = ctypes.create_string_buffer(4096)
+    ctypes.memmove(cinfo, ctypes.byref(ctypes.c_void_p(lib.jpeg_std_error(err))), 8)
+    lib.jpeg_CreateCompress(cinfo, 62, ctypes.c_size_t(520))     # sizeof(jpeg_compress_struct)
+    out = ctypes.POINTER(ctypes.c_ubyte)()
+    n = ctypes.c_ulong(0)
+    lib.jpeg_mem_dest(cinfo, ctypes.byref(out), ctypes.byref(n))
+    in_space = {1: "gray", 3: "rgb", 4: "cmyk"}[C]
+    struct.pack_into("<IIii", cinfo, 48, W, H, C, _J_COLOR[in_space])
+    lib.jpeg_set_defaults(cinfo)
+    lib.jpeg_set_colorspace(cinfo, _J_COLOR[space])
+    lib.jpeg_set_quality(cinfo, quality, 1)
+    if progressive:
+        lib.jpeg_simple_progression(cinfo)
+    end = cinfo.raw.find(b"\x00" * 16 + b"\x01" * 16 + b"\x05" * 16) + 48
+    struct.pack_into("<i", cinfo, end + 20, int(arith))
+    struct.pack_into("<I", cinfo, end + 40, restart)
+    lib.jpeg_start_compress(cinfo, 1)
+    row = (ctypes.POINTER(ctypes.c_ubyte) * 1)()
+    flat = img.reshape(H, W * C)
+    for y in range(H):
+        row[0] = flat[y].ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte))
+        lib.jpeg_write_scanlines(cinfo, row, 1)
+    lib.jpeg_finish_compress(cinfo)
+    data = ctypes.string_at(out, n.value)
+    lib.jpeg_destroy_compress(cinfo)
+    return data
+
+
+# ---------------------------------------------------------------------------
+# lossless JPEG (T.81 Annex H, Huffman)
+# ---------------------------------------------------------------------------
+
+# one fixed table for the difference categories 0-16 (shorter codes for
+# the small ones), canonical codes of lengths 3 x 5, 4, 5, ... 15
+_LL_LENGTHS = [3, 3, 3, 3, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15]
+
+
+def _predict(x: np.ndarray, predictor: int, first: int, restart_rows: int) -> np.ndarray:
+    """The prediction of every sample of one component (int64 [h, w]),
+    the rules of T.81 H.1.2.1: the first row (and the first row after a
+    restart) from the left, its first sample `first`; the first column
+    from above; the rest by the predictor."""
+    h, w = x.shape
+    pred = np.zeros_like(x)
+    for y in range(h):
+        if y == 0 or (restart_rows and y % restart_rows == 0):
+            pred[y, 0] = first
+            pred[y, 1:] = x[y, :-1]
+            continue
+        a, b = x[y, :-1], x[y - 1, 1:]
+        c = x[y - 1, :-1]
+        pred[y, 0] = x[y - 1, 0]
+        pred[y, 1:] = {1: a, 2: b, 3: c, 4: a + b - c, 5: a + ((b - c) >> 1),
+                       6: b + ((a - c) >> 1), 7: (a + b) >> 1}[predictor]
+    return pred
+
+
+def _huffman_bits(cats: np.ndarray, vals: np.ndarray) -> np.ndarray:
+    """Code each difference (its category's code, then its extra bits)
+    -> the bits in order."""
+    code, lens, c = {}, {}, 0
+    for L in range(1, 17):
+        for s in range(17):
+            if _LL_LENGTHS[s] == L:
+                code[s], lens[s] = c, L
+                c += 1
+        c <<= 1
+    out = []
+    for s, v in zip(cats.tolist(), vals.tolist()):
+        out.append(format(code[s], f"0{lens[s]}b"))
+        if 0 < s < 16:
+            out.append(format(v if v >= 0 else v + (1 << s) - 1, f"0{s}b"))
+    return "".join(out)
+
+
+def _stuffed(bits: str) -> bytes:
+    bits += "1" * (-len(bits) % 8)
+    data = int(bits, 2).to_bytes(len(bits) // 8, "big") if bits else b""
+    return data.replace(b"\xff", b"\xff\x00")
+
+
+def encode_lossless_jpeg(img: np.ndarray, predictor: int = 1, pt: int = 0, restart_rows: int = 0,
+                         precision: int = 8, ids: Sequence[int] = (1, 2, 3, 4),
+                         jfif: bool = False, interleaved: bool = True) -> bytes:
+    """uint8 [H, W], [H, W, 3] or [H, W, 4] as lossless JPEG (SOF3, Huffman, every
+    component sampled 1x1): `predictor` 1-7, point transform `pt`, a
+    restart marker every `restart_rows` rows, one interleaved scan or a
+    scan per component.  The samples are coded as they are (RGB unless a
+    JFIF segment says YCbCr)."""
+    img = np.asarray(img)
+    planes = [img] if img.ndim == 2 else [img[..., i] for i in range(img.shape[2])]
+    H, W = planes[0].shape
+    nc = len(planes)
+    cid = list(ids[:nc]) if nc > 1 else [1]
+    x = [p.astype(np.int64) >> pt for p in planes]
+    first = 1 << (precision - pt - 1)
+    diff = [((xi - _predict(xi, predictor, first, restart_rows)) + 32768) % 65536 - 32768
+            for xi in x]
+    bits_table = [0] * 16
+    for L in _LL_LENGTHS:
+        bits_table[L - 1] += 1
+    vals = sorted(range(17), key=lambda s: (_LL_LENGTHS[s], s))
+    out = [b"\xff\xd8"]
+    if jfif:
+        out.append(b"\xff\xe0" + struct.pack(">H", 16) + b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01"
+                   b"\x00\x00")
+    out.append(b"\xff\xc3" + struct.pack(">HBHHB", 8 + 3 * nc, precision, H, W, nc)
+               + b"".join(bytes([c, 0x11, 0]) for c in cid))
+    out.append(b"\xff\xc4" + struct.pack(">H", 2 + 17 + 17) + b"\x00" + bytes(bits_table)
+               + bytes(vals))
+    if restart_rows:
+        out.append(b"\xff\xdd" + struct.pack(">HH", 4, restart_rows * W))
+
+    def scan(comp_idx):
+        head = bytes([len(comp_idx)]) + b"".join(bytes([cid[i], 0]) for i in comp_idx)
+        out.append(b"\xff\xda" + struct.pack(">H", 6 + 2 * len(comp_idx)) + head
+                   + bytes([predictor, 0, pt]))
+        rows = restart_rows or H
+        for k, y0 in enumerate(range(0, H, rows)):
+            d = np.stack([diff[i][y0:y0 + rows] for i in comp_idx], -1).reshape(-1)
+            s = np.zeros(d.shape, np.int64)
+            nz = d != 0
+            s[nz] = np.floor(np.log2(np.abs(d[nz]))).astype(np.int64) + 1
+            s[d == -32768] = 16
+            out.append(_stuffed(_huffman_bits(s, d)))
+            if y0 + rows < H:
+                out.append(bytes([0xFF, 0xD0 + k % 8]))
+    if interleaved or nc == 1:
+        scan(list(range(nc)))
+    else:
+        for i in range(nc):
+            scan([i])
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+# ---------------------------------------------------------------------------
+# BMP: palettes, RLE8 / RLE4, 16 bits, OS/2
+# ---------------------------------------------------------------------------
+
+def _rle8_rows(idx: np.ndarray) -> bytes:
+    """RLE8 of palette indices [H, W] (bottom row first): runs of 3 or more
+    as runs, the rest in absolute mode (or as runs of one or two), an
+    end-of-line after each row and an end-of-bitmap at the end."""
+    out = bytearray()
+    for row in idx[::-1]:
+        row = row.tolist()
+        i, W = 0, len(row)
+        while i < W:
+            j = i
+            while j < W and j - i < 255 and row[j] == row[i]:
+                j += 1
+            if j - i >= 3:
+                out += bytes([j - i, row[i]])
+                i = j
+                continue
+            j = i
+            while j < W and j - i < 255 and not (j + 2 < W and row[j] == row[j + 1] == row[j + 2]):
+                j += 1
+            lit = row[i:j]
+            if len(lit) >= 3:
+                out += bytes([0, len(lit)]) + bytes(lit) + b"\x00" * (len(lit) & 1)
+            else:
+                for v in lit:
+                    out += bytes([1, v])
+            i = j
+        out += b"\x00\x00"
+    out[-2:] = b"\x00\x01"
+    return bytes(out)
+
+
+def _rle4_rows(idx: np.ndarray) -> bytes:
+    """RLE4 of 4-bit indices [H, W] (bottom row first): runs of one value
+    as runs, pairs of differing values in absolute mode."""
+    out = bytearray()
+    for row in idx[::-1]:
+        row = row.tolist()
+        i, W = 0, len(row)
+        while i < W:
+            j = i
+            while j < W and j - i < 255 and row[j] == row[i]:
+                j += 1
+            if j - i >= 4 or j == W:
+                out += bytes([j - i, row[i] << 4 | row[i]])
+                i = j
+                continue
+            j = min(W, i + 8)
+            lit = row[i:j] + [0] * ((j - i) & 1)
+            packed = bytes(lit[k] << 4 | lit[k + 1] for k in range(0, len(lit), 2))
+            if j - i >= 3:
+                out += bytes([0, j - i]) + packed + b"\x00" * (len(packed) & 1)
+            else:
+                out += bytes([j - i, packed[0]])
+            i = j
+        out += b"\x00\x00"
+    out[-2:] = b"\x00\x01"
+    return bytes(out)
+
+
+def encode_bmp(pixels: np.ndarray, bpp: int, palette: Optional[np.ndarray] = None,
+               rle: bool = False, top_down: bool = False, os2: bool = False) -> bytes:
+    """A BMP of palette indices [H, W] (bpp 1, 4, 8; `palette` RGB [n, 3];
+    RLE8 / RLE4 with `rle`), of 16-bit 5-5-5 words [H, W] (bpp 16) or of
+    RGB [H, W, 3] / RGBA [H, W, 4] (bpp 24 / 32, BI_RGB)."""
+    H, W = pixels.shape[:2]
+    pal = b""
+    if bpp <= 8:
+        p = np.zeros((len(palette), 4 if not os2 else 3), np.uint8)
+        p[:, :3] = palette[:, ::-1]
+        pal = p.tobytes()
+    if rle:
+        body = _rle8_rows(pixels) if bpp == 8 else _rle4_rows(pixels)
+        comp = 1 if bpp == 8 else 2
+    else:
+        if bpp <= 8:
+            rows = np.packbits(np.unpackbits(pixels.astype(np.uint8)[..., None], axis=-1)
+                               [..., 8 - bpp:].reshape(H, -1), axis=1)
+        elif bpp == 16:
+            rows = pixels.astype("<u2").view(np.uint8).reshape(H, -1)
+        else:
+            px = pixels[..., [2, 1, 0, 3][:pixels.shape[2]]]
+            rows = px.reshape(H, -1)
+        pitch = (rows.shape[1] + 3) & ~3
+        full = np.zeros((H, pitch), np.uint8)
+        full[:, :rows.shape[1]] = rows
+        body = (full if top_down else full[::-1]).tobytes()
+        comp = 0
+    if os2:
+        info = struct.pack("<IHHHH", 12, W, H, 1, bpp)
+    else:
+        info = struct.pack("<IiiHHIIiiII", 40, W, -H if top_down else H, 1, bpp, comp,
+                           len(body), 2835, 2835, len(palette) if bpp <= 8 else 0, 0)
+    offset = 14 + len(info) + len(pal)
+    return b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset) + info + pal + body
+
+
+# ---------------------------------------------------------------------------
+# Radiance HDR, Sun raster
+# ---------------------------------------------------------------------------
+
+def encode_hdr_flat(rgbe: np.ndarray, old_runs: Sequence[tuple] = ()) -> bytes:
+    """RGBE pixels uint8 [H, W, 4] as a flat Radiance file; `old_runs`
+    (row, column, count) puts an old-style run pixel (1, 1, 1, count) in
+    place of a pixel."""
+    H, W = rgbe.shape[:2]
+    px = rgbe.copy()
+    for y, x, n in old_runs:
+        px[y, x] = (1, 1, 1, n)
+    return b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y %d +X %d\n" % (H, W) + px.tobytes()
+
+
+def encode_sunras(pixels: np.ndarray, bpp: int, colormap: Optional[np.ndarray] = None,
+                  kind: int = 1) -> bytes:
+    """A Sun raster file of type `kind` (0 old, 1 standard; 2 and 3 carry
+    the header of the byte-encoded and RGB types over standard data) of
+    indices [H, W] (bpp 1 or 8, `colormap` RGB [n, 3] or none) or of RGB
+    [H, W, 3] (bpp 24, BGR on disk; bpp 32 with a pad byte first)."""
+    H, W = pixels.shape[:2]
+    if bpp <= 8:
+        rows = np.packbits(np.unpackbits(pixels.astype(np.uint8)[..., None], axis=-1)
+                           [..., 8 - bpp:].reshape(H, -1), axis=1)
+    else:
+        px = pixels[..., ::-1]
+        if bpp == 32:
+            px = np.concatenate([np.zeros((H, W, 1), np.uint8), px], -1)
+        rows = px.reshape(H, -1)
+    pitch = (rows.shape[1] + 1) & ~1
+    full = np.zeros((H, pitch), np.uint8)
+    full[:, :rows.shape[1]] = rows
+    body = full.tobytes()
+    cmap = b"" if colormap is None else colormap.T.astype(np.uint8).tobytes()
+    head = b"\x59\xa6\x6a\x95" + struct.pack(">7I", W, H, bpp, len(body), kind,
+                                             0 if colormap is None else 1, len(cmap))
+    return head + cmap + body
+
+
+# ---------------------------------------------------------------------------
+# GIF
+# ---------------------------------------------------------------------------
+
+def _gif_lzw(idx: np.ndarray, min_size: int) -> bytes:
+    """GIF LZW data of the indices, each coded as its own literal code; a
+    clear code before the table would widen the codes."""
+    clear = 1 << min_size
+    size = min_size + 1
+    per = (1 << size) - clear - 4
+    codes: List[int] = []
+    flat = idx.reshape(-1).tolist()
+    for i in range(0, len(flat), per):
+        codes += [clear] + flat[i:i + per]
+    codes.append(clear + 1)
+    bits = "".join(format(c, f"0{size}b")[::-1] for c in codes)
+    bits += "0" * (-len(bits) % 8)
+    data = bytes(int(bits[i:i + 8][::-1], 2) for i in range(0, len(bits), 8))
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\x00"
+
+
+def encode_gif(frames: Sequence[np.ndarray], palette: np.ndarray, screen: tuple,
+               offsets: Sequence[tuple] = ((0, 0),), transparent: Sequence = (None,),
+               background: int = 0, local: bool = False, interlace: bool = False) -> bytes:
+    """A GIF89a of frames of indices [h, w] on a `screen` (W, H), frame i
+    at offsets[i] (x, y) with transparent index transparent[i] (None: no
+    graphic control extension), the palette RGB [2^k, 3] global or local."""
+    n = len(palette)
+    k = max(1, int(np.ceil(np.log2(n)))) - 1
+    pal = np.zeros((2 << k, 3), np.uint8)
+    pal[:n] = palette
+    head = b"GIF89a" + struct.pack("<HHBBB", screen[0], screen[1],
+                                   0 if local else 0x80 | 0x70 | k, background, 0)
+    if not local:
+        head += pal.tobytes()
+    body = b""
+    for i, fr in enumerate(frames):
+        t = transparent[i] if i < len(transparent) else None
+        if t is not None:
+            body += b"\x21\xf9\x04" + struct.pack("<BHB", 1, 0, t) + b"\x00"
+        x, y = offsets[i] if i < len(offsets) else (0, 0)
+        h, w = fr.shape
+        rows = fr
+        if interlace:
+            order = np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8),
+                                    np.arange(2, h, 4), np.arange(1, h, 2)])
+            rows = fr[order]
+        flags = (0x80 | k if local else 0) | (0x40 if interlace else 0)
+        body += b"\x2c" + struct.pack("<HHHHB", x, y, w, h, flags)
+        if local:
+            body += pal.tobytes()
+        min_size = max(2, k + 1)
+        body += bytes([min_size]) + _gif_lzw(rows, min_size)
+    return head + body + b"\x3b"
+
+
+# ---------------------------------------------------------------------------
+# TIFF
+# ---------------------------------------------------------------------------
+
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF LZW as libtiff writes it: codes most significant bit first, 9
+    to 12 bits (wider once the next entry passes the width), a clear code
+    first and whenever the table fills."""
+    out_bits, nbits = 0, 0
+    buf = bytearray()
+
+    def put(code, width):
+        nonlocal out_bits, nbits
+        out_bits = (out_bits << width) | code
+        nbits += width
+        while nbits >= 8:
+            nbits -= 8
+            buf.append((out_bits >> nbits) & 255)
+        out_bits &= (1 << nbits) - 1
+
+    table = {bytes([i]): i for i in range(256)}
+    nxt, width = 258, 9
+    put(256, width)
+    w = b""
+    for b in data:
+        wc = w + bytes([b])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w], width)
+        table[wc] = nxt
+        nxt += 1
+        if nxt > (1 << width) - 1 and width < 12:
+            width += 1
+        if nxt >= 4093:
+            put(256, width)
+            table = {bytes([i]): i for i in range(256)}
+            nxt, width = 258, 9
+        w = bytes([b])
+    if w:
+        put(table[w], width)
+        nxt += 1
+        if nxt > (1 << width) - 1 and width < 12:
+            width += 1
+    put(257, width)
+    if nbits:
+        buf.append((out_bits << (8 - nbits)) & 255)
+    return bytes(buf)
+
+
+def _packbits(data: bytes) -> bytes:
+    out, i = bytearray(), 0
+    while i < len(data):
+        j = i
+        while j < len(data) and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 2:
+            out += bytes([257 - (j - i)]) + data[i:i + 1]
+            i = j
+            continue
+        j = i
+        while j < len(data) and j - i < 128 and not (j + 1 < len(data) and data[j] == data[j + 1]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def encode_tiff(img: np.ndarray, compression: str = "none", predictor: bool = False,
+                tile: Optional[tuple] = None, rows_per_strip: Optional[int] = None,
+                planar: bool = False, big_endian: bool = False, photometric: Optional[int] = None,
+                extra_samples: Optional[int] = None, colormap: Optional[np.ndarray] = None,
+                bits: Optional[int] = None) -> bytes:
+    """uint8 / uint16 [H, W] or [H, W, C] as a TIFF laid out by hand:
+    `compression` none / packbits / lzw / deflate, the horizontal predictor,
+    tiles of `tile` (width, height) or strips of `rows_per_strip` rows,
+    planar or chunky samples, either byte order; `bits` below 8 packs one
+    gray sample; `colormap` (uint16 [3, 2^bits]) makes a palette file."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None]
+    H, W, C = img.shape
+    bps = bits or 8 * img.dtype.itemsize
+    e = ">" if big_endian else "<"
+    if photometric is None:
+        photometric = 3 if colormap is not None else (1 if C < 3 else 2)
+    cw, ch = tile if tile else (W, rows_per_strip or H)
+    planes = [img[..., c:c + 1] for c in range(C)] if planar else [img]
+    chunks = []
+    for p in planes:
+        for y0 in range(0, H, ch):
+            for x0 in range(0, W, cw):
+                block = p[y0:y0 + ch, x0:x0 + cw]
+                if tile:                             # tiles are padded to full size
+                    full = np.zeros((ch, cw, p.shape[2]), img.dtype)
+                    full[:block.shape[0], :block.shape[1]] = block
+                    block = full
+                if predictor:
+                    d = block.astype(np.int64)
+                    d[:, 1:] -= block[:, :-1].astype(np.int64)
+                    block = (d % (1 << bps)).astype(img.dtype)
+                if bps < 8:
+                    raw = np.packbits(np.unpackbits(block[..., 0].astype(np.uint8)[..., None],
+                                                    axis=-1)[..., 8 - bps:].reshape(
+                        block.shape[0], -1), axis=1).tobytes()
+                else:
+                    raw = block.astype(e + ("u2" if bps == 16 else "u1")).tobytes()
+                raw = {"none": lambda r: r, "packbits": _packbits, "lzw": tiff_lzw,
+                       "deflate": zlib.compress}[compression](raw)
+                chunks.append(raw)
+    comp_code = {"none": 1, "lzw": 5, "deflate": 8, "packbits": 32773}[compression]
+    spp_per = C
+    entries = [(256, 4, [W]), (257, 4, [H]), (258, 3, [bps] * spp_per), (259, 3, [comp_code]),
+               (262, 3, [photometric]), (277, 3, [C]), (284, 3, [2 if planar else 1])]
+    if predictor:
+        entries.append((317, 3, [2]))
+    if extra_samples is not None:
+        entries.append((338, 3, [extra_samples]))
+    if colormap is not None:
+        entries.append((320, 3, list(np.asarray(colormap, np.int64).reshape(-1))))
+    if tile:
+        entries += [(322, 4, [cw]), (323, 4, [ch]), (324, 4, [0] * len(chunks)),
+                    (325, 4, [len(c) for c in chunks])]
+    else:
+        entries += [(273, 4, [0] * len(chunks)), (278, 4, [ch]),
+                    (279, 4, [len(c) for c in chunks])]
+    entries.sort()
+    data_at = 8
+    blob = b"".join(chunks)
+    offsets, o = [], data_at
+    for c in chunks:
+        offsets.append(o)
+        o += len(c)
+    ifd_at = o + (o & 1)
+    entries = [(t, ty, offsets if t in (273, 324) else v) for t, ty, v in entries]
+    extra_at = ifd_at + 2 + 12 * len(entries) + 4
+    extra, fields = b"", []
+    for tag, typ, vals in entries:
+        body = struct.pack(f"{e}{len(vals)}{'H' if typ == 3 else 'I'}", *vals)
+        if len(body) <= 4:
+            fields.append(struct.pack(f"{e}HHI", tag, typ, len(vals)) + body.ljust(4, b"\x00"))
+        else:
+            fields.append(struct.pack(f"{e}HHII", tag, typ, len(vals), extra_at + len(extra)))
+            extra += body
+    head = (b"MM\x00*" if big_endian else b"II*\x00") + struct.pack(e + "I", ifd_at)
+    return (head + blob + b"\x00" * (ifd_at - o) + struct.pack(e + "H", len(entries))
+            + b"".join(fields) + b"\x00\x00\x00\x00" + extra)

@@ -95,11 +95,13 @@ def test_progressive_jpeg_reads_as_opencv(case, tmp_path):
 
 
 def test_unsupported_jpeg_variants_still_raise():
-    """Arithmetic-coded, lossless and 12-bit frames raise, naming what the
-    reader decodes (no writer in reach makes one)."""
+    """The frames the reader does not decode raise, naming the variant:
+    hierarchical and arithmetic-coded lossless frames and 12-bit samples
+    (arithmetic-coded and lossless files are read now:
+    tests/test_torch_image_formats.py)."""
     base = _cv2_progressive(_photo(np.random.default_rng(8), 16, 16),
                             [cv2.IMWRITE_JPEG_QUALITY, 90])
-    for marker, what in ((b"\xff\xc9", "arithmetic"), (b"\xff\xc3", "lossless")):
+    for marker, what in ((b"\xff\xc5", "hierarchical"), (b"\xff\xcb", "arithmetic-coded lossless")):
         with pytest.raises(ValueError, match=what):
             decode_jpeg(base.replace(b"\xff\xc2", marker, 1))
     i = base.index(b"\xff\xc2")
