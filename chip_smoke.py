@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # the full run: 4 views at 512x512, 3 x 38 training steps
     python3 chip_smoke.py --only-8h    # the build, then phase 8h alone (no result line)
     python3 chip_smoke.py --only-8i    # the build, then phase 8i alone (no result line)
+    python3 chip_smoke.py --only-8j    # the build, then phase 8j alone (no result line)
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, and drives the port's main
@@ -86,9 +87,9 @@ with the launch counts set to 0 just before it and read just after:
     between replays; a 16-step chunk with the occupancy grid and a chunk
     with upsample_pallas, bit-equal to their eager loops), Stage2Trainer.run
     in chunks of 4 with the crops drawn on the device, the JAX package's
-    orbax checkpoints (whether tensorstore imports; with it the committed
-    fixture read and train_surface warm-started from it, without it the
-    reader's raise), the interpolation video (Motion-JPEG AVI decoded by the
+    orbax checkpoints (the committed fixture read by the port's own OCDBT,
+    zarr and zstd readers, as this machine has no tensorstore, and
+    train_surface warm-started from it), the interpolation video (Motion-JPEG AVI decoded by the
     port's reader) and tp = 2 on two gloo ranks of the card, bit-equal to one
     device;
   * a stage-1 run from the image formats the JAX package reads through
@@ -98,6 +99,11 @@ with the launch counts set to 0 just before it and read just after:
     RayDataset.from_folder with its masks, and 8 steps of Stage1Trainer at
     Stage1Config()'s width with K3-fwd and K3-bwd once a step and a falling
     loss on a fixed batch;
+  * the same run from WebP and PAM files (phase 8j, `webp_phase`):
+    tests/data_webp/ (lossy VP8, VP8X with ALPH and lossless VP8L views
+    named .jpg / .png; lossless WebP, PAM and lossy WebP masks) decoded by
+    the port bit-equal to OpenCV's decode recorded beside it, then the same
+    8 stage-1 steps;
 
 then times each kernel beside its plain version and its bound, and prints:
 
@@ -120,11 +126,12 @@ then times each kernel beside its plain version and its bound, and prints:
     orbax and tp records;
   * one JSON line {"formats": {...}}: phase 8i's decode times, step times,
     losses and launches, beside the card's name and power limit;
+  * one JSON line {"webp": {...}}: the same record of phase 8j;
   * one JSON line {"kernels": [...]} on the six kernels (launches: K1-K3
     from the default training run, K4 from the trace_pallas training run,
     K5 from the sweep; beside them each kernel's launches on phase 8f's
     paths, a rank's on phase 8g's and a step's on phase 8h's, a stage-1
-    replay's from the device trace);
+    replay's from the device trace, and phase 8j's);
   * last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -1933,33 +1940,26 @@ def traced_launches(fn, names) -> dict:
 
 
 def orbax_check(dev) -> dict:
-    """Phase 8h (c).  With tensorstore: tests/data_orbax (a JAX stage-1 run
-    saved through orbax by scripts/make_orbax_fixture.py) read by
-    read_orbax_checkpoint, every leaf of params and optax state bit-equal to
-    the same checkpoint's pickle, and train_surface --neus_ckpt_fpath on the
-    run directory adopting its SDF bit for bit (in process, --device cpu,
-    --num_iters 0: the fixture's 16-wide SDF is below the kernels' width of
-    256).  Without: the reader raises, naming tensorstore and --sync_ckpt."""
+    """Phase 8h (c): tests/data_orbax (a JAX stage-1 run saved through orbax
+    by scripts/make_orbax_fixture.py) read by read_orbax_checkpoint through
+    the port's own OCDBT, zarr and zstd readers (this machine has no
+    tensorstore and no zstandard), every leaf of params and optax state
+    bit-equal to the same checkpoint's pickle, and train_surface
+    --neus_ckpt_fpath on the run directory adopting its SDF bit for bit (in
+    process, --device cpu, --num_iters 0: the fixture's 16-wide SDF is below
+    the kernels' width of 256)."""
     import contextlib
+    import importlib.util
     import io
     import tempfile
     from iron_tpu_torch.train.checkpoints import load_checkpoint, read_orbax_checkpoint
     fixture = os.path.join(HERE, "tests", "data_orbax")
     step_dir = os.path.join(fixture, "stage1", "orbax", "0000002")
-    import importlib.util
-    have = importlib.util.find_spec("tensorstore") is not None
-    log(f"phase 8h (c) orbax: tensorstore importable on this machine: {have}")
-    if not have:
-        try:
-            read_orbax_checkpoint(step_dir)
-        except ImportError as e:
-            msg = str(e)
-        else:
-            raise AssertionError("read_orbax_checkpoint read without tensorstore")
-        log(f"  the reader raised, as it must without tensorstore: {msg}")
-        assert "tensorstore" in msg and "--sync_ckpt" in msg
-        return {"tensorstore": False, "did": "checked the raise", "message": msg}
+    have = {m: importlib.util.find_spec(m) is not None for m in ("tensorstore", "zstandard")}
+    log(f"phase 8h (c) orbax: importable on this machine: {have}")
+    t = time.perf_counter()
     got = read_orbax_checkpoint(step_dir)
+    read_ms = (time.perf_counter() - t) * 1e3
     ref = load_checkpoint(os.path.join(fixture, "stage1_step2.pkl"))
     a, b = _leaves([got["params"], got["opt_state"]]), _leaves([ref["params"], ref["opt_state"]])
     read_equal = (len(a) == len(b) and all(x.dtype == y.dtype and np.array_equal(x, y)
@@ -1980,12 +1980,15 @@ def orbax_check(dev) -> dict:
         sdf = load_checkpoint(os.path.join(tmp, "exp", "ckpt_0000000.pkl"))["params"]["sdf"]
     a, b = _leaves(sdf), _leaves(ref["params"]["sdf"])
     adopted = len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
-    log(f"  read the fixture (step {got['step']}, {len(_leaves(got['params']))} parameter "
+    log(f"  read the fixture in {read_ms:.1f} ms (step {got['step']}, "
+        f"{len(_leaves(got['params']))} parameter "
         f"leaves, optax state {[type(s_).__name__ for s_ in got['opt_state']]}) bit-equal to its "
         f"pickle: {read_equal}; train_surface warm-started from the orbax run, its SDF the "
         f"fixture's bit for bit: {adopted}")
     assert read_equal and adopted
-    return {"tensorstore": True, "did": "read the fixture and warm-started train_surface",
+    return {"importable": have, "read_ms": read_ms,
+            "did": "read the fixture with the port's OCDBT / zarr / zstd readers and "
+                   "warm-started train_surface from the orbax run",
             "read_bit_equal": read_equal, "warm_start_sdf_bit_equal": adopted}
 
 
@@ -2143,9 +2146,9 @@ def graph_phase(args, dev, card, data, kernels) -> dict:
           crops): the crops drawn on the device within the JAX package's
           bounds, each step launching K1 2, K2 2, K3-fwd 3 and K3-bwd 3
           times and no K4 or K5, finite metrics;
-      (c) orbax (orbax_check): whether this machine can import tensorstore;
-          with it the committed fixture read bit for bit as its pickle and
-          train_surface warm-started from it, without it the reader's raise;
+      (c) orbax (orbax_check): the committed fixture read without
+          tensorstore bit for bit as its pickle, and train_surface
+          warm-started from it;
       (d) the interpolation video (video_check);
       (e) tp (tp_check): two gloo ranks on the card, dp 1 and tp 2, against
           one device.
@@ -2356,7 +2359,7 @@ def graph_phase(args, dev, card, data, kernels) -> dict:
                      "losses": [float(h["loss"]) for h in h2]}
     rec["wall_s"]["b"] = time.perf_counter() - t0
 
-    # (c) orbax: the JAX package's async saves, read through tensorstore
+    # (c) orbax: the JAX package's async saves, read by the port's own readers
     t0 = time.perf_counter()
     rec["orbax"] = orbax_check(dev)
     rec["wall_s"]["c"] = time.perf_counter() - t0
@@ -2384,34 +2387,14 @@ def graph_phase(args, dev, card, data, kernels) -> dict:
 FORMAT_STEPS = 8     # phase 8i's stage-1 steps on the fixture scene
 
 
-def formats_phase(args, dev, card, kernels) -> dict:
-    """Phase 8i, a stage-1 run from files that the JAX package reads through
-    OpenCV and the port with its own decoders (this machine has neither
-    OpenCV nor PIL): tests/data_formats/ (scripts/make_format_fixtures.py),
-    three 256x256 views of one camera as an Adobe CMYK JPEG, a lossless JPEG
-    and an arithmetic-coded progressive JPEG, their masks as an RLE8 BMP, a
-    16-bit LZW TIFF and a binary PGM:
-
-      (a) each file decoded by the port (decode_image, then read_image),
-          each decode timed on the host, the decoded array's sha256 equal to
-          that of OpenCV's decode recorded beside the fixture, the three
-          masks equal, the lossy views within 3/255 on average of the
-          lossless one;
-      (b) RayDataset.from_folder(..., mask_dir=...) on the card;
-      (c) Stage1Trainer at Stage1Config()'s width (the learning-rate
-          warm-up cut to 2 steps) takes 8 steps, one a call: K3-fwd and
-          K3-bwd launched once a step and no other kernel, every loss
-          finite, and the loss of one fixed batch of rays (its draws fixed)
-          lower after the 8 steps than before."""
+def _decode_fixture(root: str):
+    """Every file of a fixture folder decoded by the port (decode_image,
+    then read_image), each decode timed on the host, the decoded array's
+    sha256 held equal to that of OpenCV's decode recorded beside it
+    (opencv_sha256.json) -> (decode ms by file, read_image arrays by
+    file)."""
     import hashlib
-    import torch
     from iron_tpu_torch.data import io as tio
-    from iron_tpu_torch.data.dataset import RayDataset
-    from iron_tpu_torch.train.schedules import cos_anneal_ratio
-    from iron_tpu_torch.train.stage1 import Stage1Config, Stage1Trainer, stage1_loss
-
-    t0 = time.perf_counter()
-    root = os.path.join(HERE, "tests", "data_formats")
     with open(os.path.join(root, "opencv_sha256.json")) as f:
         expected = json.load(f)
     decode_ms, decoded = {}, {}
@@ -2428,30 +2411,32 @@ def formats_phase(args, dev, card, kernels) -> dict:
         assert got == want, (key, got, want)
         decoded[key] = tio.read_image(path)
         assert decoded[key].shape == (256, 256, 3) and np.isfinite(decoded[key]).all()
-    masks = [v for k, v in sorted(decoded.items()) if k.startswith("mask/")]
-    views = {k: v for k, v in decoded.items() if k.startswith("image/")}
-    assert all(np.array_equal(masks[0], m) for m in masks[1:])
-    assert set(np.unique(masks[0]).tolist()) == {0.0, 1.0}
-    lossless = views["image/view1.jpg"]
-    lossy_err = {k: float(np.abs(v - lossless).mean() * 255) for k, v in views.items()
-                 if k != "image/view1.jpg"}
-    assert all(e <= 3.0 for e in lossy_err.values()), lossy_err
-    log(f"phase 8i (a) decodes of tests/data_formats/ (host, ms): "
-        + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items())
-        + f"; every array's sha256 is OpenCV's; the lossy views' mean |difference| from the "
-        f"lossless one (of 255): {lossy_err}; card {card}")
+    return decode_ms, decoded
+
+
+def _stage1_on_fixture(args, dev, card, kernels, root: str, names: list, seed: int,
+                       steps: int, label: str) -> dict:
+    """RayDataset.from_folder(root, mask_dir=root/mask) on the card (its
+    files listed as `names`), then Stage1Trainer at Stage1Config()'s width
+    (the learning-rate warm-up cut to 2 steps) for `steps` steps, one a
+    call: K3-fwd and K3-bwd launched once a step and no other kernel, every
+    loss finite, and the loss of one fixed batch of rays (its draws fixed)
+    lower after the steps than before."""
+    import torch
+    from iron_tpu_torch.data.dataset import RayDataset
+    from iron_tpu_torch.train.schedules import cos_anneal_ratio
+    from iron_tpu_torch.train.stage1 import Stage1Config, Stage1Trainer, stage1_loss
 
     t = time.perf_counter()
     ds = RayDataset.from_folder(root, mask_dir=os.path.join(root, "mask"), device=dev)
     load_s = time.perf_counter() - t
     assert tuple(ds.images.shape) == (3, 256, 256, 3) and tuple(ds.masks.shape) == (3, 256, 256, 1)
-    assert ds.images.device.type == dev.type and [os.path.basename(p) for p in ds.fpaths] == [
-        "view0.jpg", "view1.jpg", "view2.jpg"]
+    assert ds.images.device.type == dev.type and [os.path.basename(p) for p in ds.fpaths] == names
 
     cfg = dataclasses.replace(Stage1Config(), warm_up_end=2)
-    tr = Stage1Trainer(cfg, ds, generator=torch.Generator(device=dev).manual_seed(args.seed + 9),
+    tr = Stage1Trainer(cfg, ds, generator=torch.Generator(device=dev).manual_seed(seed),
                        device=dev)
-    draws = tr.draw(torch.Generator(device=dev).manual_seed(args.seed + 10))
+    draws = tr.draw(torch.Generator(device=dev).manual_seed(seed + 1))
     batch = ds.gen_random_rays(draws.img_idx, cfg.batch_size, px=draws.px, py=draws.py)
     anneal = cos_anneal_ratio(1000, cfg.anneal_end)
 
@@ -2478,31 +2463,113 @@ def formats_phase(args, dev, card, kernels) -> dict:
     tr.train_step = counted_step
     kernels.reset_launch_counts()
     try:
-        tr.run(num_iters=FORMAT_STEPS, seed=args.seed, history=history, steps_per_call=1)
+        tr.run(num_iters=steps, seed=args.seed, history=history, steps_per_call=1)
         torch.cuda.synchronize()
     finally:
         tr.train_step = train_step
     launches = kernels.launch_counts()
     after = fixed_loss()
     losses = [float(h["loss"]) for h in history]
-    log(f"phase 8i (c) Stage1Trainer on the fixture, {len(losses)} steps: losses "
+    log(f"phase {label} Stage1Trainer on the fixture, {len(losses)} steps: losses "
         f"{[round(v, 5) for v in losses]}; the fixed batch's loss {before:.5f} -> {after:.5f}; "
         f"launches a step {per_step[-1]}, in all {launches}; step ms "
         f"{[round(v, 2) for v in step_ms]}; card {card}")
-    assert len(losses) == FORMAT_STEPS and all(np.isfinite(v) for v in losses)
+    assert len(losses) == steps and all(np.isfinite(v) for v in losses)
     assert all(s == {"sdf_value_feat_grad": 1, "sdf_value_feat_grad_bwd": 1}
                for s in per_step), per_step
-    assert launches["sdf_value_feat_grad"] == launches["sdf_value_feat_grad_bwd"] == FORMAT_STEPS
+    assert launches["sdf_value_feat_grad"] == launches["sdf_value_feat_grad_bwd"] == steps
     assert after < before, (before, after)
     for p in tr.params.parameters():
         assert torch.isfinite(p).all()
-    rec = {"card": card, "decode_ms": decode_ms, "dataset_load_s": load_s,
-           "lossy_mean_abs_err_255": lossy_err, "steps": FORMAT_STEPS,
-           "step_ms": step_ms, "step_ms_median": float(np.median(step_ms)),
-           "losses": losses, "fixed_batch_loss": [before, after],
-           "launches": {k: v for k, v in launches.items() if v},
+    return {"dataset_load_s": load_s, "steps": steps, "step_ms": step_ms,
+            "step_ms_median": float(np.median(step_ms)), "losses": losses,
+            "fixed_batch_loss": [before, after],
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def formats_phase(args, dev, card, kernels) -> dict:
+    """Phase 8i, a stage-1 run from files that the JAX package reads through
+    OpenCV and the port with its own decoders (this machine has neither
+    OpenCV nor PIL): tests/data_formats/ (scripts/make_format_fixtures.py),
+    three 256x256 views of one camera as an Adobe CMYK JPEG, a lossless JPEG
+    and an arithmetic-coded progressive JPEG, their masks as an RLE8 BMP, a
+    16-bit LZW TIFF and a binary PGM:
+
+      (a) each file decoded by the port, its sha256 that of OpenCV's decode
+          (_decode_fixture), the three masks equal, the lossy views within
+          3/255 on average of the lossless one;
+      (b), (c) RayDataset.from_folder(..., mask_dir=...) on the card and
+          8 stage-1 steps at Stage1Config()'s width (_stage1_on_fixture)."""
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, "tests", "data_formats")
+    decode_ms, decoded = _decode_fixture(root)
+    masks = [v for k, v in sorted(decoded.items()) if k.startswith("mask/")]
+    views = {k: v for k, v in decoded.items() if k.startswith("image/")}
+    assert all(np.array_equal(masks[0], m) for m in masks[1:])
+    assert set(np.unique(masks[0]).tolist()) == {0.0, 1.0}
+    lossless = views["image/view1.jpg"]
+    lossy_err = {k: float(np.abs(v - lossless).mean() * 255) for k, v in views.items()
+                 if k != "image/view1.jpg"}
+    assert all(e <= 3.0 for e in lossy_err.values()), lossy_err
+    log(f"phase 8i (a) decodes of tests/data_formats/ (host, ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items())
+        + f"; every array's sha256 is OpenCV's; the lossy views' mean |difference| from the "
+        f"lossless one (of 255): {lossy_err}; card {card}")
+    rec = {"card": card, "decode_ms": decode_ms, "lossy_mean_abs_err_255": lossy_err,
+           **_stage1_on_fixture(args, dev, card, kernels, root,
+                                ["view0.jpg", "view1.jpg", "view2.jpg"], args.seed + 9,
+                                FORMAT_STEPS, "8i (c)"),
            "wall_s": time.perf_counter() - t0}
     log(f"phase 8i: {rec['wall_s']:.1f} s")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 8j: WebP and PAM, the formats of the port's tenth slice
+# ---------------------------------------------------------------------------
+
+WEBP_STEPS = 8       # phase 8j's stage-1 steps on the fixture scene
+
+
+def webp_phase(args, dev, card, kernels) -> dict:
+    """Phase 8j, a stage-1 run from WebP and PAM files, which the JAX package
+    reads through OpenCV and the port with its own decoders (this machine
+    has neither OpenCV nor PIL): tests/data_webp/
+    (scripts/make_webp_fixtures.py), three 256x256 views of one camera named
+    as the dataset lists them but WebP inside (view0.jpg lossy VP8,
+    view1.png VP8X lossy with ALPH, view2.png lossless VP8L), their masks a
+    lossless WebP, a P7 GRAYSCALE PAM and a lossy WebP:
+
+      (a) each file decoded by the port, its sha256 that of OpenCV's decode
+          (_decode_fixture), the lossless WebP mask equal to the PAM mask
+          and binary, the lossy mask and the lossy views within 3/255 on
+          average of their lossless counterparts;
+      (b), (c) RayDataset.from_folder(..., mask_dir=...) on the card and
+          8 stage-1 steps at Stage1Config()'s width (_stage1_on_fixture:
+          K3-fwd and K3-bwd once a step, a falling loss on a fixed batch)."""
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, "tests", "data_webp")
+    decode_ms, decoded = _decode_fixture(root)
+    exact = decoded["mask/view0.webp"]
+    assert np.array_equal(exact, decoded["mask/view1.pam"])
+    assert set(np.unique(exact).tolist()) == {0.0, 1.0}
+    lossless = decoded["image/view2.png"]
+    lossy_err = {k: float(np.abs(v - ref).mean() * 255) for k, v, ref in (
+        ("image/view0.jpg", decoded["image/view0.jpg"], lossless),
+        ("image/view1.png", decoded["image/view1.png"], lossless),
+        ("mask/view2.webp", decoded["mask/view2.webp"], exact))}
+    assert all(e <= 3.0 for e in lossy_err.values()), lossy_err
+    log(f"phase 8j (a) decodes of tests/data_webp/ (host, ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items())
+        + f"; every array's sha256 is OpenCV's; the lossy files' mean |difference| from their "
+        f"lossless counterparts (of 255): {lossy_err}; card {card}")
+    rec = {"card": card, "decode_ms": decode_ms, "lossy_mean_abs_err_255": lossy_err,
+           # phase 8i's initialisation and draws: the same scene, decoded from other files
+           **_stage1_on_fixture(args, dev, card, kernels, root,
+                                ["view0.jpg", "view1.png", "view2.png"], args.seed + 9,
+                                WEBP_STEPS, "8j (c)"),
+           "wall_s": time.perf_counter() - t0}
+    log(f"phase 8j: {rec['wall_s']:.1f} s")
     return rec
 
 
@@ -2532,6 +2599,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-8i", action="store_true",
                     help="build, then run phase 8i alone (the image formats; prints no "
                          "result line)")
+    ap.add_argument("--only-8j", action="store_true",
+                    help="build, then run phase 8j alone (WebP and PAM; prints no result "
+                         "line)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "iron_tpu_torch", "kernels", "csrc")):
@@ -2578,6 +2648,10 @@ def main(argv=None) -> int:
 
     if args.only_8i:
         log(json.dumps({"formats": formats_phase(args, dev, card, kernels)}))
+        return 0
+
+    if args.only_8j:
+        log(json.dumps({"webp": webp_phase(args, dev, card, kernels)}))
         return 0
 
     if args.only_8h:
@@ -3476,6 +3550,9 @@ def main(argv=None) -> int:
     # stage-1 run from tests/data_formats/ ----
     formats = formats_phase(args, dev, card, kernels)
 
+    # ---- 8j. WebP and PAM: the same stage-1 run from tests/data_webp/ ----
+    webp = webp_phase(args, dev, card, kernels)
+
     # ---- 9. timings at the slice's shapes ----
     kernel_rows = []
     work = sdf_work(cfg.sdf)
@@ -3737,13 +3814,15 @@ def main(argv=None) -> int:
              "launches": launches[r[0]], "max_abs_err": max_err[r[0]], "ms": r[3],
              "plain_ms": r[4], "bound_ms": r[5], "bound_by": r[6], "library_ms": None,
              "research_launches": research_launches[r[0]], "dp_launches": dp_launches[r[0]],
-             "graph_launches": graph_launches[r[0]]}
+             "graph_launches": graph_launches[r[0]],
+             "webp_launches": webp["launches"].get(r[0], 0)}
             for r in kernel_rows]
     log(json.dumps({"cli": cli}))
     log(json.dumps({"research": research}))
     log(json.dumps({"dp": dp}))
     log(json.dumps({"graph": graph}))
     log(json.dumps({"formats": formats}))
+    log(json.dumps({"webp": webp}))
     log(json.dumps({"kernels": rows}))
     log(card)
     # ---- 11. result ----

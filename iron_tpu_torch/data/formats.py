@@ -1,6 +1,6 @@
 """The image formats the JAX package reads through OpenCV besides PNG, JPEG,
-EXR and TIFF, on numpy: BMP, PNM (PBM, PGM, PPM), PFM, Radiance HDR, Sun
-raster and GIF; and the BMP and PNM writers.
+EXR, TIFF and WebP, on numpy: BMP, PNM (PBM, PGM, PPM), PAM, PFM, Radiance
+HDR, Sun raster and GIF; and the BMP and PNM writers.
 
 Each reader takes the file's bytes and returns what cv2.imread(path,
 IMREAD_UNCHANGED) returns, bit for bit, with the channels in RGB(A) order
@@ -678,3 +678,117 @@ def _gif_has_transparency(data: bytes, pos: int) -> bool:
         else:
             return False
     return False
+
+
+# ---------------------------------------------------------------------------
+# PAM (P7)
+# ---------------------------------------------------------------------------
+
+_PAM_FIELDS = (b"WIDTH", b"HEIGHT", b"DEPTH", b"MAXVAL", b"TUPLTYPE", b"ENDHDR")
+_PAM_TUPLTYPES = {b"BLACKANDWHITE": 1, b"GRAYSCALE": 1, b"GRAYSCALE_ALPHA": 2, b"RGB": 3,
+                  b"RGB_ALPHA": 4}
+_SPACE = b" \t\n\v\f\r"
+
+
+def _pam_line(data: bytes, pos: int):
+    """OpenCV's ReadPAMHeaderLine: (identifier or None for a comment,
+    value, position after the line).  Blanks before the identifier are
+    skipped, newlines too; the identifier ends at a blank, the value at the
+    first CR or LF, which is consumed, and loses its trailing blanks."""
+    def byte(i):
+        if i >= len(data):
+            raise ValueError("PAM: the header ends before ENDHDR")
+        return data[i]
+    while byte(pos) in _SPACE:
+        pos += 1
+    if data[pos] == ord("#"):
+        while byte(pos) not in b"\r\n":
+            pos += 1
+        return None, b"", pos + 1
+    start = pos
+    while byte(pos) not in _SPACE and pos - start < 8:
+        pos += 1
+    ident = data[start:pos]
+    if byte(pos) not in _SPACE or ident not in _PAM_FIELDS:
+        raise ValueError(f"PAM: header field {ident!r}")
+    if data[pos] in b"\r\n":
+        return ident, b"", pos + 1
+    while byte(pos) in _SPACE:
+        pos += 1
+    start = pos
+    while byte(pos) not in b"\r\n" and pos - start < 255:
+        pos += 1
+    if data[pos] not in b"\r\n":
+        raise ValueError("PAM: a header value over 255 bytes")
+    return ident, data[start:pos].rstrip(_SPACE), pos + 1
+
+
+def _pam_int(value: bytes, what: str) -> int:
+    digits = value[1:] if value[:1] == b"-" else value
+    if not digits or not digits.isdigit() or int(digits) >= 2 ** 31 - 1:
+        raise ValueError(f"PAM: {what} {value!r} is not a number")
+    return -int(digits) if value[:1] == b"-" else int(digits)
+
+
+def read_pam(data: bytes) -> np.ndarray:
+    """PAM (P7) as OpenCV reads it: WIDTH, HEIGHT, DEPTH 1-4, MAXVAL up to
+    65535, an optional TUPLTYPE (BLACKANDWHITE, GRAYSCALE, GRAYSCALE_ALPHA,
+    RGB, RGB_ALPHA; its DEPTH must match it), '#' comment lines, ENDHDR.
+    Without a TUPLTYPE only DEPTH 1 or 3 with MAXVAL below 256 is read.
+    Samples are kept as stored, not scaled by MAXVAL; above 255 they are
+    big-endian 16-bit.  MAXVAL 1 reads each
+    row's first W bits (most significant first) as 0 or 255, and is refused
+    with DEPTH 2 or 4.  Channels come
+    out of OpenCV in the file's order, not as BGR: returned here reversed
+    like every other reader's (so an RGB file's R and B trade places, as in
+    the JAX package's read_image); two channels stay as they are."""
+    if data[:2] != b"P7" or len(data) < 3 or data[2] not in b"\r\n":
+        raise ValueError("PAM: not a P7 header")
+    pos, seen = 3, {}
+    while True:
+        ident, value, pos = _pam_line(data, pos)
+        if ident is None:
+            continue
+        if ident == b"ENDHDR":
+            break
+        if ident in seen and ident != b"TUPLTYPE":
+            raise ValueError(f"PAM: {ident.decode()} given twice")
+        if ident == b"TUPLTYPE":
+            if value not in _PAM_TUPLTYPES:
+                raise ValueError(f"PAM: TUPLTYPE {value!r}")
+            seen[ident] = value
+        else:
+            seen[ident] = _pam_int(value, ident.decode())
+    missing = [f.decode() for f in _PAM_FIELDS[:4] if f not in seen]
+    if missing:
+        raise ValueError(f"PAM: the header lacks {', '.join(missing)}")
+    W, H, C, maxval = (seen[f] for f in _PAM_FIELDS[:4])
+    if maxval > 65535:
+        raise ValueError(f"PAM: MAXVAL {maxval}")
+    tupltype = seen.get(b"TUPLTYPE")
+    if tupltype is None:
+        if C == 1 and maxval < 256:
+            tupltype = b"BLACKANDWHITE" if maxval == 1 else b"GRAYSCALE"
+        elif C == 3 and maxval < 256:
+            tupltype = b"RGB"
+        else:
+            raise ValueError(f"PAM: no TUPLTYPE for DEPTH {C}, MAXVAL {maxval}")
+    if _PAM_TUPLTYPES[tupltype] != C:
+        raise ValueError(f"PAM: TUPLTYPE {tupltype.decode()} with DEPTH {C}")
+    if W <= 0 or H <= 0:
+        raise ValueError(f"PAM: a {W}x{H} image")
+    wide = maxval > 255
+    n = W * H * C * (2 if wide else 1)
+    if pos + n > len(data):
+        raise ValueError("PAM: the pixel data ends before the image")
+    if maxval == 1:
+        if C in (2, 4):
+            raise ValueError(f"PAM: MAXVAL 1 with DEPTH {C}")
+        rows = np.frombuffer(data[pos:pos + n], np.uint8).reshape(H, W * C)
+        img = np.where(_unpack(rows, 1, W) == 1, 255, 0).astype(np.uint8)
+        return img if C == 1 else np.repeat(img[..., None], C, -1)
+    img = np.frombuffer(data[pos:pos + n], ">u2" if wide else np.uint8).reshape(H, W, C)
+    img = img.astype(np.uint16 if wide else np.uint8)
+    if C == 1:
+        return img[..., 0]
+    return img if C == 2 else img[..., [2, 1, 0, 3][:C]]

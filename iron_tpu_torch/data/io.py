@@ -5,13 +5,15 @@ IMREAD_UNCHANGED), which picks its decoder by the file's first bytes, not
 its name.  `read_image` does the same (`decode_image`): PNG (here, on numpy
 and zlib: every colour type and bit depth, filters 0-4, Adam7), JPEG
 (`jpeg.py`: baseline, progressive, arithmetic-coded, lossless, 1/3/4
-components), TIFF (`tiff.py`), BMP, PBM/PGM/PPM, PFM, Radiance HDR, Sun
-raster and GIF (`formats.py`), each bit-equal to OpenCV's decoder; WebP,
-JPEG 2000 and AVIF, which OpenCV also reads, raise naming the format, as
-does a file no OpenCV decoder takes.  EXR is chosen by the name, as in the
+components), TIFF (`tiff.py`), WebP (`webp.py`: lossy, lossless, alpha, an
+animation's first frame), BMP, PBM/PGM/PPM, PAM, PFM, Radiance HDR, Sun
+raster and GIF (`formats.py`), each bit-equal to OpenCV's decoder; JPEG 2000
+and AVIF, which OpenCV also reads, raise naming the format, as does a file
+no OpenCV decoder takes.  EXR is chosen by the name, as in the
 JAX package, and goes through the port's own codec (`exr.py`).  Then the
 JAX package's float conversion: gray repeated to RGB, a fourth channel
-dropped, BGR -> RGB, and content whose maximum passes 1.5 divided by 255
+dropped (two channels, PAM's gray + alpha, kept as two, reversed), BGR ->
+RGB, and content whose maximum passes 1.5 divided by 255
 (or 65535 past 255.5) -- float PFM and HDR content too; EXR gets a 1/2.2
 gamma.
 
@@ -199,7 +201,7 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 # leading bytes -> the format, in the order of OpenCV's decoders
-# (findDecoder); the three formats OpenCV reads that the port does not are
+# (findDecoder); the two formats OpenCV reads that the port does not are
 # named in their errors
 _BLANK = b" \t\n\v\f\r"
 
@@ -216,7 +218,7 @@ def sniff(data: bytes) -> str:
     if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
         return "tiff"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WebP"
+        return "webp"
     if data[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or data[:4] == b"\xff\x4f\xff\x51":
         return "JPEG 2000"
     if data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis"):
@@ -227,7 +229,7 @@ def sniff(data: bytes) -> str:
         if data[1:2] in (b"F", b"f"):
             return "pfm"
         if data[1:2] == b"7":
-            return "PAM"
+            return "pam"
     if data.startswith((b"#?RGBE", b"#?RADIANCE")):
         return "hdr"
     if data[:4] == b"\x59\xa6\x6a\x95":
@@ -254,7 +256,10 @@ def decode_image(data: bytes, name: str = "image") -> np.ndarray:
     if kind == "tiff":
         from iron_tpu_torch.data.tiff import read_tiff
         return read_tiff(data)
-    if kind in ("bmp", "pnm", "pfm", "hdr", "sunras", "gif"):
+    if kind == "webp":
+        from iron_tpu_torch.data.webp import decode_webp
+        return decode_webp(data)
+    if kind in ("bmp", "pnm", "pam", "pfm", "hdr", "sunras", "gif"):
         from iron_tpu_torch.data import formats
         return getattr(formats, f"read_{kind}")(data)
     if kind:
@@ -267,7 +272,8 @@ def decode_image(data: bytes, name: str = "image") -> np.ndarray:
 def read_image(path: str, apply_exr_gamma: bool = True) -> np.ndarray:
     """An image as float32 RGB [H, W, 3] (8/16-bit content in [0, 1]; EXR
     linear, with an optional 1/2.2 gamma), the format told by its content
-    (EXR by the name)."""
+    (EXR by the name).  A gray + alpha PAM gives [H, W, 2] (alpha, gray),
+    as in the JAX package."""
     if path.endswith(".exr"):
         from iron_tpu_torch.data.exr import read_exr
         img = read_exr(path)
@@ -281,7 +287,12 @@ def read_image(path: str, apply_exr_gamma: bool = True) -> np.ndarray:
         img = decode_image(f.read(), path)
     if img.ndim == 2:
         img = img[..., None]
-    img = np.repeat(img[..., :1], 3, axis=-1) if img.shape[-1] <= 2 else img[..., :3]
+    if img.shape[-1] == 1:
+        img = np.repeat(img, 3, axis=-1)
+    elif img.shape[-1] == 2:            # gray + alpha (PAM): reversed, two channels, as in JAX
+        img = img[..., ::-1]
+    else:
+        img = img[..., :3]
     img = img.astype(np.float32)
     if img.max() > 1.5:  # 8/16-bit content
         img = img / (65535.0 if img.max() > 255.5 else 255.0)

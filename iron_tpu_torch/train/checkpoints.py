@@ -8,8 +8,8 @@ Where the JAX package saves asynchronously through orbax, the port's
 `AsyncCheckpointer` writes the same pickles on a background thread.  The
 JAX package's orbax saves (`<out>/orbax/<step:07d>/`, zarr arrays in an
 OCDBT key-value store, and `<step:07d>.extra.json`) are read by
-`read_orbax_checkpoint` through `tensorstore`, imported inside it, without
-jax or orbax; without tensorstore it raises, naming it and `--sync_ckpt`.
+`read_orbax_checkpoint` through the port's own OCDBT, zarr and zstd readers
+(`ocdbt.py`, `zstd.py`), without jax, orbax, tensorstore or zstandard.
 `load_any_checkpoint` and `resume_checkpoint` choose between the two kinds
 as the JAX package does.
 
@@ -42,6 +42,7 @@ from iron_tpu_torch.fields.rendering import rendering_from_numpy, rendering_to_n
 from iron_tpu_torch.fields.scalars import init_point_light
 from iron_tpu_torch.fields.sdf import SDFConfig, sdf_from_numpy, sdf_to_numpy
 from iron_tpu_torch.shading.materials import renderer_network_configs
+from iron_tpu_torch.train.ocdbt import OcdbtStore, read_zarr
 
 
 def save_checkpoint(out_dir: str, step: int, params, opt_state=None,
@@ -153,16 +154,6 @@ def load_checkpoint(path: str) -> Dict:
         return _Unpickler(f).load()
 
 
-def _tensorstore():
-    try:
-        import tensorstore
-    except ImportError as e:
-        raise ImportError("reading an orbax checkpoint (the JAX package's async saves) needs "
-                          "the tensorstore package, which cannot be imported here; save the "
-                          "run with --sync_ckpt (ckpt_*.pkl pickles) instead") from e
-    return tensorstore
-
-
 def _rebuild(node):
     """The tree of (key_type, key) -> node maps: sequence keys (type 1)
     make tuples in index order, dict keys (type 2) dicts."""
@@ -192,11 +183,9 @@ def read_orbax_checkpoint(step_dir: str) -> Dict:
     (`<out>/orbax/<step:07d>/`) -> {"params", "opt_state", "step",
     "extra"} as numpy arrays, as its `restore` returns them: the tree from
     `_METADATA`'s tree_metadata (sequence keys as tuples), each leaf a zarr
-    array of the OCDBT store read through tensorstore; the step and the
-    config dicts from `<step:07d>.extra.json`; optax's Adam state as the
-    stand-ins above (opt_state None when the save has none).  Raises
-    without tensorstore."""
-    ts = _tensorstore()
+    array of the OCDBT store (ocdbt.py); the step and the config dicts
+    from `<step:07d>.extra.json`; optax's Adam state as the stand-ins above
+    (opt_state None when the save has none)."""
     step_dir = os.path.abspath(os.path.normpath(step_dir))
     with open(os.path.join(step_dir, "_METADATA")) as f:
         meta = json.load(f)
@@ -204,17 +193,15 @@ def read_orbax_checkpoint(step_dir: str) -> Dict:
         raise ValueError(f"{step_dir}: an orbax save without OCDBT or with zarr3 (use_ocdbt "
                          f"{meta.get('use_ocdbt')}, use_zarr3 {meta.get('use_zarr3')}); the "
                          f"port reads the JAX package's layout, OCDBT with zarr v2")
-    kvstore = {"driver": "ocdbt", "base": "file://" + step_dir + "/"}
+    store = OcdbtStore(step_dir)
     root: Dict = {}
     for entry in meta["tree_metadata"].values():
         keys = [(k["key_type"], k["key"]) for k in entry["key_metadata"]]
         name = ".".join(k for _, k in keys)
-        store = ts.open({"driver": "zarr", "kvstore": kvstore, "path": name},
-                        open=True).result()
         node = root
         for key in keys[:-1]:
             node = node.setdefault(key, {})
-        node[keys[-1]] = np.asarray(store.read().result())
+        node[keys[-1]] = read_zarr(store, name)
     tree = _rebuild(root)
     extra: Dict = {}
     if os.path.exists(step_dir + ".extra.json"):
@@ -263,7 +250,6 @@ def resume_checkpoint(out_dir: str, orbax_first: bool) -> Optional[Dict]:
     """The checkpoint a trainer resumes from, as the JAX trainers choose
     it: with orbax_first (their async_ckpt) the newest orbax step, and when
     there is none, or it does not read (a warning), the newest numbered
-    pickle.  A missing tensorstore raises rather than resume from an older
     pickle."""
     if orbax_first:
         steps = orbax_steps(out_dir)
@@ -271,8 +257,6 @@ def resume_checkpoint(out_dir: str, orbax_first: bool) -> Optional[Dict]:
             step_dir = _orbax_step_dir(out_dir, steps[-1])
             try:
                 return read_orbax_checkpoint(step_dir)
-            except ImportError:
-                raise
             except Exception as e:      # a partial or foreign save: the pickles
                 logging.getLogger(__name__).warning(
                     "orbax restore of %s failed (%s); falling back to pickle checkpoints",

@@ -533,3 +533,230 @@ def encode_tiff(img: np.ndarray, compression: str = "none", predictor: bool = Fa
     head = (b"MM\x00*" if big_endian else b"II*\x00") + struct.pack(e + "I", ifd_at)
     return (head + blob + b"\x00" * (ifd_at - o) + struct.pack(e + "H", len(entries))
             + b"".join(fields) + b"\x00\x00\x00\x00" + extra)
+
+
+# ---------------------------------------------------------------------------
+# WebP through the system's libwebp (encode.h, encoder ABI 0x020f)
+# ---------------------------------------------------------------------------
+
+_WEBP_CONFIG_FIELDS = (
+    "lossless", "quality", "method", "image_hint", "target_size", "target_PSNR", "segments",
+    "sns_strength", "filter_strength", "filter_sharpness", "filter_type", "autofilter",
+    "alpha_compression", "alpha_filtering", "alpha_quality", "pass", "show_compressed",
+    "preprocessing", "partitions", "partition_limit", "emulate_jpeg_size", "thread_level",
+    "low_memory", "near_lossless", "exact", "use_delta_palette", "use_sharp_yuv", "qmin",
+    "qmax")
+
+
+class _WebPConfig(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_float if f in ("quality", "target_PSNR") else ctypes.c_int)
+                for f in _WEBP_CONFIG_FIELDS]
+
+
+class _WebPPicture(ctypes.Structure):
+    _fields_ = [("use_argb", ctypes.c_int), ("colorspace", ctypes.c_int),
+                ("width", ctypes.c_int), ("height", ctypes.c_int),
+                ("y", ctypes.c_void_p), ("u", ctypes.c_void_p), ("v", ctypes.c_void_p),
+                ("y_stride", ctypes.c_int), ("uv_stride", ctypes.c_int),
+                ("a", ctypes.c_void_p), ("a_stride", ctypes.c_int),
+                ("pad1", ctypes.c_uint32 * 2), ("argb", ctypes.c_void_p),
+                ("argb_stride", ctypes.c_int), ("pad2", ctypes.c_uint32 * 3),
+                ("writer", ctypes.c_void_p), ("custom_ptr", ctypes.c_void_p),
+                ("extra_info_type", ctypes.c_int), ("extra_info", ctypes.c_void_p),
+                ("stats", ctypes.c_void_p), ("error_code", ctypes.c_int),
+                ("progress_hook", ctypes.c_void_p), ("user_data", ctypes.c_void_p),
+                ("pad3", ctypes.c_uint32 * 3), ("pad4", ctypes.c_void_p),
+                ("pad5", ctypes.c_void_p), ("pad6", ctypes.c_uint32 * 8),
+                ("memory_", ctypes.c_void_p), ("memory_argb_", ctypes.c_void_p),
+                ("pad7", ctypes.c_void_p * 2)]
+
+
+class _WebPMemoryWriter(ctypes.Structure):
+    _fields_ = [("mem", ctypes.c_void_p), ("size", ctypes.c_size_t),
+                ("max_size", ctypes.c_size_t), ("pad", ctypes.c_uint32)]
+
+
+def encode_webp(img: np.ndarray, **config) -> bytes:
+    """uint8 RGB [H, W, 3] or RGBA [H, W, 4] encoded by the system's
+    libwebp (libwebp.so.7) with WebPConfig's fields set from `config`
+    (quality, method, segments, sns_strength, filter_strength,
+    filter_sharpness, filter_type (0 simple, 1 normal), autofilter,
+    partitions (log2), alpha_compression, alpha_filtering, alpha_quality,
+    preprocessing, lossless, exact, ...), the rest at WebPConfigInit's
+    defaults."""
+    img = np.ascontiguousarray(img, np.uint8)
+    H, W, C = img.shape
+    lib = ctypes.CDLL(ctypes.util.find_library("webp") or "libwebp.so.7")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for name, args, res in (("WebPConfigInitInternal", [P, I, ctypes.c_float, I], I),
+                            ("WebPValidateConfig", [P], I), ("WebPPictureInitInternal", [P, I], I),
+                            ("WebPPictureImportRGB", [P, P, I], I),
+                            ("WebPPictureImportRGBA", [P, P, I], I),
+                            ("WebPMemoryWriterInit", [P], None), ("WebPEncode", [P, P], I),
+                            ("WebPPictureFree", [P], None), ("WebPMemoryWriterClear", [P], None)):
+        getattr(lib, name).argtypes, getattr(lib, name).restype = args, res
+    cfg = _WebPConfig()
+    if not lib.WebPConfigInitInternal(ctypes.byref(cfg), 0, 75.0, 0x020F):
+        raise RuntimeError("WebPConfigInit failed")
+    for k, v in config.items():
+        setattr(cfg, k, v)
+    if not lib.WebPValidateConfig(ctypes.byref(cfg)):
+        raise ValueError(f"libwebp refuses the config {config}")
+    pic = _WebPPicture()
+    if not lib.WebPPictureInitInternal(ctypes.byref(pic), 0x020F):
+        raise RuntimeError("WebPPictureInit failed")
+    pic.width, pic.height, pic.use_argb = W, H, int(bool(cfg.lossless))
+    importer = lib.WebPPictureImportRGBA if C == 4 else lib.WebPPictureImportRGB
+    if not importer(ctypes.byref(pic), img.ctypes.data_as(ctypes.c_void_p), W * C):
+        raise RuntimeError("WebPPictureImport failed")
+    writer = _WebPMemoryWriter()
+    lib.WebPMemoryWriterInit(ctypes.byref(writer))
+    pic.writer = ctypes.cast(lib.WebPMemoryWrite, ctypes.c_void_p)
+    pic.custom_ptr = ctypes.cast(ctypes.pointer(writer), ctypes.c_void_p)
+    try:
+        if not lib.WebPEncode(ctypes.byref(cfg), ctypes.byref(pic)):
+            raise RuntimeError(f"WebPEncode failed, error {pic.error_code}")
+        return ctypes.string_at(writer.mem, writer.size)
+    finally:
+        lib.WebPPictureFree(ctypes.byref(pic))
+        lib.WebPMemoryWriterClear(ctypes.byref(writer))
+
+
+# ---------------------------------------------------------------------------
+# VP8 frames re-coded with what libwebp's encoder never writes
+# ---------------------------------------------------------------------------
+
+class _BoolEncoder:
+    """VP8's boolean entropy encoder (RFC 6386, 7.3)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.range, self.bottom, self.bit_count = 255, 0, 24
+
+    def _carry(self) -> None:
+        i = len(self.out) - 1
+        while self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, prob: int, bit: int) -> None:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.bit_count -= 1
+            if not self.bit_count:
+                self.out.append((self.bottom >> 24) & 0xFF)
+                self.bottom &= (1 << 24) - 1
+                self.bit_count = 8
+
+    def flush(self) -> bytes:
+        c, v = self.bit_count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range(c >> 3):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append((v >> 24) & 0xFF)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+def _riff_webp(chunks: Sequence[bytes]) -> bytes:
+    body = b"WEBP" + b"".join(chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def webp_chunk(tag: bytes, body: bytes) -> bytes:
+    return tag + struct.pack("<I", len(body)) + body + (b"\0" if len(body) & 1 else b"")
+
+
+def vp8_recode(webp_file: bytes, partitions_log2: Optional[int] = None,
+               lf_deltas: Optional[Sequence[int]] = None) -> bytes:
+    """A lossy WebP file (one "VP8 " chunk) re-coded with the same boolean
+    decisions but 2^partitions_log2 token partitions (libwebp's encoder
+    writes one) and/or the loop-filter deltas `lf_deltas` (4 reference
+    deltas, then 4 mode deltas, each in [-63, 63]; libwebp writes none).
+    The decisions are recorded while iron_tpu_torch.data.webp decodes the
+    frame; OpenCV stays the reference decoder of the result."""
+    from iron_tpu_torch.data import webp as P
+    assert webp_file[12:16] == b"VP8 "
+    frame = webp_file[20:20 + struct.unpack("<I", webp_file[16:20])[0]]
+    logs = []
+
+    class Recorder(P._BoolDecoder):
+        def __init__(self, data):
+            super().__init__(data)
+            self.log = []
+            logs.append(self.log)
+
+        def bit(self, prob):
+            b = super().bit(prob)
+            self.log.append((prob, b))
+            return b
+
+        def literal(self, n):
+            self.log.append(("literal", n))
+            return super().literal(n)
+
+    reconstruct = P._reconstruct
+
+    def marking(Y, U, V, mb_x, mb_y, mb_w, *rest):
+        reconstruct(Y, U, V, mb_x, mb_y, mb_w, *rest)
+        if mb_x == mb_w - 1:
+            logs[1 + (mb_y & (len(logs) - 2))].append(("row", mb_y))
+
+    P._BoolDecoder, P._reconstruct = Recorder, marking
+    try:
+        P.decode_vp8(frame)
+    finally:
+        P._BoolDecoder, P._reconstruct = Recorder.__bases__[0], reconstruct
+    head = logs[0]
+    sharp = head.index(("literal", 3))
+    parts = head.index(("literal", 2), sharp)
+    if partitions_log2 is not None:
+        head[parts + 1:parts + 3] = [(128, (partitions_log2 >> 1) & 1), (128, partitions_log2 & 1)]
+    if lf_deltas is not None:
+        bits = [(128, 1), (128, 1)]
+        for d in lf_deltas:
+            bits.append((128, int(d != 0)))
+            if d:
+                bits += [(128, (abs(d) >> k) & 1) for k in range(5, -1, -1)] + [(128, int(d < 0))]
+        head[sharp + 4:parts] = bits
+    rows = {}
+    for log in logs[1:]:
+        cur = []
+        for item in log:
+            if item[0] == "row":
+                rows[item[1]] = cur
+                cur = []
+            else:
+                cur.append(item)
+    n = 1 << (partitions_log2 if partitions_log2 is not None else
+              (len(logs) - 2).bit_length())
+    streams = []
+    for k in [0] + list(range(1, n)):
+        enc = _BoolEncoder()
+        for y in sorted(rows):
+            if y & (n - 1) == k:
+                for prob, b in rows[y]:
+                    enc.put(prob, b)
+        streams.append(enc.flush())
+    enc = _BoolEncoder()
+    for item in head:
+        if item[0] != "literal":
+            enc.put(*item)
+    part0 = enc.flush()
+    tag = (len(part0) << 5) | (frame[0] & 0x1F)
+    body = (struct.pack("<I", tag)[:3] + frame[3:10] + part0
+            + b"".join(struct.pack("<I", len(s))[:3] for s in streams[:-1]) + b"".join(streams))
+    return _riff_webp([webp_chunk(b"VP8 ", body)])

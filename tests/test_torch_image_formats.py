@@ -7,8 +7,8 @@ writer in tests/image_format_writers.py where neither writes the variant.
 The port's `read_image` and `iron_tpu.data.io.read_image` give the same
 float32 arrays, bit for bit; the port's decoder before the float conversion
 equals cv2.imread's array (channels in RGB order).  The formats OpenCV reads
-that the port does not (WebP, JPEG 2000, AVIF), and the files OpenCV
-refuses, raise.  write_image writes what cv2.imwrite writes, or raises."""
+that the port does not (JPEG 2000, AVIF), and the files OpenCV refuses,
+raise.  write_image writes what cv2.imwrite writes, or raises."""
 import io
 import os
 import subprocess
@@ -420,17 +420,29 @@ def test_files_opencv_refuses_raise_in_both(case, tmp_path):
 
 @pytest.mark.parametrize("fmt", ["webp", "webp lossless", "avif", "pam"])
 def test_formats_still_to_port_raise_naming_them(fmt, tmp_path):
-    """WebP, AVIF and PAM, which the JAX package reads through OpenCV, raise
-    in the port naming the format (ROADMAP.md section 1 queues their
-    decoders; JPEG 2000's is held in test_files_opencv_refuses_raise_in_both,
-    since this OpenCV writes no .jp2)."""
+    """Of the formats the JAX package reads through OpenCV, WebP (lossy and
+    lossless) and PAM now decode bit-equal to cv2's decode and read as the
+    JAX package reads them (tests/test_torch_webp.py holds them in depth);
+    AVIF still raises in the port naming the format (ROADMAP.md section 1
+    queues its decoder; JPEG 2000's raise is held in
+    test_files_opencv_refuses_raise_in_both, since this OpenCV writes no
+    .jp2)."""
     ext = "." + fmt.split()[0]
     flags = [cv2.IMWRITE_WEBP_QUALITY, 101] if fmt == "webp lossless" else []
     path = _write(tmp_path, "a" + ext, _cv2(ext, BGR, flags))
     assert jio.read_image(path).shape == IMG.shape
-    with pytest.raises(ValueError, match={"webp": "WebP", "avif": "AVIF", "pam": "PAM"}[
-            ext[1:]]):
-        tio.read_image(path)
+    if fmt == "avif":
+        with pytest.raises(ValueError, match="AVIF"):
+            tio.read_image(path)
+        return
+    with open(path, "rb") as f:
+        got = tio.decode_image(f.read(), path)
+    ref = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    if ref.ndim == 3:
+        ref = ref[..., [2, 1, 0, 3][:ref.shape[2]]]
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(tio.read_image(path), jio.read_image(path))
 
 
 # ---------------------------------------------------------------------------

@@ -185,15 +185,17 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
 def test_port_imports_without_jax_nvcc_or_triton():
     """Every module of the port imports in a process without nvcc on PATH,
     the data-parallel ones (dist/) among them, and none of them imports JAX,
-    the JAX package, optax, orbax, tensorstore or OpenCV (cv2): the card's
-    machine has none of them.  Then, with jax, optax and orbax blocked, the
-    orbax reader reads the committed fixture through tensorstore (imported
-    by the reader alone), and load_any_checkpoint reads its run directory."""
+    the JAX package, optax, orbax, tensorstore, zstandard or OpenCV (cv2):
+    the card's machine has none of them.  Then, with jax, optax and orbax
+    blocked, the orbax reader reads the committed fixture through the port's
+    own OCDBT, zarr and zstd readers (tensorstore and zstandard still not
+    imported), and load_any_checkpoint reads its run directory."""
     code = ("import pkgutil, sys, iron_tpu_torch\n"
             "for m in pkgutil.walk_packages(iron_tpu_torch.__path__, 'iron_tpu_torch.'):\n"
             "    __import__(m.name)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-            "       ('jax', 'iron_tpu', 'optax', 'orbax', 'tensorstore', 'cv2', 'triton')]\n"
+            "       ('jax', 'iron_tpu', 'optax', 'orbax', 'tensorstore', 'zstandard', 'cv2',\n"
+            "        'triton')]\n"
             "assert not bad, bad\n"
             "dist = {'iron_tpu_torch.dist.' + m for m in ('mesh', 'train', 'dryrun')}\n"
             "assert dist <= set(sys.modules), dist - set(sys.modules)\n"
@@ -202,7 +204,8 @@ def test_port_imports_without_jax_nvcc_or_triton():
             "from iron_tpu_torch.train.checkpoints import load_any_checkpoint, "
             "read_orbax_checkpoint\n"
             "ck = read_orbax_checkpoint('tests/data_orbax/stage1/orbax/0000002')\n"
-            "assert ck['step'] == 2 and 'tensorstore' in sys.modules\n"
+            "assert ck['step'] == 2\n"
+            "assert 'tensorstore' not in sys.modules and 'zstandard' not in sys.modules\n"
             "assert type(ck['opt_state'][0]).__name__ == 'ScaleByAdamState'\n"
             "assert load_any_checkpoint('tests/data_orbax/stage1')['step'] == 2\n")
     env = dict(os.environ, PATH="/usr/bin:/bin", PYTHONPATH=REPO)
