@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only-8h    # the build, then phase 8h alone (no result line)
     python3 chip_smoke.py --only-8i    # the build, then phase 8i alone (no result line)
     python3 chip_smoke.py --only-8j    # the build, then phase 8j alone (no result line)
+    python3 chip_smoke.py --only-8k    # the build, then phase 8k alone (no result line)
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, and drives the port's main
@@ -104,6 +105,12 @@ with the launch counts set to 0 just before it and read just after:
     named .jpg / .png; lossless WebP, PAM and lossy WebP masks) decoded by
     the port bit-equal to OpenCV's decode recorded beside it, then the same
     8 stage-1 steps;
+  * the same run from JPEG 2000 files (phase 8k, `jp2_phase`):
+    tests/data_jp2/ (an OpenCV .jp2, a tiled 5/3 RCT .jp2 with 3 quality
+    layers and a 9/7 ICT raw codestream cut by its rate, named .jpg / .png;
+    8- and 16-bit lossless and 8-bit lossy gray masks) decoded by the port
+    bit-equal to OpenCV's decode recorded beside it, then the same 8
+    stage-1 steps;
 
 then times each kernel beside its plain version and its bound, and prints:
 
@@ -127,11 +134,12 @@ then times each kernel beside its plain version and its bound, and prints:
   * one JSON line {"formats": {...}}: phase 8i's decode times, step times,
     losses and launches, beside the card's name and power limit;
   * one JSON line {"webp": {...}}: the same record of phase 8j;
+  * one JSON line {"jp2": {...}}: the same record of phase 8k;
   * one JSON line {"kernels": [...]} on the six kernels (launches: K1-K3
     from the default training run, K4 from the trace_pallas training run,
     K5 from the sweep; beside them each kernel's launches on phase 8f's
     paths, a rank's on phase 8g's and a step's on phase 8h's, a stage-1
-    replay's from the device trace, and phase 8j's);
+    replay's from the device trace, and phases 8j's and 8k's);
   * last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -2573,6 +2581,57 @@ def webp_phase(args, dev, card, kernels) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 8k: JPEG 2000, the format of the port's eleventh slice
+# ---------------------------------------------------------------------------
+
+JP2_STEPS = 8        # phase 8k's stage-1 steps on the fixture scene
+
+
+def jp2_phase(args, dev, card, kernels) -> dict:
+    """Phase 8k, a stage-1 run from JPEG 2000 files, which the JAX package
+    reads through OpenCV (OpenJPEG) and the port with its own decoder (this
+    machine has neither OpenCV, PIL nor glymur): tests/data_jp2/
+    (scripts/make_jp2_fixtures.py), three 256x256 views of one camera named
+    as the dataset lists them but JPEG 2000 inside (view0.jpg OpenCV's .jp2,
+    reversible 5/3; view1.png a 5/3 RCT .jp2 in 128^2 tiles with 3 quality
+    layers, lossless; view2.png a 9/7 ICT raw codestream cut at its rate),
+    their masks an 8-bit lossless .jp2, a 16-bit lossless .j2k and an 8-bit
+    lossy .jp2:
+
+      (a) each file decoded by the port, its sha256 that of OpenCV's decode
+          (_decode_fixture), the two lossless masks equal and binary, the
+          lossy mask and the other views within 3/255 on average of their
+          lossless counterparts;
+      (b), (c) RayDataset.from_folder(..., mask_dir=...) on the card and
+          8 stage-1 steps at Stage1Config()'s width (_stage1_on_fixture:
+          K3-fwd and K3-bwd once a step, a falling loss on a fixed batch)."""
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, "tests", "data_jp2")
+    decode_ms, decoded = _decode_fixture(root)
+    exact = decoded["mask/view0.jp2"]
+    assert np.array_equal(exact, decoded["mask/view1.j2k"])
+    assert set(np.unique(exact).tolist()) == {0.0, 1.0}
+    lossless = decoded["image/view1.png"]
+    lossy_err = {k: float(np.abs(v - ref).mean() * 255) for k, v, ref in (
+        ("image/view0.jpg", decoded["image/view0.jpg"], lossless),
+        ("image/view2.png", decoded["image/view2.png"], lossless),
+        ("mask/view2.jp2", decoded["mask/view2.jp2"], exact))}
+    assert all(e <= 3.0 for e in lossy_err.values()), lossy_err
+    log(f"phase 8k (a) decodes of tests/data_jp2/ (host, ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items())
+        + f"; every array's sha256 is OpenCV's; the other files' mean |difference| from their "
+        f"lossless counterparts (of 255): {lossy_err}; card {card}")
+    rec = {"card": card, "decode_ms": decode_ms, "lossy_mean_abs_err_255": lossy_err,
+           # phase 8i's initialisation and draws: the same scene, decoded from other files
+           **_stage1_on_fixture(args, dev, card, kernels, root,
+                                ["view0.jpg", "view1.png", "view2.png"], args.seed + 9,
+                                JP2_STEPS, "8k (c)"),
+           "wall_s": time.perf_counter() - t0}
+    log(f"phase 8k: {rec['wall_s']:.1f} s")
+    return rec
+
+
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list tree, in key order."""
     if isinstance(tree, dict):
@@ -2602,6 +2661,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only-8j", action="store_true",
                     help="build, then run phase 8j alone (WebP and PAM; prints no result "
                          "line)")
+    ap.add_argument("--only-8k", action="store_true",
+                    help="build, then run phase 8k alone (JPEG 2000; prints no result line)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "iron_tpu_torch", "kernels", "csrc")):
@@ -2652,6 +2713,10 @@ def main(argv=None) -> int:
 
     if args.only_8j:
         log(json.dumps({"webp": webp_phase(args, dev, card, kernels)}))
+        return 0
+
+    if args.only_8k:
+        log(json.dumps({"jp2": jp2_phase(args, dev, card, kernels)}))
         return 0
 
     if args.only_8h:
@@ -3553,6 +3618,9 @@ def main(argv=None) -> int:
     # ---- 8j. WebP and PAM: the same stage-1 run from tests/data_webp/ ----
     webp = webp_phase(args, dev, card, kernels)
 
+    # ---- 8k. JPEG 2000: the same stage-1 run from tests/data_jp2/ ----
+    jp2 = jp2_phase(args, dev, card, kernels)
+
     # ---- 9. timings at the slice's shapes ----
     kernel_rows = []
     work = sdf_work(cfg.sdf)
@@ -3815,7 +3883,8 @@ def main(argv=None) -> int:
              "plain_ms": r[4], "bound_ms": r[5], "bound_by": r[6], "library_ms": None,
              "research_launches": research_launches[r[0]], "dp_launches": dp_launches[r[0]],
              "graph_launches": graph_launches[r[0]],
-             "webp_launches": webp["launches"].get(r[0], 0)}
+             "webp_launches": webp["launches"].get(r[0], 0),
+             "jp2_launches": jp2["launches"].get(r[0], 0)}
             for r in kernel_rows]
     log(json.dumps({"cli": cli}))
     log(json.dumps({"research": research}))
@@ -3823,6 +3892,7 @@ def main(argv=None) -> int:
     log(json.dumps({"graph": graph}))
     log(json.dumps({"formats": formats}))
     log(json.dumps({"webp": webp}))
+    log(json.dumps({"jp2": jp2}))
     log(json.dumps({"kernels": rows}))
     log(card)
     # ---- 11. result ----

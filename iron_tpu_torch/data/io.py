@@ -7,9 +7,10 @@ and zlib: every colour type and bit depth, filters 0-4, Adam7), JPEG
 (`jpeg.py`: baseline, progressive, arithmetic-coded, lossless, 1/3/4
 components), TIFF (`tiff.py`), WebP (`webp.py`: lossy, lossless, alpha, an
 animation's first frame), BMP, PBM/PGM/PPM, PAM, PFM, Radiance HDR, Sun
-raster and GIF (`formats.py`), each bit-equal to OpenCV's decoder; JPEG 2000
-and AVIF, which OpenCV also reads, raise naming the format, as does a file
-no OpenCV decoder takes.  EXR is chosen by the name, as in the
+raster and GIF (`formats.py`), JPEG 2000 (`jp2.py`: .jp2 boxes and raw
+codestreams, EBCOT, the 5/3 and 9/7 wavelets), each bit-equal to OpenCV's
+decoder; AVIF, which OpenCV also reads, raises naming the format, as does a
+file no OpenCV decoder takes.  EXR is chosen by the name, as in the
 JAX package, and goes through the port's own codec (`exr.py`).  Then the
 JAX package's float conversion: gray repeated to RGB, a fourth channel
 dropped (two channels, PAM's gray + alpha, kept as two, reversed), BGR ->
@@ -20,8 +21,8 @@ gamma.
 `write_image` writes what the JAX package's cv2.imwrite writes for .png,
 .jpg / .jpeg / .jpe (baseline JPEG at quality 95), .bmp / .dib, .tif /
 .tiff (uncompressed), .pbm / .pgm / .ppm / .pnm and .exr, and raises for
-any other extension (OpenCV writes some of them: WebP, GIF, PFM, HDR, Sun
-raster, AVIF).
+any other extension (OpenCV writes some of them: .jp2, .avif, .webp, .gif,
+.pfm, .hdr, .ras and .pam).
 """
 from __future__ import annotations
 
@@ -201,8 +202,8 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 # leading bytes -> the format, in the order of OpenCV's decoders
-# (findDecoder); the two formats OpenCV reads that the port does not are
-# named in their errors
+# (findDecoder); AVIF, which OpenCV reads and the port does not, is named in
+# its error
 _BLANK = b" \t\n\v\f\r"
 
 
@@ -259,6 +260,9 @@ def decode_image(data: bytes, name: str = "image") -> np.ndarray:
     if kind == "webp":
         from iron_tpu_torch.data.webp import decode_webp
         return decode_webp(data)
+    if kind == "JPEG 2000":
+        from iron_tpu_torch.data.jp2 import decode_jp2
+        return decode_jp2(data)
     if kind in ("bmp", "pnm", "pam", "pfm", "hdr", "sunras", "gif"):
         from iron_tpu_torch.data import formats
         return getattr(formats, f"read_{kind}")(data)

@@ -1,0 +1,797 @@
+"""JPEG 2000 on numpy: what cv2.imread(IMREAD_UNCHANGED) gives for a .jp2
+file or a raw J2K codestream (OpenCV decodes both through OpenJPEG), bit for
+bit, with the channels in RGB(A) order.
+
+    decode_jp2(data) -> uint8 / uint16, [H, W] (1 component), [H, W, 3] or
+                        [H, W, 4]
+
+The codestream (ISO/IEC 15444-1): the main header (SIZ, COD, COC, QCD,
+QCC, COM, TLM, PLM), tile-parts in any order with their headers (SOT, COD,
+COC, QCD, QCC, PLT, COM), SOP and EPH markers where COD asks for them.
+Tier 2: tag trees, packet headers with the bit stuffing after 0xFF,
+code-block inclusion, zero bit-planes, pass counts and segment lengths,
+precinct partitions (COD's PPx / PPy, else 2^15) with code-blocks clipped to
+them, the five progression orders over components whose resolution counts
+differ, tiles whose grid does not divide the image.  Tier 1 is `jp2_t1.py`.
+Then OpenJPEG's reconstruction: reversible coefficients halved toward zero;
+irreversible ones times half the step size in float32, the step sizes
+derived or expounded with OpenJPEG's sub-band gain of 0 (its 9/7 synthesis
+scales the high-pass band by 2 / K to match); the inverse 5/3 in integer
+lifting and the inverse 9/7 in float32 with OpenJPEG 2.5's constants, in its
+order; the inverse RCT or ICT; the DC level shift (the 9/7 path rounds to
+nearest even first), and the clip to [0, 2^prec - 1].
+
+The JP2 boxes: the signature, `ftyp`, `jp2h` (`ihdr`, `colr`, `cdef`,
+`res `), `jp2c`; any other box is skipped.
+
+OpenCV's output: one component gives [H, W], three BGR (returned here as
+RGB, as every decoder of `io.decode_image` returns), four BGRA (RGBA here); a
+largest precision of 8 bits gives uint8 and of 9-16 bits uint16, the
+values as decoded (no scaling).  Where OpenCV gives no image this raises a
+ValueError naming the variant: two components, signed samples, an image
+offset other than 0, sub-sampled components, a precision below 8 or above
+16 bits, a palette (`pclr` / `cmap`), an sYCC, CMYK or e-YCC colour space.
+Features no writer here makes raise naming them: POC, PPM, PPT, RGN, CRG,
+code-block styles other than 0 (BYPASS, RESET, TERMALL, VSC, PTERM,
+SEGSYM), Part 2 and HTJ2K codestreams.  A truncated codestream or a packet
+header that reads past its tile's data raises too (OpenJPEG would decode
+what is there, with warnings).
+"""
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+from iron_tpu_torch.data.jp2_t1 import decode_block
+
+JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
+J2K_SOC_SIZ = b"\xff\x4f\xff\x51"
+
+# markers; any other (TLM, PLM, PLT, COM...) is skipped by its length
+_SOT, _SOD, _COD, _COC, _QCD, _QCC = 0xFF90, 0xFF93, 0xFF52, 0xFF53, 0xFF5C, 0xFF5D
+_REFUSED = {0xFF5E: "RGN (region of interest)", 0xFF5F: "POC (progression order change)",
+            0xFF60: "PPM (packed packet headers)", 0xFF61: "PPT (packed packet headers)",
+            0xFF63: "CRG (component registration)", 0xFF50: "CAP (HTJ2K capabilities)",
+            0xFF59: "CPF (corresponding profile)"}
+_PROGRESSIONS = ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL")
+_CBLK_STYLES = ((0x01, "BYPASS"), (0x02, "RESET"), (0x04, "TERMALL"), (0x08, "VSC"),
+                (0x10, "PTERM"), (0x20, "SEGSYM"), (0x40, "HT"))
+
+# OpenJPEG 2.5's 9/7 synthesis (dwt.c): the lifting constants of Table F.4,
+# K for the low-pass band and 2 / K (its "two_invK") for the high-pass one
+_ALPHA = np.float32(-1.586134342)
+_BETA = np.float32(-0.052980118)
+_GAMMA = np.float32(0.882911075)
+_DELTA = np.float32(0.443506852)
+_K = np.float32(1.230174105)
+_TWO_INV_K = np.float32(1.625732422)
+
+
+class JP2Error(ValueError):
+    """A JPEG 2000 file the port (or OpenCV) does not decode."""
+
+
+def _ceildiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# the codestream's headers
+# ---------------------------------------------------------------------------
+
+class _Reader:
+    """Big-endian fields of a marker segment."""
+
+    def __init__(self, body: bytes, name: str):
+        self.body, self.pos, self.name = body, 0, name
+
+    def take(self, fmt: str):
+        n = struct.calcsize(">" + fmt)
+        if self.pos + n > len(self.body):
+            raise JP2Error(f"JPEG 2000: the {self.name} marker segment is too short")
+        out = struct.unpack_from(">" + fmt, self.body, self.pos)
+        self.pos += n
+        return out if len(out) > 1 else out[0]
+
+
+def _coding_style(r: _Reader, with_precincts: bool) -> dict:
+    """SPcod / SPcoc: decomposition levels, code-block size and style, the
+    wavelet, the precinct sizes (PPx, PPy) of each resolution."""
+    levels, xcb, ycb, style, wavelet = r.take("BBBBB")
+    if levels > 32 or xcb > 8 or ycb > 8 or xcb + ycb > 8:
+        raise JP2Error(f"JPEG 2000: {levels} decomposition levels and code-blocks of "
+                       f"2^{xcb + 2} x 2^{ycb + 2} are not a valid {r.name}")
+    if style:
+        names = [n for bit, n in _CBLK_STYLES if style & bit] or [f"0x{style:02x}"]
+        raise JP2Error(f"JPEG 2000: code-block style {' + '.join(names)}: the port decodes "
+                       f"only the default style (0)")
+    if wavelet not in (0, 1):
+        raise JP2Error(f"JPEG 2000: wavelet transform {wavelet} (Part 2) is not decoded")
+    if with_precincts:
+        pp = [r.take("B") for _ in range(levels + 1)]
+        precincts = [(b & 15, b >> 4) for b in pp]
+    else:
+        precincts = [(15, 15)] * (levels + 1)
+    return {"levels": levels, "cbw": xcb + 2, "cbh": ycb + 2, "reversible": wavelet == 1,
+            "precincts": precincts}
+
+
+def _quantization(r: _Reader) -> dict:
+    """SQcd / SPqcd (or SQcc / SPqcc): guard bits and the (exponent,
+    mantissa) of each sub-band, derived ones as OpenJPEG derives them."""
+    sq = r.take("B")
+    style, guard = sq & 31, sq >> 5
+    steps = []
+    if style == 0:
+        while r.pos < len(r.body):
+            steps.append((r.take("B") >> 3, 0))
+    elif style in (1, 2):
+        while r.pos + 2 <= len(r.body):
+            v = r.take("H")
+            steps.append((v >> 11, v & 0x7FF))
+            if style == 1:
+                break
+    else:
+        raise JP2Error(f"JPEG 2000: quantization style {style} is not valid")
+    if not steps:
+        raise JP2Error(f"JPEG 2000: the {r.name} marker segment has no step sizes")
+    if style == 1:
+        e0, m0 = steps[0]
+        steps = [(e0, m0)] + [(max(e0 - (b - 1) // 3, 0), m0) for b in range(1, 97)]
+    return {"guard": guard, "steps": steps}
+
+
+def _component_index(r: _Reader, ncomps: int) -> int:
+    c = r.take("B" if ncomps < 257 else "H")
+    if c >= ncomps:
+        raise JP2Error(f"JPEG 2000: {r.name} names component {c} of {ncomps}")
+    return c
+
+
+class _Params:
+    """The coding and quantization parameters in force: COD / QCD and the
+    per-component COC / QCC, of the main header or of a tile's."""
+
+    def __init__(self, base: "_Params | None" = None):
+        self.cod = base.cod if base else None
+        self.coc = dict(base.coc) if base else {}
+        self.qcd = base.qcd if base else None
+        self.qcc = dict(base.qcc) if base else {}
+
+    def read(self, marker: int, body: bytes, ncomps: int, name: str) -> None:
+        r = _Reader(body, name)
+        if marker == _COD:
+            scod, prog, layers, mct = r.take("BBHB")
+            if prog > 4:
+                raise JP2Error(f"JPEG 2000: progression order {prog} is not valid")
+            if layers == 0:
+                raise JP2Error("JPEG 2000: a COD with 0 quality layers")
+            self.cod = {"sop": bool(scod & 2), "eph": bool(scod & 4), "order": prog,
+                        "layers": layers, "mct": mct, **_coding_style(r, bool(scod & 1))}
+            self.coc = {}               # a tile's COD overrides the main header's COCs
+        elif marker == _COC:
+            c = _component_index(r, ncomps)
+            self.coc[c] = _coding_style(r, bool(r.take("B") & 1))
+        elif marker == _QCD:
+            self.qcd = _quantization(r)
+            self.qcc = {}
+        else:
+            c = _component_index(r, ncomps)
+            self.qcc[c] = _quantization(r)
+
+    def component(self, c: int) -> dict:
+        if self.cod is None or self.qcd is None:
+            raise JP2Error("JPEG 2000: a codestream without COD or QCD")
+        return {**self.cod, **self.coc.get(c, {}), **self.qcc.get(c, self.qcd)}
+
+
+def _segments(cs: bytes, pos: int, end: int):
+    """(marker, body, position after) of the marker segments from pos up to
+    SOT / SOD."""
+    while True:
+        if pos + 2 > end:
+            raise JP2Error("JPEG 2000: truncated codestream (a header runs past the end)")
+        marker = struct.unpack_from(">H", cs, pos)[0]
+        if marker in (_SOT, _SOD):
+            yield marker, b"", pos
+            return
+        if marker >> 8 != 0xFF or pos + 4 > end:
+            raise JP2Error(f"JPEG 2000: expected a marker at byte {pos}, found "
+                           f"0x{marker:04x}")
+        n = struct.unpack_from(">H", cs, pos + 2)[0]
+        if n < 2 or pos + 2 + n > end:
+            raise JP2Error(f"JPEG 2000: truncated codestream (marker 0x{marker:04x} at byte "
+                           f"{pos} runs past the end)")
+        yield marker, cs[pos + 4:pos + 2 + n], pos + 2 + n
+        pos += 2 + n
+
+
+def _check_marker(marker: int, where: str) -> None:
+    if marker in _REFUSED:
+        raise JP2Error(f"JPEG 2000: {_REFUSED[marker]} marker in the {where}: the port does "
+                       f"not decode it")
+
+
+def parse_codestream(cs: bytes) -> dict:
+    """The image and tile geometry, the parameters in force and each tile's
+    data (its tile-parts' bytes, joined in order) of a J2K codestream."""
+    if cs[:4] != J2K_SOC_SIZ:
+        raise JP2Error("JPEG 2000: the codestream does not start with SOC and SIZ")
+    n = struct.unpack_from(">H", cs, 4)[0]
+    r = _Reader(cs[6:4 + n], "SIZ")
+    rsiz, X1, Y1, X0, Y0, TW, TH, TX0, TY0, C = r.take("HIIIIIIIIH")
+    if rsiz & 0x8000 or rsiz & 0x4000:
+        raise JP2Error(f"JPEG 2000: capabilities 0x{rsiz:04x} (Part 2 or HTJ2K) are not "
+                       f"decoded")
+    comps = [r.take("BBB") for _ in range(C)]
+    if not C or X1 <= X0 or Y1 <= Y0 or not TW or not TH or TX0 > X0 or TY0 > Y0 \
+            or TX0 + TW <= X0 or TY0 + TH <= Y0:
+        raise JP2Error(f"JPEG 2000: SIZ with image [{X0}, {X1}) x [{Y0}, {Y1}), tiles "
+                       f"{TW} x {TH} at ({TX0}, {TY0}) and {C} components is not valid")
+    info = {"X0": X0, "Y0": Y0, "X1": X1, "Y1": Y1, "TW": TW, "TH": TH, "TX0": TX0,
+            "TY0": TY0, "prec": [(s & 0x7F) + 1 for s, _, _ in comps],
+            "signed": [bool(s & 0x80) for s, _, _ in comps],
+            "sub": [(dx, dy) for _, dx, dy in comps]}
+    if any(dx == 0 or dy == 0 for dx, dy in info["sub"]) or max(info["prec"]) > 38:
+        raise JP2Error(f"JPEG 2000: SIZ with components of {info['prec']} bits and "
+                       f"sub-sampling {info['sub']} is not valid")
+    main = _Params()
+    pos = 4 + n
+    for marker, body, pos in _segments(cs, pos, len(cs)):
+        if marker == _SOT:
+            break
+        if marker == _SOD:
+            raise JP2Error("JPEG 2000: SOD in the main header")
+        _check_marker(marker, "main header")
+        if marker in (_COD, _COC, _QCD, _QCC):
+            main.read(marker, body, C, "main header's marker")
+    ntx, nty = _ceildiv(X1 - TX0, TW), _ceildiv(Y1 - TY0, TH)
+    info.update(ntx=ntx, nty=nty, main=main)
+    tiles = {}
+    while pos + 2 <= len(cs) and struct.unpack_from(">H", cs, pos)[0] == _SOT:
+        if pos + 12 > len(cs):
+            raise JP2Error("JPEG 2000: truncated codestream (in an SOT marker)")
+        isot, psot, tpsot, _ = struct.unpack_from(">HIBB", cs, pos + 4)
+        if isot >= ntx * nty:
+            raise JP2Error(f"JPEG 2000: SOT names tile {isot} of {ntx * nty}")
+        start = pos
+        end = start + psot if psot else len(cs) - (2 if cs[-2:] == b"\xff\xd9" else 0)
+        if end > len(cs):
+            raise JP2Error(f"JPEG 2000: truncated codestream (tile {isot}'s part {tpsot} "
+                           f"ends at byte {end} of {len(cs)})")
+        tile = tiles.setdefault(isot, {"params": _Params(main), "data": []})
+        for marker, body, p in _segments(cs, pos + 12, end):
+            if marker == _SOD:
+                pos = p + 2
+                break
+            if marker == _SOT:
+                raise JP2Error("JPEG 2000: SOT inside a tile-part header")
+            _check_marker(marker, "tile-part header")
+            if marker in (_COD, _COC, _QCD, _QCC):
+                tile["params"].read(marker, body, C, f"tile {isot}'s marker")
+        tile["data"].append(cs[pos:end])
+        pos = end
+    if cs[pos:pos + 2] != b"\xff\xd9":
+        raise JP2Error(f"JPEG 2000: truncated codestream (no EOC marker after the last "
+                       f"tile-part, at byte {pos} of {len(cs)})")
+    if len(tiles) < ntx * nty:
+        missing = next(t for t in range(ntx * nty) if t not in tiles)
+        raise JP2Error(f"JPEG 2000: truncated codestream (no data for tile {missing} of "
+                       f"{ntx * nty})")
+    info["tiles"] = {t: (v["params"], b"".join(v["data"])) for t, v in tiles.items()}
+    return info
+
+
+# ---------------------------------------------------------------------------
+# tier 2
+# ---------------------------------------------------------------------------
+
+class _Bits:
+    """Packet-header bits, with the stuffed 0 bit after each 0xFF byte."""
+
+    def __init__(self, data: bytes, pos: int, end: int, where: str):
+        self.data, self.pos, self.end, self.where = data, pos, end, where
+        self.buf = self.ct = 0
+
+    def _byte(self):
+        self.buf = (self.buf << 8) & 0xFFFF
+        self.ct = 7 if self.buf == 0xFF00 else 8
+        if self.pos < self.end:
+            self.buf |= self.data[self.pos]
+            self.pos += 1
+            return True
+        return False
+
+    def bit(self) -> int:
+        if self.ct == 0 and not self._byte():
+            raise JP2Error(f"JPEG 2000: truncated codestream (a packet header of {self.where} "
+                           f"reads past the tile's data)")
+        self.ct -= 1
+        return (self.buf >> self.ct) & 1
+
+    def bits(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | self.bit()
+        return v
+
+    def align(self) -> int:
+        """The byte after the header."""
+        if (self.buf & 0xFF) == 0xFF:
+            self._byte()
+        self.ct = 0
+        return self.pos
+
+
+class _TagTree:
+    """A tag tree over w x h leaves (B.10.2), decoded as OpenJPEG's
+    opj_tgt_decode does."""
+
+    def __init__(self, w: int, h: int):
+        parent, base = [], 0
+        while w * h > 1:
+            pw, ph = _ceildiv(w, 2), _ceildiv(h, 2)
+            top = base + w * h
+            parent += [top + (j // 2) * pw + i // 2 for j in range(h) for i in range(w)]
+            base, w, h = top, pw, ph
+        parent.append(-1)
+        self.parent = parent
+        self.value = [999] * len(parent)
+        self.low = [0] * len(parent)
+
+    def decode(self, bits: _Bits, leaf: int, threshold: int) -> bool:
+        path = [leaf]
+        while self.parent[path[-1]] >= 0:
+            path.append(self.parent[path[-1]])
+        value, lows = self.value, self.low
+        low = 0
+        for node in reversed(path):
+            if low > lows[node]:
+                lows[node] = low
+            else:
+                low = lows[node]
+            while low < threshold and low < value[node]:
+                if bits.bit():
+                    value[node] = low
+                else:
+                    low += 1
+            lows[node] = low
+        return value[leaf] < threshold
+
+
+class _Block:
+    __slots__ = ("x0", "y0", "x1", "y1", "lenbits", "numbps", "passes", "data")
+
+    def __init__(self, x0, y0, x1, y1):
+        self.x0, self.y0, self.x1, self.y1 = x0, y0, x1, y1
+        self.lenbits, self.numbps, self.passes, self.data = 0, 0, 0, []
+
+
+def _passes(bits: _Bits) -> int:
+    """The number of coding passes codeword (Table B.4)."""
+    if not bits.bit():
+        return 1
+    if not bits.bit():
+        return 2
+    n = bits.bits(2)
+    if n != 3:
+        return 3 + n
+    n = bits.bits(5)
+    if n != 31:
+        return 6 + n
+    return 37 + bits.bits(7)
+
+
+def _read_packet(data: bytes, pos: int, end: int, bands, layer: int, sop: bool, eph: bool,
+                 where: str) -> int:
+    """Read one packet at `pos` into the precinct's code-blocks; returns the
+    position after it."""
+    if sop and data[pos:pos + 2] == b"\xff\x91":
+        pos += 6
+    bits = _Bits(data, pos, end, where)
+    entries = []
+    if bits.bit():
+        for band in bands:
+            incl, zbp = band["incl"], band["zbp"]
+            for k, blk in enumerate(band["blocks"]):
+                first = not blk.passes          # not included in an earlier layer
+                if first:
+                    included = incl.decode(bits, k, layer + 1)
+                else:
+                    included = bits.bit()
+                if not included:
+                    continue
+                if first:
+                    i = 0
+                    while not zbp.decode(bits, k, i):
+                        i += 1
+                        if i > 74:
+                            raise JP2Error(f"JPEG 2000: corrupted packet header in {where} "
+                                           f"(a zero bit-plane count past 74)")
+                    blk.numbps = band["numbps"] + 1 - i
+                    blk.lenbits = 3
+                n = _passes(bits)
+                while bits.bit():
+                    blk.lenbits += 1
+                nbits = blk.lenbits + n.bit_length() - 1
+                if nbits > 32:
+                    raise JP2Error(f"JPEG 2000: corrupted packet header in {where} (a "
+                                   f"{nbits}-bit segment length)")
+                entries.append((blk, n, bits.bits(nbits)))
+    pos = bits.align()
+    if eph:
+        if data[pos:pos + 2] != b"\xff\x92":
+            raise JP2Error(f"JPEG 2000: corrupted packet header in {where} (no EPH marker)")
+        pos += 2
+    for blk, n, length in entries:
+        if pos + length > end:
+            raise JP2Error(f"JPEG 2000: truncated codestream or corrupted packet header (a "
+                           f"code-block's {length} bytes in {where} run past the tile's data)")
+        blk.passes += n
+        blk.data.append(data[pos:pos + length])
+        pos += length
+    return pos
+
+
+# ---------------------------------------------------------------------------
+# a tile
+# ---------------------------------------------------------------------------
+
+def _resolutions(tc: tuple, cp: dict, prec: int):
+    """The resolutions of a tile-component [x0, x1) x [y0, y1): their extents,
+    precinct grids and, in each precinct, the non-empty bands with their
+    code-blocks and tag trees (B.5-B.7, as OpenJPEG's tcd lays them out)."""
+    x0, y0, x1, y1 = tc
+    nres = cp["levels"] + 1
+    out = []
+    for r in range(nres):
+        lvl = nres - 1 - r
+        rx0, ry0 = _ceildiv(x0, 1 << lvl), _ceildiv(y0, 1 << lvl)
+        rx1, ry1 = _ceildiv(x1, 1 << lvl), _ceildiv(y1, 1 << lvl)
+        ppx, ppy = cp["precincts"][r]
+        if r and (ppx == 0 or ppy == 0):
+            raise JP2Error("JPEG 2000: a precinct of size 1 at a resolution above 0")
+        px0, py0 = (rx0 >> ppx) << ppx, (ry0 >> ppy) << ppy
+        pw = 0 if rx0 == rx1 else (_ceildiv(rx1, 1 << ppx) << ppx) - px0 >> ppx
+        ph = 0 if ry0 == ry1 else (_ceildiv(ry1, 1 << ppy) << ppy) - py0 >> ppy
+        if r == 0:
+            gx0, gy0, gw, gh = px0, py0, ppx, ppy
+            bandnos = (0,)
+        else:
+            gx0, gy0, gw, gh = _ceildiv(px0, 2), _ceildiv(py0, 2), ppx - 1, ppy - 1
+            bandnos = (1, 2, 3)
+        cbw, cbh = min(cp["cbw"], gw), min(cp["cbh"], gh)
+        bands = []
+        for b in bandnos:
+            if r == 0:
+                bx0, by0, bx1, by1 = rx0, ry0, rx1, ry1
+                step_index = 0
+            else:
+                ox, oy = b & 1, b >> 1
+                bx0 = _ceildiv(x0 - (ox << lvl), 1 << (lvl + 1))
+                by0 = _ceildiv(y0 - (oy << lvl), 1 << (lvl + 1))
+                bx1 = _ceildiv(x1 - (ox << lvl), 1 << (lvl + 1))
+                by1 = _ceildiv(y1 - (oy << lvl), 1 << (lvl + 1))
+                step_index = 3 * (r - 1) + b
+            if step_index >= len(cp["steps"]):
+                raise JP2Error(f"JPEG 2000: the quantization marker has no step size for "
+                               f"sub-band {step_index}")
+            expn, mant = cp["steps"][step_index]
+            bands.append({"bandno": b, "x0": bx0, "y0": by0, "x1": bx1, "y1": by1,
+                          "numbps": expn + cp["guard"] - 1,
+                          "step": np.float32((1.0 + mant / 2048.0) * 2.0 ** (prec - expn))})
+        precincts = []
+        for p in range(pw * ph):
+            cx0, cy0 = gx0 + (p % pw << gw), gy0 + (p // pw << gh)
+            pbands = []
+            for band in bands:
+                if band["x0"] == band["x1"] or band["y0"] == band["y1"]:
+                    continue                        # an empty band has no blocks in packets
+                qx0, qy0 = max(cx0, band["x0"]), max(cy0, band["y0"])
+                qx1, qy1 = min(cx0 + (1 << gw), band["x1"]), min(cy0 + (1 << gh), band["y1"])
+                bx0, by0 = (qx0 >> cbw) << cbw, (qy0 >> cbh) << cbh
+                cw = max(0, (_ceildiv(qx1, 1 << cbw) << cbw) - bx0 >> cbw)
+                ch = max(0, (_ceildiv(qy1, 1 << cbh) << cbh) - by0 >> cbh)
+                blocks = []
+                for k in range(cw * ch):
+                    ax, ay = bx0 + (k % cw << cbw), by0 + (k // cw << cbh)
+                    blocks.append(_Block(max(ax, qx0), max(ay, qy0), min(ax + (1 << cbw), qx1),
+                                         min(ay + (1 << cbh), qy1)))
+                pbands.append({**band, "blocks": blocks, "incl": _TagTree(cw, ch) if blocks
+                               else None, "zbp": _TagTree(cw, ch) if blocks else None})
+            precincts.append(pbands)
+        out.append({"x0": rx0, "y0": ry0, "x1": rx1, "y1": ry1, "ppx": ppx, "ppy": ppy,
+                    "pw": pw, "ph": ph, "precincts": precincts, "lvl": lvl})
+    return out
+
+
+def _packet_order(order: int, layers: int, comps, tx0: int, ty0: int):
+    """(layer, resolution, component, precinct) of each packet of a tile, in
+    its progression order (B.12).  The position orders visit a precinct at
+    the reference-grid point of its top-left corner, or at the tile's origin
+    for the first row / column when the precinct grid starts before it, as
+    OpenJPEG's packet iterator does."""
+    keys = []
+    for c, res in enumerate(comps):
+        for r, rs in enumerate(res):
+            if not rs["pw"] or not rs["ph"]:
+                continue
+            lvl = rs["lvl"]
+            gx0, gy0 = rs["x0"] >> rs["ppx"], rs["y0"] >> rs["ppy"]
+            for p in range(rs["pw"] * rs["ph"]):
+                i, j = p % rs["pw"], p // rs["pw"]
+                x = max(tx0, (gx0 + i) << (rs["ppx"] + lvl))
+                y = max(ty0, (gy0 + j) << (rs["ppy"] + lvl))
+                keys.append((c, r, p, x, y))
+    name = _PROGRESSIONS[order]
+    out = []
+    if name in ("LRCP", "RLCP"):
+        nres = max(len(res) for res in comps)
+        for a in range(layers if name == "LRCP" else nres):
+            for b in range(nres if name == "LRCP" else layers):
+                lay, r = (a, b) if name == "LRCP" else (b, a)
+                out += [(lay, r, c, p) for c, rr, p, _, _ in keys if rr == r]
+        return out
+    sort = {"RPCL": lambda k: (k[1], k[4], k[3], k[0]),
+            "PCRL": lambda k: (k[4], k[3], k[0], k[1]),
+            "CPRL": lambda k: (k[0], k[4], k[3], k[1])}[name]
+    for c, r, p, _, _ in sorted(keys, key=sort):
+        out += [(lay, r, c, p) for lay in range(layers)]
+    return out
+
+
+def _half_toward_zero(v: np.ndarray) -> np.ndarray:
+    """v / 2 as C's integer division truncates it."""
+    return np.where(v < 0, -((-v) >> 1), v >> 1)
+
+
+def _pair(x: np.ndarray, first: int, count: int):
+    """x[..., first + i] and x[..., first + i + 1] for i < count along the
+    last axis, an index past either end taken from that end: a band's
+    neighbours under the symmetric extension of the whole signal."""
+    e = x[..., np.clip(np.arange(first, first + count + 1), 0, x.shape[-1] - 1)]
+    return e[..., :-1], e[..., 1:]
+
+
+def _interleave(s: np.ndarray, d: np.ndarray, cas: int) -> np.ndarray:
+    out = np.empty(s.shape[:-1] + (s.shape[-1] + d.shape[-1],), s.dtype)
+    out[..., cas::2], out[..., 1 - cas::2] = s, d
+    return out
+
+
+# The low-pass band's sample i sits between the high-pass samples i - 1 and
+# i (cas 0: the first coordinate is even) or i and i + 1 (cas 1), and the
+# high-pass sample i between the low-pass ones i and i + 1, or i - 1 and i.
+
+def _idwt53(a: np.ndarray, sn: int, cas: int) -> np.ndarray:
+    """The inverse 5/3 along the last axis in integer lifting: a[..., :sn]
+    the low-pass band, a[..., sn:] the high-pass one, cas the parity of the
+    first sample's coordinate.  One sample is kept, or halved toward zero
+    where it is high-pass, as OpenJPEG does."""
+    n = a.shape[-1]
+    if n == 1:
+        return _half_toward_zero(a) if cas else a
+    s, d = a[..., :sn].copy(), a[..., sn:].copy()
+    left, right = _pair(d, cas - 1, sn)
+    s -= (left + right + 2) >> 2
+    left, right = _pair(s, -cas, n - sn)
+    d += (left + right) >> 1
+    return _interleave(s, d, cas)
+
+
+def _idwt97(a: np.ndarray, sn: int, cas: int) -> np.ndarray:
+    """The inverse 9/7 along the last axis in float32, as OpenJPEG 2.5's
+    opj_v8dwt_decode computes it: the bands scaled by K and 2 / K, then the
+    four lifting steps, each x += (left + right) * c (one sample is kept as
+    it is)."""
+    n = a.shape[-1]
+    if n == 1:
+        return a
+    s, d = a[..., :sn] * _K, a[..., sn:] * _TWO_INV_K
+    for low, c in ((True, -_DELTA), (False, -_GAMMA), (True, -_BETA), (False, -_ALPHA)):
+        if low:
+            left, right = _pair(d, cas - 1, sn)
+            s += (left + right) * c
+        else:
+            left, right = _pair(s, -cas, n - sn)
+            d += (left + right) * c
+    return _interleave(s, d, cas)
+
+
+def _tile_component(res, cp: dict, shape) -> np.ndarray:
+    """Tier 1, dequantisation and the inverse DWT of one tile-component."""
+    rev = cp["reversible"]
+    buf = np.zeros(shape, np.int64 if rev else np.float32)
+    for r, rs in enumerate(res):
+        prev = res[r - 1] if r else None
+        for pbands in rs["precincts"]:
+            for band in pbands:
+                b = band["bandno"]
+                ox = prev["x1"] - prev["x0"] if b & 1 else 0
+                oy = prev["y1"] - prev["y0"] if b & 2 else 0
+                for blk in band["blocks"]:
+                    if not blk.passes or blk.x0 >= blk.x1 or blk.y0 >= blk.y1:
+                        continue
+                    if blk.numbps > 30:
+                        raise JP2Error(f"JPEG 2000: a code-block of {blk.numbps} bit-planes")
+                    v = decode_block(b"".join(blk.data), blk.passes, blk.x1 - blk.x0,
+                                     blk.y1 - blk.y0, blk.numbps, b)
+                    if rev:
+                        v = _half_toward_zero(v)
+                    else:
+                        v = v.astype(np.float32) * (np.float32(0.5) * band["step"])
+                    y, x = blk.y0 - band["y0"] + oy, blk.x0 - band["x0"] + ox
+                    buf[y:y + v.shape[0], x:x + v.shape[1]] = v
+    idwt = _idwt53 if rev else _idwt97
+    for r in range(1, len(res)):
+        rs, prev = res[r], res[r - 1]
+        rw, rh = rs["x1"] - rs["x0"], rs["y1"] - rs["y0"]
+        if rw and rh:
+            buf[:rh, :rw] = idwt(buf[:rh, :rw], prev["x1"] - prev["x0"], rs["x0"] & 1)
+            buf[:rh, :rw] = idwt(buf[:rh, :rw].T, prev["y1"] - prev["y0"], rs["y0"] & 1).T
+    return buf
+
+
+def _decode_tile(info: dict, t: int):
+    """The components of tile t, after the inverse MCT, the DC level shift
+    and the clip: a list of int64 arrays, with the tile's origin."""
+    params, data = info["tiles"][t]
+    p, q = t % info["ntx"], t // info["ntx"]
+    tx0 = max(info["TX0"] + p * info["TW"], info["X0"])
+    ty0 = max(info["TY0"] + q * info["TH"], info["Y0"])
+    tx1 = min(info["TX0"] + (p + 1) * info["TW"], info["X1"])
+    ty1 = min(info["TY0"] + (q + 1) * info["TH"], info["Y1"])
+    cps = [params.component(c) for c in range(len(info["prec"]))]
+    comps = [_resolutions((tx0, ty0, tx1, ty1), cp, prec)
+             for cp, prec in zip(cps, info["prec"])]
+    cod = cps[0]
+    pos = 0
+    for lay, r, c, prc in _packet_order(cod["order"], cod["layers"], comps, tx0, ty0):
+        if pos >= len(data):
+            raise JP2Error(f"JPEG 2000: truncated codestream (tile {t}'s data ends before "
+                           f"its packet of layer {lay}, resolution {r}, component {c})")
+        pos = _read_packet(data, pos, len(data), comps[c][r]["precincts"][prc], lay,
+                           cod["sop"], cod["eph"],
+                           f"tile {t} (layer {lay}, resolution {r}, component {c})")
+    out = [_tile_component(res, cp, (ty1 - ty0, tx1 - tx0)) for res, cp in zip(comps, cps)]
+    if cod["mct"] and len(out) >= 3:
+        if cod["mct"] != 1:
+            raise JP2Error(f"JPEG 2000: multiple component transform {cod['mct']}")
+        if cps[0]["reversible"]:        # RCT (G.2)
+            y, u, v = out[:3]
+            g = y - ((u + v) >> 2)
+            out[:3] = [v + g, g, u + g]
+        else:                           # ICT (G.3), OpenJPEG's float32 coefficients
+            y, u, v = out[:3]
+            out[:3] = [y + v * np.float32(1.402),
+                       y - u * np.float32(0.34413) - v * np.float32(0.71414),
+                       y + u * np.float32(1.772)]
+    shifted = []
+    for a, cp, prec in zip(out, cps, info["prec"]):
+        if not cp["reversible"]:
+            a = np.rint(np.clip(a, -2.0 ** 31, 2.0 ** 31 - 1)).astype(np.int64)
+        shifted.append(np.clip(a + (1 << (prec - 1)), 0, (1 << prec) - 1))
+    return shifted, (tx0, ty0)
+
+
+def decode_codestream(cs: bytes):
+    """A J2K codestream -> (its components, int64 [H, W] each; their
+    precisions), for 1, 3 or 4 components of unsigned samples of at most 16
+    bits, the largest of at least 8, at offset 0 without sub-sampling
+    (anything else raises, as OpenCV reads no image from it)."""
+    info = parse_codestream(cs)
+    if len(info["prec"]) not in (1, 3, 4):
+        raise JP2Error(f"JPEG 2000 with {len(info['prec'])} components: OpenCV reads no image "
+                       f"from it (it takes 1, 3 or 4)")
+    if any(info["signed"]):
+        raise JP2Error("JPEG 2000 with signed samples: OpenCV reads no image from it")
+    if info["X0"] or info["Y0"]:
+        raise JP2Error(f"JPEG 2000 with an image offset of ({info['X0']}, {info['Y0']}): "
+                       f"OpenCV reads no image from it")
+    if any(s != (1, 1) for s in info["sub"]):
+        raise JP2Error(f"JPEG 2000 with sub-sampled components {info['sub']}: OpenCV reads no "
+                       f"image from it")
+    top = max(info["prec"])
+    if top < 8 or top > 16:
+        raise JP2Error(f"JPEG 2000 with {top}-bit samples: OpenCV reads no image from it")
+    H, W = info["Y1"], info["X1"]
+    if W > 1 << 20 or H > 1 << 20 or W * H > 1 << 30:
+        raise JP2Error(f"JPEG 2000 image of {W} x {H} pixels: past OpenCV's limits "
+                       f"(2^20 a side, 2^30 in all), so OpenCV reads no image from it")
+    comps = [np.zeros((H, W), np.int64) for _ in info["prec"]]
+    for t in range(info["ntx"] * info["nty"]):
+        tile, (x0, y0) = _decode_tile(info, t)
+        for dst, a in zip(comps, tile):
+            dst[y0:y0 + a.shape[0], x0:x0 + a.shape[1]] = a
+    return comps, info["prec"]
+
+
+# ---------------------------------------------------------------------------
+# the JP2 file format
+# ---------------------------------------------------------------------------
+
+def _boxes(data: bytes, pos: int, end: int):
+    """(type, body) of the boxes in data[pos:end]."""
+    while pos + 8 <= end:
+        n, kind = struct.unpack_from(">I4s", data, pos)
+        head = 8
+        if n == 1:
+            if pos + 16 > end:
+                break
+            n, head = struct.unpack_from(">Q", data, pos + 8)[0], 16
+        elif n == 0:
+            n = end - pos
+        if n < head or pos + n > end:
+            raise JP2Error(f"JPEG 2000: the '{kind.decode('latin-1')}' box runs past the end "
+                           f"of the file")
+        yield kind, data[pos + head:pos + n]
+        pos += n
+
+
+def _read_jp2(data: bytes):
+    """The codestream and the colour information of a JP2 file."""
+    colour, cdef, cs = None, None, None
+    for kind, body in _boxes(data, 12, len(data)):
+        if kind == b"jp2h":
+            for sub, sb in _boxes(body, 0, len(body)):
+                if sub in (b"pclr", b"cmap"):
+                    raise JP2Error(f"JPEG 2000 with a palette ('{sub.decode()}' box): the port "
+                                   f"does not apply palettes")
+                if sub == b"colr" and colour is None and len(sb) >= 3:
+                    colour = struct.unpack_from(">I", sb, 3)[0] if sb[0] == 1 and \
+                        len(sb) >= 7 else 0
+                elif sub == b"cdef" and len(sb) >= 2:
+                    n = struct.unpack_from(">H", sb)[0]
+                    if len(sb) < 2 + 6 * n:
+                        raise JP2Error("JPEG 2000: a truncated 'cdef' box")
+                    cdef = [struct.unpack_from(">HHH", sb, 2 + 6 * i) for i in range(n)]
+        elif kind == b"jp2c":
+            cs = body
+            break
+    if cs is None:
+        raise JP2Error("JPEG 2000: a JP2 file without a codestream ('jp2c' box)")
+    if colour in (12, 18, 24):
+        raise JP2Error(f"JPEG 2000 in the {({12: 'CMYK', 18: 'sYCC', 24: 'e-YCC'})[colour]} "
+                       f"colour space: OpenCV converts it and the port does not")
+    return cs, colour, cdef
+
+
+def _apply_cdef(comps: list, cdef) -> list:
+    """Swap the colour channels a 'cdef' box associates elsewhere, as
+    OpenJPEG's opj_jp2_apply_cdef does."""
+    comps, cdef = list(comps), [list(e) for e in cdef]
+    for i, (cn, typ, asoc) in enumerate(cdef):
+        if cn >= len(comps) or asoc in (0, 65535) or asoc - 1 >= len(comps):
+            continue
+        acn = asoc - 1
+        if cn != acn and typ == 0:
+            comps[cn], comps[acn] = comps[acn], comps[cn]
+            for e in cdef[i + 1:]:
+                if e[0] == cn:
+                    e[0] = acn
+                elif e[0] == acn:
+                    e[0] = cn
+    return comps
+
+
+def decode_jp2(data: bytes) -> np.ndarray:
+    """A .jp2 file or a raw J2K codestream -> the array
+    cv2.imread(IMREAD_UNCHANGED) gives, channels in RGB(A) order (module
+    docstring)."""
+    if data[:12] == JP2_SIGNATURE:
+        cs, colour, cdef = _read_jp2(data)
+    elif data[:4] == J2K_SOC_SIZ:
+        cs, colour, cdef = data, None, None
+    else:
+        raise JP2Error("JPEG 2000: neither a JP2 signature nor a codestream's SOC and SIZ")
+    comps, prec = decode_codestream(cs)
+    if cdef:
+        comps = _apply_cdef(comps, cdef)
+    if colour == 17 and len(comps) == 4:
+        raise JP2Error("JPEG 2000 with 4 components in the gray colour space: OpenCV reads "
+                       "no image from it")
+    if colour == 17 and len(comps) == 3:      # gray: OpenCV repeats the first component
+        comps = [comps[0]] * 3
+    out = np.stack(comps, axis=-1).astype(np.uint8 if max(prec) == 8 else np.uint16)
+    return out[..., 0] if out.shape[-1] == 1 else out

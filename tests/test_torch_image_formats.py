@@ -6,9 +6,11 @@ writer in tests/image_format_writers.py where neither writes the variant.
 
 The port's `read_image` and `iron_tpu.data.io.read_image` give the same
 float32 arrays, bit for bit; the port's decoder before the float conversion
-equals cv2.imread's array (channels in RGB order).  The formats OpenCV reads
-that the port does not (JPEG 2000, AVIF), and the files OpenCV refuses,
-raise.  write_image writes what cv2.imwrite writes, or raises."""
+equals cv2.imread's array (channels in RGB order).  The format OpenCV reads
+that the port does not (AVIF), and the files OpenCV refuses, raise; JPEG
+2000, which this OpenCV also writes (.jp2), now decodes (held in depth by
+tests/test_torch_jp2.py).  write_image writes what cv2.imwrite writes, or
+raises."""
 import io
 import os
 import subprocess
@@ -418,19 +420,23 @@ def test_files_opencv_refuses_raise_in_both(case, tmp_path):
         tio.read_image(path)
 
 
-@pytest.mark.parametrize("fmt", ["webp", "webp lossless", "avif", "pam"])
+@pytest.mark.parametrize("fmt", ["webp", "webp lossless", "avif", "pam", "jp2"])
 def test_formats_still_to_port_raise_naming_them(fmt, tmp_path):
     """Of the formats the JAX package reads through OpenCV, WebP (lossy and
-    lossless) and PAM now decode bit-equal to cv2's decode and read as the
-    JAX package reads them (tests/test_torch_webp.py holds them in depth);
-    AVIF still raises in the port naming the format (ROADMAP.md section 1
-    queues its decoder; JPEG 2000's raise is held in
-    test_files_opencv_refuses_raise_in_both, since this OpenCV writes no
-    .jp2)."""
+    lossless), PAM and JPEG 2000 (OpenCV's own .jp2) now decode bit-equal to
+    cv2's decode and read as the JAX package reads them
+    (tests/test_torch_webp.py and tests/test_torch_jp2.py hold them in
+    depth); AVIF still raises in the port naming the format (ROADMAP.md
+    section 1 queues its decoder).  A JP2 signature followed by zeros, which
+    OpenCV refuses, raises naming JPEG 2000 in
+    test_files_opencv_refuses_raise_in_both.  (OpenCV's JPEG 2000 writer
+    takes 6 resolutions, so its image is the test image tiled 2 x 2, at
+    least 32 pixels a side.)"""
     ext = "." + fmt.split()[0]
     flags = [cv2.IMWRITE_WEBP_QUALITY, 101] if fmt == "webp lossless" else []
-    path = _write(tmp_path, "a" + ext, _cv2(ext, BGR, flags))
-    assert jio.read_image(path).shape == IMG.shape
+    bgr = np.tile(BGR, (2, 2, 1)) if fmt == "jp2" else BGR
+    path = _write(tmp_path, "a" + ext, _cv2(ext, bgr, flags))
+    assert jio.read_image(path).shape == bgr.shape
     if fmt == "avif":
         with pytest.raises(ValueError, match="AVIF"):
             tio.read_image(path)
