@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only-8i    # the build, then phase 8i alone (no result line)
     python3 chip_smoke.py --only-8j    # the build, then phase 8j alone (no result line)
     python3 chip_smoke.py --only-8k    # the build, then phase 8k alone (no result line)
+    python3 chip_smoke.py --only-8l    # the build, then phase 8l alone (no result line)
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, and drives the port's main
@@ -111,6 +112,11 @@ with the launch counts set to 0 just before it and read just after:
     8- and 16-bit lossless and 8-bit lossy gray masks) decoded by the port
     bit-equal to OpenCV's decode recorded beside it, then the same 8
     stage-1 steps;
+  * the same run from TIFF files (phase 8l, `tiff_phase`): tests/data_tiff/
+    (YCbCr JPEG-in-TIFF tiles, a BigTIFF float32 view with the
+    floating-point predictor and a CMYK LZW view, named .jpg / .png; Group 4,
+    Group 3 2D FillOrder 2 and float64 masks) decoded by the port bit-equal
+    to OpenCV's decode recorded beside it, then the same 8 stage-1 steps;
 
 then times each kernel beside its plain version and its bound, and prints:
 
@@ -135,11 +141,12 @@ then times each kernel beside its plain version and its bound, and prints:
     losses and launches, beside the card's name and power limit;
   * one JSON line {"webp": {...}}: the same record of phase 8j;
   * one JSON line {"jp2": {...}}: the same record of phase 8k;
+  * one JSON line {"tiff": {...}}: the same record of phase 8l;
   * one JSON line {"kernels": [...]} on the six kernels (launches: K1-K3
     from the default training run, K4 from the trace_pallas training run,
     K5 from the sweep; beside them each kernel's launches on phase 8f's
     paths, a rank's on phase 8g's and a step's on phase 8h's, a stage-1
-    replay's from the device trace, and phases 8j's and 8k's);
+    replay's from the device trace, and phases 8j's, 8k's and 8l's);
   * last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -2632,6 +2639,56 @@ def jp2_phase(args, dev, card, kernels) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 8l: TIFF as OpenCV's libtiff reads it, the port's twelfth slice
+# ---------------------------------------------------------------------------
+
+TIFF_STEPS = 8       # phase 8l's stage-1 steps on the fixture scene
+
+
+def tiff_phase(args, dev, card, kernels) -> dict:
+    """Phase 8l, a stage-1 run from TIFF files of the variants the port's
+    twelfth slice reads, which the JAX package reads through OpenCV
+    (libtiff) and the port with its own decoders (this machine has neither
+    OpenCV nor PIL): tests/data_tiff/ (scripts/make_tiff_fixtures.py), three
+    256x256 views of one camera named as the dataset lists them but TIFF
+    inside (view0.jpg YCbCr JPEG-in-TIFF, 2x2 subsampling, in tiles with
+    JPEGTables; view1.png a big-endian BigTIFF of float32 samples with the
+    floating-point predictor; view2.png CMYK LZW), their masks Group 4,
+    Group 3 2D with FillOrder 2 and float64:
+
+      (a) each file decoded by the port, its sha256 that of OpenCV's decode
+          (_decode_fixture), the three masks equal and binary, the float and
+          CMYK views equal (both hold the PNG's values exactly), the JPEG
+          view within 3/255 on average of them;
+      (b), (c) RayDataset.from_folder(..., mask_dir=...) on the card and
+          8 stage-1 steps at Stage1Config()'s width (_stage1_on_fixture:
+          K3-fwd and K3-bwd once a step, a falling loss on a fixed batch)."""
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, "tests", "data_tiff")
+    decode_ms, decoded = _decode_fixture(root)
+    masks = [v for k, v in sorted(decoded.items()) if k.startswith("mask/")]
+    assert all(np.array_equal(masks[0], m) for m in masks[1:])
+    assert set(np.unique(masks[0]).tolist()) == {0.0, 1.0}
+    exact = decoded["image/view2.png"]
+    assert np.array_equal(decoded["image/view1.png"], exact)
+    lossy_err = {"image/view0.jpg": float(np.abs(decoded["image/view0.jpg"] - exact).mean()
+                                          * 255)}
+    assert all(e <= 3.0 for e in lossy_err.values()), lossy_err
+    log(f"phase 8l (a) decodes of tests/data_tiff/ (host, ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items())
+        + f"; every array's sha256 is OpenCV's; the JPEG view's mean |difference| from the "
+        f"exact ones (of 255): {lossy_err}; card {card}")
+    rec = {"card": card, "decode_ms": decode_ms, "lossy_mean_abs_err_255": lossy_err,
+           # phase 8i's initialisation and draws: the same scene, decoded from other files
+           **_stage1_on_fixture(args, dev, card, kernels, root,
+                                ["view0.jpg", "view1.png", "view2.png"], args.seed + 9,
+                                TIFF_STEPS, "8l (c)"),
+           "wall_s": time.perf_counter() - t0}
+    log(f"phase 8l: {rec['wall_s']:.1f} s")
+    return rec
+
+
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list tree, in key order."""
     if isinstance(tree, dict):
@@ -2663,6 +2720,8 @@ def main(argv=None) -> int:
                          "line)")
     ap.add_argument("--only-8k", action="store_true",
                     help="build, then run phase 8k alone (JPEG 2000; prints no result line)")
+    ap.add_argument("--only-8l", action="store_true",
+                    help="build, then run phase 8l alone (TIFF; prints no result line)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "iron_tpu_torch", "kernels", "csrc")):
@@ -2717,6 +2776,10 @@ def main(argv=None) -> int:
 
     if args.only_8k:
         log(json.dumps({"jp2": jp2_phase(args, dev, card, kernels)}))
+        return 0
+
+    if args.only_8l:
+        log(json.dumps({"tiff": tiff_phase(args, dev, card, kernels)}))
         return 0
 
     if args.only_8h:
@@ -3621,6 +3684,9 @@ def main(argv=None) -> int:
     # ---- 8k. JPEG 2000: the same stage-1 run from tests/data_jp2/ ----
     jp2 = jp2_phase(args, dev, card, kernels)
 
+    # ---- 8l. TIFF as libtiff reads it: the same stage-1 run from tests/data_tiff/ ----
+    tiff = tiff_phase(args, dev, card, kernels)
+
     # ---- 9. timings at the slice's shapes ----
     kernel_rows = []
     work = sdf_work(cfg.sdf)
@@ -3884,7 +3950,8 @@ def main(argv=None) -> int:
              "research_launches": research_launches[r[0]], "dp_launches": dp_launches[r[0]],
              "graph_launches": graph_launches[r[0]],
              "webp_launches": webp["launches"].get(r[0], 0),
-             "jp2_launches": jp2["launches"].get(r[0], 0)}
+             "jp2_launches": jp2["launches"].get(r[0], 0),
+             "tiff_launches": tiff["launches"].get(r[0], 0)}
             for r in kernel_rows]
     log(json.dumps({"cli": cli}))
     log(json.dumps({"research": research}))
@@ -3893,6 +3960,7 @@ def main(argv=None) -> int:
     log(json.dumps({"formats": formats}))
     log(json.dumps({"webp": webp}))
     log(json.dumps({"jp2": jp2}))
+    log(json.dumps({"tiff": tiff}))
     log(json.dumps({"kernels": rows}))
     log(card)
     # ---- 11. result ----

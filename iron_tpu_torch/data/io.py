@@ -5,9 +5,11 @@ IMREAD_UNCHANGED), which picks its decoder by the file's first bytes, not
 its name.  `read_image` does the same (`decode_image`): PNG (here, on numpy
 and zlib: every colour type and bit depth, filters 0-4, Adam7), JPEG
 (`jpeg.py`: baseline, progressive, arithmetic-coded, lossless, 1/3/4
-components), TIFF (`tiff.py`), WebP (`webp.py`: lossy, lossless, alpha, an
-animation's first frame), BMP, PBM/PGM/PPM, PAM, PFM, Radiance HDR, Sun
-raster and GIF (`formats.py`), JPEG 2000 (`jp2.py`: .jp2 boxes and raw
+components), TIFF (`tiff.py`: classic and BigTIFF; none, PackBits, LZW,
+Deflate, JPEG and CCITT (`ccitt.py`); gray, RGB(A), palette, CMYK, YCbCr,
+CIELab; 1- to 64-bit unsigned, signed and float samples), WebP
+(`webp.py`: lossy, lossless, alpha, an animation's first frame), BMP,
+PBM/PGM/PPM, PAM, PFM, Radiance HDR, Sun raster and GIF (`formats.py`), JPEG 2000 (`jp2.py`: .jp2 boxes and raw
 codestreams, EBCOT, the 5/3 and 9/7 wavelets), each bit-equal to OpenCV's
 decoder; AVIF, which OpenCV also reads, raises naming the format, as does a
 file no OpenCV decoder takes.  EXR is chosen by the name, as in the
@@ -15,8 +17,8 @@ JAX package, and goes through the port's own codec (`exr.py`).  Then the
 JAX package's float conversion: gray repeated to RGB, a fourth channel
 dropped (two channels, PAM's gray + alpha, kept as two, reversed), BGR ->
 RGB, and content whose maximum passes 1.5 divided by 255
-(or 65535 past 255.5) -- float PFM and HDR content too; EXR gets a 1/2.2
-gamma.
+(or 65535 past 255.5) -- float PFM, HDR and TIFF content and TIFF's 32-
+and 64-bit integers too; EXR gets a 1/2.2 gamma.
 
 `write_image` writes what the JAX package's cv2.imwrite writes for .png,
 .jpg / .jpeg / .jpe (baseline JPEG at quality 95), .bmp / .dib, .tif /

@@ -12,21 +12,21 @@ Reader, bit-equal to cv2.imread(IMREAD_UNCHANGED) (libjpeg-turbo): 8-bit
 DCT files, sequential (SOF0, SOF1) or progressive (SOF2: spectral selection
 and successive approximation, end-of-band runs), Huffman- or
 arithmetic-coded (SOF9, SOF10: T.81's QM coder with the DAC conditioning);
-lossless files (SOF3: predictors 1-7, point transform, 2-8 bits, no
-subsampling); 1, 3 or 4 components, interleaved or not, any sampling
-factors (DCT files), restart intervals.
+lossless files (SOF3: predictors 1-7, point transform, 2-8 bits); 1, 3
+or 4 components, interleaved or not, any sampling factors, restart
+intervals.
 The inverse DCT is libjpeg's integer one (jidctint.c); chroma is upsampled
 as libjpeg does by default (triangle filters for 2x2, 2x1 and 1x2,
-replication otherwise); the colour space follows libjpeg's JFIF / Adobe /
-component-id rules, and four components (CMYK, YCCK) go to BGR as OpenCV
-converts them.  Hierarchical, arithmetic-coded lossless and 12-bit DCT
+replication otherwise, and always in a lossless file); the colour space
+follows libjpeg's JFIF / Adobe / component-id rules, and four components
+(CMYK, YCCK) go to BGR as OpenCV converts them.  Hierarchical, arithmetic-coded lossless and 12-bit DCT
 files raise, as do lossless files of more than 8 bits (OpenCV gives no
 image for them).
 """
 from __future__ import annotations
 
 import struct
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 from scipy.fft import dctn
@@ -863,13 +863,19 @@ _UNREAD = {0xC5: "hierarchical", 0xC6: "hierarchical", 0xC7: "hierarchical",
            0xCF: "hierarchical"}
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
+def decode_jpeg(data: bytes, space: Optional[str] = None) -> np.ndarray:
     """JPEG bytes -> uint8 [H, W, 1] (gray) or [H, W, 3] (RGB), as
     cv2.imread(IMREAD_UNCHANGED) decodes them (channels in RGB order).
     Reads 8-bit sequential and progressive files, Huffman- or
     arithmetic-coded, and lossless (Huffman) files of 2-8 bits; 1, 3 or 4
     components.  Hierarchical, arithmetic-coded lossless and 12-bit files
-    raise."""
+    raise.
+
+    `space` overrides the colour space libjpeg would assume, as libtiff's
+    JPEG codec does: "ycc" converts three components YCbCr -> RGB
+    (JPEGCOLORMODE_RGB), "raw" gives the components as decoded, [H, W, n]
+    (JCS_UNKNOWN; full-size components only, as libtiff then reads no
+    subsampled ones)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     qt: Dict[int, np.ndarray] = {}
@@ -976,9 +982,6 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             scomps = [c for c in comps if c[0] in sel]
             segs, pos = _scan_segments(data, pos)
             if coding == "lossless":
-                if any((c[1], c[2]) != (1, 1) for c in comps):
-                    raise ValueError("JPEG: lossless files with subsampled components are not "
-                                     "read by the port")
                 if not 1 <= ss <= 7:
                     raise ValueError(f"JPEG: lossless scan with predictor {ss}")
                 _lossless_scan(segs, scomps, sel, dc_t, samples, grids, restart, H, W, hmax,
@@ -1048,7 +1051,22 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             nat[..., ZIGZAG] = grid * qt[tq]
             pix = idct_islow(nat.reshape(by, bx, 8, 8)).astype(np.int64)
             plane = pix.transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)[:ch, :cw]
-        planes.append(_upsample(plane, vmax // v, hmax // h)[:H, :W])
+        if coding == "lossless":
+            # libjpeg-turbo's fancy upsampling needs DCT blocks: a lossless
+            # component is replicated
+            plane = np.repeat(np.repeat(plane, vmax // v, axis=0), hmax // h, axis=1)
+        else:
+            plane = _upsample(plane, vmax // v, hmax // h)
+        planes.append(plane[:H, :W])
+    if space == "raw":
+        if hmax > 1 or vmax > 1:
+            raise ValueError("JPEG: subsampled components without a colour conversion are not "
+                             "read by the port")
+        return np.stack(planes, -1).astype(np.uint8)
+    if space == "ycc":
+        if len(planes) != 3:
+            raise ValueError(f"JPEG: a YCbCr conversion of {len(planes)} components")
+        return _to_output(planes, "ycc")
     space = _color_space(len(comps), [c[0] for c in comps], jfif, adobe, coding == "lossless")
     if coding == "lossless" and space in ("ycc", "ycck"):
         raise ValueError("JPEG: a lossless file in YCbCr or YCCK needs a colour conversion that "

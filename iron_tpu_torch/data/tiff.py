@@ -1,48 +1,116 @@
 """TIFF on numpy and zlib: the reader of what the JAX package reads through
-OpenCV's TIFF decoder (libtiff), and an uncompressed writer.
+OpenCV's TIFF decoder (libtiff 4.7), and an uncompressed writer.
 
-Read: little- or big-endian files, strips or tiles, chunky or planar
-samples, no compression, PackBits, LZW or Deflate, the horizontal
-predictor (which libtiff applies with LZW and Deflate only); 8- or 16-bit
-samples, 1-4 a pixel (bilevel gray and 1-8-bit palette files too); gray
-(min-is-black or min-is-white), RGB and palette images.  The
-result is cv2.imread(IMREAD_UNCHANGED)'s, bit for bit, channels in RGB(A)
-order.  OpenCV reads an 8-bit file through libtiff's RGBA interface
-(TIFFReadRGBAStrip / Tile), so the reader does what that does: gray maps
-through its bilevel / gray table, a palette's 16-bit entries shift down 8
-bits, an unassociated alpha premultiplies the colour ((c a + 127) / 255),
-an RGB file without alpha gets none; one channel for gray (any alpha
-dropped), three for RGB and palette, four for RGB with alpha.  A 16-bit
-file is read as stored.  Other layouts raise: those OpenCV refuses (2- and
-4-bit gray) or misreads (16-bit planar), and those the port has no decoder
-for (JPEG and the other compressions, float samples, BigTIFF, 16-bit gray
-with alpha or palette).
+The container: little- or big-endian, classic or BigTIFF (8-byte offsets,
+20-byte entries, LONG8 / SLONG8 / IFD8 fields), the first image; strips or
+tiles, chunky or planar samples, FillOrder 2 (every byte's bits reversed
+before the codec, as libtiff reverses them; JPEG ignores it).  Codecs: none,
+PackBits, LZW, Deflate, JPEG (`jpeg.py`, each strip or tile its own stream,
+JPEGTables spliced in front of an abbreviated one), CCITT modified Huffman,
+T.4 (1D and 2D) and T.6 (`ccitt.py`); the horizontal predictor (which
+libtiff applies with LZW and Deflate only, to 8- to 64-bit integers) and
+the floating-point one (bytes shuffled by significance, differenced).
+
+The result is cv2.imread(IMREAD_UNCHANGED)'s, bit for bit, channels in
+RGB(A) order.  OpenCV keeps 16-, 32- and 64-bit gray and RGB(A) samples as
+they are stored (uint16 / int16, uint32 / int32 / float32, uint64 / int64 /
+float64; min-is-white not inverted).  Everything else -- 8 bits and below,
+and any file with another photometric or a sample count other than 1, 3, 4
+-- goes through libtiff's RGBA interface (TIFFReadRGBAStrip / Tile) to 8
+bits, and the reader does what that does:
+- gray (min-is-black / -white, bilevel, 16-bit through its high byte) maps
+  through the gray table, any alpha dropped: one channel;
+- palette: 16-bit entries shifted down 8 bits, three channels;
+- RGB: an unassociated alpha premultiplies the colour ((c a + 127) / 255),
+  no alpha gives three channels;
+- CMYK (8-bit, InkSet CMYK): R = (255 - K)(255 - C) / 255, and so G, B,
+  with alpha 255, four channels;
+- YCbCr: JPEG-coded, libjpeg's own conversion and upsampling (libtiff sets
+  JPEGCOLORMODE_RGB); otherwise the blocks of YCbCrSubsampling (1x1, 1x2,
+  2x1, 2x2, 4x1, 4x2, 4x4), each pixel with its block's Cb and Cr, through
+  libtiff's fixed-point tables from YCbCrCoefficients and
+  ReferenceBlackWhite (TIFFYCbCrToRGBInit / TIFFYCbCrtoRGB);
+- CIELab (8 or 16 bits): TIFFCIELab16ToXYZ and TIFFXYZToRGB with libtiff's
+  sRGB display and its 1501-entry gamma table, in float32 in libtiff's
+  order (the white point D50 unless the file names one).
+An 8-bit signed file comes out as int8, the same bytes.  The Orientation
+field mirrors (2), turns (3) or flips (4) the image, as OpenCV does.
+
+Raised, naming what was met: what OpenCV refuses (2- and 4-bit gray,
+16-bit palette, CMYK, YCbCr or RGB with two samples, float below 32 bits,
+two-sample files above 16 bits, more than 4 samples, old-style JPEG, LZMA
+and ZSTD, for which its libtiff is not built, and the floating-point
+predictor on integers, the orientations that swap the axes), what it
+misreads (planar files above 8 bits, taken as chunky; the word-aligned
+CCITT variant, 32771; 8-bit tiles mirrored or turned), and what the port has
+no decoder for (other photometrics and codecs, T.4 uncompressed mode,
+10- to 14-bit samples, 16-bit gray files of 3 or 4 samples).
 """
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import Dict, List
+from typing import Dict, Optional
 
 import numpy as np
 
-_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i"}     # the integer field types
-_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 16: 8}
-_COMPRESSION = {1: "none", 5: "LZW", 8: "Deflate", 32946: "Deflate", 32773: "PackBits"}
+from iron_tpu_torch.data.ccitt import BIT_REVERSED, decode_ccitt
+
+# field type -> struct code (integers and floats); 5 / 10 (rationals) are
+# read as libtiff reads them into float fields, 2 / 7 (ASCII, UNDEFINED) as
+# bytes
+_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 11: "f", 12: "d", 13: "I", 16: "Q",
+          17: "q", 18: "Q"}
+_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4,
+          16: 8, 17: 8, 18: 8}
+_COMPRESSION = {1: "none", 2: "CCITT modified Huffman", 3: "CCITT T.4", 4: "CCITT T.6",
+                5: "LZW", 7: "JPEG", 8: "Deflate", 32946: "Deflate", 32773: "PackBits"}
+_REFUSED = {6: "old-style JPEG (compression 6), which OpenCV returns no image for",
+            32771: "the word-aligned CCITT coding (32771), which OpenCV's libtiff misreads",
+            34925: "LZMA compression, which OpenCV's libtiff is built without",
+            50000: "ZSTD compression, which OpenCV's libtiff is built without"}
+_PREDICTED = (5, 8, 32946)                       # the codecs libtiff applies a predictor in
+# YCbCrSubsampling (horizontal, vertical) libtiff's RGBA interface reads
+_SUBSAMPLING = {(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)}
+_F = np.float32
 
 
-def _ifd(data: bytes, end: str) -> Dict[int, List[int]]:
-    """The first image file directory: tag -> its values (integers)."""
-    (off,) = struct.unpack(end + "I", data[4:8])
-    (n,) = struct.unpack(end + "H", data[off:off + 2])
-    tags: Dict[int, List[int]] = {}
+def _header(data: bytes):
+    """(byte order, BigTIFF?, offset of the first IFD)."""
+    if data[:4] in (b"II*\x00", b"MM\x00*"):
+        end = "<" if data[:1] == b"I" else ">"
+        return end, False, struct.unpack(end + "I", data[4:8])[0]
+    if data[:4] in (b"II+\x00", b"MM\x00+"):
+        end = "<" if data[:1] == b"I" else ">"
+        size, _, off = struct.unpack(end + "HHQ", data[4:16])
+        if size != 8:
+            raise ValueError(f"TIFF: BigTIFF with {size}-byte offsets")
+        return end, True, off
+    raise ValueError("not a TIFF file")
+
+
+def _ifd(data: bytes, end: str, big: bool, off: int) -> Dict[int, object]:
+    """An image file directory: tag -> a list of its values (integers or
+    floats), or bytes for ASCII and UNDEFINED fields."""
+    count_fmt, entry_fmt, entry, inline = ("Q", "HHQ", 20, 8) if big else ("H", "HHI", 12, 4)
+    (n,) = struct.unpack(end + count_fmt, data[off:off + struct.calcsize(count_fmt)])
+    first = off + struct.calcsize(count_fmt)
+    tags: Dict[int, object] = {}
     for i in range(n):
-        e = off + 2 + 12 * i
-        tag, typ, count = struct.unpack(end + "HHI", data[e:e + 8])
+        e = first + entry * i
+        tag, typ, count = struct.unpack(end + entry_fmt, data[e:e + entry - inline])
         size = _SIZES.get(typ, 1) * count
-        at = e + 8 if size <= 4 else struct.unpack(end + "I", data[e + 8:e + 12])[0]
+        at = e + entry - inline
+        if size > inline:
+            (at,) = struct.unpack(end + ("Q" if big else "I"), data[at:at + inline])
         if typ in _TYPES:
             tags[tag] = list(struct.unpack(f"{end}{count}{_TYPES[typ]}", data[at:at + size]))
+        elif typ in (5, 10):
+            v = struct.unpack(f"{end}{2 * count}{'I' if typ == 5 else 'i'}", data[at:at + size])
+            tags[tag] = [float(_F(v[k]) / _F(v[k + 1])) if v[k + 1] else 0.0
+                         for k in range(0, 2 * count, 2)]
+        elif typ in (2, 7):
+            tags[tag] = data[at:at + size]
     return tags
 
 
@@ -94,44 +162,246 @@ def _packbits(data: bytes) -> bytes:
     return bytes(out)
 
 
+def _samples(raw: bytes, rows: int, cw: int, per: int, bps: int, end: str,
+             pred: int) -> np.ndarray:
+    """A decoded strip or tile -> its samples [rows, cw, per] (unsigned, in
+    the machine's byte order; below 8 bits the values as stored), with the
+    predictor undone."""
+    row_bytes = (cw * per * bps + 7) // 8
+    if len(raw) < rows * row_bytes:
+        raise ValueError("TIFF: a strip or tile holds less data than its rows need")
+    chunk = np.frombuffer(raw[:rows * row_bytes], np.uint8).reshape(rows, row_bytes)
+    if bps < 8:
+        bits = np.unpackbits(chunk, axis=1).reshape(rows, -1, bps)
+        return bits.dot(1 << np.arange(bps - 1, -1, -1))[:, :cw, None].astype(np.uint8)
+    size = bps // 8
+    if pred == 3:
+        # the floating-point predictor: the row's bytes differenced a pixel's
+        # samples apart, after the samples' bytes were laid out in planes of
+        # significance, most significant first (whatever the byte order)
+        d = np.cumsum(chunk.reshape(rows, -1, per), axis=1, dtype=np.uint8)
+        d = np.ascontiguousarray(d.reshape(rows, size, cw * per).transpose(0, 2, 1))
+        return d.view(f">u{size}").reshape(rows, cw, per).astype(f"u{size}")
+    v = chunk.view(f"{end}u{size}").reshape(rows, cw, per).astype(f"u{size}")
+    if pred == 2:                                    # horizontal differences, per sample
+        v = np.cumsum(v, axis=1, dtype=v.dtype)
+    return v
+
+
+def _subsampled(raw: bytes, rows: int, cw: int, h: int, v: int) -> np.ndarray:
+    """YCbCr in blocks of h x v pixels (their h v Y samples row by row, then
+    Cb and Cr) -> [rows, cw, 3], each pixel with its block's Cb and Cr."""
+    bw, bh, n = -(-cw // h), -(-rows // v), h * v + 2
+    if len(raw) < bw * bh * n:
+        raise ValueError("TIFF: a strip or tile holds less data than its rows need")
+    blk = np.frombuffer(raw[:bw * bh * n], np.uint8).reshape(bh, bw, n)
+    y = blk[..., :h * v].reshape(bh, bw, v, h).transpose(0, 2, 1, 3).reshape(bh * v, bw * h)
+    c = np.repeat(np.repeat(blk[..., h * v:], v, axis=0), h, axis=1)
+    return np.concatenate([y[..., None], c], -1)[:rows, :cw]
+
+
+def _jpeg(raw: bytes, tables: Optional[bytes], space: str, rows: int, cw: int) -> np.ndarray:
+    """A JPEG-coded strip or tile (its abbreviated stream after the
+    JPEGTables field's tables) -> [rows, cw, components]."""
+    from iron_tpu_torch.data.jpeg import decode_jpeg
+    if tables and raw[:2] == b"\xff\xd8":
+        raw = (tables[:-2] if tables[-2:] == b"\xff\xd9" else tables) + raw[2:]
+    img = decode_jpeg(raw, space)
+    if img.shape[1] != cw or img.shape[0] < rows:
+        raise ValueError(f"TIFF: a JPEG strip or tile of {img.shape[1]}x{img.shape[0]} where "
+                         f"{cw}x{rows} was expected")
+    return img[:rows]
+
+
+def _fix(x) -> int:
+    """libtiff's FIX: (int32)(x * 65536 + 0.5), the product in float."""
+    return int(np.float64(_F(x) * _F(65536)) + 0.5)
+
+
+def _code2v(c: np.ndarray, rb, rw, cr: int) -> np.ndarray:
+    """libtiff's Code2V in float32: (c - (int)RB) * CR / (RW - RB), then
+    CLAMPw to +-4096 and truncated."""
+    den = rw - rb
+    f = (c - int(rb)).astype(_F) * _F(cr) / (den if den != 0 else _F(1))
+    f = np.where(f >= _F(-4096), np.minimum(f, _F(4096)), _F(-4096))
+    return np.trunc(f).astype(np.int64)
+
+
+def _ycbcr_to_rgb(ycc: np.ndarray, luma, refbw) -> np.ndarray:
+    """TIFFYCbCrToRGBInit's tables and TIFFYCbCrtoRGB: uint8 [..., 3] YCbCr
+    -> RGB."""
+    lr, lg, lb = (_F(v) for v in luma)
+    clamp = lambda f: min(max(f, _F(0)), _F(2))
+    f1, f3 = _F(2) - _F(2) * lr, _F(2) - _F(2) * lb
+    d1, d2 = _fix(clamp(f1)), -_fix(clamp(lr * f1 / lg))
+    d3, d4 = _fix(clamp(f3)), -_fix(clamp(lb * f3 / lg))
+    x = np.arange(-128, 128)
+    rb = [_F(v) for v in refbw]
+    cr = _code2v(x, rb[4] - _F(128), rb[5] - _F(128), 127)
+    cb = _code2v(x, rb[2] - _F(128), rb[3] - _F(128), 127)
+    y_tab = _code2v(x + 128, rb[0], rb[1], 255)
+    cr_r, cb_b = (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16
+    cr_g, cb_g = d2 * cr, d4 * cb + 32768
+    Y, Cb, Cr = (ycc[..., i].astype(np.intp) for i in range(3))
+    rgb = np.stack([y_tab[Y] + cr_r[Cr], y_tab[Y] + ((cb_g[Cb] + cr_g[Cr]) >> 16),
+                    y_tab[Y] + cb_b[Cb]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+# libtiff's display_sRGB: the XYZ -> RGB matrix; the luminance of white 100
+# and of black 1, 255 at white, gamma 2.4 (tif_getimage.c)
+_SRGB = ((3.2410, -1.5374, -0.4986), (-0.9692, 1.8760, 0.0416), (0.0556, -0.2040, 1.0570))
+_D50 = (96.4250, 100.0, 82.4680)
+
+
+def _cielab_to_rgb(lab: np.ndarray, bps: int, white) -> np.ndarray:
+    """TIFFCIELab16ToXYZ then TIFFXYZToRGB, in float32 in libtiff's order:
+    uint8 / uint16 [..., 3] CIELab (L unsigned, a and b signed) -> RGB."""
+    if white is None:                                # D50, as TIFFGetFieldDefaulted gives it
+        x0, y0, z0 = (_F(v) for v in _D50)
+        white = (x0 / (x0 + y0 + z0), y0 / (x0 + y0 + z0))
+    wx, wy = _F(white[0]), _F(white[1])
+    X0, Y0, Z0 = wx / wy * _F(100), _F(100), (_F(1) - wx - wy) / wy * _F(100)
+    step = _F(99) / _F(1500)
+    gamma = (np.power(np.arange(1501) / 1500, 1.0 / float(_F(2.4))).astype(_F) * _F(255))
+    if bps == 8:
+        l = lab[..., 0].astype(np.int64) * 257
+        a, b = (np.ascontiguousarray(lab[..., i]).view(np.int8).astype(np.int64) * 256
+                for i in (1, 2))
+    else:
+        l = lab[..., 0].astype(np.int64)
+        a, b = (np.ascontiguousarray(lab[..., i]).view(np.int16).astype(np.int64) for i in (1, 2))
+    L = l.astype(_F) * _F(100) / _F(65535)
+    dark = L < _F(8.856)
+    y_dark = L * Y0 / _F(903.292)
+    cby_light = (L + _F(16)) / _F(116)
+    cby = np.where(dark, _F(7.787) * (y_dark / Y0) + _F(16) / _F(116), cby_light)
+    Y = np.where(dark, y_dark, Y0 * cby_light * cby_light * cby_light)
+
+    def xz(tmp, ref):
+        return np.where(tmp < _F(0.2069), ref * (tmp - _F(0.13793)) / _F(7.787),
+                        ref * tmp * tmp * tmp)
+
+    X = xz(a.astype(_F) / _F(256) / _F(500) + cby, X0)
+    Z = xz(cby - b.astype(_F) / _F(256) / _F(200), Z0)
+    out = []
+    for m in _SRGB:
+        lum = _F(m[0]) * X + _F(m[1]) * Y + _F(m[2]) * Z
+        lum = np.minimum(np.maximum(lum, _F(1)), _F(100))
+        i = np.minimum(np.trunc((lum - _F(1)) / step).astype(np.int64), 1500)
+        out.append(np.minimum((gamma[i].astype(np.float64) + 0.5).astype(np.int64), 255))
+    return np.stack(out, -1).astype(np.uint8)
+
+
+def _to_rgba8(out: np.ndarray, photo: int, bps: int, t: Dict[int, object]) -> np.ndarray:
+    """The samples -> what libtiff's RGBA interface and OpenCV's conversion
+    of its raster give (uint8, RGB(A) order)."""
+    if photo in (0, 1):                              # libtiff's bilevel / gray map
+        g = out[..., 0].astype(np.int64)
+        if bps == 16:                                # 16-bit gray through its high byte
+            g, bps = g >> 8, 8
+        top = (1 << bps) - 1
+        return ((top - g if photo == 0 else g) * 255 // top).astype(np.uint8)
+    if photo == 3:
+        cmap = np.asarray(t[320], np.int64).reshape(3, -1)
+        if cmap.max() >= 256:                        # 16-bit entries (libtiff's cvtcmap)
+            cmap = cmap >> 8
+        return cmap.T[out[..., 0]].astype(np.uint8)
+    if photo == 5:                                   # putRGBcontig8bitCMYKtile
+        k = 255 - out[..., 3:4].astype(np.int64)
+        rgb = k * (255 - out[..., :3].astype(np.int64)) // 255
+        return np.concatenate([rgb, np.full_like(k, 255)], -1).astype(np.uint8)
+    if photo == 6:
+        return _ycbcr_to_rgb(out, t.get(529, [0.299, 0.587, 0.114]),
+                             t.get(532, [0.0, 255.0, 128.0, 255.0, 128.0, 255.0]))
+    if photo == 8:
+        return _cielab_to_rgb(out, bps, t.get(318))
+    rgb = out[..., :3]
+    if out.shape[-1] < 4:
+        return np.ascontiguousarray(rgb)
+    alpha = out[..., 3:4].astype(np.int64)
+    if t.get(338, [0])[0] == 2:                      # unassociated: premultiplied
+        rgb = ((rgb.astype(np.int64) * alpha + 127) // 255).astype(np.uint8)
+    return np.concatenate([rgb, out[..., 3:4]], -1)
+
+
+def _refusal(bps: int, spp: int, photo: int, fmt: int, pred: int, comp: int, planar: int,
+             rgba: bool, sub, inkset: int) -> Optional[str]:
+    """Why OpenCV gives no image for such a file, or misreads it, or why the
+    port has no decoder for it; None when it is read."""
+    what = f"{bps}-bit samples of format {fmt}, {spp} a pixel, photometric {photo}"
+    if spp > 4:
+        return f"{spp} samples a pixel (OpenCV reads at most 4)"
+    if fmt not in (1, 2, 3) or (fmt == 3 and (rgba or bps < 32)):
+        return f"{what} (OpenCV reads floats of 32 or 64 bits, 1, 3 or 4 a pixel)"
+    if pred not in (1, 2, 3) or (pred == 3 and fmt != 3) or (pred == 2 and bps < 8):
+        return f"predictor {pred} on {what} (libtiff refuses it)"
+    if comp in (2, 3, 4) and (bps != 1 or spp != 1):
+        return f"CCITT coding of {what} (it codes 1-bit gray)"
+    if comp == 7 and bps != 8:
+        return f"JPEG coding of {what}"
+    if not rgba:
+        if bps not in (16, 32, 64):
+            return f"{what} (the port reads 16, 32 and 64 bits above 8)"
+        if spp > 1 and planar == 2:
+            return (f"planar {what} (OpenCV misreads them: it takes the first plane for "
+                    f"interleaved samples)")
+        if bps == 16 and spp > 1 and photo in (0, 1):
+            return f"{what} (OpenCV weighs them to one gray channel; not ported)"
+        return None
+    if bps > 16:
+        return f"{what} (libtiff's RGBA interface, which OpenCV reads them through, takes 16)"
+    if photo in (0, 1) and bps not in (1, 8, 16):
+        return f"{what}: below 8 bits OpenCV reads bilevel and palette files only"
+    if photo == 2 and (bps != 8 or spp < 3):
+        return f"RGB {what} (libtiff's RGBA interface refuses them)"
+    if photo == 3 and (bps > 8 or spp != 1):
+        return f"palette {what} (libtiff's RGBA interface refuses them)"
+    if photo == 5 and (bps != 8 or spp != 4 or inkset != 1):
+        return f"CMYK {what}, InkSet {inkset} (libtiff's RGBA interface refuses them)"
+    if photo == 6 and (bps != 8 or spp != 3 or (comp == 7 and planar != 1) or
+                       sub not in _SUBSAMPLING or (planar == 2 and sub != (1, 1))):
+        return (f"YCbCr {what}, subsampling {sub[0]}x{sub[1]}, planar configuration {planar} "
+                f"(libtiff's RGBA interface refuses them)")
+    if photo == 8 and (bps not in (8, 16) or spp != 3 or planar != 1):
+        return f"CIELab {what}, planar configuration {planar} (libtiff's RGBA interface " \
+               f"refuses them)"
+    if photo not in (0, 1, 2, 3, 5, 6, 8):
+        return f"photometric {photo} (the port reads gray, RGB, palette, CMYK, YCbCr, CIELab)"
+    return None
+
+
 def read_tiff(data: bytes) -> np.ndarray:
     """A TIFF (the first image) as cv2.imread(IMREAD_UNCHANGED) reads it:
-    uint8 or uint16 [H, W] or [H, W, 3 / 4], channels in RGB(A) order."""
-    if data[:4] == b"II*\x00":
-        end = "<"
-    elif data[:4] == b"MM\x00*":
-        end = ">"
-    elif data[:4] in (b"II+\x00", b"MM\x00+"):
-        raise ValueError("TIFF: BigTIFF files are not read by the port")
-    else:
-        raise ValueError("not a TIFF file")
-    t = _ifd(data, end)
+    [H, W] or [H, W, 3 / 4], channels in RGB(A) order; uint8 (int8) through
+    libtiff's RGBA interface, 16- to 64-bit gray and RGB(A) as stored."""
+    end, big, off = _header(data)
+    t = _ifd(data, end, big, off)
     one = lambda tag, default: t.get(tag, [default])[0]
     W, H = one(256, 0), one(257, 0)
-    spp = one(277, 1)
-    bps = one(258, 1)
-    comp = one(259, 1)
+    spp, bps, comp = one(277, 1), one(258, 1), one(259, 1)
     photo = one(262, 1 if spp < 3 else 2)
-    planar = one(284, 1)
-    pred = one(317, 1)
-    fmt = one(339, 1)
+    planar, fmt, fill = one(284, 1), one(339, 1), one(266, 1)
+    pred = one(317, 1) if comp in _PREDICTED else 1
+    if comp in _REFUSED:
+        raise ValueError(f"TIFF: {_REFUSED[comp]}")
     if comp not in _COMPRESSION:
-        raise ValueError(f"TIFF: compression {comp} is not read by the port (none, PackBits, LZW "
-                         f"and Deflate are)")
-    if fmt != 1 or bps not in (1, 2, 4, 8, 16) or not 1 <= spp <= 4 or pred not in (1, 2) \
-            or photo not in (0, 1, 2, 3) or one(266, 1) != 1:
-        raise ValueError(f"TIFF: {bps}-bit samples of format {fmt}, {spp} a pixel, photometric "
-                         f"{photo}, predictor {pred} are not read by the port")
-    if bps < 8 and (spp != 1 or photo not in (0, 1, 3) or (photo != 3 and bps != 1)):
-        raise ValueError(f"TIFF: {bps}-bit samples, {spp} a pixel, photometric {photo}: below 8 "
-                         f"bits OpenCV reads bilevel and palette files only")
-    if bps == 16 and (spp == 2 or photo == 3):
-        raise ValueError("TIFF: 16-bit gray with alpha or 16-bit palette files are not read by "
-                         "the port")
-    if bps == 16 and spp > 1 and one(284, 1) == 2:
-        raise ValueError("TIFF: 16-bit planar files are refused: OpenCV misreads them (it takes "
-                         "the first plane for interleaved samples)")
+        raise ValueError(f"TIFF: compression {comp} is not read by the port (none, PackBits, "
+                         f"LZW, Deflate, JPEG and CCITT 2-4 are)")
+    # OpenCV keeps wide gray and RGB(A) samples; the rest goes to 8 bits
+    # through libtiff's RGBA interface
+    rgba = bps <= 8 or photo not in (0, 1, 2) or spp not in (1, 3, 4)
+    sub = tuple(t.get(530, [2, 2])[:2]) if photo == 6 and comp != 7 else (1, 1)
+    why = _refusal(bps, spp, photo, fmt, pred, comp, planar, rgba, sub, one(332, 1))
     tiled = 322 in t
+    orientation = one(274, 1)
+    if orientation not in (1, 2, 3, 4):
+        why = f"orientation {orientation} (OpenCV gives no image: its imread check fails)"
+    elif rgba and tiled and orientation in (2, 3):
+        why = (f"orientation {orientation} in tiles read through libtiff's RGBA interface "
+               f"(OpenCV misreads them: the tiles flipped twice, the image once)")
+    if why:
+        raise ValueError(f"TIFF: {why}")
     if tiled:
         cw, ch = one(322, 0), one(323, 0)
         offsets, counts = t[324], t.get(325)
@@ -139,58 +409,50 @@ def read_tiff(data: bytes) -> np.ndarray:
         cw, ch = W, min(one(278, 2 ** 32 - 1), H)
         offsets, counts = t[273], t.get(279)
     planes = spp if planar == 2 else 1
-    per = spp if planar == 1 else 1                  # samples a pixel within a chunk
-    row_bytes = (cw * per * bps + 7) // 8
+    per = spp // planes                              # samples a pixel within a chunk
     across, down = -(-W // cw), -(-H // ch)
-    dt = np.dtype(end + "u2") if bps == 16 else np.dtype(np.uint8)
-    out = np.zeros((H, W, spp), np.uint16 if bps == 16 else np.uint8)
+    space = "ycc" if photo == 6 else "raw"           # JPEGCOLORMODE_RGB for YCbCr
+    out = np.zeros((H, W, spp), np.uint8 if bps <= 8 else f"u{bps // 8}")
     for k, off in enumerate(offsets):
         plane, k2 = divmod(k, across * down)
         if plane >= planes:
             break
         cy, cx = divmod(k2, across)
         rows = ch if tiled else min(ch, H - cy * ch)
-        want = rows * row_bytes
-        raw = data[off:off + counts[k]] if counts else data[off:off + want]
-        if comp == 5:
-            raw = _lzw(raw, want)
-        elif comp in (8, 32946):
-            raw = zlib.decompress(raw)
-        elif comp == 32773:
-            raw = _packbits(raw)
-        if len(raw) < want:
-            raise ValueError("TIFF: a strip or tile holds less data than its rows need")
-        chunk = np.frombuffer(raw[:want], np.uint8).reshape(rows, row_bytes)
-        if bps >= 8:
-            chunk = chunk.view(dt).reshape(rows, cw, per).astype(out.dtype)
-            if pred == 2 and comp != 1 and comp != 32773:
-                # horizontal differences, per sample (libtiff applies the
-                # predictor in its LZW and Deflate codecs only)
-                chunk = np.cumsum(chunk, axis=1, dtype=out.dtype)
+        if sub != (1, 1):
+            want = -(-cw // sub[0]) * -(-rows // sub[1]) * (sub[0] * sub[1] + 2)
         else:
-            bits = np.unpackbits(chunk, axis=1).reshape(rows, -1, bps)
-            chunk = bits.dot(1 << np.arange(bps - 1, -1, -1))[:, :cw, None].astype(np.uint8)
+            want = rows * ((cw * per * bps + 7) // 8)
+        raw = data[off:off + counts[k]] if counts else data[off:off + want]
+        if comp == 7:
+            chunk = _jpeg(raw, t.get(347), space, rows, cw)
+        else:
+            if fill == 2:                            # least significant bit first
+                raw = raw.translate(BIT_REVERSED)
+            if comp in (2, 3, 4):
+                raw = decode_ccitt(raw, cw, rows, comp, one(292, 0)).tobytes()
+            elif comp == 5:
+                raw = _lzw(raw, want)
+            elif comp in (8, 32946):
+                raw = zlib.decompress(raw)
+            elif comp == 32773:
+                raw = _packbits(raw)
+            if sub != (1, 1):
+                chunk = _subsampled(raw, rows, cw, *sub)
+            else:
+                chunk = _samples(raw, rows, cw, per, bps, end, pred)
         y0, x0 = cy * ch, cx * cw
         h, w = min(rows, H - y0), min(cw, W - x0)
         out[y0:y0 + h, x0:x0 + w, plane:plane + per] = chunk[:h, :w]
-    if bps == 16:
-        return out[..., 0] if spp == 1 else out
-    if photo in (0, 1):                              # libtiff's bilevel / gray map
-        top = (1 << bps) - 1
-        g = out[..., 0].astype(np.int64)
-        return ((top - g if photo == 0 else g) * 255 // top).astype(np.uint8)
-    if photo == 3:
-        cmap = np.asarray(t[320], np.int64).reshape(3, -1)
-        if cmap.max() >= 256:                        # 16-bit entries (libtiff's cvtcmap)
-            cmap = cmap >> 8
-        return cmap.T[out[..., 0]].astype(np.uint8)
-    rgb = out[..., :3]
-    if spp < 4:
-        return np.ascontiguousarray(rgb)
-    alpha = out[..., 3:4].astype(np.int64)
-    if t.get(338, [0])[0] == 2:                      # unassociated: premultiplied
-        rgb = ((rgb.astype(np.int64) * alpha + 127) // 255).astype(np.uint8)
-    return np.concatenate([rgb, out[..., 3:4]], -1)
+    if not rgba:
+        img = out.view(f"{'uif'[fmt - 1]}{bps // 8}")
+        img = img[..., 0] if spp == 1 else img
+    else:
+        img = _to_rgba8(out, 2 if comp == 7 and photo == 6 else photo, bps, t)
+        img = img.view(np.int8) if fmt == 2 else img
+    # the Orientation field: OpenCV mirrors, turns or flips the image
+    flip = {1: (1, 1), 2: (1, -1), 3: (-1, -1), 4: (-1, 1)}[orientation]
+    return np.ascontiguousarray(img[::flip[0], ::flip[1]]) if orientation != 1 else img
 
 
 def write_tiff(img: np.ndarray) -> bytes:

@@ -2,9 +2,11 @@
 of the port's image readers (tests/test_torch_image_formats.py) and for
 scripts/make_format_fixtures.py: lossless JPEG (SOF3), arithmetic-coded and
 YCCK JPEG through the system's libjpeg (ctypes), TIFF layouts by hand
-(tiles, planar, any compression), RLE BMP, old-style RLE Radiance HDR, Sun
-raster layouts and GIF frames.  OpenCV stays the reference decoder of every file
-written here."""
+(tiles, planar, any compression, BigTIFF, signed and float samples, both
+predictors, YCbCr blocks, JPEG with JPEGTables, FillOrder 2) and through
+the system's libtiff (ctypes: its JPEG, CCITT, LZMA and ZSTD codecs), RLE
+BMP, old-style RLE Radiance HDR, Sun raster layouts and GIF frames.  OpenCV
+stays the reference decoder of every file written here."""
 from __future__ import annotations
 
 import ctypes
@@ -136,16 +138,24 @@ def _stuffed(bits: str) -> bytes:
 
 def encode_lossless_jpeg(img: np.ndarray, predictor: int = 1, pt: int = 0, restart_rows: int = 0,
                          precision: int = 8, ids: Sequence[int] = (1, 2, 3, 4),
-                         jfif: bool = False, interleaved: bool = True) -> bytes:
-    """uint8 [H, W], [H, W, 3] or [H, W, 4] as lossless JPEG (SOF3, Huffman, every
-    component sampled 1x1): `predictor` 1-7, point transform `pt`, a
-    restart marker every `restart_rows` rows, one interleaved scan or a
-    scan per component.  The samples are coded as they are (RGB unless a
-    JFIF segment says YCbCr)."""
+                         jfif: bool = False, interleaved: bool = True,
+                         sampling: Sequence[tuple] = ()) -> bytes:
+    """uint8 [H, W], [H, W, 3] or [H, W, 4] as lossless JPEG (SOF3, Huffman):
+    `predictor` 1-7, point transform `pt`, a restart marker every
+    `restart_rows` rows, one interleaved scan or a scan per component, each
+    component sampled 1x1 or at its (h, v) of `sampling` (taken every
+    hmax / h columns and vmax / v rows; an interleaved scan's MCUs padded
+    with zero differences; no restarts then).  The samples are coded as
+    they are (RGB unless a JFIF segment says YCbCr)."""
     img = np.asarray(img)
     planes = [img] if img.ndim == 2 else [img[..., i] for i in range(img.shape[2])]
     H, W = planes[0].shape
     nc = len(planes)
+    sampling = list(sampling) or [(1, 1)] * nc
+    hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
+    if (hmax, vmax) != (1, 1) and restart_rows:
+        raise ValueError("encode_lossless_jpeg: restarts with subsampled components")
+    planes = [p[::vmax // v, ::hmax // h] for p, (h, v) in zip(planes, sampling)]
     cid = list(ids[:nc]) if nc > 1 else [1]
     x = [p.astype(np.int64) >> pt for p in planes]
     first = 1 << (precision - pt - 1)
@@ -160,7 +170,7 @@ def encode_lossless_jpeg(img: np.ndarray, predictor: int = 1, pt: int = 0, resta
         out.append(b"\xff\xe0" + struct.pack(">H", 16) + b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01"
                    b"\x00\x00")
     out.append(b"\xff\xc3" + struct.pack(">HBHHB", 8 + 3 * nc, precision, H, W, nc)
-               + b"".join(bytes([c, 0x11, 0]) for c in cid))
+               + b"".join(bytes([c, 16 * h + v, 0]) for c, (h, v) in zip(cid, sampling)))
     out.append(b"\xff\xc4" + struct.pack(">H", 2 + 17 + 17) + b"\x00" + bytes(bits_table)
                + bytes(vals))
     if restart_rows:
@@ -171,6 +181,21 @@ def encode_lossless_jpeg(img: np.ndarray, predictor: int = 1, pt: int = 0, resta
         out.append(b"\xff\xda" + struct.pack(">H", 6 + 2 * len(comp_idx)) + head
                    + bytes([predictor, 0, pt]))
         rows = restart_rows or H
+        if len(comp_idx) > 1 and (hmax, vmax) != (1, 1):
+            # MCUs of v x h samples a component, row by row
+            mr, mc = -(-H // vmax), -(-W // hmax)
+            parts = []
+            for i in comp_idx:
+                h, v = sampling[i]
+                pad = np.zeros((mr * v, mc * h), np.int64)
+                pad[:diff[i].shape[0], :diff[i].shape[1]] = diff[i]
+                parts.append(pad.reshape(mr, v, mc, h).transpose(0, 2, 1, 3).reshape(mr, mc, -1))
+            d = np.concatenate(parts, -1).reshape(-1)
+            s = np.zeros(d.shape, np.int64)
+            nz = d != 0
+            s[nz] = np.floor(np.log2(np.abs(d[nz]))).astype(np.int64) + 1
+            out.append(_stuffed(_huffman_bits(s, d)))
+            return
         for k, y0 in enumerate(range(0, H, rows)):
             d = np.stack([diff[i][y0:y0 + rows] for i in comp_idx], -1).reshape(-1)
             s = np.zeros(d.shape, np.int64)
@@ -454,22 +479,90 @@ def _packbits(data: bytes) -> bytes:
     return bytes(out)
 
 
-def encode_tiff(img: np.ndarray, compression: str = "none", predictor: bool = False,
+_REVERSED_BITS = bytes(int(format(b, "08b")[::-1], 2) for b in range(256))
+
+
+def _jpeg_tables(streams: List[bytes]):
+    """JFIF streams of the port's encode_jpeg -> (a JPEGTables stream with
+    their quantisation and Huffman tables, each stream abbreviated: SOI,
+    then its frame and scan without those tables)."""
+    tables, out = b"", []
+    for data in streams:
+        pos, keep = 2, b"\xff\xd8"
+        while data[pos + 1] != 0xDA:
+            n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+            seg = data[pos:pos + 2 + n]
+            if data[pos + 1] in (0xDB, 0xC4):
+                if not out:
+                    tables += seg
+            else:
+                keep += seg
+            pos += 2 + n
+        out.append(keep + data[pos:])
+    return b"\xff\xd8" + tables + b"\xff\xd9", out
+
+
+def _ycbcr_blocks(block: np.ndarray, h: int, v: int) -> bytes:
+    """YCbCr [rows, cols, 3] -> TIFF's subsampled layout: blocks of h x v
+    pixels (edge pixels repeated to whole blocks), each its Y samples row by
+    row, then its rounded mean Cb and Cr."""
+    bh, bw = -(-block.shape[0] // v), -(-block.shape[1] // h)
+    p = np.pad(block, ((0, bh * v - block.shape[0]), (0, bw * h - block.shape[1]), (0, 0)),
+               mode="edge").astype(np.int64)
+    p = p.reshape(bh, v, bw, h, 3).transpose(0, 2, 1, 3, 4)
+    y = p[..., 0].reshape(bh, bw, v * h)
+    c = (p[..., 1:].sum(axis=(2, 3)) + v * h // 2) // (v * h)
+    return np.concatenate([y, c], -1).astype(np.uint8).tobytes()
+
+
+def _float_predicted(raw: bytes, rows: int, per: int, size: int) -> bytes:
+    """libtiff's floating-point predictor (fpDiff) on each row: the samples'
+    bytes in planes of significance, most significant first, then each byte
+    less the byte a pixel's samples before it."""
+    a = np.frombuffer(raw, np.uint8).reshape(rows, -1)
+    n = a.shape[1] // size
+    planes = a.reshape(rows, n, size).transpose(0, 2, 1).reshape(rows, -1).astype(np.int64)
+    d = planes.copy()
+    d[:, per:] -= planes[:, :-per]
+    return (d % 256).astype(np.uint8).tobytes()
+
+
+_FIELD_CODES = {1: "B", 3: "H", 4: "I", 7: "B", 16: "Q"}
+
+
+def encode_tiff(img: np.ndarray, compression: str = "none", predictor=False,
                 tile: Optional[tuple] = None, rows_per_strip: Optional[int] = None,
                 planar: bool = False, big_endian: bool = False, photometric: Optional[int] = None,
                 extra_samples: Optional[int] = None, colormap: Optional[np.ndarray] = None,
-                bits: Optional[int] = None) -> bytes:
-    """uint8 / uint16 [H, W] or [H, W, C] as a TIFF laid out by hand:
-    `compression` none / packbits / lzw / deflate, the horizontal predictor,
-    tiles of `tile` (width, height) or strips of `rows_per_strip` rows,
-    planar or chunky samples, either byte order; `bits` below 8 packs one
-    gray sample; `colormap` (uint16 [3, 2^bits]) makes a palette file."""
+                bits: Optional[int] = None, bigtiff: bool = False,
+                sample_format: Optional[int] = None, subsampling: Optional[tuple] = None,
+                fill_order: int = 1, jpeg_tables: bool = True,
+                extra_tags: Sequence[tuple] = ()) -> bytes:
+    """[H, W] or [H, W, C] samples as a TIFF laid out by hand:
+    `compression` none / packbits / lzw / deflate / jpeg, the horizontal
+    predictor (`predictor` True or 2) or the floating-point one (3), tiles
+    of `tile` (width, height) or strips of `rows_per_strip` rows, planar or
+    chunky samples, either byte order, classic or BigTIFF; `bits` below 8
+    packs one gray sample; `colormap` (uint16 [3, 2^bits]) makes a palette
+    file; any integer or float dtype, with `sample_format` (2 signed, 3
+    IEEE float) written; `subsampling` (h, v) lays YCbCr samples out in
+    TIFF's blocks (photometric 6); "jpeg" codes each strip or tile with the
+    port's encode_jpeg at quality 75 (RGB in, YCbCr 4:2:0 inside,
+    photometric 6 with 2x2 subsampling), its tables moved to JPEGTables (or
+    each stream whole); `fill_order` 2 reverses each coded byte's bits;
+    `extra_tags` adds (tag, type, values) fields (type 5, RATIONAL, takes
+    (numerator, denominator) pairs)."""
     img = np.asarray(img)
     if img.ndim == 2:
         img = img[..., None]
     H, W, C = img.shape
     bps = bits or 8 * img.dtype.itemsize
     e = ">" if big_endian else "<"
+    predictor = {False: 1, True: 2}.get(predictor, predictor)
+    if compression == "jpeg":
+        photometric, subsampling = 6, (2, 2)
+    elif subsampling and photometric is None:
+        photometric = 6
     if photometric is None:
         photometric = 3 if colormap is not None else (1 if C < 3 else 2)
     cw, ch = tile if tile else (W, rows_per_strip or H)
@@ -483,37 +576,62 @@ def encode_tiff(img: np.ndarray, compression: str = "none", predictor: bool = Fa
                     full = np.zeros((ch, cw, p.shape[2]), img.dtype)
                     full[:block.shape[0], :block.shape[1]] = block
                     block = full
-                if predictor:
-                    d = block.astype(np.int64)
-                    d[:, 1:] -= block[:, :-1].astype(np.int64)
-                    block = (d % (1 << bps)).astype(img.dtype)
-                if bps < 8:
+                if compression == "jpeg":
+                    from iron_tpu_torch.data.jpeg import encode_jpeg
+                    chunks.append(encode_jpeg(block, 75))
+                    continue
+                if subsampling:
+                    raw = _ycbcr_blocks(block, *subsampling)
+                elif bps < 8:
                     raw = np.packbits(np.unpackbits(block[..., 0].astype(np.uint8)[..., None],
                                                     axis=-1)[..., 8 - bps:].reshape(
                         block.shape[0], -1), axis=1).tobytes()
+                elif predictor == 3:
+                    raw = _float_predicted(block.astype(block.dtype.newbyteorder(">")).tobytes(),
+                                           block.shape[0], block.shape[2], bps // 8)
                 else:
-                    raw = block.astype(e + ("u2" if bps == 16 else "u1")).tobytes()
+                    if predictor == 2:
+                        u = block.view(f"u{bps // 8}")
+                        d = u.copy()
+                        d[:, 1:] -= u[:, :-1]
+                        block = d.view(block.dtype)
+                    raw = block.astype(block.dtype.newbyteorder(e)).tobytes()
                 raw = {"none": lambda r: r, "packbits": _packbits, "lzw": tiff_lzw,
                        "deflate": zlib.compress}[compression](raw)
                 chunks.append(raw)
-    comp_code = {"none": 1, "lzw": 5, "deflate": 8, "packbits": 32773}[compression]
+    tables = None
+    if compression == "jpeg" and jpeg_tables:
+        tables, chunks = _jpeg_tables(chunks)
+    if fill_order == 2:
+        chunks = [c.translate(_REVERSED_BITS) for c in chunks]
+    comp_code = {"none": 1, "lzw": 5, "deflate": 8, "packbits": 32773, "jpeg": 7}[compression]
     spp_per = C
+    offset_type = 16 if bigtiff else 4
     entries = [(256, 4, [W]), (257, 4, [H]), (258, 3, [bps] * spp_per), (259, 3, [comp_code]),
                (262, 3, [photometric]), (277, 3, [C]), (284, 3, [2 if planar else 1])]
-    if predictor:
-        entries.append((317, 3, [2]))
+    if predictor != 1:
+        entries.append((317, 3, [predictor]))
     if extra_samples is not None:
         entries.append((338, 3, [extra_samples]))
     if colormap is not None:
         entries.append((320, 3, list(np.asarray(colormap, np.int64).reshape(-1))))
+    if sample_format is not None:
+        entries.append((339, 3, [sample_format] * C))
+    if subsampling:
+        entries.append((530, 3, list(subsampling)))
+    if fill_order != 1:
+        entries.append((266, 3, [fill_order]))
+    if tables is not None:
+        entries.append((347, 7, list(tables)))
+    entries += list(extra_tags)
     if tile:
-        entries += [(322, 4, [cw]), (323, 4, [ch]), (324, 4, [0] * len(chunks)),
+        entries += [(322, 4, [cw]), (323, 4, [ch]), (324, offset_type, [0] * len(chunks)),
                     (325, 4, [len(c) for c in chunks])]
     else:
-        entries += [(273, 4, [0] * len(chunks)), (278, 4, [ch]),
+        entries += [(273, offset_type, [0] * len(chunks)), (278, 4, [ch]),
                     (279, 4, [len(c) for c in chunks])]
     entries.sort()
-    data_at = 8
+    data_at = 16 if bigtiff else 8
     blob = b"".join(chunks)
     offsets, o = [], data_at
     for c in chunks:
@@ -521,18 +639,83 @@ def encode_tiff(img: np.ndarray, compression: str = "none", predictor: bool = Fa
         o += len(c)
     ifd_at = o + (o & 1)
     entries = [(t, ty, offsets if t in (273, 324) else v) for t, ty, v in entries]
-    extra_at = ifd_at + 2 + 12 * len(entries) + 4
+    count_fmt, entry_fmt, inline = ("Q", "HHQ", 8) if bigtiff else ("H", "HHI", 4)
+    entry_size = struct.calcsize(e + entry_fmt) + inline
+    extra_at = ifd_at + struct.calcsize(e + count_fmt) + entry_size * len(entries) + inline
     extra, fields = b"", []
     for tag, typ, vals in entries:
-        body = struct.pack(f"{e}{len(vals)}{'H' if typ == 3 else 'I'}", *vals)
-        if len(body) <= 4:
-            fields.append(struct.pack(f"{e}HHI", tag, typ, len(vals)) + body.ljust(4, b"\x00"))
+        if typ == 5:
+            body = struct.pack(f"{e}{2 * len(vals)}I", *[x for nd in vals for x in nd])
         else:
-            fields.append(struct.pack(f"{e}HHII", tag, typ, len(vals), extra_at + len(extra)))
-            extra += body
-    head = (b"MM\x00*" if big_endian else b"II*\x00") + struct.pack(e + "I", ifd_at)
-    return (head + blob + b"\x00" * (ifd_at - o) + struct.pack(e + "H", len(entries))
-            + b"".join(fields) + b"\x00\x00\x00\x00" + extra)
+            body = struct.pack(f"{e}{len(vals)}{_FIELD_CODES[typ]}", *vals)
+        if len(body) <= inline:
+            fields.append(struct.pack(e + entry_fmt, tag, typ, len(vals))
+                          + body.ljust(inline, b"\x00"))
+        else:
+            fields.append(struct.pack(e + entry_fmt + count_fmt.replace("H", "I"), tag, typ,
+                                      len(vals), extra_at + len(extra)))
+            extra += body + b"\x00" * (len(body) & 1)
+    magic = (b"MM" if big_endian else b"II") + struct.pack(e + "H", 43 if bigtiff else 42)
+    head = magic + (struct.pack(e + "HHQ", 8, 0, ifd_at) if bigtiff
+                    else struct.pack(e + "I", ifd_at))
+    return (head + blob + b"\x00" * (ifd_at - o) + struct.pack(e + count_fmt, len(entries))
+            + b"".join(fields) + b"\x00" * inline + extra)
+
+
+def _libtiff():
+    lib = ctypes.CDLL(ctypes.util.find_library("tiff"))
+    lib.TIFFOpen.restype = ctypes.c_void_p
+    lib.TIFFOpen.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    for name in ("TIFFWriteEncodedStrip", "TIFFWriteEncodedTile", "TIFFWriteRawStrip"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_char_p, ctypes.c_ssize_t]
+        fn.restype = ctypes.c_ssize_t
+    lib.TIFFClose.argtypes = [ctypes.c_void_p]
+    lib.TIFFSetField.restype = ctypes.c_int
+    return lib
+
+
+def libtiff_encode(chunks: Sequence, fields: Sequence[tuple], mode: str = "w",
+                   tiled: bool = False, raw: bool = False) -> bytes:
+    """A TIFF written by the system's libtiff (ctypes): `fields` are
+    TIFFSetField calls, (tag, value, ...) with int, float (passed as double)
+    or numpy array (passed by pointer) values; `chunks` the strips or tiles
+    in order, arrays or bytes, through libtiff's codec (JPEG with
+    JPEGCOLORMODE_RGB takes RGB) or as they are (`raw`); `mode` TIFFOpen's
+    ("w8" BigTIFF, "wb" / "wl" the byte order)."""
+    import os
+    import tempfile
+    lib = _libtiff()
+    fd, path = tempfile.mkstemp(suffix=".tif")
+    os.close(fd)
+    keep = []
+    try:
+        t = lib.TIFFOpen(path.encode(), mode.encode())
+        if not t:
+            raise OSError(f"TIFFOpen({path}, {mode}) failed")
+        for tag, *vals in fields:
+            args = []
+            for v in vals:
+                if isinstance(v, float):
+                    args.append(ctypes.c_double(v))
+                elif isinstance(v, np.ndarray):
+                    keep.append(np.ascontiguousarray(v))
+                    args.append(keep[-1].ctypes.data_as(ctypes.c_void_p))
+                else:
+                    args.append(ctypes.c_int(v))
+            if lib.TIFFSetField(ctypes.c_void_p(t), ctypes.c_uint32(tag), *args) != 1:
+                raise ValueError(f"TIFFSetField({tag}, {vals}) failed")
+        write = (lib.TIFFWriteRawStrip if raw else
+                 lib.TIFFWriteEncodedTile if tiled else lib.TIFFWriteEncodedStrip)
+        for i, c in enumerate(chunks):
+            buf = c if isinstance(c, bytes) else np.ascontiguousarray(c).tobytes()
+            if write(t, i, buf, len(buf)) < 0:
+                raise ValueError(f"libtiff refused chunk {i}")
+        lib.TIFFClose(t)
+        with open(path, "rb") as f:
+            return f.read()
+    finally:
+        os.remove(path)
 
 
 # ---------------------------------------------------------------------------

@@ -141,6 +141,16 @@ JPEG_CASES = {
     "lossless 6-bit": lambda: W.encode_lossless_jpeg(IMG >> 2, predictor=5, precision=6),
     "lossless CMYK": lambda: W.encode_lossless_jpeg(CMYK, predictor=3),
     "lossless RGB ids": lambda: W.encode_lossless_jpeg(IMG, predictor=2, ids=(82, 71, 66)),
+    # subsampled components, which libjpeg-turbo upsamples by replication in
+    # a lossless file
+    "lossless 2x2 luma, one scan a component": lambda: W.encode_lossless_jpeg(
+        IMG, predictor=4, interleaved=False, sampling=[(2, 2), (1, 1), (1, 1)]),
+    "lossless 2x1 luma, interleaved": lambda: W.encode_lossless_jpeg(
+        IMG, predictor=7, sampling=[(2, 1), (1, 1), (1, 1)], ids=(82, 71, 66)),
+    "lossless 1x2, 2x2, 1x1, interleaved": lambda: W.encode_lossless_jpeg(
+        IMG, predictor=1, sampling=[(2, 2), (1, 2), (1, 1)]),
+    "lossless CMYK 2x2 and 1x1, interleaved": lambda: W.encode_lossless_jpeg(
+        CMYK, predictor=5, sampling=[(2, 2), (1, 1), (1, 1), (2, 2)]),
 }
 JPEG_CASES.update({f"lossless predictor {p}": (lambda p=p: W.encode_lossless_jpeg(IMG, p))
                    for p in range(1, 8)})
@@ -149,7 +159,8 @@ JPEG_CASES.update({f"lossless predictor {p}": (lambda p=p: W.encode_lossless_jpe
 @pytest.mark.parametrize("case", sorted(JPEG_CASES))
 def test_jpeg_variants_read_as_opencv(case, tmp_path):
     """4-component (Adobe CMYK and YCCK), lossless (SOF3: predictors 1-7,
-    point transform, restarts, 1, 3 and 4 components), arithmetic-coded
+    point transform, restarts, 1, 3 and 4 components, subsampled
+    components), arithmetic-coded
     (SOF9, SOF10: restarts, the conditioning tables) and the Huffman files
     of before: bit-equal to cv2.imread, through read_image equal to the JAX
     package's."""
