@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only-8j    # the build, then phase 8j alone (no result line)
     python3 chip_smoke.py --only-8k    # the build, then phase 8k alone (no result line)
     python3 chip_smoke.py --only-8l    # the build, then phase 8l alone (no result line)
+    python3 chip_smoke.py --only-8m    # the build, then phase 8m alone (no result line)
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, and drives the port's main
@@ -117,6 +118,13 @@ with the launch counts set to 0 just before it and read just after:
     floating-point predictor and a CMYK LZW view, named .jpg / .png; Group 4,
     Group 3 2D FillOrder 2 and float64 masks) decoded by the port bit-equal
     to OpenCV's decode recorded beside it, then the same 8 stage-1 steps;
+  * the image writers and `preprocess` (phase 8m, `writers_phase`):
+    preprocess make-masks and apply-alpha on tests/data_preprocess/ (files
+    named .png of other contents) leave the JAX package's arrays; the
+    images of tests/data_writers/ through every writer give OpenCV's bytes
+    or decode to the recorded arrays, or are refused where OpenCV writes
+    nothing readable; a 512^2 render of the card through K1, K2 and K3-fwd
+    written to every extension and read back, the lossless ones exactly;
 
 then times each kernel beside its plain version and its bound, and prints:
 
@@ -142,11 +150,13 @@ then times each kernel beside its plain version and its bound, and prints:
   * one JSON line {"webp": {...}}: the same record of phase 8j;
   * one JSON line {"jp2": {...}}: the same record of phase 8k;
   * one JSON line {"tiff": {...}}: the same record of phase 8l;
+  * one JSON line {"writers": {...}}: phase 8m's holds, sizes, the render's
+    launches and each extension's write and read times on the host;
   * one JSON line {"kernels": [...]} on the six kernels (launches: K1-K3
     from the default training run, K4 from the trace_pallas training run,
     K5 from the sweep; beside them each kernel's launches on phase 8f's
     paths, a rank's on phase 8g's and a step's on phase 8h's, a stage-1
-    replay's from the device trace, and phases 8j's, 8k's and 8l's);
+    replay's from the device trace, and phases 8j's, 8k's, 8l's and 8m's);
   * last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -2689,6 +2699,184 @@ def tiff_phase(args, dev, card, kernels) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 8m: the image writers and preprocess, the port's thirteenth slice
+# ---------------------------------------------------------------------------
+
+WRITER_RES = 512     # phase 8m's render
+
+
+def _sha_record(arr: np.ndarray) -> dict:
+    """shape, dtype and sha256 of an array (as the fixtures record them)."""
+    import hashlib
+    arr = np.ascontiguousarray(arr)
+    return {"shape": list(arr.shape), "dtype": str(arr.dtype),
+            "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
+
+
+def writers_phase(args, dev, card, kernels) -> dict:
+    """Phase 8m, the port's writers and `preprocess` as the JAX package's
+    cv2.imwrite / cv2.imread make them (this machine has no OpenCV):
+
+      (a) `preprocess make-masks` then `apply-alpha` (the port's CLI) on a
+          copy of tests/data_preprocess/image/ (gray + alpha, JPEG bytes,
+          RGBA, RGBA16, palette + tRNS and gray files named .png, and one
+          of no image format): every file and mask left is the JAX
+          package's, by the decoded arrays' sha256 recorded beside the
+          fixture (scripts/make_writer_fixtures.py), and the file of no
+          image is skipped by both;
+      (b) tests/data_writers/'s gray, RGB and RGBA images through
+          write_image to every extension it takes: the bytes' sha256 that of
+          the JAX package's file where the port writes OpenCV's bytes
+          (.jpg, .bmp, .pam, .ras, .pfm, .hdr, PNM and their other names),
+          the decoded array's that recorded (.png, .tif, .webp, .gif), and a
+          ValueError and no file where OpenCV writes none it can read;
+      (c) view 0 of phase 8's ring at 512^2 rendered on the card at the
+          default width (K1, K2 and K3-fwd launched and counted), written
+          to every extension (.pgm / .pbm its gray), each write and read
+          (read_image) timed on the host: the lossless formats read back
+          exactly, JPEG, Radiance and GIF within their bounds."""
+    import hashlib
+    import shutil
+    import tempfile
+    import torch
+    from iron_tpu_torch.cli import preprocess
+    from iron_tpu_torch.data import io as tio
+    from iron_tpu_torch.train.stage2 import Stage2Config, Stage2Trainer
+
+    t0 = time.perf_counter()
+    rec = {"card": card}
+
+    def decoded(path: str) -> dict:
+        with open(path, "rb") as f:
+            return _sha_record(tio.decode_image(f.read(), path))
+
+    # (a) preprocess
+    root = os.path.join(HERE, "tests", "data_preprocess")
+    with open(os.path.join(root, "opencv_sha256.json")) as f:
+        want = json.load(f)
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        shutil.copytree(os.path.join(root, "image"), os.path.join(tmp, "image"))
+        t = time.perf_counter()
+        preprocess.main(["make-masks", "--image_dir", os.path.join(tmp, "image")])
+        preprocess.main(["apply-alpha", "--image_dir", os.path.join(tmp, "image")])
+        pre_s = time.perf_counter() - t
+        left = sorted(f"{d}/{n}" for d in ("image", "masks")
+                      for n in os.listdir(os.path.join(tmp, d)))
+        assert left == sorted(want), (left, sorted(want))
+        for key, w in sorted(want.items()):
+            path = os.path.join(tmp, key)
+            if w is None:
+                try:
+                    decoded(path)
+                except tio.NoImage:
+                    continue
+                raise AssertionError(f"{key}: OpenCV reads no image from it; the port did")
+            got = decoded(path)
+            assert got == w, (key, got, w)
+    rec["preprocess"] = {"files": len(want), "wall_s": pre_s}
+    log(f"phase 8m (a) preprocess make-masks + apply-alpha on tests/data_preprocess/: "
+        f"{len(want)} files and masks equal to the JAX package's, {pre_s * 1e3:.1f} ms; "
+        f"card {card}")
+
+    # (b) the fixture images through every writer
+    root = os.path.join(HERE, "tests", "data_writers")
+    with open(os.path.join(root, "opencv_sha256.json")) as f:
+        want = json.load(f)
+    inputs = dict(np.load(os.path.join(root, "inputs.npz")))
+    held = {"bytes": 0, "decoded": 0, "refused": 0}
+    sizes = {}
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        for key, w in sorted(want.items()):
+            name, ext = os.path.splitext(key)
+            path = os.path.join(tmp, key)
+            if "refused" in w:
+                try:
+                    tio.write_image(path, inputs[name])
+                except ValueError:
+                    assert not os.path.exists(path), key
+                    held["refused"] += 1
+                    continue
+                raise AssertionError(f"{key}: OpenCV writes no readable file; the port did")
+            tio.write_image(path, inputs[name])
+            if "bytes" in w:
+                with open(path, "rb") as f:
+                    data = f.read()
+                got = {"sha256": hashlib.sha256(data).hexdigest(), "size": len(data)}
+                assert got == w["bytes"], (key, got, w["bytes"])
+                held["bytes"] += 1
+                continue
+            got = decoded(path)
+            assert got == w["decoded"], (key, got, w["decoded"])
+            held["decoded"] += 1
+            if ext in (".webp", ".gif"):
+                sizes[key] = {"port": os.path.getsize(path), "opencv": w["opencv_size"]}
+    assert sum(held.values()) == len(want)
+    rec["fixture"] = {"held": held, "sizes_webp_gif": sizes}
+    log(f"phase 8m (b) tests/data_writers/ through write_image: {held['bytes']} files "
+        f"byte-equal to OpenCV's, {held['decoded']} decoding to the recorded arrays, "
+        f"{held['refused']} refused as OpenCV refuses them; sizes (port, OpenCV) {sizes}")
+
+    # (c) a render of the card through every writer
+    cfg = Stage2Config()
+    Ks, W2Cs = ring_cameras(1, WRITER_RES)
+    images = np.zeros((1, WRITER_RES, WRITER_RES, 3), np.float32)
+    tr = Stage2Trainer(cfg, images, Ks, W2Cs,
+                       generator=torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = tr.render_full(0, keys=("color", "hit_mask"))
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t
+    launches = kernels.launch_counts()
+    for name in ("coarse_march", "sdf_only_bf16", "sdf_value_feat_grad"):
+        assert launches[name] > 0, launches
+    color = out["color"]
+    assert color.shape == (WRITER_RES, WRITER_RES, 3) and np.isfinite(color).all()
+    assert 0 < out["hit_mask"].mean() < 1
+    u8 = tio.to8b(color)
+    gray = u8[..., 1]
+    lossless = (".png", ".bmp", ".dib", ".tif", ".tiff", ".pbm", ".pgm", ".ppm", ".pnm", ".pam",
+                ".ras", ".sr", ".pfm", ".webp")
+    # the lossy ones' bounds on the mean |error| (of 255)
+    bounds = {".jpg": 3.0, ".jpeg": 3.0, ".jpe": 3.0, ".hdr": 1.0, ".pic": 1.0, ".gif": 8.0}
+    per_ext = {}
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        for ext in sorted(tio._WRITERS):
+            img, ref = (color, u8) if ext not in (".pgm", ".pbm") else (gray, gray)
+            if ext == ".pbm":
+                ref = np.where(gray > 0, 255, 0).astype(np.uint8)
+            path = os.path.join(tmp, "render" + ext)
+            t = time.perf_counter()
+            tio.write_image(path, img)
+            w_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            back = tio.read_image(path)
+            r_ms = (time.perf_counter() - t) * 1e3
+            expect = np.repeat(ref[..., None], 3, -1) if ref.ndim == 2 else ref
+            expect = expect.astype(np.float32)
+            expect = expect / 255.0 if expect.max() > 1.5 else expect
+            assert back.shape == expect.shape and np.isfinite(back).all(), (ext, back.shape)
+            err = float(np.abs(back - expect).mean() * 255)
+            if ext in lossless:
+                assert np.array_equal(back, expect), (ext, err)
+            else:
+                assert err <= bounds[ext], (ext, err)
+            per_ext[ext] = {"write_ms": w_ms, "read_ms": r_ms, "bytes": os.path.getsize(path),
+                            "exact": bool(np.array_equal(back, expect)),
+                            "mean_abs_err_255": err}
+    rec["render"] = {"res": WRITER_RES, "render_s": render_s, "launches": launches,
+                     "coverage": float(out["hit_mask"].mean()), "per_ext": per_ext}
+    rec["launches"] = launches
+    log(f"phase 8m (c) view 0 at {WRITER_RES}^2 on the card in {render_s:.2f} s (launches "
+        f"{launches}), then write / read_image (host ms): "
+        + ", ".join(f"{k} {v['write_ms']:.1f} / {v['read_ms']:.1f}" for k, v in per_ext.items()))
+    rec["wall_s"] = time.perf_counter() - t0
+    log(f"phase 8m: {rec['wall_s']:.1f} s")
+    return rec
+
+
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list tree, in key order."""
     if isinstance(tree, dict):
@@ -2722,6 +2910,9 @@ def main(argv=None) -> int:
                     help="build, then run phase 8k alone (JPEG 2000; prints no result line)")
     ap.add_argument("--only-8l", action="store_true",
                     help="build, then run phase 8l alone (TIFF; prints no result line)")
+    ap.add_argument("--only-8m", action="store_true",
+                    help="build, then run phase 8m alone (the writers and preprocess; prints "
+                         "no result line)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "iron_tpu_torch", "kernels", "csrc")):
@@ -2780,6 +2971,10 @@ def main(argv=None) -> int:
 
     if args.only_8l:
         log(json.dumps({"tiff": tiff_phase(args, dev, card, kernels)}))
+        return 0
+
+    if args.only_8m:
+        log(json.dumps({"writers": writers_phase(args, dev, card, kernels)}))
         return 0
 
     if args.only_8h:
@@ -3687,6 +3882,9 @@ def main(argv=None) -> int:
     # ---- 8l. TIFF as libtiff reads it: the same stage-1 run from tests/data_tiff/ ----
     tiff = tiff_phase(args, dev, card, kernels)
 
+    # ---- 8m. the image writers and preprocess, and a render through them ----
+    writers = writers_phase(args, dev, card, kernels)
+
     # ---- 9. timings at the slice's shapes ----
     kernel_rows = []
     work = sdf_work(cfg.sdf)
@@ -3951,7 +4149,8 @@ def main(argv=None) -> int:
              "graph_launches": graph_launches[r[0]],
              "webp_launches": webp["launches"].get(r[0], 0),
              "jp2_launches": jp2["launches"].get(r[0], 0),
-             "tiff_launches": tiff["launches"].get(r[0], 0)}
+             "tiff_launches": tiff["launches"].get(r[0], 0),
+             "writers_launches": writers["launches"].get(r[0], 0)}
             for r in kernel_rows]
     log(json.dumps({"cli": cli}))
     log(json.dumps({"research": research}))
@@ -3961,6 +4160,7 @@ def main(argv=None) -> int:
     log(json.dumps({"webp": webp}))
     log(json.dumps({"jp2": jp2}))
     log(json.dumps({"tiff": tiff}))
+    log(json.dumps({"writers": writers}))
     log(json.dumps({"kernels": rows}))
     log(card)
     # ---- 11. result ----

@@ -1,5 +1,7 @@
 """Dataset preprocessing utilities (counterpart of iron_tpu/cli/preprocess.py;
-PNG through the port's own codec instead of OpenCV).
+the port's own codecs instead of OpenCV: each `*.png` is decoded by its
+content as cv2.imread(IMREAD_UNCHANGED) decodes it, a file OpenCV reads no
+image from is skipped, and the outputs are written as PNG).
 
 Generic replacements for the reference's one-off munging scripts
 (`process_maskimage.py`, `process_filelist.py`, `process_heic_images.py`,
@@ -36,11 +38,24 @@ def cmd_check(args):
         print("OK: dataset is consistent")
 
 
+def _read_unchanged(path: str):
+    """cv2.imread(path, IMREAD_UNCHANGED) in the port: the array with its
+    channels in RGB(A) order, or None where OpenCV gives no image.  A file
+    OpenCV reads and the port does not (AVIF) raises."""
+    from iron_tpu_torch.data.io import NoImage, decode_image
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        return decode_image(data, path)
+    except NoImage:
+        return None
+
+
 def cmd_apply_alpha(args):
-    from iron_tpu_torch.data.io import read_png, write_png
+    from iron_tpu_torch.data.io import write_png
     for p in sorted(glob.glob(os.path.join(args.image_dir, "*.png"))):
-        img = read_png(p)
-        if img.shape[2] != 4:
+        img = _read_unchanged(p)
+        if img is None or img.ndim != 3 or img.shape[2] != 4:
             continue
         a = img[:, :, 3:4].astype(np.float32) / 255.0
         rgb = (img[:, :, :3].astype(np.float32) * a).astype(img.dtype)
@@ -49,15 +64,17 @@ def cmd_apply_alpha(args):
 
 
 def cmd_make_masks(args):
-    from iron_tpu_torch.data.io import read_png, write_png
+    from iron_tpu_torch.data.io import write_png
     out_dir = args.out_dir or os.path.join(os.path.dirname(args.image_dir), "masks")
     os.makedirs(out_dir, exist_ok=True)
     for p in sorted(glob.glob(os.path.join(args.image_dir, "*.png"))):
-        img = read_png(p)
-        if img.shape[2] in (2, 4):          # the alpha channel
-            mask = img[:, :, -1]
+        img = _read_unchanged(p)
+        if img is None:
+            continue
+        if img.ndim == 3 and img.shape[2] == 4:          # the alpha channel
+            mask = img[:, :, 3]
         else:
-            mask = (img.sum(axis=-1) > 0).astype(np.uint8) * 255
+            mask = ((img.sum(axis=-1) if img.ndim == 3 else img) > 0).astype(np.uint8) * 255
         write_png(os.path.join(out_dir, os.path.basename(p)), mask)
     print("masks written to", out_dir)
 

@@ -1,13 +1,20 @@
 """The image formats the JAX package reads through OpenCV besides PNG, JPEG,
 EXR, TIFF and WebP, on numpy: BMP, PNM (PBM, PGM, PPM), PAM, PFM, Radiance
-HDR, Sun raster and GIF; and the BMP and PNM writers.
+HDR, Sun raster and GIF; and their writers.
 
 Each reader takes the file's bytes and returns what cv2.imread(path,
 IMREAD_UNCHANGED) returns, bit for bit, with the channels in RGB(A) order
 (OpenCV's are BGR(A)): [H, W] for a gray image, [H, W, 3] or [H, W, 4].
 Where OpenCV's decoder departs from the format's documents, the reader
 follows OpenCV (each such place says so), since the JAX package reads
-through it.  What OpenCV refuses raises ValueError.
+through it.  What OpenCV refuses raises ValueError (`io.NoImage` where
+OpenCV reads no image from the file).
+
+Each writer takes uint8 samples in RGB(A) order and returns the bytes
+cv2.imwrite writes from the same samples in BGR(A) order: BMP, PNM, PAM,
+Sun raster, PFM and Radiance byte for byte (OpenCV's encoders are
+deterministic); GIF the port's own (OpenCV's maps colours to a fixed
+palette).  What OpenCV writes no readable file of raises ValueError.
 """
 from __future__ import annotations
 
@@ -15,6 +22,8 @@ import struct
 from typing import List
 
 import numpy as np
+
+from iron_tpu_torch.data.io import NoImage
 
 
 def _gray(bgr: np.ndarray) -> np.ndarray:
@@ -203,9 +212,12 @@ def read_bmp(data: bytes) -> np.ndarray:
 
 
 def write_bmp(img: np.ndarray) -> bytes:
-    """uint8 [H, W] or [H, W, 1] (8 bits with a gray palette) or [H, W, 3]
-    (RGB, 24 bits) as cv2.imwrite writes BMP: 40-byte header, bottom-up,
-    rows padded to 4 bytes."""
+    """uint8 [H, W] or [H, W, 1] (8 bits with a gray palette), [H, W, 3]
+    (RGB, 24 bits) or [H, W, 4] (RGBA, 32 bits) as cv2.imwrite writes BMP:
+    bottom-up, rows padded to 4 bytes, a 40-byte header (no colour count
+    given, though a gray image has its 256-entry palette), or for four
+    channels a 124-byte V5 header with BI_BITFIELDS masks of BGRA and the
+    colour space 'sRGB' (all else zero)."""
     img = np.asarray(img)
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[..., 0]
@@ -218,19 +230,21 @@ def write_bmp(img: np.ndarray) -> bytes:
         palette = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 4, 1)
         palette[:, 3] = 0
         pal = palette.tobytes()
-    elif img.shape[2] == 3:
-        bpp, pixels, pal = 24, img[..., ::-1].reshape(H, W * 3), b""
     else:
-        raise ValueError("write_bmp: 4-channel images are written by OpenCV with a V5 header; "
-                         "the port writes 1 or 3 channels")
+        C = img.shape[2]
+        bpp, pal = 8 * C, b""
+        pixels = img[..., [2, 1, 0, 3][:C]].reshape(H, W * C)
     pitch = (W * bpp // 8 + 3) & ~3
     rows = np.zeros((H, pitch), np.uint8)
     rows[:, :pixels.shape[1]] = pixels
-    offset = 14 + 40 + len(pal)
-    size = offset + pitch * H
-    head = b"BM" + struct.pack("<IHHI", size, 0, 0, offset)
-    info = struct.pack("<IiiHHIIiiII", 40, W, H, 1, bpp, 0, 0, 0, 0,
-                       256 if bpp == 8 else 0, 0)
+    if bpp == 32:
+        info = (struct.pack("<IiiHHIIiiII", 124, W, H, 1, 32, 3, 0, 0, 0, 0, 0)
+                + struct.pack("<4I", 0x00FF0000, 0x0000FF00, 0x000000FF, 0xFF000000)
+                + b"BGRs" + bytes(64))
+    else:
+        info = struct.pack("<IiiHHIIiiII", 40, W, H, 1, bpp, 0, 0, 0, 0, 0, 0)
+    offset = 14 + len(info) + len(pal)
+    head = b"BM" + struct.pack("<IHHI", offset + pitch * H, 0, 0, offset)
     return head + info + pal + rows[::-1].tobytes()
 
 
@@ -248,7 +262,7 @@ class _Tokens:
 
     def byte(self) -> int:
         if self.pos >= len(self.data):
-            raise ValueError("PNM: unexpected end of the file")
+            raise NoImage("PNM: unexpected end of the file")
         b = self.data[self.pos]
         self.pos += 1
         return b
@@ -384,6 +398,25 @@ def read_pfm(data: bytes) -> np.ndarray:
     return img[..., 0] if C == 1 else np.ascontiguousarray(img)
 
 
+def write_pfm(img: np.ndarray) -> bytes:
+    """uint8 or float32 [H, W] or [H, W, 3] (RGB) as cv2.imwrite writes PFM:
+    "Pf" (one channel) or "PF" (three, in RGB order), the size, scale -1
+    (little-endian), the rows bottom first as float32, 8-bit values
+    unscaled (95 -> 95.0).  OpenCV writes nothing readable for other
+    channel counts (one byte, "P"), so they raise."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    C = 1 if img.ndim == 2 else img.shape[2]
+    if img.dtype not in (np.uint8, np.float32) or C not in (1, 3):
+        raise ValueError(f"write_pfm takes uint8 / float32 [H, W] or [H, W, 3], got "
+                         f"{img.dtype} {img.shape} (OpenCV writes no readable PFM from "
+                         f"{C} channels)")
+    H, W = img.shape[:2]
+    head = b"%s\n%d %d\n-1\n" % (b"PF" if C == 3 else b"Pf", W, H)
+    return head + np.ascontiguousarray(img[::-1], "<f4").tobytes()
+
+
 # ---------------------------------------------------------------------------
 # Radiance HDR (OpenCV's rgbe.cpp, after Bruce Walter's rgbe.c)
 # ---------------------------------------------------------------------------
@@ -417,8 +450,8 @@ def read_hdr(data: bytes) -> np.ndarray:
         if line == b"\n" or line[:1] == b"\x00":
             break
     if b"FORMAT=32-bit_rle_rgbe\n" not in lines[1:] or lines[-1] != b"\n":
-        raise ValueError("HDR: no FORMAT=32-bit_rle_rgbe line or no blank line after the "
-                         "header (OpenCV reads no other)")
+        raise NoImage("HDR: no FORMAT=32-bit_rle_rgbe line or no blank line after the "
+                      "header (OpenCV reads no other)")
     end = data.find(b"\n", pos, pos + 127)
     end = pos + 127 if end < 0 else end + 1
     size = data[pos:end].decode("ascii", "replace").split()
@@ -469,6 +502,88 @@ def read_hdr(data: bytes) -> np.ndarray:
     return _rgbe_float(out).reshape(H, W, 3)
 
 
+def _float_rgbe(rgb: np.ndarray) -> np.ndarray:
+    """rgbe.c's float2rgbe: float32 [..., 3] -> uint8 [..., 4]: the largest
+    sample v split as m 2^e (frexp), each sample times the float m 256 / v,
+    truncated; all zero where v < 1e-32."""
+    v = rgb.max(axis=-1)
+    m, e = np.frexp(v)
+    big = v >= 1e-32
+    scale = (m.astype(np.float64) * 256.0 / np.where(big, v, 1)).astype(np.float32)
+    out = np.zeros(rgb.shape[:-1] + (4,), np.uint8)
+    out[..., :3] = (rgb * scale[..., None]).astype(np.uint8)
+    out[..., 3] = e + 128
+    out[~big] = 0
+    return out
+
+
+def _rle_bytes(d: np.ndarray) -> bytes:
+    """rgbe.c's RGBE_WriteBytes_RLE on one channel of a scanline: the
+    bytes as runs of equal values (each at most 127, cut from its start);
+    a run of 4 or more written as a run (128 + length, value); the bytes
+    before it as literals (length up to 128, the bytes), or as a run when
+    they are a single run of 2 or 3."""
+    n = len(d)
+    starts = np.concatenate([[0], np.nonzero(d[1:] != d[:-1])[0] + 1])
+    lens = np.diff(np.concatenate([starts, [n]]))
+    pieces = -(-lens // 127)                          # a maximal run cut into pieces
+    pstart = np.repeat(starts, pieces) + 127 * (np.arange(pieces.sum())
+                                                 - np.repeat(np.cumsum(pieces) - pieces, pieces))
+    plen = np.minimum(np.repeat(starts + lens, pieces) - pstart, 127)
+    out = bytearray()
+    cur = 0
+
+    def pending(end: int, last: int) -> None:
+        nonlocal cur
+        if cur == end:
+            return
+        if last >= 0 and 1 < plen[last] == end - cur:   # one short run
+            out.extend((128 + int(plen[last]), int(d[cur])))
+            cur = end
+        while cur < end:
+            k = min(end - cur, 128)
+            out.append(k)
+            out.extend(d[cur:cur + k].tobytes())
+            cur += k
+
+    for i in np.nonzero(plen >= 4)[0].tolist():
+        pending(int(pstart[i]), i - 1)
+        out.extend((128 + int(plen[i]), int(d[pstart[i]])))
+        cur += int(plen[i])
+    pending(n, len(plen) - 1)
+    return bytes(out)
+
+
+def write_hdr(img: np.ndarray) -> bytes:
+    """uint8 or float32 [H, W] or [H, W, 3] (RGB) as cv2.imwrite writes
+    Radiance HDR: gray repeated to three channels, 8-bit samples times the
+    float 1 / 255, "#?RADIANCE", FORMAT=32-bit_rle_rgbe, "-Y H +X W", then
+    RGBE pixels, each scanline in the new run-length form when 8 <= W <=
+    32767 (its four channels coded apart), else flat.  OpenCV writes no
+    file for four channels, so they raise."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.dtype not in (np.uint8, np.float32) or not (img.ndim == 2 or img.shape[2] == 3):
+        raise ValueError(f"write_hdr takes uint8 / float32 [H, W] or [H, W, 3], got "
+                         f"{img.dtype} {img.shape} (OpenCV writes no HDR file from four "
+                         f"channels)")
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, -1)
+    if img.dtype == np.uint8:
+        img = img.astype(np.float32) * (np.float32(1) / np.float32(255))
+    H, W = img.shape[:2]
+    rgbe = _float_rgbe(img)
+    out = [b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y %d +X %d\n" % (H, W)]
+    if not 8 <= W <= 0x7FFF:
+        return out[0] + rgbe.tobytes()
+    head = bytes((2, 2, W >> 8, W & 255))
+    for row in rgbe:
+        out.append(head)
+        out.extend(_rle_bytes(row[:, c]) for c in range(4))
+    return b"".join(out)
+
+
 # ---------------------------------------------------------------------------
 # Sun raster (OpenCV's grfmt_sunras.cpp)
 # ---------------------------------------------------------------------------
@@ -487,8 +602,8 @@ def read_sunras(data: bytes) -> np.ndarray:
         raise ValueError("not a Sun raster file")
     W, H, bpp, _, enc, maptype, maplen = struct.unpack(">7I", data[4:32])
     if enc in (2, 3):
-        raise ValueError(f"Sun raster: {('byte-encoded (RLE)', 'RGB-order')[enc - 2]} files are "
-                         f"not read (OpenCV returns no image for them)")
+        raise NoImage(f"Sun raster: {('byte-encoded (RLE)', 'RGB-order')[enc - 2]} files are "
+                      f"not read (OpenCV returns no image for them)")
     if not (W > 0 and H > 0 and bpp in (1, 8, 24, 32) and enc in (0, 1) and
             ((maptype == 0 and maplen == 0) or
              (maptype == 1 and 0 < maplen <= 3 * (1 << bpp) and bpp <= 8))):
@@ -513,6 +628,30 @@ def read_sunras(data: bytes) -> np.ndarray:
     if not _is_color(palette[:1 << bpp]):
         return _gray(bgr)
     return np.ascontiguousarray(_rgb(bgr))
+
+
+def write_sunras(img: np.ndarray) -> bytes:
+    """uint8 [H, W], [H, W, 3] (RGB) or [H, W, 4] (RGBA) as cv2.imwrite
+    writes Sun raster: a standard-type file without a colour map, 8, 24
+    (BGR) or 32 bits (BGRA, which reads back as three channels), each row
+    padded to an even length.  OpenCV fills a row's pad byte from the bytes
+    after the row in its buffer: the next row's first byte; after the last
+    row, whatever its memory holds there (here a zero)."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.dtype != np.uint8 or not (img.ndim == 2 or img.shape[2] in (3, 4)):
+        raise ValueError(f"write_sunras takes uint8 [H, W] or [H, W, 3 / 4], got {img.dtype} "
+                         f"{img.shape}")
+    H, W = img.shape[:2]
+    C = 1 if img.ndim == 2 else img.shape[2]
+    rows = (img if C == 1 else img[..., [2, 1, 0, 3][:C]]).reshape(H, W * C)
+    pitch = (W * C + 1) & ~1
+    flat = np.concatenate([rows.reshape(-1), np.zeros(1, np.uint8)])
+    if pitch > W * C:
+        rows = np.concatenate([rows, flat[W * C::W * C][:, None]], axis=1)
+    head = _RAS_MAGIC + struct.pack(">7I", W, H, 8 * C, pitch * H, 1, 0, 0)
+    return head + rows.tobytes()
 
 
 # ---------------------------------------------------------------------------
@@ -651,6 +790,123 @@ def read_gif(data: bytes) -> np.ndarray:
     region[drawn] = np.concatenate([pal[idx[drawn]], np.full((int(drawn.sum()), 1), 255,
                                                                np.uint8)], -1)
     return out if any_transparent else out[..., :3].copy()
+
+
+def _median_cut(colors: np.ndarray, counts: np.ndarray, k: int):
+    """A palette of at most k colours for distinct colours [n, 3] seen
+    `counts` times: the box of colours with the most pixels times its
+    widest side cut at its weighted median on that side, until there are k
+    boxes -> (palette [m, 3] uint8, the box of each colour [n])."""
+    def score(b):
+        if len(b) < 2:
+            return 0
+        c = colors[b]
+        return int((c.max(0) - c.min(0)).max()) * int(counts[b].sum())
+
+    boxes = [np.arange(len(colors))]
+    scores = [score(boxes[0])]
+    while len(boxes) < k and max(scores) > 0:
+        b = boxes.pop(int(np.argmax(scores)))
+        scores.pop(int(np.argmax(scores)))
+        c = colors[b]
+        axis = int(np.argmax(c.max(0) - c.min(0)))
+        b = b[np.argsort(c[:, axis], kind="stable")]
+        cum = np.cumsum(counts[b])
+        cut = int(np.searchsorted(cum, cum[-1] / 2.0)) + 1
+        cut = min(max(cut, 1), len(b) - 1)
+        boxes += [b[:cut], b[cut:]]
+        scores += [score(b[:cut]), score(b[cut:])]
+    box_of = np.zeros(len(colors), np.int64)
+    palette = np.zeros((len(boxes), 3), np.uint8)
+    for i, b in enumerate(boxes):
+        box_of[b] = i
+        w = counts[b].astype(np.float64)
+        palette[i] = np.round((colors[b] * w[:, None]).sum(0) / w.sum())
+    return palette, box_of
+
+
+def _lzw_gif_encode(indices: np.ndarray, min_size: int) -> bytes:
+    """GIF's LZW of palette indices (codes least significant bit first,
+    growing to 12 bits; a clear code first and whenever the table is full,
+    as giflib's encoder does), in data sub-blocks of at most 255 bytes."""
+    clear, eoi = 1 << min_size, (1 << min_size) + 1
+    codes, widths = [clear], [min_size + 1]
+    size, next_code = min_size + 1, eoi + 1
+    table = {}
+    px = indices.tolist()
+    prefix = px[0]
+    for k in px[1:]:
+        key = prefix << 8 | k
+        c = table.get(key)
+        if c is not None:
+            prefix = c
+            continue
+        codes.append(prefix)
+        widths.append(size)
+        if next_code >= 1 << size and size < 12:
+            size += 1
+        if next_code >= 4095:                      # the table is full: start again
+            codes.append(clear)
+            widths.append(size)
+            size, next_code = min_size + 1, eoi + 1
+            table = {}
+        else:
+            table[key] = next_code
+            next_code += 1
+        prefix = k
+    codes.append(prefix)
+    widths.append(size)
+    if next_code >= 1 << size and size < 12:
+        size += 1
+    codes.append(eoi)
+    widths.append(size)
+    v, w = np.asarray(codes, np.int64), np.asarray(widths, np.int64)
+    owner = np.repeat(np.arange(len(w)), w)
+    pos = np.arange(int(w.sum())) - np.repeat(np.cumsum(w) - w, w)
+    data = np.packbits(((v[owner] >> pos) & 1).astype(np.uint8), bitorder="little").tobytes()
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\x00"
+
+
+def write_gif(img: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] (RGB) or [H, W, 4] (RGBA) as a GIF89a of one frame:
+    the image's own colours where it has at most 256 (255 with a
+    transparent index), else a median-cut palette of 256 with each colour
+    taken to its box's mean.  As OpenCV's writer: a pixel of alpha 0 is
+    transparent (the transparent index, whose colour is black and which is
+    the screen's background, so it reads as (0, 0, 0, 0)), any other alpha
+    opaque, and an image without alpha 0 has no transparency.  OpenCV
+    writes an empty file for a gray image, so gray raises."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (3, 4):
+        raise ValueError(f"write_gif takes uint8 [H, W, 3 / 4], got {img.dtype} {img.shape} "
+                         f"(OpenCV writes an empty file for a gray image)")
+    H, W = img.shape[:2]
+    if not (1 <= H <= 65535 and 1 <= W <= 65535):
+        raise ValueError(f"GIF holds at most 65535 x 65535 pixels, not {W} x {H}")
+    clear = img[..., 3] == 0 if img.shape[2] == 4 else np.zeros((H, W), bool)
+    transparent = bool(clear.any())
+    key = (img[..., 0].astype(np.int64) << 16) | (img[..., 1].astype(np.int64) << 8) | img[..., 2]
+    key = key[~clear]
+    uniq, inverse, counts = np.unique(key, return_inverse=True, return_counts=True)
+    colors = np.stack([uniq >> 16, (uniq >> 8) & 255, uniq & 255], -1)
+    room = 256 - int(transparent)
+    if len(uniq) <= room:
+        palette, box_of = colors.astype(np.uint8), np.arange(len(uniq))
+    else:
+        palette, box_of = _median_cut(colors, counts, room)
+    base = int(transparent)                        # index 0: transparent, black
+    idx = np.zeros((H, W), np.int64)
+    idx[~clear] = base + box_of[inverse.ravel()]
+    table = np.zeros((max(2, 1 << int(np.ceil(np.log2(base + len(palette))))), 3), np.uint8)
+    table[base:base + len(palette)] = palette
+    bits = int(np.log2(len(table)))
+    head = b"GIF89a" + struct.pack("<HHBBB", W, H, 0x80 | (bits - 1) << 4 | (bits - 1), 0, 0)
+    gce = b"\x21\xf9\x04\x01\x00\x00\x00\x00" if transparent else b""
+    desc = b"\x2c" + struct.pack("<HHHHB", 0, 0, W, H, 0)
+    min_size = max(2, bits)
+    return (head + table.tobytes() + gce + desc + bytes([min_size])
+            + _lzw_gif_encode(idx.ravel(), min_size) + b"\x3b")
 
 
 def _gif_has_transparency(data: bytes, pos: int) -> bool:
@@ -792,3 +1048,20 @@ def read_pam(data: bytes) -> np.ndarray:
     if C == 1:
         return img[..., 0]
     return img if C == 2 else img[..., [2, 1, 0, 3][:C]]
+
+
+def write_pam(img: np.ndarray) -> bytes:
+    """uint8 [H, W] or [H, W, 3] (RGB) as cv2.imwrite writes PAM: WIDTH,
+    HEIGHT, DEPTH, MAXVAL 255, no TUPLTYPE, then the samples as OpenCV holds
+    them (BGR).  OpenCV's four-channel PAM, without a TUPLTYPE, is a file
+    its own reader refuses, so four channels raise."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.dtype != np.uint8 or not (img.ndim == 2 or img.shape[2] == 3):
+        raise ValueError(f"write_pam takes uint8 [H, W] or [H, W, 3], got {img.dtype} "
+                         f"{img.shape} (OpenCV's four-channel PAM is a file it cannot read)")
+    H, W = img.shape[:2]
+    C = 1 if img.ndim == 2 else 3
+    head = b"P7\nWIDTH %d\nHEIGHT %d\nDEPTH %d\nMAXVAL 255\nENDHDR\n" % (W, H, C)
+    return head + np.ascontiguousarray(img if C == 1 else img[..., ::-1]).tobytes()

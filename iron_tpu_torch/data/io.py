@@ -20,11 +20,20 @@ RGB, and content whose maximum passes 1.5 divided by 255
 (or 65535 past 255.5) -- float PFM, HDR and TIFF content and TIFF's 32-
 and 64-bit integers too; EXR gets a 1/2.2 gamma.
 
-`write_image` writes what the JAX package's cv2.imwrite writes for .png,
-.jpg / .jpeg / .jpe (baseline JPEG at quality 95), .bmp / .dib, .tif /
-.tiff (uncompressed), .pbm / .pgm / .ppm / .pnm and .exr, and raises for
-any other extension (OpenCV writes some of them: .jp2, .avif, .webp, .gif,
-.pfm, .hdr, .ras and .pam).
+`write_image` writes what the JAX package's write_image writes through
+cv2.imwrite, for every extension OpenCV writes but .jp2 and .avif, an RGBA
+array in the JAX package's channel order (all four reversed for OpenCV, so
+the file holds G, B, A, R): byte for byte as OpenCV for .jpg / .jpeg /
+.jpe (libjpeg's compressor, `jpeg.py`), .bmp / .dib, .pam, .ras / .sr,
+.pfm, .hdr / .pic and .pbm / .pgm / .ppm / .pnm (`formats.py`); decoding
+to OpenCV's arrays for .png and .tif / .tiff (`tiff.py`), whose
+compression OpenCV's encoders choose; the port's own lossless VP8L for
+.webp (`webp_enc.py`) and GIF89a for .gif (`formats.py`), held to what
+they decode to; .exr through the port's codec.  Where OpenCV writes no
+file or one it cannot read, write_image raises and makes no file.
+A file OpenCV reads no image from raises `NoImage` (a ValueError) in the
+readers, which `cli/preprocess.py` skips as the JAX package skips
+cv2.imread's None.
 """
 from __future__ import annotations
 
@@ -41,6 +50,13 @@ _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: 
 # Adam7's passes: (first column, first row, column step, row step)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
           (0, 1, 1, 2))
+
+
+class NoImage(ValueError):
+    """A file cv2.imread(IMREAD_UNCHANGED) returns no image for (the JAX
+    package then gets None): no format OpenCV reads is recognised in it, or
+    it is a variant OpenCV refuses.  Other errors of the port's decoders
+    are files OpenCV may read and the port does not, or corrupt data."""
 
 
 def to8b(x: np.ndarray) -> np.ndarray:
@@ -271,8 +287,8 @@ def decode_image(data: bytes, name: str = "image") -> np.ndarray:
     if kind:
         raise ValueError(f"{name}: {kind} content, which the JAX package reads through OpenCV; "
                          f"the port has no {kind} decoder yet")
-    raise ValueError(f"{name}: no image format recognised in the first bytes (OpenCV reads no "
-                     f"image from it either)")
+    raise NoImage(f"{name}: no image format recognised in the first bytes (OpenCV reads no "
+                  f"image from it either)")
 
 
 def read_image(path: str, apply_exr_gamma: bool = True) -> np.ndarray:
@@ -305,18 +321,29 @@ def read_image(path: str, apply_exr_gamma: bool = True) -> np.ndarray:
     return img
 
 
-# extension (lower case) -> the writer's format, as cv2.imwrite picks it
+# extension (lower case) -> the writer's format, as cv2.imwrite picks it;
+# OpenCV also writes .jp2 and .avif, which the port does not
 _WRITERS = {".png": "png", ".jpg": "jpeg", ".jpeg": "jpeg", ".jpe": "jpeg", ".bmp": "bmp",
             ".dib": "bmp", ".tif": "tiff", ".tiff": "tiff", ".pbm": "pbm", ".pgm": "pgm",
-            ".ppm": "ppm", ".pnm": "pnm"}
+            ".ppm": "ppm", ".pnm": "pnm", ".pam": "pam", ".ras": "sunras", ".sr": "sunras",
+            ".pfm": "pfm", ".hdr": "hdr", ".pic": "hdr", ".webp": "webp", ".gif": "gif"}
+_NOT_WRITTEN = {".jp2": "JPEG 2000", ".avif": "AVIF"}
 
 
 def write_image(path: str, img: np.ndarray) -> None:
-    """Write float [0, 1] or uint8 RGB (or gray [H, W]) as the JAX
-    package's cv2.imwrite would: .exr linear float through the port's
-    codec; .png, .jpg / .jpeg / .jpe (baseline, quality 95), .bmp / .dib,
-    .tif / .tiff (uncompressed), .pbm / .pgm (gray) / .ppm (RGB) / .pnm.
-    Any other extension raises."""
+    """Write float [0, 1] or uint8 RGB(A) (or gray [H, W]) as the JAX
+    package's write_image writes it through cv2.imwrite: .exr linear float
+    through the port's codec; any other array to 8 bits (to8b), its
+    channels reversed for OpenCV, then the format the extension names.
+    Since the JAX package reverses all four channels of an RGBA array, the
+    file holds (G, B, A, R) as RGBA, or (G, B, A) where the format keeps
+    three channels (.jpg).  Extensions: .png, .jpg / .jpeg / .jpe
+    (baseline, quality 95), .bmp / .dib, .tif / .tiff (uncompressed), .pbm /
+    .pgm (gray) / .ppm (RGB) / .pnm, .pam, .ras / .sr (Sun raster), .pfm,
+    .hdr / .pic (Radiance), .webp (lossless) and .gif.  .jp2, .avif and any
+    other extension raise, as does an image OpenCV writes no readable file
+    of (four channels to .pam, .pfm, .hdr, .ppm; colour to .pgm, .pbm;
+    gray to .gif); no file is left behind then."""
     if path.endswith(".exr"):
         from iron_tpu_torch.data.exr import write_exr
         write_exr(path, np.asarray(img, np.float32))
@@ -324,23 +351,30 @@ def write_image(path: str, img: np.ndarray) -> None:
     ext = os.path.splitext(path)[1].lower()
     kind = _WRITERS.get(ext)
     if kind is None:
+        what = f"{_NOT_WRITTEN[ext]}, which OpenCV writes" if ext in _NOT_WRITTEN else \
+            f"'{ext}'"
         raise ValueError(f"{path}: the port writes {', '.join(sorted(_WRITERS))} and .exr images, "
-                         f"not '{ext}'")
+                         f"not {what}")
     img = np.asarray(img)
     if img.dtype != np.uint8:
         img = to8b(img)
+    if img.ndim == 3 and img.shape[2] == 4:
+        img = img[..., [1, 2, 3, 0]]        # RGBA reversed, then read by OpenCV as BGRA
     if kind == "png":
         write_png(path, img)
         return
     if kind == "jpeg":
         from iron_tpu_torch.data.jpeg import encode_jpeg as encode
-    elif kind == "bmp":
-        from iron_tpu_torch.data.formats import write_bmp as encode
     elif kind == "tiff":
         from iron_tpu_torch.data.tiff import write_tiff as encode
-    else:
+    elif kind == "webp":
+        from iron_tpu_torch.data.webp_enc import encode_webp_lossless as encode
+    elif kind in ("pbm", "pgm", "ppm", "pnm"):
         from iron_tpu_torch.data.formats import write_pnm
         encode = lambda im: write_pnm(im, kind)
-    data = encode(img)
+    else:
+        from iron_tpu_torch.data import formats
+        encode = getattr(formats, f"write_{kind}")
+    data = encode(img)                      # raises before any file is made
     with open(path, "wb") as f:
         f.write(data)

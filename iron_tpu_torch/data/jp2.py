@@ -43,6 +43,7 @@ import struct
 
 import numpy as np
 
+from iron_tpu_torch.data.io import NoImage
 from iron_tpu_torch.data.jp2_t1 import decode_block
 
 JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
@@ -70,6 +71,10 @@ _TWO_INV_K = np.float32(1.625732422)
 
 class JP2Error(ValueError):
     """A JPEG 2000 file the port (or OpenCV) does not decode."""
+
+
+class JP2NoImage(JP2Error, NoImage):
+    """A JPEG 2000 file OpenCV gives no image for."""
 
 
 def _ceildiv(a: int, b: int) -> int:
@@ -682,23 +687,23 @@ def decode_codestream(cs: bytes):
     (anything else raises, as OpenCV reads no image from it)."""
     info = parse_codestream(cs)
     if len(info["prec"]) not in (1, 3, 4):
-        raise JP2Error(f"JPEG 2000 with {len(info['prec'])} components: OpenCV reads no image "
-                       f"from it (it takes 1, 3 or 4)")
+        raise JP2NoImage(f"JPEG 2000 with {len(info['prec'])} components: OpenCV reads no image "
+                         f"from it (it takes 1, 3 or 4)")
     if any(info["signed"]):
-        raise JP2Error("JPEG 2000 with signed samples: OpenCV reads no image from it")
+        raise JP2NoImage("JPEG 2000 with signed samples: OpenCV reads no image from it")
     if info["X0"] or info["Y0"]:
-        raise JP2Error(f"JPEG 2000 with an image offset of ({info['X0']}, {info['Y0']}): "
-                       f"OpenCV reads no image from it")
+        raise JP2NoImage(f"JPEG 2000 with an image offset of ({info['X0']}, {info['Y0']}): "
+                         f"OpenCV reads no image from it")
     if any(s != (1, 1) for s in info["sub"]):
-        raise JP2Error(f"JPEG 2000 with sub-sampled components {info['sub']}: OpenCV reads no "
-                       f"image from it")
+        raise JP2NoImage(f"JPEG 2000 with sub-sampled components {info['sub']}: OpenCV reads no "
+                         f"image from it")
     top = max(info["prec"])
     if top < 8 or top > 16:
-        raise JP2Error(f"JPEG 2000 with {top}-bit samples: OpenCV reads no image from it")
+        raise JP2NoImage(f"JPEG 2000 with {top}-bit samples: OpenCV reads no image from it")
     H, W = info["Y1"], info["X1"]
     if W > 1 << 20 or H > 1 << 20 or W * H > 1 << 30:
-        raise JP2Error(f"JPEG 2000 image of {W} x {H} pixels: past OpenCV's limits "
-                       f"(2^20 a side, 2^30 in all), so OpenCV reads no image from it")
+        raise JP2NoImage(f"JPEG 2000 image of {W} x {H} pixels: past OpenCV's limits "
+                         f"(2^20 a side, 2^30 in all), so OpenCV reads no image from it")
     comps = [np.zeros((H, W), np.int64) for _ in info["prec"]]
     for t in range(info["ntx"] * info["nty"]):
         tile, (x0, y0) = _decode_tile(info, t)
@@ -723,8 +728,8 @@ def _boxes(data: bytes, pos: int, end: int):
         elif n == 0:
             n = end - pos
         if n < head or pos + n > end:
-            raise JP2Error(f"JPEG 2000: the '{kind.decode('latin-1')}' box runs past the end "
-                           f"of the file")
+            raise JP2NoImage(f"JPEG 2000: the '{kind.decode('latin-1')}' box runs past the "
+                             f"end of the file")
         yield kind, data[pos + head:pos + n]
         pos += n
 
@@ -750,7 +755,7 @@ def _read_jp2(data: bytes):
             cs = body
             break
     if cs is None:
-        raise JP2Error("JPEG 2000: a JP2 file without a codestream ('jp2c' box)")
+        raise JP2NoImage("JPEG 2000: a JP2 file without a codestream ('jp2c' box)")
     if colour in (12, 18, 24):
         raise JP2Error(f"JPEG 2000 in the {({12: 'CMYK', 18: 'sYCC', 24: 'e-YCC'})[colour]} "
                        f"colour space: OpenCV converts it and the port does not")
@@ -789,8 +794,8 @@ def decode_jp2(data: bytes) -> np.ndarray:
     if cdef:
         comps = _apply_cdef(comps, cdef)
     if colour == 17 and len(comps) == 4:
-        raise JP2Error("JPEG 2000 with 4 components in the gray colour space: OpenCV reads "
-                       "no image from it")
+        raise JP2NoImage("JPEG 2000 with 4 components in the gray colour space: OpenCV reads "
+                         "no image from it")
     if colour == 17 and len(comps) == 3:      # gray: OpenCV repeats the first component
         comps = [comps[0]] * 3
     out = np.stack(comps, axis=-1).astype(np.uint8 if max(prec) == 8 else np.uint16)

@@ -1,12 +1,16 @@
-"""JPEG on numpy and scipy (the port's replacement for OpenCV's JPEG codec;
-the JAX package reads and writes JPEG through cv2).
+"""JPEG on numpy (the port's replacement for OpenCV's JPEG codec; the JAX
+package reads and writes JPEG through cv2).
 
-Writer: JFIF, 8-bit, sequential DCT with Huffman coding (SOF0); colour as
-YCbCr with 2x2 chroma subsampling (4:2:0), gray as one component; the
-quantisation tables of the standard (ITU T.81 Annex K) scaled to a quality
-as libjpeg scales them (95, cv2's default); the standard's Huffman tables.
-The colour conversion and the chroma downsampling are libjpeg's fixed-point
-ones; the DCT is the exact orthonormal one (scipy.fft).
+Writer, byte-equal to cv2.imencode(".jpg") (libjpeg-turbo's compressor at
+OpenCV's settings): JFIF, 8-bit, sequential DCT with Huffman coding
+(SOF0); colour as YCbCr with 2x2 chroma subsampling (4:2:0), gray as one
+component; the quantisation tables of the standard (ITU T.81 Annex K)
+scaled to a quality as libjpeg scales them (95, cv2's default); the
+standard's Huffman tables.  Every step is libjpeg's integer one: the
+fixed-point RGB -> YCbCr (jccolor.c), the edge padding and h2v2
+downsampling (jcprepct.c, jcsample.c), jpeg_fdct_islow (jfdctint.c), the
+quantisation's rounding (jcdctmgr.c), the dummy blocks that fill the last
+MCUs (jccoefct.c) and the markers (jcmarker.c).
 
 Reader, bit-equal to cv2.imread(IMREAD_UNCHANGED) (libjpeg-turbo): 8-bit
 DCT files, sequential (SOF0, SOF1) or progressive (SOF2: spectral selection
@@ -29,7 +33,8 @@ import struct
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-from scipy.fft import dctn
+
+from iron_tpu_torch.data.io import NoImage
 
 # zigzag scan order: ZIGZAG[k] is the natural (row-major) index of the k-th
 # coefficient in the stream
@@ -140,23 +145,58 @@ def _h2v2_downsample(plane: np.ndarray) -> np.ndarray:
     return (s + bias[None]) >> 2
 
 
-def _blocks(plane: np.ndarray) -> np.ndarray:
-    """[h, w] (multiples of 8) -> [h / 8, w / 8, 8, 8]."""
-    h, w = plane.shape
-    return plane.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3)
+def _fdct_islow(blocks: np.ndarray) -> np.ndarray:
+    """libjpeg's jpeg_fdct_islow (jfdctint.c) on level-shifted samples
+    [..., 8, 8] (int64): two 1-D passes, rows then columns, in 13-bit fixed
+    point with PASS1_BITS = 2 -> the coefficients scaled up by 8, in
+    natural order."""
+    def one_pass(d, first: bool):
+        out = np.empty_like(d)
+        t0, t7 = d[..., 0] + d[..., 7], d[..., 0] - d[..., 7]
+        t1, t6 = d[..., 1] + d[..., 6], d[..., 1] - d[..., 6]
+        t2, t5 = d[..., 2] + d[..., 5], d[..., 2] - d[..., 5]
+        t3, t4 = d[..., 3] + d[..., 4], d[..., 3] - d[..., 4]
+        t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+        if first:
+            out[..., 0], out[..., 4] = (t10 + t11) << 2, (t10 - t11) << 2
+            n = 11                                  # CONST_BITS - PASS1_BITS
+        else:
+            out[..., 0], out[..., 4] = (t10 + t11 + 2) >> 2, (t10 - t11 + 2) >> 2
+            n = 15                                  # CONST_BITS + PASS1_BITS
+        r = 1 << (n - 1)
+        z1 = (t12 + t13) * 4433
+        out[..., 2] = (z1 + t13 * 6270 + r) >> n
+        out[..., 6] = (z1 - t12 * 15137 + r) >> n
+        z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
+        z5 = (z3 + z4) * 9633
+        t4, t5, t6, t7 = t4 * 2446, t5 * 16819, t6 * 25172, t7 * 12299
+        z1, z2 = z1 * -7373, z2 * -20995
+        z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
+        out[..., 7] = (t4 + z1 + z3 + r) >> n
+        out[..., 5] = (t5 + z2 + z4 + r) >> n
+        out[..., 3] = (t6 + z2 + z3 + r) >> n
+        out[..., 1] = (t7 + z1 + z4 + r) >> n
+        return out
+    rows = one_pass(blocks, True)
+    return np.swapaxes(one_pass(np.swapaxes(rows, -1, -2), False), -1, -2)
 
 
 def _fdct_quantize(plane: np.ndarray, q: np.ndarray) -> np.ndarray:
-    """Level shift, orthonormal 8x8 DCT, quantisation rounded half away from
-    zero -> [by, bx, 64] int64 in zigzag order."""
-    coef = dctn(_blocks(plane.astype(np.float64) - 128.0), type=2, norm="ortho", axes=(2, 3))
-    coef = coef.reshape(coef.shape[:2] + (64,)) / q
-    return (np.sign(coef) * np.floor(np.abs(coef) + 0.5)).astype(np.int64)[..., ZIGZAG]
+    """Samples [h, w] (multiples of 8) -> the quantised coefficients of its
+    blocks [h / 8, w / 8, 64] (int64, zigzag order): level shift,
+    jpeg_fdct_islow, and libjpeg's quantisation of the 8x-scaled
+    coefficient c by 8q: (|c| + 4q) // 8q with c's sign."""
+    h, w = plane.shape
+    blocks = (plane.astype(np.int64) - 128).reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3)
+    coef = _fdct_islow(blocks).reshape(h // 8, w // 8, 64)
+    d = (q << 3)[None, None]
+    mag = (np.abs(coef) + (d >> 1)) // d
+    return np.where(coef < 0, -mag, mag)[..., ZIGZAG]
 
 
 def _pad_edges(a: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Replicate the last row and column up to [h, w] (libjpeg's edge
-    expansion)."""
+    """Replicate the last row and column up to [h, w] (libjpeg's
+    expand_right_edge and expand_bottom_edge)."""
     return np.pad(a, ((0, h - a.shape[0]), (0, w - a.shape[1])), mode="edge")
 
 
@@ -225,9 +265,28 @@ def _segment(marker: int, body: bytes) -> bytes:
     return struct.pack(">HH", marker, len(body) + 2) + body
 
 
+def _dummy_blocks(y: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """The luma blocks of whole 2x2-block MCUs [2my, 2mx, 64] of which only
+    the first rows x cols are the image's: libjpeg's compress_data
+    (jccoefct.c) codes the others as dummy blocks, all AC zero, a right-edge
+    block with the DC of the block to its left and a bottom-row block with
+    the DC of its MCU's last block of the row above."""
+    y = y.copy()
+    y[:, cols:] = 0
+    y[rows:] = 0
+    if cols % 2:
+        y[:rows, cols, 0] = y[:rows, cols - 1, 0]
+    if rows % 2:
+        last = y[rows - 1, 1::2, 0]                    # each MCU's upper-right block
+        y[rows, :, 0] = np.repeat(last, 2)
+    return y
+
+
 def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
     """A uint8 [H, W], [H, W, 1] or [H, W, 3 or 4] (RGB[A]; alpha dropped)
-    image as baseline JPEG bytes."""
+    image as the bytes cv2.imencode(".jpg") writes at `quality` (OpenCV's
+    default 95): libjpeg's compressor with its defaults, baseline, 4:2:0
+    chroma, the standard Huffman tables."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"encode_jpeg takes uint8, got {img.dtype}")
@@ -243,34 +302,41 @@ def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
     qy, qc = quant_table(_LUMA_Q, quality), quant_table(_CHROMA_Q, quality)
     huff = [(_huff_codes(*_DC_LUMA), _huff_codes(*_AC_LUMA)),
             (_huff_codes(*_DC_CHROMA), _huff_codes(*_AC_CHROMA))]
+    by, bx = -(-H // 8), -(-W // 8)                    # the luma blocks of the image
     if img.ndim == 2:
-        h8, w8 = -(-H // 8) * 8, -(-W // 8) * 8
-        coefs = _fdct_quantize(_pad_edges(img.astype(np.int64), h8, w8), qy).reshape(-1, 64)
+        # one component: a scan of by x bx one-block MCUs, no dummy blocks
+        coefs = _fdct_quantize(_pad_edges(img, 8 * by, 8 * bx), qy).reshape(-1, 64)
         tables = comps = np.zeros(len(coefs), np.int64)
         frame_comps = [(1, 0x11, 0)]
-        dqt = b"\x00" + bytes(qy[ZIGZAG].tolist())
+        qts = [qy]
     else:
-        h16, w16 = -(-H // 16) * 16, -(-W // 16) * 16
-        ycc = [_pad_edges(p, h16, w16) for p in _rgb_to_ycc(img)]
-        y = _fdct_quantize(ycc[0], qy)                                  # [2my, 2mx, 64]
-        cb, cr = (_fdct_quantize(_h2v2_downsample(p), qc) for p in ycc[1:])
-        my, mx = h16 // 16, w16 // 16
+        my, mx = -(-H // 16), -(-W // 16)              # MCUs; also the chroma blocks
+        ycc = _rgb_to_ycc(img)
+        y = np.zeros((2 * my, 2 * mx, 64), np.int64)
+        y[:by, :bx] = _fdct_quantize(_pad_edges(ycc[0], 8 * by, 8 * bx), qy)
+        y = _dummy_blocks(y, by, bx)
+        # chroma (jcprepct.c, jcsample.c): the full-resolution rows padded to
+        # an even count and the columns to 16 mx, downsampled, then the last
+        # downsampled row repeated down to 8 my
+        ch = [_pad_edges(_h2v2_downsample(_pad_edges(p, H + H % 2, 16 * mx)), 8 * my, 8 * mx)
+              for p in ycc[1:]]
+        cb, cr = (_fdct_quantize(p, qc) for p in ch)
         y = y.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4).reshape(my * mx, 4, 64)
         coefs = np.concatenate([y, cb.reshape(-1, 1, 64), cr.reshape(-1, 1, 64)], 1)
         coefs = coefs.reshape(-1, 64)
         tables = np.tile([0, 0, 0, 0, 1, 1], my * mx)
         comps = np.tile([0, 0, 0, 0, 1, 2], my * mx)
         frame_comps = [(1, 0x22, 0), (2, 0x11, 1), (3, 0x11, 1)]
-        dqt = b"\x00" + bytes(qy[ZIGZAG].tolist()) + b"\x01" + bytes(qc[ZIGZAG].tolist())
-    out = [b"\xff\xd8", _segment(0xFFE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"),
-           _segment(0xFFDB, dqt),
-           _segment(0xFFC0, struct.pack(">BHHB", 8, H, W, len(frame_comps))
-                    + b"".join(struct.pack(">BBB", *c) for c in frame_comps))]
-    dht = b""
+        qts = [qy, qc]
+    # libjpeg's markers: JFIF APP0, a DQT a table, SOF0, a DHT a table
+    # (DC then AC of each table set), SOS
+    out = [b"\xff\xd8", _segment(0xFFE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    out += [_segment(0xFFDB, bytes([t]) + bytes(q[ZIGZAG].tolist())) for t, q in enumerate(qts)]
+    out.append(_segment(0xFFC0, struct.pack(">BHHB", 8, H, W, len(frame_comps))
+                        + b"".join(struct.pack(">BBB", *c) for c in frame_comps)))
     for cls, tid, (bits, vals) in ((0, 0, _DC_LUMA), (1, 0, _AC_LUMA), (0, 1, _DC_CHROMA),
-                                   (1, 1, _AC_CHROMA))[:2 if img.ndim == 2 else 4]:
-        dht += bytes([cls << 4 | tid]) + bytes(bits) + bytes(vals)
-    out.append(_segment(0xFFC4, dht))
+                                   (1, 1, _AC_CHROMA))[:2 * len(qts)]:
+        out.append(_segment(0xFFC4, bytes([cls << 4 | tid]) + bytes(bits) + bytes(vals)))
     out.append(_segment(0xFFDA, bytes([len(frame_comps)])
                         + b"".join(bytes([c[0], c[2] << 4 | c[2]]) for c in frame_comps)
                         + b"\x00\x3f\x00"))
@@ -913,8 +979,11 @@ def decode_jpeg(data: bytes, space: Optional[str] = None) -> np.ndarray:
         body = data[pos + 2:pos + n]
         pos += n
         if marker in _UNREAD:
-            raise ValueError(f"JPEG: {_UNREAD[marker]} files are not read (OpenCV's libjpeg-turbo "
-                             f"decodes no such file either)")
+            # hierarchical files OpenCV refuses; whether it reads a valid
+            # arithmetic-coded lossless file is not known
+            err = NoImage if _UNREAD[marker] == "hierarchical" else ValueError
+            raise err(f"JPEG: {_UNREAD[marker]} files are not read (OpenCV's libjpeg-turbo "
+                      f"decodes no such file either)")
         if marker == 0xE0 and len(body) >= 14 and body[:5] == b"JFIF\x00":
             jfif = True
         elif marker == 0xEE and len(body) >= 12 and body[:5] == b"Adobe":
@@ -951,10 +1020,10 @@ def decode_jpeg(data: bytes, space: Optional[str] = None) -> np.ndarray:
             coding, progressive = _FRAMES[marker]
             prec, H, W, nc = struct.unpack(">BHHB", body[:6])
             if coding == "lossless" and not 2 <= prec <= 8:
-                raise ValueError(f"JPEG: {prec}-bit lossless files are not read (OpenCV returns "
-                                 f"no image for them)")
+                raise NoImage(f"JPEG: {prec}-bit lossless files are not read (OpenCV returns "
+                              f"no image for them)")
             if coding != "lossless" and prec != 8:
-                raise ValueError(f"JPEG: {prec}-bit samples are not supported (8-bit only)")
+                raise NoImage(f"JPEG: {prec}-bit samples are not supported (8-bit only)")
             if nc not in (1, 3, 4):
                 raise ValueError(f"JPEG: {nc} components are not supported (1, 3 or 4)")
             comps = [(body[6 + 3 * i], body[7 + 3 * i] >> 4, body[7 + 3 * i] & 15,
@@ -1069,8 +1138,8 @@ def decode_jpeg(data: bytes, space: Optional[str] = None) -> np.ndarray:
         return _to_output(planes, "ycc")
     space = _color_space(len(comps), [c[0] for c in comps], jfif, adobe, coding == "lossless")
     if coding == "lossless" and space in ("ycc", "ycck"):
-        raise ValueError("JPEG: a lossless file in YCbCr or YCCK needs a colour conversion that "
-                         "libjpeg-turbo refuses in lossless mode (OpenCV returns no image)")
+        raise NoImage("JPEG: a lossless file in YCbCr or YCCK needs a colour conversion that "
+                      "libjpeg-turbo refuses in lossless mode (OpenCV returns no image)")
     return _to_output(planes, space)
 
 

@@ -55,6 +55,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from iron_tpu_torch.data.ccitt import BIT_REVERSED, decode_ccitt
+from iron_tpu_torch.data.io import NoImage
 
 # field type -> struct code (integers and floats); 5 / 10 (rationals) are
 # read as libtiff reads them into float fields, 2 / 7 (ASCII, UNDEFINED) as
@@ -326,48 +327,51 @@ def _to_rgba8(out: np.ndarray, photo: int, bps: int, t: Dict[int, object]) -> np
 
 
 def _refusal(bps: int, spp: int, photo: int, fmt: int, pred: int, comp: int, planar: int,
-             rgba: bool, sub, inkset: int) -> Optional[str]:
-    """Why OpenCV gives no image for such a file, or misreads it, or why the
-    port has no decoder for it; None when it is read."""
+             rgba: bool, sub, inkset: int) -> Optional[ValueError]:
+    """The error that says why OpenCV gives no image for such a file (a
+    NoImage), or misreads it, or why the port has no decoder for it; None
+    when it is read."""
     what = f"{bps}-bit samples of format {fmt}, {spp} a pixel, photometric {photo}"
     if spp > 4:
-        return f"{spp} samples a pixel (OpenCV reads at most 4)"
+        return NoImage(f"{spp} samples a pixel (OpenCV reads at most 4)")
     if fmt not in (1, 2, 3) or (fmt == 3 and (rgba or bps < 32)):
-        return f"{what} (OpenCV reads floats of 32 or 64 bits, 1, 3 or 4 a pixel)"
+        return NoImage(f"{what} (OpenCV reads floats of 32 or 64 bits, 1, 3 or 4 a pixel)")
     if pred not in (1, 2, 3) or (pred == 3 and fmt != 3) or (pred == 2 and bps < 8):
-        return f"predictor {pred} on {what} (libtiff refuses it)"
+        return NoImage(f"predictor {pred} on {what} (libtiff refuses it)")
     if comp in (2, 3, 4) and (bps != 1 or spp != 1):
-        return f"CCITT coding of {what} (it codes 1-bit gray)"
+        return ValueError(f"CCITT coding of {what} (it codes 1-bit gray)")
     if comp == 7 and bps != 8:
-        return f"JPEG coding of {what}"
+        return ValueError(f"JPEG coding of {what}")
     if not rgba:
         if bps not in (16, 32, 64):
-            return f"{what} (the port reads 16, 32 and 64 bits above 8)"
+            return ValueError(f"{what} (the port reads 16, 32 and 64 bits above 8)")
         if spp > 1 and planar == 2:
-            return (f"planar {what} (OpenCV misreads them: it takes the first plane for "
-                    f"interleaved samples)")
+            return ValueError(f"planar {what} (OpenCV misreads them: it takes the first plane "
+                              f"for interleaved samples)")
         if bps == 16 and spp > 1 and photo in (0, 1):
-            return f"{what} (OpenCV weighs them to one gray channel; not ported)"
+            return ValueError(f"{what} (OpenCV weighs them to one gray channel; not ported)")
         return None
     if bps > 16:
-        return f"{what} (libtiff's RGBA interface, which OpenCV reads them through, takes 16)"
+        return NoImage(f"{what} (libtiff's RGBA interface, which OpenCV reads them through, "
+                       f"takes 16)")
     if photo in (0, 1) and bps not in (1, 8, 16):
-        return f"{what}: below 8 bits OpenCV reads bilevel and palette files only"
+        return NoImage(f"{what}: below 8 bits OpenCV reads bilevel and palette files only")
     if photo == 2 and (bps != 8 or spp < 3):
-        return f"RGB {what} (libtiff's RGBA interface refuses them)"
+        return NoImage(f"RGB {what} (libtiff's RGBA interface refuses them)")
     if photo == 3 and (bps > 8 or spp != 1):
-        return f"palette {what} (libtiff's RGBA interface refuses them)"
+        return NoImage(f"palette {what} (libtiff's RGBA interface refuses them)")
     if photo == 5 and (bps != 8 or spp != 4 or inkset != 1):
-        return f"CMYK {what}, InkSet {inkset} (libtiff's RGBA interface refuses them)"
+        return NoImage(f"CMYK {what}, InkSet {inkset} (libtiff's RGBA interface refuses them)")
     if photo == 6 and (bps != 8 or spp != 3 or (comp == 7 and planar != 1) or
                        sub not in _SUBSAMPLING or (planar == 2 and sub != (1, 1))):
-        return (f"YCbCr {what}, subsampling {sub[0]}x{sub[1]}, planar configuration {planar} "
-                f"(libtiff's RGBA interface refuses them)")
+        return NoImage(f"YCbCr {what}, subsampling {sub[0]}x{sub[1]}, planar configuration "
+                       f"{planar} (libtiff's RGBA interface refuses them)")
     if photo == 8 and (bps not in (8, 16) or spp != 3 or planar != 1):
-        return f"CIELab {what}, planar configuration {planar} (libtiff's RGBA interface " \
-               f"refuses them)"
+        return NoImage(f"CIELab {what}, planar configuration {planar} (libtiff's RGBA "
+                       f"interface refuses them)")
     if photo not in (0, 1, 2, 3, 5, 6, 8):
-        return f"photometric {photo} (the port reads gray, RGB, palette, CMYK, YCbCr, CIELab)"
+        return ValueError(f"photometric {photo} (the port reads gray, RGB, palette, CMYK, YCbCr, "
+                          f"CIELab)")
     return None
 
 
@@ -384,7 +388,7 @@ def read_tiff(data: bytes) -> np.ndarray:
     planar, fmt, fill = one(284, 1), one(339, 1), one(266, 1)
     pred = one(317, 1) if comp in _PREDICTED else 1
     if comp in _REFUSED:
-        raise ValueError(f"TIFF: {_REFUSED[comp]}")
+        raise (ValueError if comp == 32771 else NoImage)(f"TIFF: {_REFUSED[comp]}")
     if comp not in _COMPRESSION:
         raise ValueError(f"TIFF: compression {comp} is not read by the port (none, PackBits, "
                          f"LZW, Deflate, JPEG and CCITT 2-4 are)")
@@ -396,12 +400,14 @@ def read_tiff(data: bytes) -> np.ndarray:
     tiled = 322 in t
     orientation = one(274, 1)
     if orientation not in (1, 2, 3, 4):
-        why = f"orientation {orientation} (OpenCV gives no image: its imread check fails)"
+        why = NoImage(f"orientation {orientation} (OpenCV gives no image: its imread check "
+                      f"fails)")
     elif rgba and tiled and orientation in (2, 3):
-        why = (f"orientation {orientation} in tiles read through libtiff's RGBA interface "
-               f"(OpenCV misreads them: the tiles flipped twice, the image once)")
+        why = ValueError(f"orientation {orientation} in tiles read through libtiff's RGBA "
+                         f"interface (OpenCV misreads them: the tiles flipped twice, the image "
+                         f"once)")
     if why:
-        raise ValueError(f"TIFF: {why}")
+        raise type(why)(f"TIFF: {why}")
     if tiled:
         cw, ch = one(322, 0), one(323, 0)
         offsets, counts = t[324], t.get(325)
@@ -456,15 +462,17 @@ def read_tiff(data: bytes) -> np.ndarray:
 
 
 def write_tiff(img: np.ndarray) -> bytes:
-    """uint8 or uint16 [H, W] or [H, W, 3] (RGB) as an uncompressed
-    little-endian TIFF of one strip: what cv2.imwrite's TIFF decodes to."""
+    """uint8 or uint16 [H, W], [H, W, 3] (RGB) or [H, W, 4] (RGBA) as an
+    uncompressed little-endian TIFF of one strip: what cv2.imwrite's TIFF
+    decodes to (four samples without an ExtraSamples field, as OpenCV
+    writes them)."""
     img = np.asarray(img)
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[..., 0]
     C = 1 if img.ndim == 2 else img.shape[2]
-    if img.dtype not in (np.uint8, np.uint16) or C not in (1, 3):
-        raise ValueError(f"write_tiff takes uint8 / uint16 [H, W] or [H, W, 3], got {img.dtype} "
-                         f"{img.shape}")
+    if img.dtype not in (np.uint8, np.uint16) or C not in (1, 3, 4):
+        raise ValueError(f"write_tiff takes uint8 / uint16 [H, W] or [H, W, 3 / 4], got "
+                         f"{img.dtype} {img.shape}")
     H, W = img.shape[:2]
     bps = 8 * img.dtype.itemsize
     pixels = np.ascontiguousarray(img.astype("<u2") if bps == 16 else img).tobytes()
