@@ -322,12 +322,13 @@ def read_image(path: str, apply_exr_gamma: bool = True) -> np.ndarray:
 
 
 # extension (lower case) -> the writer's format, as cv2.imwrite picks it;
-# OpenCV also writes .jp2 and .avif, which the port does not
+# OpenCV also writes .avif, which the port does not
 _WRITERS = {".png": "png", ".jpg": "jpeg", ".jpeg": "jpeg", ".jpe": "jpeg", ".bmp": "bmp",
             ".dib": "bmp", ".tif": "tiff", ".tiff": "tiff", ".pbm": "pbm", ".pgm": "pgm",
             ".ppm": "ppm", ".pnm": "pnm", ".pam": "pam", ".ras": "sunras", ".sr": "sunras",
-            ".pfm": "pfm", ".hdr": "hdr", ".pic": "hdr", ".webp": "webp", ".gif": "gif"}
-_NOT_WRITTEN = {".jp2": "JPEG 2000", ".avif": "AVIF"}
+            ".pfm": "pfm", ".hdr": "hdr", ".pic": "hdr", ".webp": "webp", ".gif": "gif",
+            ".jp2": "jp2"}
+_NOT_WRITTEN = {".avif": "AVIF"}
 
 
 def write_image(path: str, img: np.ndarray) -> None:
@@ -340,10 +341,12 @@ def write_image(path: str, img: np.ndarray) -> None:
     three channels (.jpg).  Extensions: .png, .jpg / .jpeg / .jpe
     (baseline, quality 95), .bmp / .dib, .tif / .tiff (uncompressed), .pbm /
     .pgm (gray) / .ppm (RGB) / .pnm, .pam, .ras / .sr (Sun raster), .pfm,
-    .hdr / .pic (Radiance), .webp (lossless) and .gif.  .jp2, .avif and any
-    other extension raise, as does an image OpenCV writes no readable file
-    of (four channels to .pam, .pfm, .hdr, .ppm; colour to .pgm, .pbm;
-    gray to .gif); no file is left behind then."""
+    .hdr / .pic (Radiance), .webp (lossless), .gif and .jp2 (OpenJPEG's
+    bytes at OpenCV's 4:1 rate cut, jp2_enc.py).  .avif and any other
+    extension raise, as does an image OpenCV writes no readable file of
+    (four channels to .pam, .pfm, .hdr, .ppm; colour to .pgm, .pbm; gray to
+    .gif); no file is left behind then.  A .jp2 image with a side under 32
+    pixels raises too: OpenCV leaves a 77-byte file it cannot read."""
     if path.endswith(".exr"):
         from iron_tpu_torch.data.exr import write_exr
         write_exr(path, np.asarray(img, np.float32))
@@ -369,6 +372,8 @@ def write_image(path: str, img: np.ndarray) -> None:
         from iron_tpu_torch.data.tiff import write_tiff as encode
     elif kind == "webp":
         from iron_tpu_torch.data.webp_enc import encode_webp_lossless as encode
+    elif kind == "jp2":
+        from iron_tpu_torch.data.jp2_enc import encode_jp2 as encode
     elif kind in ("pbm", "pgm", "ppm", "pnm"):
         from iron_tpu_torch.data.formats import write_pnm
         encode = lambda im: write_pnm(im, kind)

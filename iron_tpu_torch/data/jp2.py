@@ -503,8 +503,9 @@ def _resolutions(tc: tuple, cp: dict, prec: int):
                     ax, ay = bx0 + (k % cw << cbw), by0 + (k // cw << cbh)
                     blocks.append(_Block(max(ax, qx0), max(ay, qy0), min(ax + (1 << cbw), qx1),
                                          min(ay + (1 << cbh), qy1)))
-                pbands.append({**band, "blocks": blocks, "incl": _TagTree(cw, ch) if blocks
-                               else None, "zbp": _TagTree(cw, ch) if blocks else None})
+                pbands.append({**band, "blocks": blocks, "cw": cw, "ch": ch,
+                               "incl": _TagTree(cw, ch) if blocks else None,
+                               "zbp": _TagTree(cw, ch) if blocks else None})
             precincts.append(pbands)
         out.append({"x0": rx0, "y0": ry0, "x1": rx1, "y1": ry1, "ppx": ppx, "ppy": ppy,
                     "pw": pw, "ph": ph, "precincts": precincts, "lvl": lvl})

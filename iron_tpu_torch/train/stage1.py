@@ -36,7 +36,7 @@ is a loop of `train_step` calls.
 Checkpoints: `ckpt_<step>.pkl` pickles, written on a background thread
 with `async_ckpt` (train/checkpoints.py::AsyncCheckpointer); `resume` also
 reads the JAX package's orbax saves.  `interpolate_view_video` writes the
-ping-pong novel-view video as Motion-JPEG (data/video.py).
+ping-pong novel-view video as MPEG-4 Part 2 (`mp4v`, data/video.py).
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from iron_tpu_torch import resolve_device
 from iron_tpu_torch.data.dataset import RayDataset, near_far_from_sphere
-from iron_tpu_torch.data.video import write_mjpeg_video
+from iron_tpu_torch.data.video import write_mpeg4_video
 from iron_tpu_torch.fields.nerf import NeRFConfig, init_nerf, nerf_apply, nerf_from_numpy
 from iron_tpu_torch.fields.rendering import (RenderingConfig, init_rendering, rendering_apply,
                                              rendering_from_numpy)
@@ -619,13 +619,14 @@ class Stage1Trainer:
         (render_volume.py:815-848): n_frames novel views at ratios
         sin((i / n - 0.5) pi) / 2 + 1 / 2 between the two cameras, clipped
         to [0, 1] and cast to uint8, then the same frames reversed; written
-        as Motion-JPEG (.avi or .mp4 / .mov, data/video.py)."""
+        as cv2.VideoWriter's fourcc "mp4v" writes them, MPEG-4 Part 2 in
+        .avi or .mp4 / .mov (data/video.py)."""
         frames = []
         for i in range(n_frames):
             ratio = np.sin(((i / n_frames) - 0.5) * np.pi) * 0.5 + 0.5
             img = self.render_novel_view(idx_0, idx_1, ratio, resolution_level)
             frames.append((np.clip(img, 0, 1) * 255).astype(np.uint8))
-        write_mjpeg_video(out_path, frames + frames[::-1], fps)
+        write_mpeg4_video(out_path, frames + frames[::-1], fps)
 
     def render_novel_view(self, idx_0: int, idx_1: int, ratio: float,
                           resolution_level: int = 4, chunk: int = 1024) -> np.ndarray:

@@ -494,12 +494,12 @@ def test_write_image_writes_what_opencv_writes(ext, kind, tmp_path):
                        ".png": "png"}.get(ext.lower(), "pnm")
 
 
-@pytest.mark.parametrize("name", ["a.jp2", "a.avif", "a.xyz", "noextension", "a.EXR",
-                                  "a.pxm"])
+@pytest.mark.parametrize("name", ["a.avif", "a.xyz", "noextension", "a.EXR", "a.pxm"])
 def test_write_image_refuses_other_extensions(name, tmp_path):
     """An extension the port has no writer for raises, naming it, and leaves
     no file behind (no PNG bytes under another name).  (.webp, .gif, .pfm,
-    .hdr and .ras are written now: tests/test_torch_writers.py.)"""
+    .hdr and .ras are written now: tests/test_torch_writers.py; .jp2:
+    tests/test_torch_jp2_writer.py.)"""
     path = str(tmp_path / name)
     with pytest.raises(ValueError, match="the port writes"):
         tio.write_image(path, IMG)
@@ -583,15 +583,18 @@ def test_committed_format_fixture_matches_the_jax_loader():
 
 
 def test_image_modules_import_without_opencv_or_pil():
-    """The port's image modules import and decode with cv2 and PIL blocked:
-    the card's machine has neither."""
+    """The port's image modules import and decode, and its MPEG-4 video
+    writer encodes, with cv2 and PIL blocked: the card's machine has
+    neither."""
     code = ("import sys\n"
             "for m in ('cv2', 'PIL', 'jax', 'iron_tpu'):\n"
             "    sys.modules[m] = None\n"
-            "from iron_tpu_torch.data import io, jpeg, tiff, formats, webp_enc\n"
+            "from iron_tpu_torch.data import io, jpeg, tiff, formats, webp_enc, video\n"
             "img = io.read_image('tests/data_formats/mask/view0.bmp')\n"
             "assert img.shape == (256, 256, 3), img.shape\n"
-            "assert len(webp_enc.encode_webp_lossless((img * 255).astype('uint8'))) > 0\n")
+            "assert len(webp_enc.encode_webp_lossless((img * 255).astype('uint8'))) > 0\n"
+            "head, vops, recs = video.encode_mpeg4([(img[:32, :48] * 255).astype('uint8')])\n"
+            "assert head[:4] == b'\\0\\0\\1\\xb0' and len(vops) == len(recs) == 1\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True,
                          text=True, timeout=120)

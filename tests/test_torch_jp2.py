@@ -474,7 +474,8 @@ def test_fixture_decodes_to_its_recorded_hashes():
 def test_decoder_runs_without_opencv_pil_jax_or_the_jax_package():
     """Where cv2, PIL, glymur, jax and iron_tpu cannot be imported, as on the
     card's machine, decode_jp2 and read_image decode the fixture to its
-    recorded hashes."""
+    recorded hashes, and the writer (jp2_enc.py) writes a mask that decodes
+    back exactly."""
     code = f"""
 import sys, json, hashlib
 for m in ('cv2', 'PIL', 'glymur', 'jax', 'iron_tpu'):
@@ -490,6 +491,9 @@ for key, want in expected.items():
     ok[key] = [list(img.shape), str(img.dtype), hashlib.sha256(img.tobytes()).hexdigest()] == [
         want["shape"], want["dtype"], want["sha256"]]
     ok[key] = ok[key] and tio.read_image(root + "/" + key).shape == (256, 256, 3)
+from iron_tpu_torch.data.jp2_enc import encode_jp2
+mask = decode_jp2(open(root + "/mask/view0.jp2", "rb").read())
+ok["encoder"] = bool(np.array_equal(decode_jp2(encode_jp2(mask)), mask))
 ok["blocked"] = [m for m in ('cv2', 'PIL', 'glymur', 'jax', 'iron_tpu')
                  if sys.modules.get(m) is not None]
 print(json.dumps(ok))
@@ -498,4 +502,4 @@ print(json.dumps(ok))
                          cwd=REPO, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got.pop("blocked") == [] and len(got) == 6 and all(got.values()), got
+    assert got.pop("blocked") == [] and len(got) == 7 and all(got.values()), got

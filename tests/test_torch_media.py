@@ -1,8 +1,9 @@
 """The port's media readers and writers without OpenCV, on the CPU, against
 OpenCV and PIL: progressive JPEG (iron_tpu_torch/data/jpeg.py), palette,
-sub-8-bit and Adam7-interlaced PNG (data/io.py), and the Motion-JPEG
-interpolation video (data/video.py, Stage1Trainer.interpolate_view_video)
-against the JAX trainer's frame sequence."""
+sub-8-bit and Adam7-interlaced PNG (data/io.py), and the MPEG-4 Part 2
+(`mp4v`) interpolation video (data/video.py,
+Stage1Trainer.interpolate_view_video) against the JAX trainer's frame
+sequence and OpenCV's own mp4v video."""
 import io
 import os
 import struct
@@ -21,7 +22,7 @@ from iron_tpu.train.stage1 import Stage1Trainer as JStage1Trainer
 
 from iron_tpu_torch.data import io as tio
 from iron_tpu_torch.data.jpeg import decode_jpeg
-from iron_tpu_torch.data.video import avi_frames, write_mjpeg_video
+from iron_tpu_torch.data.video import write_mpeg4_video
 from iron_tpu_torch.train.stage1 import Stage1Trainer
 
 
@@ -251,7 +252,7 @@ def test_video_frames_are_the_jax_trainers(monkeypatch, tmp_path):
     JStage1Trainer.interpolate_view_video(_fake_trainer(0.7), 0, 1, str(tmp_path / "j.mp4"),
                                           n_frames=n)
     import iron_tpu_torch.train.stage1 as S1
-    monkeypatch.setattr(S1, "write_mjpeg_video",
+    monkeypatch.setattr(S1, "write_mpeg4_video",
                         lambda path, frames, fps: port_frames.extend(frames))
     Stage1Trainer.interpolate_view_video(_fake_trainer(0.7), 0, 1, str(tmp_path / "t.avi"),
                                          n_frames=n)
@@ -261,56 +262,77 @@ def test_video_frames_are_the_jax_trainers(monkeypatch, tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
-def _capture(path):
+def _capture(path, rgb=True):
+    """cv2.VideoCapture's frames (RGB float, or FFmpeg's Y plane where rgb
+    is False) and what it reports of the stream."""
     cap = cv2.VideoCapture(path)
     assert cap.isOpened()
-    fps, out = cap.get(cv2.CAP_PROP_FPS), []
+    if not rgb:
+        cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
+    props = {"count": cap.get(cv2.CAP_PROP_FRAME_COUNT), "fps": cap.get(cv2.CAP_PROP_FPS),
+             "fourcc": int(cap.get(cv2.CAP_PROP_FOURCC)),
+             "size": (cap.get(cv2.CAP_PROP_FRAME_WIDTH), cap.get(cv2.CAP_PROP_FRAME_HEIGHT))}
+    out = []
     while True:
         ok, f = cap.read()
         if not ok:
             break
-        out.append(f[:, :, ::-1].astype(np.float64))
+        out.append((f[:, :, ::-1] if rgb else f).astype(np.float64))
     cap.release()
-    return fps, out
+    return props, out
 
 
 @pytest.mark.parametrize("ext", [".avi", ".mp4", ".mov"])
-def test_video_decodes_in_opencv(ext, tmp_path):
-    """The written video (AVI with an MJPG stream, ISO base media with jpeg
-    samples) of smooth frames opened by cv2.VideoCapture at the frame rate
-    written: every frame within a mean of 2/255 of the same frame of
-    OpenCV's own MJPG video (cv2.VideoWriter, its AVI), decoded alike (the
-    JPEG writer's hold in tests/test_torch_cli.py); the frames read back by
-    the port's own reader within 2/255 of the frames written; another
-    extension raises."""
-    fake = _fake_trainer(0.3)
-    Stage1Trainer.interpolate_view_video(fake, 0, 1, str(tmp_path / ("v" + ext)), n_frames=5)
+def test_video_decodes_in_opencv(ext, monkeypatch, tmp_path):
+    """The written video (AVI with an mp4v stream, ISO base media with an
+    mp4v sample entry) of smooth 40 x 56 frames opened by cv2.VideoCapture
+    (FFmpeg): the frame count, size, fps and fourcc it reports for OpenCV's
+    own mp4v file of the same frames and extension; every decoded frame
+    within OpenCV's file's mean difference from its source frame plus
+    0.5/255; FFmpeg's luma within a mean of 0.05 and at most 2 of the
+    encoder's own reconstruction (the IDCTs round apart); the container's
+    structure; another extension raises."""
+    fake = _fake_trainer(0.3, H=40, W=56)
+    recs = []                           # the encoder's reconstructions, kept by a wrapper
+    import iron_tpu_torch.train.stage1 as S1
+    monkeypatch.setattr(S1, "write_mpeg4_video",
+                        lambda p, frames, fps: recs.extend(write_mpeg4_video(p, frames, fps)))
+    path = str(tmp_path / ("v" + ext))
+    Stage1Trainer.interpolate_view_video(fake, 0, 1, path, n_frames=5)
     frames = []
     for i in range(5):
         ratio = np.sin(((i / 5) - 0.5) * np.pi) * 0.5 + 0.5
         frames.append((np.clip(fake.render_novel_view(0, 1, ratio), 0, 1) * 255)
                       .astype(np.uint8))
     frames = frames + frames[::-1]
-    writer = cv2.VideoWriter(str(tmp_path / "cv.avi"), cv2.VideoWriter_fourcc(*"MJPG"), 30,
-                             (32, 24))
+    ref_path = str(tmp_path / ("cv" + ext))
+    writer = cv2.VideoWriter(ref_path, cv2.VideoWriter_fourcc(*"mp4v"), 30, (56, 40))
     for f in frames:
         writer.write(np.ascontiguousarray(f[:, :, ::-1]))
     writer.release()
-    fps, got = _capture(str(tmp_path / ("v" + ext)))
-    _, ref = _capture(str(tmp_path / "cv.avi"))
-    assert fps == 30 and len(got) == len(ref) == len(frames) == 10
-    for a, b in zip(got, ref):
-        assert a.shape == b.shape and np.abs(a - b).mean() <= 2.0
-    with open(str(tmp_path / ("v" + ext)), "rb") as f:
-        head = f.read(12)
+    props, got = _capture(path)
+    ref_props, ref = _capture(ref_path)
+    assert props == ref_props and props["count"] == len(got) == len(ref) == len(frames) == 10
+    assert props["fourcc"].to_bytes(4, "little") == b"FMP4" and props["fps"] == 30
+    for a, b, f in zip(got, ref, frames):
+        assert a.shape == b.shape == f.shape
+        assert np.abs(a - f).mean() <= np.abs(b - f).mean() + 0.5
+    _, lumas = _capture(path, rgb=False)
+    assert len(lumas) == len(recs) == 10
+    for y, (rgb, planes) in zip(lumas, recs):
+        assert rgb.shape == (40, 56, 3) and rgb.dtype == np.uint8
+        d = np.abs(y - planes[0][:40, :56])
+        assert d.mean() <= 0.05 and d.max() <= 2
+    with open(path, "rb") as f:
+        data = f.read()
     if ext == ".avi":
-        assert head[:4] == b"RIFF" and head[8:] == b"AVI "
-        ours = [decode_jpeg(j) for j in avi_frames(str(tmp_path / "v.avi"))]
-        assert len(ours) == len(frames)
-        for a, b in zip(ours, frames):
-            assert np.abs(a.astype(np.float64) - b).mean() <= 2.0
+        assert data[:4] == b"RIFF" and data[8:12] == b"AVI "
+        assert data[data.index(b"strh") + 12:][:4] == b"mp4v"
+        assert data.count(b"00dc") == 20                   # 10 chunks, 10 index entries
     else:
-        assert head[4:8] == b"ftyp"
+        assert data[4:12] == (b"ftypqt  " if ext == ".mov" else b"ftypisom")
+        assert b"mp4v" in data and b"esds" in data
+    assert data.count(b"\x00\x00\x01\xb6") == 10          # one I-VOP a frame
     with pytest.raises(ValueError, match=r"\.avi"):
-        write_mjpeg_video(str(tmp_path / "v.mkv"), frames)
+        write_mpeg4_video(str(tmp_path / "v.mkv"), frames)
     assert not os.path.exists(tmp_path / "v.mkv")
