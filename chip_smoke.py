@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only-8l    # the build, then phase 8l alone (no result line)
     python3 chip_smoke.py --only-8m    # the build, then phase 8m alone (no result line)
     python3 chip_smoke.py --only-8n    # the build, then phase 8n alone (no result line)
+    python3 chip_smoke.py --only-8o    # the build, then phase 8o alone (no result line)
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, and drives the port's main
@@ -127,6 +128,16 @@ with the launch counts set to 0 just before it and read just after:
     or decode to the recorded arrays, or are refused where OpenCV writes
     nothing readable; a 512^2 render of the card through K1, K2 and K3-fwd
     written to every extension and read back, the lossless ones exactly;
+  * the .jp2 writer (phase 8n, `writers2_phase`): tests/data_jp2w/ through
+    write_image('.jp2') at OpenCV's bytes, and a 512^2 render written as
+    .jp2 and read back;
+  * a stage-1 run from damaged files (phase 8o, `damaged_phase`):
+    tests/data_damaged/ (a baseline JPEG cut in its scan, a progressive one
+    cut in a later scan, one with a corrupt restart interval and no EOI)
+    decoded by the port bit-equal to OpenCV's decode recorded beside it,
+    the damaged files of every other format that OpenCV reads no image
+    from refused (NoImage) and skipped by preprocess make-masks, view0's
+    cut tail at 128/255 on the card, then the same 8 stage-1 steps;
 
 then times each kernel beside its plain version and its bound, and prints:
 
@@ -156,12 +167,14 @@ then times each kernel beside its plain version and its bound, and prints:
     launches and each extension's write and read times on the host;
   * one JSON line {"writers2": {...}}: phase 8n's holds, the render's
     launches, size, exactness and its .jp2 write and read times on the host;
+  * one JSON line {"damaged": {...}}: phase 8o's decode times (the views,
+    the refused files), step times, losses and launches;
   * one JSON line {"kernels": [...]} on the six kernels (launches: K1-K3
     from the default training run, K4 from the trace_pallas training run,
     K5 from the sweep; beside them each kernel's launches on phase 8f's
     paths, a rank's on phase 8g's and a step's on phase 8h's, a stage-1
-    replay's from the device trace, and phases 8j's, 8k's, 8l's, 8m's and
-    8n's);
+    replay's from the device trace, and phases 8j's, 8k's, 8l's, 8m's, 8n's
+    and 8o's);
   * last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -2447,14 +2460,15 @@ def _decode_fixture(root: str):
     """Every file of a fixture folder decoded by the port (decode_image,
     then read_image), each decode timed on the host, the decoded array's
     sha256 held equal to that of OpenCV's decode recorded beside it
-    (opencv_sha256.json) -> (decode ms by file, read_image arrays by
+    (opencv_sha256.json; a null entry, a file OpenCV reads no image from,
+    is left to the caller) -> (decode ms by file, read_image arrays by
     file)."""
     import hashlib
     from iron_tpu_torch.data import io as tio
     with open(os.path.join(root, "opencv_sha256.json")) as f:
         expected = json.load(f)
     decode_ms, decoded = {}, {}
-    for key in sorted(expected):
+    for key in sorted(k for k, v in expected.items() if v is not None):
         path = os.path.join(root, key)
         with open(path, "rb") as f:
             data = f.read()
@@ -3016,6 +3030,91 @@ def writers2_phase(args, dev, card, kernels) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 8o: damaged files as cv2.imread reads them, the port's fifteenth slice
+# ---------------------------------------------------------------------------
+
+DAMAGED_STEPS = 8    # phase 8o's stage-1 steps on the fixture scene
+
+
+def damaged_phase(args, dev, card, kernels) -> dict:
+    """Phase 8o, a stage-1 run from damaged JPEG views, which the JAX package
+    reads through OpenCV (libjpeg-turbo's recovery) and the port with its
+    own decoder (this machine has no OpenCV): tests/data_damaged/
+    (scripts/make_damaged_fixtures.py), three 256x256 views of one camera
+    (view0.jpg baseline, cut at 60 % of its scan; view1.jpg progressive, cut
+    in its ninth scan; view2.jpg with a restart interval of 2, one corrupt
+    interval and no EOI), intact PNG masks, and refused/, a damaged file of
+    each other format that OpenCV reads no image from:
+
+      (a) each view and mask decoded by the port, its sha256 that of
+          OpenCV's decode (_decode_fixture);
+      (b) decode_image raises NoImage on every refused file, and preprocess
+          make-masks over a copy of refused/ with the three views beside
+          them (named .png) writes the views' masks and no other;
+      (c) RayDataset.from_folder(..., mask_dir=...) on the card: view0's
+          cut tail (the rows libjpeg decodes from zero coefficients) at
+          128/255 there, bit for bit the host's decode;
+      (d) 8 stage-1 steps at Stage1Config()'s width (_stage1_on_fixture:
+          K3-fwd and K3-bwd once a step, a falling loss on a fixed batch)."""
+    import shutil
+    import tempfile
+    import torch
+    from iron_tpu_torch.cli import preprocess
+    from iron_tpu_torch.data import io as tio
+    from iron_tpu_torch.data.dataset import RayDataset
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, "tests", "data_damaged")
+    decode_ms, decoded = _decode_fixture(root)
+    with open(os.path.join(root, "opencv_sha256.json")) as f:
+        refused = sorted(k for k, v in json.load(f).items() if v is None)
+    assert len(refused) >= 10, refused
+    refused_ms = {}
+    for key in refused:
+        with open(os.path.join(root, key), "rb") as f:
+            data = f.read()
+        t = time.perf_counter()
+        try:
+            tio.decode_image(data, key)
+        except tio.NoImage:
+            refused_ms[key] = (time.perf_counter() - t) * 1e3
+        else:
+            raise AssertionError(f"{key}: decoded, where OpenCV reads no image")
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        folder = os.path.join(tmp, "image")
+        shutil.copytree(os.path.join(root, "refused"), folder)
+        for name in ("view0", "view1", "view2"):
+            shutil.copy(os.path.join(root, "image", name + ".jpg"),
+                        os.path.join(folder, name + ".png"))
+        preprocess.main(["make-masks", "--image_dir", folder])
+        made = sorted(os.listdir(os.path.join(tmp, "masks")))
+    assert made == ["view0.png", "view1.png", "view2.png"], made
+    log(f"phase 8o (a) decodes of tests/data_damaged/ (host, ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items())
+        + f"; every array's sha256 is OpenCV's; (b) NoImage on all {len(refused)} refused "
+        f"files (host, ms: " + ", ".join(f"{k} {v:.1f}" for k, v in refused_ms.items())
+        + f"), make-masks skipped them and wrote {made}; card {card}")
+    # (c) view0's tail from zero coefficients: gray 128 on the card too
+    view0 = decoded["image/view0.jpg"]
+    tail = np.where((view0 == np.float32(128 / 255)).all(axis=(1, 2)))[0]
+    assert len(tail) >= 16 and tail[-1] == 255 and np.array_equal(tail, np.arange(tail[0], 256))
+    ds = RayDataset.from_folder(root, mask_dir=os.path.join(root, "mask"), device=dev)
+    assert ds.images.device.type == dev.type
+    on_card = ds.images[0, int(tail[0]):]
+    assert bool((on_card == 128 / 255).all())
+    assert torch.equal(ds.images[0].cpu(), torch.from_numpy(view0))
+    log(f"phase 8o (c) RayDataset.from_folder on the card: view0's rows {int(tail[0])}-255 "
+        f"(after the cut) at 128/255, bit for bit the host's decode")
+    rec = {"card": card, "decode_ms": decode_ms, "refused_ms": refused_ms,
+           "refused": len(refused), "view0_tail_rows": [int(tail[0]), 255],
+           **_stage1_on_fixture(args, dev, card, kernels, root,
+                                ["view0.jpg", "view1.jpg", "view2.jpg"], args.seed + 9,
+                                DAMAGED_STEPS, "8o (d)"),
+           "wall_s": time.perf_counter() - t0}
+    log(f"phase 8o: {rec['wall_s']:.1f} s")
+    return rec
+
+
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list tree, in key order."""
     if isinstance(tree, dict):
@@ -3054,6 +3153,9 @@ def main(argv=None) -> int:
                          "no result line)")
     ap.add_argument("--only-8n", action="store_true",
                     help="build, then run phase 8n alone (the .jp2 writer; prints no result "
+                         "line)")
+    ap.add_argument("--only-8o", action="store_true",
+                    help="build, then run phase 8o alone (damaged files; prints no result "
                          "line)")
     args = ap.parse_args(argv)
 
@@ -3121,6 +3223,10 @@ def main(argv=None) -> int:
 
     if args.only_8n:
         log(json.dumps({"writers2": writers2_phase(args, dev, card, kernels)}))
+        return 0
+
+    if args.only_8o:
+        log(json.dumps({"damaged": damaged_phase(args, dev, card, kernels)}))
         return 0
 
     if args.only_8h:
@@ -4034,6 +4140,10 @@ def main(argv=None) -> int:
     # ---- 8n. the JPEG 2000 writer: the fixture's bytes, and a render through it ----
     writers2 = writers2_phase(args, dev, card, kernels)
 
+    # ---- 8o. damaged files as cv2.imread reads them: a stage-1 run from
+    # tests/data_damaged/ ----
+    damaged = damaged_phase(args, dev, card, kernels)
+
     # ---- 9. timings at the slice's shapes ----
     kernel_rows = []
     work = sdf_work(cfg.sdf)
@@ -4300,7 +4410,8 @@ def main(argv=None) -> int:
              "jp2_launches": jp2["launches"].get(r[0], 0),
              "tiff_launches": tiff["launches"].get(r[0], 0),
              "writers_launches": writers["launches"].get(r[0], 0),
-             "writers2_launches": writers2["launches"].get(r[0], 0)}
+             "writers2_launches": writers2["launches"].get(r[0], 0),
+             "damaged_launches": damaged["launches"].get(r[0], 0)}
             for r in kernel_rows]
     log(json.dumps({"cli": cli}))
     log(json.dumps({"research": research}))
@@ -4312,6 +4423,7 @@ def main(argv=None) -> int:
     log(json.dumps({"tiff": tiff}))
     log(json.dumps({"writers": writers}))
     log(json.dumps({"writers2": writers2}))
+    log(json.dumps({"damaged": damaged}))
     log(json.dumps({"kernels": rows}))
     log(card)
     # ---- 11. result ----

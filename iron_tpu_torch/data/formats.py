@@ -8,7 +8,10 @@ IMREAD_UNCHANGED) returns, bit for bit, with the channels in RGB(A) order
 Where OpenCV's decoder departs from the format's documents, the reader
 follows OpenCV (each such place says so), since the JAX package reads
 through it.  What OpenCV refuses raises ValueError (`io.NoImage` where
-OpenCV reads no image from the file).
+OpenCV reads no image from the file), and so does a damaged file OpenCV
+reads no image from: the pixel data or the header ends early, a GIF
+without its trailer, with a frame past its screen or LZW data that does
+not fill its frame exactly, bad Radiance scanlines.
 
 Each writer takes uint8 samples in RGB(A) order and returns the bytes
 cv2.imwrite writes from the same samples in BGR(A) order: BMP, PNM, PAM,
@@ -82,7 +85,7 @@ def _bmp_rle(data: bytes, pos: int, W: int, H: int, four: bool) -> np.ndarray:
 
     while y < H:
         if pos + 2 > n:
-            raise ValueError("BMP: the RLE data ends before the image")
+            raise NoImage("BMP: the RLE data ends before the image (OpenCV returns no image)")
         length, code = data[pos], data[pos + 1]
         pos += 2
         if length:                           # a run
@@ -109,7 +112,8 @@ def _bmp_rle(data: bytes, pos: int, W: int, H: int, four: bool) -> np.ndarray:
                 size = (code + 1) & ~1
                 vals = np.frombuffer(data[pos:pos + code], np.uint8)
             if pos + size > n:
-                raise ValueError("BMP: the RLE data ends before the image")
+                raise NoImage("BMP: the RLE data ends before the image (OpenCV returns no "
+                              "image)")
             pos += size
             idx[y * W + x:y * W + x + code] = vals
             x += code
@@ -118,6 +122,9 @@ def _bmp_rle(data: bytes, pos: int, W: int, H: int, four: bool) -> np.ndarray:
             count, dy = W - x, H - y
             if four or code or not line_end_flag or count < W:
                 if code == 2:
+                    if pos + 2 > n:
+                        raise NoImage("BMP: the RLE data ends before the image (OpenCV returns "
+                                      "no image)")
                     count, dy = data[pos], data[pos + 1]
                     pos += 2
                 if code:
@@ -134,9 +141,12 @@ def read_bmp(data: bytes) -> np.ndarray:
     one channel (so does every OS/2 file: OpenCV's 12-byte branch never
     marks a file colour); 32 bits with bit fields keep their fourth byte as
     alpha, 32 bits without drop it."""
-    if data[:2] != b"BM" or len(data) < 26:
+    if data[:2] != b"BM":
         raise ValueError("not a BMP file")
-    offset, size = struct.unpack("<II", data[10:18])
+    size = struct.unpack("<I", data[14:18])[0] if len(data) >= 18 else 0
+    if len(data) < 14 + max(size, 12):
+        raise NoImage("BMP: the file ends in its header (OpenCV returns no image)")
+    offset = struct.unpack("<I", data[10:14])[0]
     color, bitfields = False, False
     if size >= 36:
         W, H, planes_bpp, comp = struct.unpack("<iiII", data[18:34])
@@ -189,7 +199,7 @@ def read_bmp(data: bytes) -> np.ndarray:
         bgr = palette[idx]
     else:
         if offset + pitch * H > len(data):
-            raise ValueError("BMP: the pixel data ends before the image")
+            raise NoImage("BMP: the pixel data ends before the image (OpenCV returns no image)")
         rows = np.frombuffer(data[offset:offset + pitch * H], np.uint8).reshape(H, pitch)
         if bpp <= 8:
             bgr = palette[_unpack(rows, bpp, W)]
@@ -315,7 +325,8 @@ def read_pnm(data: bytes) -> np.ndarray:
             pitch = (W + 7) // 8
             start = tok.pos
             if start + pitch * H > len(data):
-                raise ValueError("PNM: the pixel data ends before the image")
+                raise NoImage("PNM: the pixel data ends before the image (OpenCV returns no "
+                              "image)")
             rows = np.frombuffer(data[start:start + pitch * H], np.uint8).reshape(H, pitch)
             bits = _unpack(rows, 1, W)
         else:
@@ -325,7 +336,7 @@ def read_pnm(data: bytes) -> np.ndarray:
         start = tok.pos
         n = W * H * C * (2 if wide else 1)
         if start + n > len(data):
-            raise ValueError("PNM: the pixel data ends before the image")
+            raise NoImage("PNM: the pixel data ends before the image (OpenCV returns no image)")
         img = np.frombuffer(data[start:start + n], ">u2" if wide else np.uint8)
         img = img.astype(np.uint16 if wide else np.uint8)
     else:
@@ -384,6 +395,8 @@ def read_pfm(data: bytes) -> np.ndarray:
             end += 1
         fields.append(data[pos:end].decode("ascii", "replace"))
         pos = end + 1
+    if pos > len(data):
+        raise NoImage("PFM: the file ends in its header (OpenCV returns no image)")
     try:
         W, H, scale = int(fields[0]), int(fields[1]), float(fields[2])
     except ValueError:
@@ -392,7 +405,7 @@ def read_pfm(data: bytes) -> np.ndarray:
         raise ValueError(f"PFM: a {W}x{H} image with scale {scale}")
     n = W * H * C * 4
     if pos + n > len(data):
-        raise ValueError("PFM: the pixel data ends before the image")
+        raise NoImage("PFM: the pixel data ends before the image (OpenCV returns no image)")
     img = np.frombuffer(data[pos:pos + n], "<f4" if scale < 0 else ">f4").astype(np.float32)
     img = img.reshape(H, W, C)[::-1] * np.float32(1.0 / abs(scale))
     return img[..., 0] if C == 1 else np.ascontiguousarray(img)
@@ -443,7 +456,7 @@ def read_hdr(data: bytes) -> np.ndarray:
         end = data.find(b"\n", pos, pos + 127)
         end = pos + 127 if end < 0 else end + 1
         if pos >= len(data):
-            raise ValueError("HDR: the header ends early")
+            raise NoImage("HDR: the file ends in its header (OpenCV returns no image)")
         lines.append(data[pos:end])
         pos = end
         line = lines[-1]
@@ -456,6 +469,8 @@ def read_hdr(data: bytes) -> np.ndarray:
     end = pos + 127 if end < 0 else end + 1
     size = data[pos:end].decode("ascii", "replace").split()
     pos = end
+    if pos >= len(data):
+        raise NoImage("HDR: the file ends in its header (OpenCV returns no image)")
     if len(size) < 4 or size[0] != "-Y" or size[2] != "+X":
         raise ValueError(f"HDR: an image size other than '-Y H +X W': {size}")
     H, W = int(size[1]), int(size[3])
@@ -464,12 +479,14 @@ def read_hdr(data: bytes) -> np.ndarray:
     if 8 <= W <= 0x7FFF:
         while row < H:
             if pos + 4 > len(data):
-                raise ValueError("HDR: the pixel data ends before the image")
+                raise NoImage("HDR: the pixel data ends before the image (OpenCV returns no "
+                              "image)")
             head = data[pos:pos + 4]
             if head[0] != 2 or head[1] != 2 or head[2] & 0x80:
                 break                        # not new-style RLE: flat from here
             if (head[2] << 8 | head[3]) != W:
-                raise ValueError("HDR: a scanline of the wrong width")
+                raise NoImage("HDR: a scanline of the wrong width (rgbe.c stops; OpenCV returns "
+                              "no image)")
             pos += 4
             line = np.empty(4 * W, np.uint8)
             p = 0
@@ -477,17 +494,23 @@ def read_hdr(data: bytes) -> np.ndarray:
                 stop = (ch + 1) * W
                 while p < stop:
                     if pos + 2 > len(data):
-                        raise ValueError("HDR: the pixel data ends before the image")
+                        raise NoImage("HDR: the pixel data ends before the image (OpenCV "
+                                      "returns no image)")
                     count = data[pos]
                     if count > 128:
                         count -= 128
                         if count > stop - p:
-                            raise ValueError("HDR: bad scanline data")
+                            raise NoImage("HDR: bad scanline data (rgbe.c stops; OpenCV returns "
+                                          "no image)")
                         line[p:p + count] = data[pos + 1]
                         pos += 2
                     else:
                         if count == 0 or count > stop - p:
-                            raise ValueError("HDR: bad scanline data")
+                            raise NoImage("HDR: bad scanline data (rgbe.c stops; OpenCV returns "
+                                          "no image)")
+                        if pos + 1 + count > len(data):
+                            raise NoImage("HDR: the pixel data ends before the image (OpenCV "
+                                          "returns no image)")
                         line[p:p + count] = np.frombuffer(data[pos + 1:pos + 1 + count],
                                                           np.uint8)
                         pos += 1 + count
@@ -497,7 +520,7 @@ def read_hdr(data: bytes) -> np.ndarray:
     rest = (H - row) * W
     if rest:
         if pos + 4 * rest > len(data):
-            raise ValueError("HDR: the pixel data ends before the image")
+            raise NoImage("HDR: the pixel data ends before the image (OpenCV returns no image)")
         out[row * W:] = np.frombuffer(data[pos:pos + 4 * rest], np.uint8).reshape(-1, 4)
     return _rgbe_float(out).reshape(H, W, 3)
 
@@ -598,8 +621,10 @@ def read_sunras(data: bytes) -> np.ndarray:
     map (1 or 8 bits) reads as all zeros, since OpenCV fills its gray
     look-up table only from a map; byte-encoded (RLE) and RGB-order files
     give no image."""
-    if data[:4] != _RAS_MAGIC or len(data) < 32:
+    if data[:4] != _RAS_MAGIC:
         raise ValueError("not a Sun raster file")
+    if len(data) < 32:
+        raise NoImage("Sun raster: the file ends in its header (OpenCV returns no image)")
     W, H, bpp, _, enc, maptype, maplen = struct.unpack(">7I", data[4:32])
     if enc in (2, 3):
         raise NoImage(f"Sun raster: {('byte-encoded (RLE)', 'RGB-order')[enc - 2]} files are "
@@ -613,7 +638,8 @@ def read_sunras(data: bytes) -> np.ndarray:
     rowlen = (W * bpp + 7) // 8
     pitch = (rowlen + 1) & ~1
     if pos + pitch * H > len(data):
-        raise ValueError("Sun raster: the pixel data ends before the image")
+        raise NoImage("Sun raster: the pixel data ends before the image (OpenCV returns no "
+                      "image)")
     rows = np.frombuffer(data[pos:pos + pitch * H], np.uint8).reshape(H, pitch)
     if bpp > 8:
         bgr = rows[:, :rowlen].reshape(H, W, bpp // 8)[..., -3:]
@@ -660,7 +686,9 @@ def write_sunras(img: np.ndarray) -> bytes:
 
 def _lzw_gif(data: bytes, min_size: int, count: int) -> np.ndarray:
     """GIF's LZW (codes least significant bit first, growing to 12 bits)
-    -> the first `count` indices."""
+    -> the `count` indices of a frame.  As OpenCV's decoder: the codes are
+    read up to the end code (or the data's end), and a code past the table
+    or more or fewer indices than the frame holds give no image."""
     clear, eoi = 1 << min_size, (1 << min_size) + 1
     bits = np.unpackbits(np.frombuffer(data, np.uint8), bitorder="little")
     nbits = len(bits)
@@ -685,7 +713,7 @@ def _lzw_gif(data: bytes, min_size: int, count: int) -> np.ndarray:
         return bytes(s[::-1])
 
     reset()
-    while len(out) < count and pos + size <= nbits:
+    while pos + size <= nbits and len(out) <= count:
         code = int(bits[pos:pos + size].dot(weights[:size]))
         pos += size
         if code == clear:
@@ -696,7 +724,7 @@ def _lzw_gif(data: bytes, min_size: int, count: int) -> np.ndarray:
             break
         if prev < 0:
             if code >= clear:
-                raise ValueError("GIF: corrupt LZW data")
+                raise NoImage("GIF: corrupt LZW data (a code past the table)")
             out += string(code)
             prev = code
             continue
@@ -707,7 +735,7 @@ def _lzw_gif(data: bytes, min_size: int, count: int) -> np.ndarray:
             new_first = first[prev]
             s = string(prev) + bytes([new_first])
         else:
-            raise ValueError("GIF: corrupt LZW data")
+            raise NoImage("GIF: corrupt LZW data (a code past the table)")
         if len(prefix) < 4096:
             prefix.append(prev)
             suffix.append(new_first)
@@ -716,9 +744,36 @@ def _lzw_gif(data: bytes, min_size: int, count: int) -> np.ndarray:
                 size += 1
         out += s
         prev = code
-    if len(out) < count:
-        raise ValueError("GIF: the image data ends early")
-    return np.frombuffer(bytes(out[:count]), np.uint8)
+    if len(out) != count:
+        raise NoImage(f"GIF: the LZW data holds {'more' if len(out) > count else 'fewer'} "
+                      f"indices than the frame (OpenCV returns no image)")
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def _gif_walk(data: bytes, pos: int) -> bool:
+    """The blocks from `pos` to the trailer, walked as OpenCV's GIF decoder
+    counts the frames before it decodes one: a cut file (no trailer), a
+    sub-block or colour table past the end or an unknown block gives no
+    image.  -> whether a graphic control extension names a transparent
+    index."""
+    transparent = False
+    try:
+        while data[pos] != 0x3B:
+            if data[pos] == 0x2C:
+                flags = data[pos + 9]
+                pos += 11 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+            elif data[pos] == 0x21:
+                if data[pos + 1] == 0xF9 and data[pos + 2] >= 4 and data[pos + 3] & 1:
+                    transparent = True
+                pos += 2
+            else:
+                raise NoImage(f"GIF: an unknown block {data[pos]:#x} (OpenCV returns no image)")
+            while data[pos]:
+                pos += 1 + data[pos]
+            pos += 1
+    except IndexError:
+        raise NoImage("GIF: the file ends before its trailer (OpenCV returns no image)") from None
+    return transparent
 
 
 def read_gif(data: bytes) -> np.ndarray:
@@ -730,17 +785,21 @@ def read_gif(data: bytes) -> np.ndarray:
     extension of the file names a transparent index, else three."""
     if data[:6] not in (b"GIF87a", b"GIF89a"):
         raise ValueError("not a GIF file")
+    if len(data) < 13:
+        raise NoImage("GIF: the file ends in its screen descriptor (OpenCV returns no image)")
     SW, SH, flags, bg, _ = struct.unpack("<HHBBB", data[6:13])
     pos = 13
     gct = None
     if flags & 0x80:
         n = 2 << (flags & 7)
-        gct = np.frombuffer(data[pos:pos + 3 * n], np.uint8).reshape(n, 3)
+        gct = np.frombuffer(data[pos:pos + 3 * n], np.uint8)
+        if len(gct) < 3 * n:
+            raise NoImage("GIF: the file ends in its colour table (OpenCV returns no image)")
+        gct = gct.reshape(n, 3)
         pos += 3 * n
+    any_transparent = _gif_walk(data, pos)
     transparent = None
     while True:
-        if pos >= len(data):
-            raise ValueError("GIF: no image in the file")
         block = data[pos]
         if block == 0x21:                    # an extension
             label = data[pos + 1]
@@ -752,12 +811,12 @@ def read_gif(data: bytes) -> np.ndarray:
             pos += 1
         elif block == 0x2C:
             break
-        elif block == 0x3B:
+        else:                               # the trailer (_gif_walk checked the rest)
             raise ValueError("GIF: no image in the file")
-        else:
-            raise ValueError(f"GIF: unknown block {block:#x}")
     left, top, w, h, iflags = struct.unpack("<HHHHB", data[pos + 1:pos + 10])
     pos += 10
+    if left + w > SW or top + h > SH:
+        raise NoImage("GIF: a frame past the logical screen (OpenCV returns no image)")
     table = gct
     if iflags & 0x80:
         n = 2 << (iflags & 7)
@@ -772,7 +831,6 @@ def read_gif(data: bytes) -> np.ndarray:
         chunks.append(data[pos + 1:pos + 1 + data[pos]])
         pos += 1 + data[pos]
     idx = _lzw_gif(b"".join(chunks), min_size, w * h).reshape(h, w)
-    any_transparent = transparent is not None or _gif_has_transparency(data, pos)
     if iflags & 0x40:                        # interlaced: rows in 4 passes
         order = np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8), np.arange(2, h, 4),
                                 np.arange(1, h, 2)])
@@ -784,7 +842,6 @@ def read_gif(data: bytes) -> np.ndarray:
     out = np.zeros((SH, SW, 4), np.uint8)
     if gct is not None and bg < len(gct):
         out[..., :3] = gct[bg]
-    idx = idx[:SH - top, :SW - left]
     drawn = np.ones(idx.shape, bool) if transparent is None else idx != transparent
     region = out[top:top + idx.shape[0], left:left + idx.shape[1]]
     region[drawn] = np.concatenate([pal[idx[drawn]], np.full((int(drawn.sum()), 1), 255,
@@ -909,33 +966,6 @@ def write_gif(img: np.ndarray) -> bytes:
             + _lzw_gif_encode(idx.ravel(), min_size) + b"\x3b")
 
 
-def _gif_has_transparency(data: bytes, pos: int) -> bool:
-    """Whether a graphic control extension after `pos` (a data sub-block
-    chain) names a transparent index."""
-    while pos < len(data) and data[pos]:             # the rest of the frame's data
-        pos += 1 + data[pos]
-    pos += 1
-    while pos < len(data):
-        block = data[pos]
-        if block == 0x21:
-            label = data[pos + 1]
-            pos += 2
-            if label == 0xF9 and pos + 1 < len(data) and data[pos] >= 4 and data[pos + 1] & 1:
-                return True
-            while pos < len(data) and data[pos]:
-                pos += 1 + data[pos]
-            pos += 1
-        elif block == 0x2C and pos + 10 <= len(data):
-            iflags = data[pos + 9]
-            pos += 10 + (3 * (2 << (iflags & 7)) if iflags & 0x80 else 0) + 1
-            while pos < len(data) and data[pos]:
-                pos += 1 + data[pos]
-            pos += 1
-        else:
-            return False
-    return False
-
-
 # ---------------------------------------------------------------------------
 # PAM (P7)
 # ---------------------------------------------------------------------------
@@ -953,7 +983,7 @@ def _pam_line(data: bytes, pos: int):
     first CR or LF, which is consumed, and loses its trailing blanks."""
     def byte(i):
         if i >= len(data):
-            raise ValueError("PAM: the header ends before ENDHDR")
+            raise NoImage("PAM: the file ends before ENDHDR (OpenCV returns no image)")
         return data[i]
     while byte(pos) in _SPACE:
         pos += 1
@@ -1036,7 +1066,7 @@ def read_pam(data: bytes) -> np.ndarray:
     wide = maxval > 255
     n = W * H * C * (2 if wide else 1)
     if pos + n > len(data):
-        raise ValueError("PAM: the pixel data ends before the image")
+        raise NoImage("PAM: the pixel data ends before the image (OpenCV returns no image)")
     if maxval == 1:
         if C in (2, 4):
             raise ValueError(f"PAM: MAXVAL 1 with DEPTH {C}")

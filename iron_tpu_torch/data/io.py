@@ -34,6 +34,19 @@ file or one it cannot read, write_image raises and makes no file.
 A file OpenCV reads no image from raises `NoImage` (a ValueError) in the
 readers, which `cli/preprocess.py` skips as the JAX package skips
 cv2.imread's None.
+
+A damaged file reads as cv2.imread reads it from its path.  A JPEG goes
+through libjpeg-turbo's recovery as OpenCV's stdio source drives it (a cut
+or corrupt scan decodes, the rest of its restart interval from zero
+coefficients; `jpeg.py`); every other damage that OpenCV's decoders stop
+at -- a cut file, a bad CRC on a critical PNG chunk, a PNG without IEND,
+corrupt compressed data, a GIF without its trailer, a truncated JPEG 2000
+codestream -- raises NoImage, and what they read past (trailing bytes, a
+BMP's file-size field, an 8-bit TIFF strip whose LZW, Deflate or
+PackBits data breaks off, which libtiff's RGBA interface reads with zeros
+after) gives OpenCV's array (tests/test_torch_damaged.py).  A damage
+class the port did not reproduce would raise a plain ValueError naming
+it; the sweep of scripts/sweep_damaged.py found none.
 """
 from __future__ import annotations
 
@@ -54,9 +67,11 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), 
 
 class NoImage(ValueError):
     """A file cv2.imread(IMREAD_UNCHANGED) returns no image for (the JAX
-    package then gets None): no format OpenCV reads is recognised in it, or
-    it is a variant OpenCV refuses.  Other errors of the port's decoders
-    are files OpenCV may read and the port does not, or corrupt data."""
+    package then gets None): no format OpenCV reads is recognised in it, it
+    is a variant OpenCV refuses, or it is damaged where OpenCV's decoder
+    stops (each class probed against cv2.imread).  Other ValueErrors of the
+    port's decoders name a variant or a damage class OpenCV reads and the
+    port does not."""
 
 
 def to8b(x: np.ndarray) -> np.ndarray:
@@ -107,7 +122,7 @@ def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
         elif ftype in (3, 4):
             row = _unfilter_sequential(cur, prior, bpp, ftype)
         else:
-            raise ValueError(f"PNG: unknown filter type {ftype} on row {y}")
+            raise NoImage(f"PNG: unknown filter type {ftype} on row {y} (libpng stops)")
         out[y] = row
         prior = out[y]
     return out
@@ -136,24 +151,47 @@ def read_png(path: str) -> np.ndarray:
 
 
 def read_png_bytes(data: bytes, path: str = "PNG") -> np.ndarray:
-    """`read_png` of the file's bytes (`path` names it in errors)."""
+    """`read_png` of the file's bytes (`path` names it in errors).  Damage
+    raises NoImage where OpenCV's libpng gives no image: no IEND chunk (a
+    cut file), a chunk that runs past the file, a critical chunk that
+    fails its CRC or that libpng does not know, a chunk between two IDAT
+    chunks, corrupt or short compressed data, an unknown filter type.  An
+    ancillary chunk that fails its CRC is dropped (libpng's default), and
+    IEND's own CRC is not checked, as OpenCV's reader does not."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"not a PNG file: {path}")
     pos, header, idat, palette, trns = 8, None, [], None, None
-    while pos + 8 <= len(data):
+    after_idat = False
+    while True:
+        if pos + 8 > len(data):
+            raise NoImage(f"{path}: the PNG ends before its IEND chunk (OpenCV returns no image)")
         n, ctype = struct.unpack(">I4s", data[pos:pos + 8])
+        if n > 0x7FFFFFFF or pos + 12 + n > len(data):
+            raise NoImage(f"{path}: a PNG {ctype!r} chunk runs past the end of the file")
+        if ctype == b"IEND":
+            break
         body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        critical = not ctype[0] & 0x20
+        if zlib.crc32(ctype + body) != struct.unpack(">I", data[pos - 4:pos])[0]:
+            if critical:
+                raise NoImage(f"{path}: the PNG {ctype!r} chunk fails its CRC (libpng stops)")
+            continue                # libpng drops an ancillary chunk with a bad CRC
+        if ctype == b"IDAT":
+            if after_idat:
+                raise NoImage(f"{path}: a PNG IDAT chunk after another chunk that follows IDAT "
+                              f"(libpng stops)")
+            idat.append(body)
+            continue
+        after_idat = bool(idat)
         if ctype == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif ctype == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif ctype == b"tRNS":
             trns = np.frombuffer(body, np.uint8)
-        elif ctype == b"IDAT":
-            idat.append(body)
-        elif ctype == b"IEND":
-            break
-        pos += 12 + n
+        elif critical:
+            raise NoImage(f"{path}: an unknown critical PNG chunk {ctype!r} (libpng stops)")
     if header is None:
         raise ValueError(f"PNG without IHDR: {path}")
     W, H, depth, color, _, _, interlace = header
@@ -164,7 +202,10 @@ def read_png_bytes(data: bytes, path: str = "PNG") -> np.ndarray:
         raise ValueError(f"{path}: palette PNG without a PLTE chunk")
     C = _PNG_CHANNELS[color]
     bpp = max(1, C * depth // 8)                 # the filters' byte distance
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise NoImage(f"{path}: corrupt or cut PNG image data ({e}; libpng stops)") from None
     passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
     dt = np.uint16 if depth == 16 else np.uint8
     out = np.empty((H, W, C), dt)
@@ -175,7 +216,7 @@ def read_png_bytes(data: bytes, path: str = "PNG") -> np.ndarray:
             continue                             # an empty pass has no scanlines
         stride = -(-pw * C * depth // 8)
         if raw.size < o + ph * (stride + 1):
-            raise ValueError(f"{path}: truncated PNG image data")
+            raise NoImage(f"{path}: not enough PNG image data (libpng stops)")
         lines = _unfilter(raw[o:o + ph * (stride + 1)].reshape(ph, stride + 1), bpp)
         out[y0::dy, x0::dx] = _samples(lines, pw, C, depth)
         o += ph * (stride + 1)

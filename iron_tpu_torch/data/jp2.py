@@ -33,9 +33,9 @@ offset other than 0, sub-sampled components, a precision below 8 or above
 16 bits, a palette (`pclr` / `cmap`), an sYCC, CMYK or e-YCC colour space.
 Features no writer here makes raise naming them: POC, PPM, PPT, RGN, CRG,
 code-block styles other than 0 (BYPASS, RESET, TERMALL, VSC, PTERM,
-SEGSYM), Part 2 and HTJ2K codestreams.  A truncated codestream or a packet
-header that reads past its tile's data raises too (OpenJPEG would decode
-what is there, with warnings).
+SEGSYM), Part 2 and HTJ2K codestreams.  A truncated codestream (a cut
+file, a missing EOC), a marker segment too short for its fields or a
+missing marker raises NoImage: OpenCV gives no image for them.
 """
 from __future__ import annotations
 
@@ -94,7 +94,7 @@ class _Reader:
     def take(self, fmt: str):
         n = struct.calcsize(">" + fmt)
         if self.pos + n > len(self.body):
-            raise JP2Error(f"JPEG 2000: the {self.name} marker segment is too short")
+            raise JP2NoImage(f"JPEG 2000: the {self.name} marker segment is too short")
         out = struct.unpack_from(">" + fmt, self.body, self.pos)
         self.pos += n
         return out if len(out) > 1 else out[0]
@@ -196,18 +196,18 @@ def _segments(cs: bytes, pos: int, end: int):
     SOT / SOD."""
     while True:
         if pos + 2 > end:
-            raise JP2Error("JPEG 2000: truncated codestream (a header runs past the end)")
+            raise JP2NoImage("JPEG 2000: truncated codestream (a header runs past the end)")
         marker = struct.unpack_from(">H", cs, pos)[0]
         if marker in (_SOT, _SOD):
             yield marker, b"", pos
             return
         if marker >> 8 != 0xFF or pos + 4 > end:
-            raise JP2Error(f"JPEG 2000: expected a marker at byte {pos}, found "
-                           f"0x{marker:04x}")
+            raise JP2NoImage(f"JPEG 2000: expected a marker at byte {pos}, found "
+                             f"0x{marker:04x}")
         n = struct.unpack_from(">H", cs, pos + 2)[0]
         if n < 2 or pos + 2 + n > end:
-            raise JP2Error(f"JPEG 2000: truncated codestream (marker 0x{marker:04x} at byte "
-                           f"{pos} runs past the end)")
+            raise JP2NoImage(f"JPEG 2000: truncated codestream (marker 0x{marker:04x} at byte "
+                             f"{pos} runs past the end)")
         yield marker, cs[pos + 4:pos + 2 + n], pos + 2 + n
         pos += 2 + n
 
@@ -256,15 +256,15 @@ def parse_codestream(cs: bytes) -> dict:
     tiles = {}
     while pos + 2 <= len(cs) and struct.unpack_from(">H", cs, pos)[0] == _SOT:
         if pos + 12 > len(cs):
-            raise JP2Error("JPEG 2000: truncated codestream (in an SOT marker)")
+            raise JP2NoImage("JPEG 2000: truncated codestream (in an SOT marker)")
         isot, psot, tpsot, _ = struct.unpack_from(">HIBB", cs, pos + 4)
         if isot >= ntx * nty:
             raise JP2Error(f"JPEG 2000: SOT names tile {isot} of {ntx * nty}")
         start = pos
         end = start + psot if psot else len(cs) - (2 if cs[-2:] == b"\xff\xd9" else 0)
         if end > len(cs):
-            raise JP2Error(f"JPEG 2000: truncated codestream (tile {isot}'s part {tpsot} "
-                           f"ends at byte {end} of {len(cs)})")
+            raise JP2NoImage(f"JPEG 2000: truncated codestream (tile {isot}'s part {tpsot} "
+                             f"ends at byte {end} of {len(cs)})")
         tile = tiles.setdefault(isot, {"params": _Params(main), "data": []})
         for marker, body, p in _segments(cs, pos + 12, end):
             if marker == _SOD:
@@ -278,12 +278,12 @@ def parse_codestream(cs: bytes) -> dict:
         tile["data"].append(cs[pos:end])
         pos = end
     if cs[pos:pos + 2] != b"\xff\xd9":
-        raise JP2Error(f"JPEG 2000: truncated codestream (no EOC marker after the last "
-                       f"tile-part, at byte {pos} of {len(cs)})")
+        raise JP2NoImage(f"JPEG 2000: truncated codestream (no EOC marker after the last "
+                         f"tile-part, at byte {pos} of {len(cs)})")
     if len(tiles) < ntx * nty:
         missing = next(t for t in range(ntx * nty) if t not in tiles)
-        raise JP2Error(f"JPEG 2000: truncated codestream (no data for tile {missing} of "
-                       f"{ntx * nty})")
+        raise JP2NoImage(f"JPEG 2000: truncated codestream (no data for tile {missing} of "
+                         f"{ntx * nty})")
     info["tiles"] = {t: (v["params"], b"".join(v["data"])) for t, v in tiles.items()}
     return info
 
@@ -310,8 +310,8 @@ class _Bits:
 
     def bit(self) -> int:
         if self.ct == 0 and not self._byte():
-            raise JP2Error(f"JPEG 2000: truncated codestream (a packet header of {self.where} "
-                           f"reads past the tile's data)")
+            raise JP2NoImage(f"JPEG 2000: truncated codestream (a packet header of {self.where} "
+                             f"reads past the tile's data)")
         self.ct -= 1
         return (self.buf >> self.ct) & 1
 
@@ -431,8 +431,8 @@ def _read_packet(data: bytes, pos: int, end: int, bands, layer: int, sop: bool, 
         pos += 2
     for blk, n, length in entries:
         if pos + length > end:
-            raise JP2Error(f"JPEG 2000: truncated codestream or corrupted packet header (a "
-                           f"code-block's {length} bytes in {where} run past the tile's data)")
+            raise JP2NoImage(f"JPEG 2000: truncated codestream or corrupted packet header (a "
+                             f"code-block's {length} bytes in {where} run past the tile's data)")
         blk.passes += n
         blk.data.append(data[pos:pos + length])
         pos += length
@@ -655,8 +655,8 @@ def _decode_tile(info: dict, t: int):
     pos = 0
     for lay, r, c, prc in _packet_order(cod["order"], cod["layers"], comps, tx0, ty0):
         if pos >= len(data):
-            raise JP2Error(f"JPEG 2000: truncated codestream (tile {t}'s data ends before "
-                           f"its packet of layer {lay}, resolution {r}, component {c})")
+            raise JP2NoImage(f"JPEG 2000: truncated codestream (tile {t}'s data ends before "
+                             f"its packet of layer {lay}, resolution {r}, component {c})")
         pos = _read_packet(data, pos, len(data), comps[c][r]["precincts"][prc], lay,
                            cod["sop"], cod["eph"],
                            f"tile {t} (layer {lay}, resolution {r}, component {c})")

@@ -19,13 +19,19 @@ arithmetic-coded (SOF9, SOF10: T.81's QM coder with the DAC conditioning);
 lossless files (SOF3: predictors 1-7, point transform, 2-8 bits); 1, 3
 or 4 components, interleaved or not, any sampling factors, restart
 intervals.
-The inverse DCT is libjpeg's integer one (jidctint.c); chroma is upsampled
-as libjpeg does by default (triangle filters for 2x2, 2x1 and 1x2,
-replication otherwise, and always in a lossless file); the colour space
-follows libjpeg's JFIF / Adobe / component-id rules, and four components
-(CMYK, YCCK) go to BGR as OpenCV converts them.  Hierarchical, arithmetic-coded lossless and 12-bit DCT
+The inverse DCT is libjpeg-turbo's SIMD islow one (jidctint.c's integer
+arithmetic, with the 16-bit wraps and saturations of its x86 code, which
+only corrupt data reaches); chroma is upsampled as libjpeg does by default
+(triangle filters for 2x2, 2x1 and 1x2, replication otherwise, and always
+in a lossless file); the colour space follows libjpeg's JFIF / Adobe /
+component-id rules, and four components (CMYK, YCCK) go to BGR as OpenCV
+converts them.  Hierarchical, arithmetic-coded lossless and 12-bit DCT
 files raise, as do lossless files of more than 8 bits (OpenCV gives no
 image for them).
+
+A damaged file reads as cv2.imread reads it from its path (`decode_jpeg`
+says how): libjpeg-turbo's recovery as OpenCV's stdio source drives it,
+and NoImage where libjpeg stops.
 """
 from __future__ import annotations
 
@@ -351,8 +357,9 @@ def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
 
 def _lookup(bits, vals) -> List[int]:
     """A 65,536-entry table: the next 16 bits of the stream -> length << 8 |
-    symbol (0 for a bit pattern that is no code)."""
-    table = np.zeros(1 << 16, np.int64)
+    symbol.  A bit pattern that is no code reads as libjpeg reads it
+    (jpeg_huff_decode, JWRN_HUFF_BAD_CODE): 17 bits, symbol 0."""
+    table = np.full(1 << 16, 17 << 8, np.int64)
     code, k = 0, 0
     for length in range(1, 17):
         for _ in range(bits[length - 1]):
@@ -364,17 +371,126 @@ def _lookup(bits, vals) -> List[int]:
     return table.tolist()
 
 
-def _windows(data: bytes) -> List[int]:
-    """The 16 stream bits that start at each bit position of `data` (zeros
-    past its end)."""
-    b = np.frombuffer(data + bytes(10), np.uint8).astype(np.int64)
+def _derived(tables: Dict, tid: int, dc: bool) -> List[int]:
+    """libjpeg's jpeg_make_d_derived_tbl at the start of a scan: the table
+    `tid` of a class, checked as libjpeg checks it (no table, more than
+    256 codes, an all-ones code, a DC symbol past 15: no image), as a
+    look-up table (`_lookup`, built once)."""
+    t = tables.get(tid)
+    if t is None:
+        raise NoImage(f"JPEG: the scan uses Huffman table {tid}, which is not defined (libjpeg "
+                      f"stops: JERR_NO_HUFF_TABLE)")
+    if t[2] is None:
+        bits, vals = t[0], t[1]
+        code = 0
+        first = next((i for i in range(16) if bits[i]), 16)
+        last = max((i for i in range(16) if bits[i]), default=-1)
+        for i in range(first, last + 1):
+            code += bits[i]
+            if code >= 1 << (i + 1):
+                raise NoImage("JPEG: a Huffman table with an all-ones code (JERR_BAD_HUFF_TABLE)")
+            code <<= 1
+        if dc and any(v > 15 for v in vals):
+            raise NoImage("JPEG: a DC Huffman table with a symbol past 15 (JERR_BAD_HUFF_TABLE)")
+        t[2] = _lookup(bits, vals)
+    return t[2]
+
+
+def _windows(data: bytes, pad: int = 8) -> List[int]:
+    """The 16 stream bits that start at each bit position of `data` and of
+    `pad` bytes after it (zeros past its end, as libjpeg's bit reader
+    gives them after a marker)."""
+    b = np.frombuffer(data + bytes(pad + 2), np.uint8).astype(np.int64)
     w24 = (b[:-2] << 16) | (b[1:-1] << 8) | b[2:]
-    p = np.arange(8 * (len(data) + 8))
+    p = np.arange(8 * (len(data) + pad))
     return ((w24[p >> 3] >> (8 - (p & 7))) & 0xFFFF).tolist()
 
 
-def _unstuff(seg: bytes) -> bytes:
-    return seg.replace(b"\xff\x00", b"\xff")
+def _next_marker(src: bytes, p: int) -> Tuple[int, int]:
+    """libjpeg's next_marker from byte p: bytes before a marker skipped
+    (JWRN_EXTRANEOUS_DATA), FF fill bytes swallowed, FF 00 passed over ->
+    (the marker's code, the position after it).  `src` ends in FF D9."""
+    while True:
+        p = src.index(b"\xff", p) + 1
+        while src[p] == 0xFF:
+            p += 1
+        p += 1
+        if src[p - 1]:
+            return src[p - 1], p
+
+
+def _entropy_segment(src: bytes, p: int) -> Tuple[bytes, int, int]:
+    """The entropy-coded bytes from p as libjpeg's readers take them (FF 00,
+    and FF FF ... 00, is one FF byte), up to the next marker -> (bytes, the
+    marker's code, the position after it)."""
+    parts, start = [], p
+    while True:
+        q = src.index(b"\xff", p)
+        r = q + 1
+        while src[r] == 0xFF:
+            r += 1
+        if src[r]:
+            parts.append(src[start:q])
+            return b"".join(parts), src[r], r + 1
+        parts.append(src[start:q + 1])
+        p = start = r + 1
+
+
+def _resync(src: bytes, marker: int, p: int, want: int) -> Tuple[Optional[int], int]:
+    """libjpeg's read_restart_marker with the marker met (`marker`, read up
+    to p) where RST`want` is due: the due marker is taken; any other goes
+    through jpeg_resync_to_restart: a marker below SOF0 or a restart two
+    back is skipped to the next marker, one of the next two restarts or a
+    non-restart marker is left unread (-> (marker, p): the next interval
+    then has no data), any other restart is taken (-> (None, p))."""
+    while True:
+        if marker == 0xD0 + want:
+            return None, p
+        if marker < 0xC0:
+            skip = True
+        elif not 0xD0 <= marker <= 0xD7 or marker - 0xD0 in ((want + 1) & 7, (want + 2) & 7):
+            return marker, p
+        elif marker - 0xD0 in ((want - 1) & 7, (want - 2) & 7):
+            skip = True
+        else:
+            return None, p
+        if skip:
+            marker, p = _next_marker(src, p)
+
+
+def _scan_data(src: bytes, p: int, n_units: int, restart: int, decode) -> Tuple[int, int]:
+    """Run one scan's entropy-coded data from p as libjpeg does, restart
+    interval by restart interval: each interval's data is the bytes up to
+    the next marker; at each restart the marker met goes through
+    `_resync`, the DC predictions (and the decoder's state) start anew,
+    and the out-of-data flag clears if a marker was taken.  `decode(seg,
+    first, count)` decodes units [first, first + count) from `seg` and
+    returns True if the data ran out (libjpeg's insufficient_data: the
+    units after that are left as they were).  -> (the marker met after
+    the scan, the position after it)."""
+    per = restart if restart else n_units
+    marker, out, want = None, False, 0
+    for i in range(0, n_units, per):
+        if i:
+            if marker is None:
+                marker, p = _next_marker(src, p)
+            marker, p = _resync(src, marker, p, want)
+            want = (want + 1) & 7
+            if marker is None:
+                out = False
+        if out:
+            continue
+        seg = b""
+        if marker is None:
+            seg, marker, p = _entropy_segment(src, p)
+        out = decode(seg, i, min(per, n_units - i))
+    return marker, p
+
+
+def _w16(v):
+    """An int (or int64 array) stored into libjpeg's JCOEF (int16), or
+    taken in 16 bits as the SIMD IDCT takes it."""
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
 
 
 # what a scan codes (T.81 G.1.2): every coefficient at once (sequential),
@@ -383,13 +499,36 @@ def _unstuff(seg: bytes) -> bytes:
 _SEQUENTIAL, _DC_FIRST, _DC_REFINE, _AC_FIRST, _AC_REFINE = range(5)
 
 
-def _decode_interval(data: bytes, units, mode: int, ss: int, se: int, al: int) -> None:
+def _decode_interval(data: bytes, units, mode: int, ss: int, se: int,
+                     al: int) -> Tuple[bool, int]:
     """Decode the MCUs `units` of one restart interval of a scan into their
-    blocks.  A unit is a list of (block, component, DC table, AC table), a
-    block the 64 coefficients of an 8x8 block in zigzag order (a list,
-    updated in place).  DC predictors and the end-of-band run start at 0."""
-    win = _windows(data)
-    n_bits = 8 * len(data)
+    blocks, as libjpeg-turbo's jdhuff.c / jdphuff.c decode them.  A unit is
+    a list of (block, component, DC table, AC table), a block the 64
+    coefficients of an 8x8 block in zigzag order (a list, updated in
+    place).  DC predictors and the end-of-band run start at 0.  Past the
+    end of `data` the bits are zeros; the unit during which they run out is
+    decoded to its end and the units after it are left untouched
+    (libjpeg's insufficient_data).  A coefficient index past 63 writes
+    coefficient 63 (libjpeg's jpeg_natural_order guard).  -> (whether the
+    data ran out, the units decoded)."""
+    # the stream's bits, with 8 zero bytes after them: a unit that reads
+    # further (the data ran out in it) is decoded again with room for the
+    # most a unit can read, the refinement's blocks restored first (its
+    # newly nonzero coefficients would read as nonzero)
+    saved = [list(b[0]) for u in units for b in u] if mode == _AC_REFINE else None
+    try:
+        return _decode_units(_windows(data), len(data), units, mode, ss, se, al)
+    except IndexError:
+        if saved is not None:
+            for b, old in zip((b[0] for u in units for b in u), saved):
+                b[:] = old
+        return _decode_units(_windows(data, 3000), len(data), units, mode, ss, se, al)
+
+
+def _decode_units(win: List[int], n_bytes: int, units, mode: int, ss: int, se: int,
+                  al: int) -> Tuple[bool, int]:
+    """`_decode_interval` on the stream's windows (`_windows`)."""
+    n_bits = 8 * n_bytes
     pos, eobrun = 0, 0
     preds: Dict[int, int] = {}
     p1, m1 = 1 << al, -1 << al
@@ -400,11 +539,9 @@ def _decode_interval(data: bytes, units, mode: int, ss: int, se: int, al: int) -
         pos += n
         return v
 
-    def huff(table, what: str) -> int:
+    def huff(table) -> int:
         nonlocal pos
         look = table[win[pos]]
-        if not look:
-            raise ValueError(f"JPEG: corrupt entropy-coded data (bad {what} code)")
         pos += look >> 8
         return look & 255
 
@@ -414,11 +551,9 @@ def _decode_interval(data: bytes, units, mode: int, ss: int, se: int, al: int) -
     if mode == _SEQUENTIAL:
         # the baseline scan, once per coefficient: the table look-ups, the
         # bit reads and the sign extension written out in the loop
-        for unit in units:
+        for done, unit in enumerate(units, 1):
             for blk, c, dct, act in unit:
                 look = dct[win[pos]]
-                if not look:
-                    raise ValueError("JPEG: corrupt entropy-coded data (bad DC code)")
                 pos += look >> 8
                 s = look & 255
                 v = 0
@@ -429,12 +564,10 @@ def _decode_interval(data: bytes, units, mode: int, ss: int, se: int, al: int) -
                         v -= (1 << s) - 1
                 v += preds.get(c, 0)
                 preds[c] = v
-                blk[0] = v
+                blk[0] = v if -0x8000 <= v < 0x8000 else _w16(v)
                 k = 1
                 while k < 64:
                     look = act[win[pos]]
-                    if not look:
-                        raise ValueError("JPEG: corrupt entropy-coded data (bad AC code)")
                     pos += look >> 8
                     s = look & 15
                     if s == 0:
@@ -447,19 +580,18 @@ def _decode_interval(data: bytes, units, mode: int, ss: int, se: int, al: int) -
                     pos += s
                     if v < (1 << (s - 1)):
                         v -= (1 << s) - 1
-                    if k < 64:
-                        blk[k] = v
+                    blk[k if k < 64 else 63] = v
                     k += 1
             if pos > n_bits:
-                raise ValueError("JPEG: entropy-coded data ends early")
-        return
+                return True, done
+        return False, len(units)
 
-    for unit in units:
+    for done, unit in enumerate(units, 1):
         for blk, c, dct, act in unit:
             if mode == _DC_FIRST:
-                s = huff(dct, "DC")
+                s = huff(dct)
                 preds[c] = preds.get(c, 0) + (extend(bits(s), s) if s else 0)
-                blk[0] = preds[c] << al
+                blk[0] = _w16(preds[c] << al)
             elif mode == _DC_REFINE:
                 if bits(1):
                     blk[0] |= p1
@@ -469,13 +601,11 @@ def _decode_interval(data: bytes, units, mode: int, ss: int, se: int, al: int) -
                     continue
                 k = ss
                 while k <= se:
-                    rs = huff(act, "AC")
+                    rs = huff(act)
                     r, s = rs >> 4, rs & 15
                     if s:
                         k += r
-                        if k > 63:
-                            raise ValueError("JPEG: corrupt progressive AC scan")
-                        blk[k] = extend(bits(s), s) << al
+                        blk[min(k, 63)] = _w16(extend(bits(s), s) << al)
                         k += 1
                     elif r == 15:
                         k += 16
@@ -486,7 +616,7 @@ def _decode_interval(data: bytes, units, mode: int, ss: int, se: int, al: int) -
                 k = ss
                 if not eobrun:
                     while k <= se:
-                        rs = huff(act, "AC")
+                        rs = huff(act)
                         r, s = rs >> 4, rs & 15
                         if s:
                             s = p1 if bits(1) else m1
@@ -497,27 +627,26 @@ def _decode_interval(data: bytes, units, mode: int, ss: int, se: int, al: int) -
                         while k <= se:
                             if blk[k]:
                                 if bits(1) and not blk[k] & p1:
-                                    blk[k] += p1 if blk[k] >= 0 else m1
+                                    blk[k] = _w16(blk[k] + (p1 if blk[k] >= 0 else m1))
                             elif r:
                                 r -= 1
                             else:
                                 break
                             k += 1
                         if s:
-                            if k > 63:
-                                raise ValueError("JPEG: corrupt progressive AC scan")
-                            blk[k] = s
+                            blk[min(k, 63)] = s
                         k += 1
                 if eobrun:
                     # the band's end lies in an end-of-band run: refine the
                     # nonzero coefficients left
                     while k <= se:
                         if blk[k] and bits(1) and not blk[k] & p1:
-                            blk[k] += p1 if blk[k] >= 0 else m1
+                            blk[k] = _w16(blk[k] + (p1 if blk[k] >= 0 else m1))
                         k += 1
                     eobrun -= 1
         if pos > n_bits:
-            raise ValueError("JPEG: entropy-coded data ends early")
+            return True, done
+    return False, len(units)
 
 
 # T.81 Table D.2, the QM coder's probability estimation: Qe, the next state
@@ -552,15 +681,23 @@ ARITAB = [(_QE[i] << 16) | (_NMPS_JUMP.get(i, i + 1) << 8) | ((i in _SWITCH) << 
           for i in range(114)]
 
 
+class _ArithOverflow(Exception):
+    """libjpeg's JWRN_ARITH_BAD_CODE: corrupt arithmetic-coded data; the
+    rest of the restart interval is left as it is."""
+
+
 def _arith_interval(data: bytes, units, mode: int, ss: int, se: int, al: int,
-                    cond_dc: Dict[int, Tuple[int, int]], cond_ac: Dict[int, int]) -> None:
+                    cond_dc: Dict[int, Tuple[int, int]], cond_ac: Dict[int, int]) -> bool:
     """Decode the MCUs `units` of one restart interval of an arithmetic-coded
     scan (T.81 Annex D, F.1.4 / F.2.4 and G.1.3; libjpeg's jdarith.c).  A
     unit is a list of (block, component, DC table, AC table), a block's 64
     coefficients in zigzag order; `cond_dc` and `cond_ac` map a table to the
     conditioning of the DAC segment ((L, U) and Kx).  Statistics, DC predictors and contexts
     start at zero; past the end of `data` the coder reads zeros, as libjpeg
-    does once it meets a marker."""
+    does once it meets a marker.  A magnitude or spectral overflow (corrupt
+    data) leaves the rest of the interval as it is, the block being decoded
+    with what it had, as libjpeg's jdarith.c does.  -> False (the
+    arithmetic decoder has no out-of-data flag)."""
     n = len(data)
     pos, c, a, ct = 0, 0, 0, -16
     dc_stats: Dict[int, List[int]] = {}
@@ -619,7 +756,7 @@ def _arith_interval(data: bytes, units, mode: int, ss: int, se: int, al: int,
         while decode(st, i):
             m <<= 1
             if m == 0x8000:
-                raise ValueError("JPEG: corrupt arithmetic-coded data (magnitude overflow)")
+                raise _ArithOverflow
             i += 1
         return m, i
 
@@ -656,7 +793,7 @@ def _arith_interval(data: bytes, units, mode: int, ss: int, se: int, al: int,
                 i += 3
                 k += 1
                 if k > se:
-                    raise ValueError("JPEG: corrupt arithmetic-coded data (spectral overflow)")
+                    raise _ArithOverflow
             sign = decode(fixed, 0)
             i += 2
             m = decode(st, i)
@@ -688,68 +825,92 @@ def _arith_interval(data: bytes, units, mode: int, ss: int, se: int, al: int,
                 i += 3
                 k += 1
                 if k > se:
-                    raise ValueError("JPEG: corrupt arithmetic-coded data (spectral overflow)")
+                    raise _ArithOverflow
             k += 1
 
-    for unit in units:
-        for blk, comp, dct, act in unit:
-            if mode in (_SEQUENTIAL, _DC_FIRST):
-                v = (last.get(comp, 0) + dc_diff(comp, dct)) & 0xFFFF
-                last[comp] = v
-                blk[0] = (v - 0x10000 if v >= 0x8000 else v) << (al if mode == _DC_FIRST else 0)
-                if mode == _SEQUENTIAL:
-                    ac_first(blk, act, 1, 63)
-            elif mode == _DC_REFINE:
-                if decode(fixed, 0):
-                    blk[0] |= 1 << al
-            elif mode == _AC_FIRST:
-                ac_first(blk, act, ss, se)
-            else:
-                ac_refine(blk, act)
+    try:
+        for unit in units:
+            for blk, comp, dct, act in unit:
+                if mode in (_SEQUENTIAL, _DC_FIRST):
+                    v = (last.get(comp, 0) + dc_diff(comp, dct)) & 0xFFFF
+                    last[comp] = v
+                    v = v - 0x10000 if v >= 0x8000 else v
+                    blk[0] = _w16(v << al) if mode == _DC_FIRST else v
+                    if mode == _SEQUENTIAL:
+                        ac_first(blk, act, 1, 63)
+                elif mode == _DC_REFINE:
+                    if decode(fixed, 0):
+                        blk[0] |= 1 << al
+                elif mode == _AC_FIRST:
+                    ac_first(blk, act, ss, se)
+                else:
+                    ac_refine(blk, act)
+    except _ArithOverflow:
+        pass
+    return False
 
 
-def _lossless_interval(data: bytes, units, tables) -> List[int]:
-    """The sample differences of one restart interval of a Huffman-coded
-    lossless scan (T.81 H.1.2.2; libjpeg-turbo's jdlhuff.c), in the order
-    of `units`, each unit the list of the components of its samples, and
-    `tables` the DC look-up table of each component."""
-    win = _windows(data)
+def _lossless_rows(data: bytes, flat: np.ndarray, fresh: np.ndarray, row0: int, rows: int,
+                   mcols: int, pattern: List[int], tables) -> bool:
+    """Decode MCU rows [row0, row0 + rows) of one restart interval of a
+    Huffman-coded lossless scan (T.81 H.1.2.2; libjpeg-turbo's jdlhuff.c)
+    into `flat` (the sample differences, one MCU a row: the components of
+    its samples in `pattern` order; `tables` the DC look-up table of each
+    component).  As libjpeg does, the row during which the data runs out is
+    decoded to its end with zero bits; the rows after it keep zero
+    differences and their `fresh` mark (the undifferencer starts anew on
+    each: a constant row).  `fresh` is cleared on every decoded row but the
+    interval's first.  -> True if the data ran out."""
+    try:
+        return _lossless_decode(_windows(data), len(data), flat, fresh, row0, rows, mcols,
+                                pattern, tables)
+    except IndexError:        # a row read past the zeros after the data: room for a row
+        return _lossless_decode(_windows(data, 5 * mcols * len(pattern) + 8), len(data), flat,
+                                fresh, row0, rows, mcols, pattern, tables)
+
+
+def _lossless_decode(win, n_bytes, flat, fresh, row0, rows, mcols, pattern, tables) -> bool:
+    """`_lossless_rows` on the stream's windows (`_windows`)."""
+    n_bits = 8 * n_bytes
     pos = 0
-    out = []
-    for unit in units:
-        for comp in unit:
-            look = tables[comp][win[pos]]
-            if not look:
-                raise ValueError("JPEG: corrupt lossless data (bad difference code)")
-            pos += look >> 8
-            s = look & 255
-            if s == 16:
-                v = 32768
-            elif s:
-                v = win[pos] >> (16 - s)
-                pos += s
-                if v < (1 << (s - 1)):
-                    v -= (1 << s) - 1
-            else:
-                v = 0
-            out.append(v)
-    if pos > 8 * len(data):
-        raise ValueError("JPEG: lossless data ends early")
-    return out
+    per = len(pattern)
+    for r in range(row0, row0 + rows):
+        if pos > n_bits:
+            return True
+        out = []
+        for _ in range(mcols):
+            for comp in pattern:
+                look = tables[comp][win[pos]]
+                pos += look >> 8
+                s = look & 255
+                if s == 16:
+                    v = 32768
+                elif s:
+                    v = win[pos] >> (16 - s)
+                    pos += s
+                    if v < (1 << (s - 1)):
+                        v -= (1 << s) - 1
+                else:
+                    v = 0
+                out.append(v)
+        flat[r * mcols:(r + 1) * mcols] = np.asarray(out, np.int64).reshape(mcols, per)
+        fresh[r] = r == row0
+    return pos > n_bits
 
 
-def _undifference(diff: np.ndarray, predictor: int, first: int, restart_rows: int) -> np.ndarray:
+def _undifference(diff: np.ndarray, predictor: int, first: int, fresh: np.ndarray) -> np.ndarray:
     """libjpeg-turbo's jdpred.c: samples [h, w] from their differences.  A
-    row that starts a restart interval (and the first row) predicts each
-    sample from its left neighbour, its first sample from `first`; every
-    other row's first sample from the one above, the rest by `predictor`
-    (1: a, 2: b, 3: c, 4: a + b - c, 5: a + (b - c) / 2, 6: b + (a - c) / 2,
-    7: (a + b) / 2; a left, b above, c above left), modulo 2^16."""
+    row marked `fresh` (the first row, one that starts a restart interval,
+    one the decoder found no data for) predicts each sample from its left
+    neighbour, its first sample from `first`; every other row's first
+    sample from the one above, the rest by `predictor` (1: a, 2: b, 3: c,
+    4: a + b - c, 5: a + (b - c) / 2, 6: b + (a - c) / 2, 7: (a + b) / 2;
+    a left, b above, c above left), modulo 2^16."""
     h, w = diff.shape
     out = np.empty((h, w), np.int64)
     for y in range(h):
         d = diff[y]
-        if y == 0 or (restart_rows and y % restart_rows == 0):
+        if fresh[y]:
             d = d.copy()
             d[0] += first
             out[y] = np.cumsum(d) & 0xFFFF
@@ -779,39 +940,48 @@ _FIX_Q = {n: v for n, v in zip(
     (2446, 3196, 4433, 6270, 7373, 9633, 12299, 15137, 16069, 16819, 20995, 25172))}
 
 
-def _islow_1d(d: List[np.ndarray], shift: int) -> List[np.ndarray]:
-    """One pass of libjpeg's jpeg_idct_islow (jidctint.c: 13-bit constants,
-    the Loeffler-Ligtenberg-Moschytz butterfly) over the 8 inputs d, each
-    output descaled by `shift` bits with rounding."""
+def _islow_pass(d: List[np.ndarray], shift: int) -> List[np.ndarray]:
+    """One pass of libjpeg-turbo's SIMD jpeg_idct_islow (jidctint-sse2.asm /
+    -avx2.asm, which OpenCV's libjpeg-turbo runs on x86) over the 8 int16
+    inputs d: jidctint.c's butterfly with 13-bit constants, its products
+    paired as the SIMD code pairs them, in0 + in4, in0 - in4, in7 + in3 and
+    in5 + in1 taken in 16 bits (wrapping), the rest in 32, each output
+    descaled by `shift` bits with rounding and saturated to 16 bits.  On the
+    values of a valid file this is jidctint.c to the bit; corrupt data can
+    reach the wraps and saturations."""
     f = _FIX_Q
-    z2, z3 = d[2], d[6]
-    z1 = (z2 + z3) * f["0_541"]
-    tmp2, tmp3 = z1 - z3 * f["1_847"], z1 + z2 * f["0_765"]
-    tmp0, tmp1 = (d[0] + d[4]) << 13, (d[0] - d[4]) << 13
+    in0, in1, in2, in3, in4, in5, in6, in7 = d
+    tmp3 = in2 * (f["0_541"] + f["0_765"]) + in6 * f["0_541"]
+    tmp2 = in2 * f["0_541"] + in6 * (f["0_541"] - f["1_847"])
+    tmp0, tmp1 = _w16(in0 + in4) << 13, _w16(in0 - in4) << 13
     tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
-    t0, t1, t2, t3 = d[7], d[5], d[3], d[1]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
-    z5 = (z3 + z4) * f["1_175"]
-    t0, t1, t2, t3 = t0 * f["0_298"], t1 * f["2_053"], t2 * f["3_072"], t3 * f["1_501"]
-    z1, z2 = z1 * -f["0_899"], z2 * -f["2_562"]
-    z3, z4 = z3 * -f["1_961"] + z5, z4 * -f["0_390"] + z5
-    t0, t1, t2, t3 = t0 + z1 + z3, t1 + z2 + z4, t2 + z2 + z3, t3 + z1 + z4
+    z3, z4 = _w16(in7 + in3), _w16(in5 + in1)
+    z3, z4 = (z3 * (f["1_175"] - f["1_961"]) + z4 * f["1_175"],
+              z3 * f["1_175"] + z4 * (f["1_175"] - f["0_390"]))
+    t0 = in7 * (f["0_298"] - f["0_899"]) - in1 * f["0_899"] + z3
+    t3 = -in7 * f["0_899"] + in1 * (f["1_501"] - f["0_899"]) + z4
+    t1 = in5 * (f["2_053"] - f["2_562"]) - in3 * f["2_562"] + z4
+    t2 = -in5 * f["2_562"] + in3 * (f["3_072"] - f["2_562"]) + z3
     r = 1 << (shift - 1)
-    return [(x + r) >> shift for x in (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
-                                       tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)]
+    return [np.clip((x + r) >> shift, -0x8000, 0x7FFF)
+            for x in (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+                      tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)]
 
 
-def idct_islow(coef: np.ndarray) -> np.ndarray:
-    """Dequantised coefficients [..., 8, 8] (natural order, int64) -> the
-    8-bit samples [..., 8, 8] as libjpeg's default (JDCT_ISLOW) inverse DCT
-    gives them, bit for bit: columns then rows, and its range limit (the
-    result taken modulo 1024 as a signed 10-bit value, plus 128, clamped)."""
-    cols = _islow_1d([coef[..., k, :] for k in range(8)], 13 - 2)
-    ws = np.stack(cols, axis=-2)
-    rows = _islow_1d([ws[..., k] for k in range(8)], 13 + 2 + 3)
-    out = np.stack(rows, axis=-1) & 1023
-    out = np.where(out >= 512, out - 1024, out) + 128
-    return np.clip(out, 0, 255).astype(np.uint8)
+def idct_islow(coef: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """Quantised coefficients [..., 8, 8] (natural order, int16 values in
+    int64) and their quantisation table [8, 8] -> the 8-bit samples
+    [..., 8, 8] as OpenCV's libjpeg-turbo gives them (its SIMD islow
+    inverse DCT, bit for bit): the dequantisation in 16 bits, the columns
+    (a block whose rows 1-7 are all zero takes the DC shortcut, shifted in
+    16 bits), the rows, and the result saturated to -128..127 plus 128."""
+    dq = _w16(coef * q)
+    ws = np.stack(_islow_pass([dq[..., k, :] for k in range(8)], 13 - 2), axis=-2)
+    dc_only = ~coef[..., 1:, :].any(axis=(-2, -1))
+    if dc_only.any():
+        ws[dc_only] = _w16(dq[dc_only][:, :1, :] << 2)
+    out = np.stack(_islow_pass([ws[..., k] for k in range(8)], 13 + 2 + 3), axis=-1)
+    return (np.clip(out, -128, 127) + 128).astype(np.uint8)
 
 
 def _upsample(p: np.ndarray, fy: int, fx: int) -> np.ndarray:
@@ -900,24 +1070,11 @@ def _to_output(planes: List[np.ndarray], space: str) -> np.ndarray:
     return (k - (((255 - cmy) * k) >> 8)).astype(np.uint8)
 
 
-def _scan_segments(data: bytes, pos: int) -> Tuple[List[bytes], int]:
-    """The entropy-coded data of a scan from `pos`, cut at its RSTn
-    markers, and the position of the marker that ends it."""
-    segs, start, end = [], pos, pos
-    while True:
-        end = data.find(b"\xff", end)
-        if end < 0 or end + 1 >= len(data):
-            raise ValueError("JPEG: the scan runs past the end of the file")
-        nxt = data[end + 1]
-        if nxt == 0x00 or nxt == 0xFF:
-            end += 1 if nxt == 0xFF else 2
-            continue
-        segs.append(data[start:end])
-        if 0xD0 <= nxt <= 0xD7:
-            start = end = end + 2
-            continue
-        return segs, end
-
+# libjpeg's stdio source (OpenCV's cv2.imread reads a file through it) at
+# the end of a file: a warning, then FF D9, a fake EOI, each time it is
+# asked for more bytes -- past the end, a marker segment reads these bytes
+# and a scan meets an EOI
+_EOF_FILL = b"\xff\xd9" * 32770
 
 # frame markers: SOFn -> (coding, progressive); the rest of the SOF range
 # (hierarchical, arithmetic-coded lossless) raises
@@ -927,6 +1084,20 @@ _FRAMES = {0xC0: ("huffman", False), 0xC1: ("huffman", False), 0xC2: ("huffman",
 _UNREAD = {0xC5: "hierarchical", 0xC6: "hierarchical", 0xC7: "hierarchical",
            0xCB: "arithmetic-coded lossless", 0xCD: "hierarchical", 0xCE: "hierarchical",
            0xCF: "hierarchical"}
+# the markers libjpeg's read_markers takes; any other (JPG, JPGn, RESn,
+# DHP, EXP) stops it (JERR_UNKNOWN_MARKER)
+_SEGMENTS = {0xC4, 0xCC, 0xDA, 0xDB, 0xDC, 0xDD, 0xFE, *range(0xE0, 0xF0)}
+# libjpeg's jpeg_std_huff_tables (the standard's tables): jdhuff.c puts
+# them in the slots of a sequential Huffman file that no DHT filled
+_STD_DC = {0: _DC_LUMA, 1: _DC_CHROMA}
+_STD_AC = {0: _AC_LUMA, 1: _AC_CHROMA}
+# the natural positions of the DC and the first 9 AC coefficients in
+# zigzag order: libjpeg-turbo's block smoothing estimates AC 1-9
+_SMOOTH_POS = ZIGZAG[:10]
+
+
+def _u16(src: bytes, p: int) -> int:
+    return (src[p] << 8) | src[p + 1]
 
 
 def decode_jpeg(data: bytes, space: Optional[str] = None) -> np.ndarray:
@@ -937,6 +1108,18 @@ def decode_jpeg(data: bytes, space: Optional[str] = None) -> np.ndarray:
     components.  Hierarchical, arithmetic-coded lossless and 12-bit files
     raise.
 
+    A damaged file reads as libjpeg-turbo reads it from a file: the bytes
+    after the end are fake EOI markers; entropy-coded data that runs out
+    leaves the rest of its restart interval as it was (zero coefficients in
+    a sequential file: gray 128); a bad Huffman code decodes as 0; bytes
+    before a marker are skipped; a restart marker out of place goes through
+    libjpeg's resynchronisation; a progressive file whose scans stop short
+    gets libjpeg-turbo's block smoothing.  What libjpeg treats as fatal (a
+    scan before the frame, no scan at all, a table that is missing or
+    malformed, a bad length, an unknown marker, a bad scan header) raises
+    NoImage, as cv2.imread returns none; after the scan of a one-scan
+    file, libjpeg reads nothing that could change the image.
+
     `space` overrides the colour space libjpeg would assume, as libtiff's
     JPEG codec does: "ycc" converts three components YCbCr -> RGB
     (JPEGCOLORMODE_RGB), "raw" gives the components as decoded, [H, W, n]
@@ -944,9 +1127,10 @@ def decode_jpeg(data: bytes, space: Optional[str] = None) -> np.ndarray:
     subsampled ones)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
+    src = data + _EOF_FILL
     qt: Dict[int, np.ndarray] = {}
-    dc_t: Dict[int, List[int]] = {}
-    ac_t: Dict[int, List[int]] = {}
+    dc_t: Dict[int, list] = {}          # table id -> [BITS, HUFFVAL, look-up table]
+    ac_t: Dict[int, list] = {}
     cond_dc: Dict[int, Tuple[int, int]] = {}
     cond_ac: Dict[int, int] = {}
     frame = None
@@ -955,70 +1139,47 @@ def decode_jpeg(data: bytes, space: Optional[str] = None) -> np.ndarray:
     jfif, adobe = False, None
     # per component: its blocks (64 zigzag coefficients each) over the grid
     # of whole MCUs, row-major, and the grid's (rows, columns); a lossless
-    # frame's components hold one difference a sample instead
+    # frame's components hold the samples instead
     coefs: Dict[int, List[List[int]]] = {}
     grids: Dict[int, Tuple[int, int]] = {}
     samples: Dict[int, np.ndarray] = {}
-    coded = set()
-    pos = 2
-    while pos < len(data):
-        if data[pos] != 0xFF:
-            raise ValueError(f"JPEG: expected a marker at byte {pos}")
-        marker = data[pos + 1]
-        pos += 2
-        if marker == 0xFF:
-            pos -= 1
-            continue
-        if marker == 0xD9:
+    qlatch: Dict[int, np.ndarray] = {}   # the quantisation table of a component's first scan
+    # progressive: libjpeg's coef_bits of each component (the Al of the
+    # last scan of each coefficient, -1 before any) and the values before
+    # its latest scan
+    bits_now: Dict[int, List[int]] = {}
+    bits_prev: Dict[int, List[int]] = {}
+    scans, last_good = 0, 0
+    scanned = set()
+    marker, p = None, 2
+    while True:
+        if marker is None:
+            marker, p = _next_marker(src, p)
+        m, marker = marker, None
+        if m == 0xD9:
+            if not scans:
+                raise NoImage("JPEG: the image ends before its first scan (libjpeg stops: "
+                              "JERR_NO_IMAGE)")
             break
-        if 0xD0 <= marker <= 0xD7 or marker == 0x01:
+        if 0xD0 <= m <= 0xD7 or m == 0x01:
             continue
-        if pos + 2 > len(data) or pos + struct.unpack(">H", data[pos:pos + 2])[0] > len(data):
-            raise ValueError(f"JPEG: marker segment {marker:#04x} runs past the end of the file")
-        (n,) = struct.unpack(">H", data[pos:pos + 2])
-        body = data[pos + 2:pos + n]
-        pos += n
-        if marker in _UNREAD:
+        if m in _UNREAD or (m in _FRAMES and frame is not None):
+            if frame is not None:
+                raise NoImage("JPEG: a second frame header (libjpeg stops: JERR_SOF_DUPLICATE)")
             # hierarchical files OpenCV refuses; whether it reads a valid
             # arithmetic-coded lossless file is not known
-            err = NoImage if _UNREAD[marker] == "hierarchical" else ValueError
-            raise err(f"JPEG: {_UNREAD[marker]} files are not read (OpenCV's libjpeg-turbo "
+            err = NoImage if _UNREAD[m] == "hierarchical" else ValueError
+            raise err(f"JPEG: {_UNREAD[m]} files are not read (OpenCV's libjpeg-turbo "
                       f"decodes no such file either)")
-        if marker == 0xE0 and len(body) >= 14 and body[:5] == b"JFIF\x00":
-            jfif = True
-        elif marker == 0xEE and len(body) >= 12 and body[:5] == b"Adobe":
-            adobe = body[11]
-        elif marker == 0xDB:
-            i = 0
-            while i < len(body):
-                prec, tid = body[i] >> 4, body[i] & 15
-                if prec:
-                    q = np.frombuffer(body[i + 1:i + 129], ">u2").astype(np.int64)
-                    i += 129
-                else:
-                    q = np.frombuffer(body[i + 1:i + 65], np.uint8).astype(np.int64)
-                    i += 65
-                qt[tid] = q
-        elif marker == 0xC4:
-            i = 0
-            while i < len(body):
-                cls, tid = body[i] >> 4, body[i] & 15
-                bits = list(body[i + 1:i + 17])
-                vals = list(body[i + 17:i + 17 + sum(bits)])
-                i += 17 + sum(bits)
-                (ac_t if cls else dc_t)[tid] = _lookup(bits, vals)
-        elif marker == 0xCC:                 # arithmetic conditioning (DAC)
-            for i in range(0, len(body) - 1, 2):
-                cls, tid, v = body[i] >> 4, body[i] & 15, body[i + 1]
-                if cls:
-                    cond_ac[tid] = v
-                else:
-                    cond_dc[tid] = (v & 15, v >> 4)
-        elif marker == 0xDD:
-            (restart,) = struct.unpack(">H", body[:2])
-        elif marker in _FRAMES:
-            coding, progressive = _FRAMES[marker]
-            prec, H, W, nc = struct.unpack(">BHHB", body[:6])
+        if m not in _FRAMES and m not in _SEGMENTS:
+            raise NoImage(f"JPEG: marker {m:#04x} (libjpeg stops: JERR_UNKNOWN_MARKER or "
+                          f"JERR_SOI_DUPLICATE)")
+        n = _u16(src, p)
+        if m in _FRAMES:
+            prec, H, W, nc = src[p + 2], _u16(src, p + 3), _u16(src, p + 5), src[p + 7]
+            if frame is not None or not (H and W and nc) or n != 8 + 3 * nc:
+                raise NoImage("JPEG: a second, empty or malformed frame header (libjpeg stops)")
+            coding, progressive = _FRAMES[m]
             if coding == "lossless" and not 2 <= prec <= 8:
                 raise NoImage(f"JPEG: {prec}-bit lossless files are not read (OpenCV returns "
                               f"no image for them)")
@@ -1026,8 +1187,12 @@ def decode_jpeg(data: bytes, space: Optional[str] = None) -> np.ndarray:
                 raise NoImage(f"JPEG: {prec}-bit samples are not supported (8-bit only)")
             if nc not in (1, 3, 4):
                 raise ValueError(f"JPEG: {nc} components are not supported (1, 3 or 4)")
-            comps = [(body[6 + 3 * i], body[7 + 3 * i] >> 4, body[7 + 3 * i] & 15,
-                      body[8 + 3 * i]) for i in range(nc)]
+            comps = [(src[p + 8 + 3 * i], src[p + 9 + 3 * i] >> 4, src[p + 9 + 3 * i] & 15,
+                      src[p + 10 + 3 * i]) for i in range(nc)]
+            if H > 65500 or W > 65500 or any(not (1 <= c[1] <= 4 and 1 <= c[2] <= 4)
+                                            for c in comps):
+                raise NoImage("JPEG: a frame too large or with bad sampling factors (libjpeg "
+                              "stops)")
             frame = (H, W, comps, prec)
             hmax = max(c[1] for c in comps)
             vmax = max(c[2] for c in comps)
@@ -1038,87 +1203,101 @@ def decode_jpeg(data: bytes, space: Optional[str] = None) -> np.ndarray:
                     samples[cid] = np.zeros(grids[cid], np.int64)
                 else:
                     coefs[cid] = [[0] * 64 for _ in range(grids[cid][0] * grids[cid][1])]
-        elif marker == 0xDA:
+                bits_now[cid] = [-1] * 64
+                bits_prev[cid] = [-1] * 64
+        elif m == 0xDA:
             if frame is None:
-                raise ValueError("JPEG: scan before the frame header")
-            H, W, comps, prec = frame
-            ns = body[0]
-            sel = {body[1 + 2 * i]: body[2 + 2 * i] for i in range(ns)}
-            ss, se, ah, al = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns] >> 4, \
-                body[3 + 2 * ns] & 15
-            hmax = max(c[1] for c in comps)
-            vmax = max(c[2] for c in comps)
-            scomps = [c for c in comps if c[0] in sel]
-            segs, pos = _scan_segments(data, pos)
-            if coding == "lossless":
-                if not 1 <= ss <= 7:
-                    raise ValueError(f"JPEG: lossless scan with predictor {ss}")
-                _lossless_scan(segs, scomps, sel, dc_t, samples, grids, restart, H, W, hmax,
-                               vmax, ss, al, prec)
-                coded.update(c[0] for c in scomps)
-                continue
-            if not progressive:
-                mode = _SEQUENTIAL
-            elif ss == 0:
-                mode = _DC_REFINE if ah else _DC_FIRST
-            else:
-                mode = _AC_REFINE if ah else _AC_FIRST
-            if progressive and (se > 63 or ss > se or (ss > 0 and ns != 1) or
-                                (ss == 0 and se != 0)):
-                raise ValueError(f"JPEG: bad progressive scan (Ss {ss}, Se {se}, {ns} "
-                                 f"components)")
-            if coding == "arithmetic":
-                tab = lambda cid: (sel[cid] >> 4, sel[cid] & 15)
-            else:
-                tab = lambda cid: (dc_t.get(sel[cid] >> 4), ac_t.get(sel[cid] & 15))
-            if ns == 1:
-                # one block an MCU, over the component's own blocks
-                cid, h, v, _ = scomps[0]
-                cols = grids[cid][1]
-                bw = -(-(-(-W * h // hmax)) // 8)
-                bh = -(-(-(-H * v // vmax)) // 8)
-                units = [[(coefs[cid][r * cols + c], cid, *tab(cid))]
-                         for r in range(bh) for c in range(bw)]
-            else:
-                units = [[(coefs[cid][(my * v + r) * grids[cid][1] + mx * h + c], cid, *tab(cid))
-                          for cid, h, v, _ in scomps for r in range(v) for c in range(h)]
-                         for my in range(-(-H // (8 * vmax))) for mx in range(-(-W // (8 * hmax)))]
-            per = restart if restart else len(units)
-            done = 0
-            for seg in segs:
-                if done >= len(units):
-                    break
-                if coding == "arithmetic":
-                    # fill bytes before the marker are no data; past the end
-                    # the coder reads zeros
-                    _arith_interval(_unstuff(seg.rstrip(b"\xff")), units[done:done + per], mode,
-                                    ss, se, al, cond_dc, cond_ac)
-                else:
-                    _decode_interval(_unstuff(seg), units[done:done + per], mode, ss, se, al)
-                done += per
-            if done < len(units):
-                raise ValueError("JPEG: fewer MCUs in the scan than the frame needs")
-            coded.update(c[0] for c in scomps)
-    if frame is None:
-        raise ValueError("JPEG: no frame header")
+                raise NoImage("JPEG: a scan before the frame header (libjpeg stops: "
+                              "JERR_SOS_NO_SOF)")
+            marker, p, good, ns = _scan(src, p, frame, coding, progressive, restart, scans,
+                                        dc_t, ac_t, qt, qlatch, cond_dc, cond_ac, coefs, grids,
+                                        samples, bits_now, bits_prev, scanned)
+            scans += 1
+            last_good = good
+            if scans == 1 and not progressive and ns == len(frame[2]):
+                # one scan of every component: libjpeg decodes it as it
+                # outputs the image and reads nothing after it that could
+                # change the image
+                break
+            continue
+        else:
+            body = src[p + 2:p + max(n, 2)]
+            if m == 0xC4:
+                i = 0
+                while len(body) - i > 16:
+                    cls, tid = body[i] >> 4, body[i] & 15
+                    bits = list(body[i + 1:i + 17])
+                    count = sum(bits)
+                    if count > 256 or count > len(body) - i - 17 or cls > 1 or tid > 3:
+                        raise NoImage("JPEG: a malformed DHT segment (libjpeg stops)")
+                    vals = list(body[i + 17:i + 17 + count])
+                    i += 17 + count
+                    (ac_t if cls else dc_t)[tid] = [bits, vals, None]
+                if i != len(body):
+                    raise NoImage("JPEG: a DHT segment of a bad length (JERR_BAD_LENGTH)")
+            elif m == 0xDB:
+                i = 0
+                while i < len(body):
+                    prec, tid = body[i] >> 4, body[i] & 15
+                    size = 129 if prec else 65
+                    if tid > 3:
+                        raise NoImage(f"JPEG: a DQT segment for table {tid} (libjpeg stops: "
+                                      "JERR_DQT_INDEX)")
+                    if len(body) - i < size:
+                        raise NoImage("JPEG: a DQT segment shorter than its table (libjpeg "
+                                      "stops: JERR_BAD_LENGTH)")
+                    if prec:
+                        q = np.frombuffer(body[i + 1:i + 129], ">u2").astype(np.int64)
+                    else:
+                        q = np.frombuffer(body[i + 1:i + 65], np.uint8).astype(np.int64)
+                    i += size
+                    qt[tid] = q
+            elif m == 0xCC:                 # arithmetic conditioning (DAC)
+                if len(body) % 2:
+                    raise NoImage("JPEG: a DAC segment of a bad length (JERR_BAD_LENGTH)")
+                for i in range(0, len(body), 2):
+                    cls, tid, v = body[i] >> 4, body[i] & 15, body[i + 1]
+                    if cls > 1 or (not cls and (v & 15) > (v >> 4)):
+                        raise NoImage("JPEG: a malformed DAC segment (libjpeg stops)")
+                    if cls:
+                        cond_ac[tid] = v
+                    else:
+                        cond_dc[tid] = (v & 15, v >> 4)
+            elif m == 0xDD:
+                if n != 4:
+                    raise NoImage("JPEG: a DRI segment of a bad length (JERR_BAD_LENGTH)")
+                restart = _u16(body, 0)
+            elif m == 0xE0 and len(body) >= 14 and body[:5] == b"JFIF\x00":
+                jfif = True
+            elif m == 0xEE and len(body) >= 12 and body[:5] == b"Adobe":
+                adobe = body[11]
+            p += max(n, 2)
     H, W, comps, prec = frame
     hmax = max(c[1] for c in comps)
     vmax = max(c[2] for c in comps)
+    smooth = progressive and _smoothing_ok(comps, qlatch, bits_now)
     planes = []
+    if coding == "lossless" and any(cid not in scanned for cid, _, _, _ in comps):
+        # seen in OpenCV's libjpeg-turbo: a lossless file cut before a
+        # component's scan gives no image
+        raise NoImage("JPEG: a lossless file with a component no scan reached (OpenCV returns "
+                      "no image)")
     for cid, h, v, tq in comps:
-        if cid not in coded:
-            raise ValueError(f"JPEG: no scan holds component {cid}")
         cw, ch = -(-W * h // hmax), -(-H * v // vmax)
         if coding == "lossless":
             plane = samples[cid][:ch, :cw]
         else:
-            if tq not in qt:
-                raise ValueError(f"JPEG: quantisation table {tq} missing")
             by, bx = grids[cid]
             grid = np.asarray(coefs[cid], np.int64).reshape(by, bx, 64)
+            if smooth:
+                prev = bits_prev[cid] if scans > 1 else [-1] * 64
+                grid = _smooth(grid, -(-ch // 8), -(-cw // 8), v, -(-H // (8 * vmax)),
+                               qlatch[cid][_INV_ZIGZAG], bits_now[cid], prev, last_good)
             nat = np.zeros(grid.shape, np.int64)
-            nat[..., ZIGZAG] = grid * qt[tq]
-            pix = idct_islow(nat.reshape(by, bx, 8, 8)).astype(np.int64)
+            nat[..., ZIGZAG] = grid
+            # a component no scan reached has no table: libjpeg's multipliers are 0
+            q = qlatch[cid][_INV_ZIGZAG] if cid in qlatch else np.zeros(64, np.int64)
+            pix = idct_islow(nat.reshape(by, bx, 8, 8), q.reshape(8, 8)).astype(np.int64)
             plane = pix.transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)[:ch, :cw]
         if coding == "lossless":
             # libjpeg-turbo's fancy upsampling needs DCT blocks: a lossless
@@ -1143,11 +1322,124 @@ def decode_jpeg(data: bytes, space: Optional[str] = None) -> np.ndarray:
     return _to_output(planes, space)
 
 
-def _lossless_scan(segs, scomps, sel, dc_t, samples, grids, restart, H, W, hmax, vmax,
-                   predictor, pt, prec) -> None:
-    """Decode one lossless scan into `samples` (per component, over its
-    grid of whole MCUs): the differences of every restart interval, then
-    the prediction, then the point transform (x << Pt, kept to 8 bits)."""
+# natural index -> zigzag index (a table in zigzag order read in natural order)
+_INV_ZIGZAG = np.argsort(ZIGZAG)
+
+
+def _scan(src, p, frame, coding, progressive, restart, scans, dc_t, ac_t, qt, qlatch, cond_dc,
+          cond_ac, coefs, grids, samples, bits_now, bits_prev, scanned):
+    """One SOS segment at p and its entropy-coded data, as libjpeg's get_sos,
+    the per-scan set-up (quantisation tables latched, Huffman tables
+    derived, progressive parameters checked and coef_bits updated) and the
+    scan's decoder take them; `scans` counts the scans before it.  ->
+    (the marker met after the scan, the position after it), the marker a
+    (the marker met after the scan, the position after it, libjpeg's
+    last_good_iMCU_row after it, the scan's number of components)."""
+    H, W, comps, prec = frame
+    n, ns = _u16(src, p), src[p + 2]
+    if n != 2 * ns + 6 or not 1 <= ns <= 4:
+        raise NoImage("JPEG: an SOS segment of a bad length (JERR_BAD_LENGTH)")
+    # libjpeg's component search: by id, among the first four components,
+    # skipping a component whose index is taken in the scan's list
+    cur: List[Optional[int]] = [None] * 4
+    sel = {}
+    for i in range(ns):
+        cc, c = src[p + 3 + 2 * i], src[p + 4 + 2 * i]
+        ci = next((k for k in range(min(len(comps), 4))
+                   if comps[k][0] == cc and cur[k] is None), None)
+        if ci is None:
+            raise NoImage(f"JPEG: a scan names component {cc}, which the frame lacks or the "
+                          f"scan names twice (JERR_BAD_COMPONENT_ID)")
+        cur[i] = ci
+        sel[comps[ci][0]] = c
+    q0 = p + 3 + 2 * ns
+    ss, se, ah, al = src[q0], src[q0 + 1], src[q0 + 2] >> 4, src[q0 + 2] & 15
+    p += n
+    scomps = [comps[cur[i]] for i in range(ns)]
+    scanned.update(c[0] for c in scomps)
+    hmax = max(c[1] for c in comps)
+    vmax = max(c[2] for c in comps)
+    if ns > 1 and sum(c[1] * c[2] for c in scomps) > 10:
+        raise NoImage("JPEG: more than 10 blocks an MCU (JERR_BAD_MCU_SIZE)")
+    if coding == "lossless":
+        if not (1 <= ss <= 7 and se == 0 and ah == 0 and al < prec):
+            raise NoImage(f"JPEG: lossless scan with predictor {ss}, Se {se}, Ah {ah}, Al {al} "
+                          f"(libjpeg stops: JERR_BAD_PROGRESSION)")
+        return (*_lossless_scan(src, p, scomps, sel, dc_t, samples, restart, H, W, hmax, vmax,
+                                ss, al, prec), 0, ns)
+    for cid, _, _, tq in scomps:
+        if cid not in qlatch:
+            if tq not in qt:
+                raise NoImage(f"JPEG: quantisation table {tq} missing (libjpeg stops: "
+                              f"JERR_NO_QUANT_TABLE)")
+            qlatch[cid] = qt[tq]
+    if not progressive:
+        mode = _SEQUENTIAL
+    elif ss == 0:
+        mode = _DC_REFINE if ah else _DC_FIRST
+    else:
+        mode = _AC_REFINE if ah else _AC_FIRST
+    if progressive:
+        if (se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1)) or \
+                (ah and al != ah - 1) or al > 13:
+            raise NoImage(f"JPEG: bad progressive scan (Ss {ss}, Se {se}, Ah {ah}, Al {al}, "
+                          f"{ns} components; libjpeg stops: JERR_BAD_PROGRESSION)")
+        for cid, _, _, _ in scomps:
+            now, prev = bits_now[cid], bits_prev[cid]
+            for k in range(min(ss, 1), max(se, 9) + 1):
+                prev[k] = now[k] if scans else 0
+            for k in range(ss, se + 1):
+                now[k] = al
+    if coding == "arithmetic":
+        tab = lambda cid: (sel[cid] >> 4, sel[cid] & 15)
+    else:
+        if not progressive and not scans:
+            # jdhuff.c's jinit_huff_decoder: the standard tables in empty slots
+            for tables, std in ((dc_t, _STD_DC), (ac_t, _STD_AC)):
+                for tid, (bits, vals) in std.items():
+                    tables.setdefault(tid, [bits, vals, None])
+        need_dc = mode == _SEQUENTIAL or mode == _DC_FIRST
+        need_ac = mode in (_SEQUENTIAL, _AC_FIRST, _AC_REFINE)
+        looks = {cid: (_derived(dc_t, sel[cid] >> 4, True) if need_dc else None,
+                       _derived(ac_t, sel[cid] & 15, False) if need_ac else None)
+                 for cid in sel}
+        tab = lambda cid: looks[cid]
+    if ns == 1:
+        # one block an MCU, over the component's own blocks
+        cid, h, v, _ = scomps[0]
+        cols = grids[cid][1]
+        bw = -(-(-(-W * h // hmax)) // 8)
+        bh = -(-(-(-H * v // vmax)) // 8)
+        units = [[(coefs[cid][r * cols + c], cid, *tab(cid))]
+                 for r in range(bh) for c in range(bw)]
+        imcu = lambda u: u // bw // v
+    else:
+        mcols = -(-W // (8 * hmax))
+        units = [[(coefs[cid][(my * v + r) * grids[cid][1] + mx * h + c], cid, *tab(cid))
+                  for cid, h, v, _ in scomps for r in range(v) for c in range(h)]
+                 for my in range(-(-H // (8 * vmax))) for mx in range(mcols)]
+        imcu = lambda u: u // mcols
+    last_unit = [0]
+
+    def decode(seg: bytes, first: int, count: int) -> bool:
+        part = units[first:first + count]
+        if coding == "arithmetic":
+            out, done = _arith_interval(seg, part, mode, ss, se, al, cond_dc, cond_ac), count
+        else:
+            out, done = _decode_interval(seg, part, mode, ss, se, al)
+        last_unit[0] = first + done - 1
+        return out
+
+    marker, p = _scan_data(src, p, len(units), restart, decode)
+    return marker, p, imcu(last_unit[0]), ns
+
+
+def _lossless_scan(src, p, scomps, sel, dc_t, samples, restart, H, W, hmax, vmax, predictor, pt,
+                   prec):
+    """Decode one lossless scan from p into `samples` (per component, over
+    its grid of whole MCUs): the differences of every restart interval,
+    then the prediction, then the point transform (x << Pt, kept to 8
+    bits).  -> (the marker met after the scan, the position after it)."""
     if len(scomps) == 1:
         cid, h, v, _ = scomps[0]
         ch, cw = -(-H * v // vmax), -(-W * h // hmax)
@@ -1156,22 +1448,25 @@ def _lossless_scan(segs, scomps, sel, dc_t, samples, grids, restart, H, W, hmax,
         pattern = [cid for cid, h, v, _ in scomps for _ in range(h * v)]
         mrows, mcols = -(-H // vmax), -(-W // hmax)
         shapes = {cid: (v, h) for cid, h, v, _ in scomps}
-    tables = {cid: dc_t.get(sel[cid] >> 4) for cid in sel}
-    if any(t is None for t in tables.values()):
-        raise ValueError("JPEG: a lossless scan names a Huffman table that is not defined")
-    n_mcu = mrows * mcols
-    per = restart if restart else n_mcu
-    diffs: List[int] = []
-    for seg in segs:
-        if len(diffs) >= n_mcu * len(pattern):
-            break
-        count = min(per, n_mcu - len(diffs) // len(pattern))
-        diffs += _lossless_interval(_unstuff(seg), [pattern] * count, tables)
-    if len(diffs) < n_mcu * len(pattern):
-        raise ValueError("JPEG: fewer samples in the lossless scan than the frame needs")
-    flat = np.asarray(diffs, np.int64).reshape(n_mcu, len(pattern))
+    if restart % mcols:
+        raise NoImage(f"JPEG: a lossless restart interval of {restart} MCUs, not whole rows "
+                      f"of {mcols} (libjpeg stops: JERR_BAD_RESTART)")
+    tables = {}
+    for cid in sel:
+        t = dc_t.get(sel[cid] >> 4)
+        if t is not None and any(s > 16 for s in t[1]):
+            raise NoImage("JPEG: a lossless Huffman table with a symbol past 16")
+        tables[cid] = _derived(dc_t, sel[cid] >> 4, False)
+    flat = np.zeros((mrows * mcols, len(pattern)), np.int64)
+    fresh = np.ones(mrows, bool)     # rows the undifferencer starts anew on
+    rows_per = restart // mcols if restart else mrows
+
+    def decode(seg: bytes, first: int, count: int) -> bool:
+        return _lossless_rows(seg, flat, fresh, first, count, mcols, pattern, tables)
+
+    # `_scan_data` counts units: here MCU rows, a restart interval whole rows
+    marker, p = _scan_data(src, p, mrows, rows_per if restart else 0, decode)
     col = 0
-    restart_rows = restart // mcols if restart else 0
     for cid in dict.fromkeys(pattern):
         v, h = shapes[cid]
         part = flat[:, col:col + v * h].reshape(mrows, mcols, v, h)
@@ -1180,9 +1475,113 @@ def _lossless_scan(segs, scomps, sel, dc_t, samples, grids, restart, H, W, hmax,
         cv_ = next(c for c in scomps if c[0] == cid)
         ch = -(-H * cv_[2] // vmax)
         cw = -(-W * cv_[1] // hmax)
-        plane = _undifference(grid[:ch, :cw], predictor, 1 << (prec - pt - 1),
-                              restart_rows * v)
+        rows_fresh = np.zeros(mrows * v, bool)
+        rows_fresh[0::v] = fresh
+        plane = _undifference(grid[:ch, :cw], predictor, 1 << (prec - pt - 1), rows_fresh[:ch])
         samples[cid][:ch, :cw] = (plane << pt) & 0xFF
+    return marker, p
+
+
+def _smoothing_ok(comps, qlatch, bits_now) -> bool:
+    """libjpeg-turbo's smoothing_ok (jdcoefct.c): block smoothing of a
+    progressive file's output when every component has its quantisation
+    table, nonzero quantisers for the DC and AC 1-9, its DC begun, and some
+    of AC 1-9 not yet exact in some component."""
+    useful = False
+    for cid, _, _, _ in comps:
+        if cid not in qlatch or not qlatch[cid][:10].all() or bits_now[cid][0] < 0:
+            return False
+        useful = useful or any(bits_now[cid][k] != 0 for k in range(1, 10))
+    return useful
+
+
+# libjpeg-turbo's block smoothing (jdcoefct.c decompress_smooth_data): each
+# of AC 1-9 -- by its zigzag index k -- estimated from the DC values of the
+# 5x5 blocks around, DC(i, j) the block i - 2 rows and j - 2 columns away;
+# (k, weights when no AC is known yet (DC interpolation), weights otherwise)
+_SMOOTH_AC = [
+    (1, [[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3], [-3, 13, 0, -13, 3],
+         [-1, -1, 0, 1, 1]],
+     [[0] * 5, [0] * 5, [-7, 50, 0, -50, 7], [0] * 5, [0] * 5]),
+    (2, [[-1, -3, -3, -3, -1], [-1, 13, 38, 13, -1], [0] * 5, [1, -13, -38, -13, 1],
+         [1, 3, 3, 3, 1]],
+     [[0, 0, -7, 0, 0], [0, 0, 50, 0, 0], [0] * 5, [0, 0, -50, 0, 0], [0, 0, 7, 0, 0]]),
+    (3, [[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0], [0, 2, 7, 2, 0], [0, 0, 1, 0, 0]],
+     [[0, 0, -1, 0, 0], [0, 0, 13, 0, 0], [0, 0, -24, 0, 0], [0, 0, 13, 0, 0], [0, 0, -1, 0, 0]]),
+    (4, [[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0] * 5, [0, -9, 0, 9, 0], [1, 0, 0, 0, -1]],
+     [[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0] * 5, [1, -10, 0, 10, -1], [0, 1, 0, -1, 0]]),
+    (5, [[0] * 5, [0, 2, -5, 2, 0], [1, 7, -14, 7, 1], [0, 2, -5, 2, 0], [0] * 5],
+     [[0] * 5, [0] * 5, [-1, 13, -24, 13, -1], [0] * 5, [0] * 5]),
+    (6, [[0] * 5, [0, 1, 0, -1, 0], [0, 2, 0, -2, 0], [0, 1, 0, -1, 0], [0] * 5], None),
+    (7, [[0] * 5, [0, 1, -3, 1, 0], [0] * 5, [0, -1, 3, -1, 0], [0] * 5], None),
+    (8, [[0] * 5, [0, 1, 0, -1, 0], [0, -3, 0, 3, 0], [0, 1, 0, -1, 0], [0] * 5], None),
+    (9, [[0] * 5, [0, 1, 2, 1, 0], [0] * 5, [0, -1, -2, -1, 0], [0] * 5], None),
+]
+_SMOOTH_DC = [[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6], [-8, 42, 152, 42, -8],
+              [-6, 6, 42, 6, -6], [-2, -6, -8, -6, -2]]
+
+
+def _smooth(grid: np.ndarray, hb: int, wb: int, v: int, T: int, q: np.ndarray,
+            bits_now: List[int], bits_prev: List[int], last_good: int) -> np.ndarray:
+    """A progressive component's blocks [rows, cols, 64] (zigzag, over the
+    grid of whole MCUs) with libjpeg-turbo's block smoothing applied to the
+    hb x wb blocks the image holds (`q` its quantisation table in natural
+    order, v its vertical sampling, T the iMCU rows): in each block, each
+    of AC 1-9 that is still 0 and not known exactly (its coef_bits nonzero)
+    gets an estimate from the DC values of the 5x5 blocks around (capped
+    below 2^Al), and where no AC is known at all the DC too.  Rows past
+    `last_good` (libjpeg's last_good_iMCU_row: the data of the last scan
+    ran out before them) use the coef_bits from before that scan.  The
+    neighbours at the edges are those libjpeg's sliding registers hold."""
+    out = grid.copy()
+    D = grid[..., 0]
+    rows = np.arange(hb)
+    m = rows // v
+    block_rows = np.where(m < T - 1, v, hb - (T - 1) * v)
+    ibr, total = m * block_rows + rows % v, block_rows * T
+    prev = np.where(ibr > 0, rows - 1, rows)
+    pprev = np.where(ibr > 1, rows - 2, prev)
+    nxt = np.where(ibr < total - 1, rows + 1, rows)
+    nnxt = np.where(ibr < total - 2, rows + 2, nxt)
+    ring = (pprev, prev, rows, nxt, nnxt)
+    late = m > last_good
+    qv = {k: int(q[_SMOOTH_POS[k]]) for k in range(10)}
+    for bits in (bits_now, bits_prev):
+        sel = late if bits is bits_prev else ~late
+        if not sel.any():
+            continue
+        change_dc = all(bits[k] == -1 for k in range(1, 10))
+        # the sliding registers, one column of the 5x5 window each, over rows
+        reg = [[D[r, 0] for r in ring] for _ in range(5)]
+        for c in range(wb):
+            if c == 0 and c < wb - 1:
+                reg[3] = [D[r, 1] for r in ring]
+            if c + 1 < wb - 1:
+                reg[4] = [D[r, c + 2] for r in ring]
+            dc = [[reg[j][i] for j in range(5)] for i in range(5)]   # dc[i][j] over rows
+            blk = out[rows, c]
+            for k, w_dc, w_ac in _SMOOTH_AC:
+                al = bits[k]
+                w = w_dc if change_dc else w_ac
+                if al == 0 or w is None:
+                    continue
+                num = qv[0] * sum(w[i][j] * dc[i][j] for i in range(5) for j in range(5)
+                                  if w[i][j])
+                qk = qv[k]
+                pred = ((qk << 7) + np.abs(num)) // (qk << 8)
+                if al > 0:
+                    pred = np.minimum(pred, (1 << al) - 1)
+                pred = np.where(num >= 0, pred, -pred)
+                take = sel & (grid[rows, c, k] == 0)
+                blk[take, k] = [_w16(int(x)) for x in pred[take]]
+            if change_dc:
+                num = qv[0] * sum(_SMOOTH_DC[i][j] * dc[i][j] for i in range(5) for j in range(5))
+                pred = ((qv[0] << 7) + np.abs(num)) // (qv[0] << 8)
+                pred = np.where(num >= 0, pred, -pred)
+                blk[sel, 0] = [_w16(int(x)) for x in pred[sel]]
+            out[rows, c] = blk
+            reg = reg[1:] + [reg[4]]
+    return out
 
 
 def read_jpeg(path: str) -> np.ndarray:

@@ -45,12 +45,19 @@ misreads (planar files above 8 bits, taken as chunky; the word-aligned
 CCITT variant, 32771; 8-bit tiles mirrored or turned), and what the port has
 no decoder for (other photometrics and codecs, T.4 uncompressed mode,
 10- to 14-bit samples, 16-bit gray files of 3 or 4 samples).
+
+A damaged file reads as cv2.imread reads it: a cut header or directory, or
+a strip or tile past the end of the file, gives no image (NoImage); a
+strip whose LZW, Deflate or PackBits data breaks off decodes as libtiff
+decodes it (its bytes up to the error, zeros after, the predictor not
+applied), which OpenCV keeps through the RGBA interface and refuses for
+the samples it reads itself.
 """
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -78,6 +85,8 @@ _F = np.float32
 
 def _header(data: bytes):
     """(byte order, BigTIFF?, offset of the first IFD)."""
+    if len(data) < (16 if data[2:4] in (b"+\x00", b"\x00+") else 8):
+        raise NoImage("TIFF: the file ends in its header (OpenCV returns no image)")
     if data[:4] in (b"II*\x00", b"MM\x00*"):
         end = "<" if data[:1] == b"I" else ">"
         return end, False, struct.unpack(end + "I", data[4:8])[0]
@@ -94,8 +103,14 @@ def _ifd(data: bytes, end: str, big: bool, off: int) -> Dict[int, object]:
     """An image file directory: tag -> a list of its values (integers or
     floats), or bytes for ASCII and UNDEFINED fields."""
     count_fmt, entry_fmt, entry, inline = ("Q", "HHQ", 20, 8) if big else ("H", "HHI", 12, 4)
-    (n,) = struct.unpack(end + count_fmt, data[off:off + struct.calcsize(count_fmt)])
     first = off + struct.calcsize(count_fmt)
+    if first > len(data):
+        raise NoImage("TIFF: the first directory lies past the end of the file (libtiff stops; "
+                      "OpenCV returns no image)")
+    (n,) = struct.unpack(end + count_fmt, data[off:first])
+    if first + entry * n > len(data):
+        raise NoImage("TIFF: the directory runs past the end of the file (libtiff stops; "
+                      "OpenCV returns no image)")
     tags: Dict[int, object] = {}
     for i in range(n):
         e = first + entry * i
@@ -104,6 +119,9 @@ def _ifd(data: bytes, end: str, big: bool, off: int) -> Dict[int, object]:
         at = e + entry - inline
         if size > inline:
             (at,) = struct.unpack(end + ("Q" if big else "I"), data[at:at + inline])
+            if at + size > len(data):
+                raise NoImage("TIFF: a field's values lie past the end of the file (OpenCV "
+                              "returns no image)")
         if typ in _TYPES:
             tags[tag] = list(struct.unpack(f"{end}{count}{_TYPES[typ]}", data[at:at + size]))
         elif typ in (5, 10):
@@ -115,52 +133,248 @@ def _ifd(data: bytes, end: str, big: bool, off: int) -> Dict[int, object]:
     return tags
 
 
-def _lzw(data: bytes, expect: int) -> bytes:
-    """TIFF's LZW (codes most significant bit first, 9-12 bits, the width
-    growing one code early; 256 clears, 257 ends)."""
+def _lzw(data: bytes, expect: int) -> Tuple[bytes, bool]:
+    """TIFF's LZW as libtiff 4.7 decodes a strip or tile (tif_lzw.c
+    LZWDecode): codes most significant bit first, 9-12 bits, the width
+    growing one code early, 256 clears, 257 ends, a chunk opening with a
+    clear; past 5119 entries (its table's size) any code but a clear or the
+    end is an error.  -> (`expect` bytes, whether libtiff reports an
+    error): a code not yet in the table or data that ends before the end
+    code stop it, and an end code before `expect` bytes is an error too;
+    the bytes not decoded are zeros, as libtiff leaves them."""
+    if len(data) >= 2 and data[0] == 0 and data[1] & 1:
+        raise ValueError("TIFF: old-style LZW (libtiff's LZWDecodeCompat) is not read by the "
+                         "port")
     out = bytearray()
     table = [bytes([i]) for i in range(256)] + [b"", b""]
-    width, prev = 9, None
+    free, width, old, cleared = -1, 9, 0, False   # no free entry until a clear
     acc, nacc, pos, n = 0, 0, 0, len(data)
+    failed = True
     while len(out) < expect:
-        while nacc < width:
-            acc = (acc << 8) | (data[pos] if pos < n else 0)
+        while nacc < width and pos < n:
+            acc = ((acc << 8) | data[pos]) & 0xFFFFFF
             nacc += 8
             pos += 1
-        if pos > n + 2:
-            break
+        if nacc < width:
+            break                           # the data ends with no end code
         nacc -= width
         code = (acc >> nacc) & ((1 << width) - 1)
-        if code == 256:
-            table = table[:258]
-            width, prev = 9, None
-            continue
         if code == 257:
+            failed = len(out) < expect
             break
-        if prev is None:
-            entry = table[code]
-        else:
-            entry = table[code] if code < len(table) else prev + prev[:1]
-            table.append(prev + entry[:1])
-            if len(table) + 1 >= 1 << width and width < 12:
-                width += 1
-        out += entry
-        prev = entry
+        if code == 256:
+            del table[258:]
+            free, width, cleared = 258, 9, True
+            continue
+        if cleared:                         # the first code after a clear adds no entry
+            if code > 257:
+                break
+            out.append(code)
+            old, cleared = code, False
+            continue
+        if free < 0 or code > free:
+            break                           # a code not yet in the table
+        s = table[code] if code < free else table[old] + table[old][:1]
+        table.append(table[old] + s[:1])
+        free += 1
+        if free > (1 << width) - 2:
+            width = min(width + 1, 12)
+            if free >= 5119:
+                free = -1
+        old = code
+        out += s
+    else:
+        failed = False
+    if len(out) >= expect:
+        return bytes(out[:expect]), False
+    return bytes(out) + bytes(expect - len(out)), failed
+
+
+def _inflate(data: bytes, expect: int, rgba: bool) -> Tuple[bytes, bool]:
+    """Deflate as libtiff's ZIPDecode inflates a strip or tile: it stops
+    once `expect` bytes are out (a bad checksum after them goes unseen).
+    -> (`expect` bytes, whether zlib stopped with an error or the data
+    ended first: the bytes inflated before, then zeros).  Corrupt data
+    gives no image where OpenCV reads the samples themselves."""
+    try:
+        out = zlib.decompressobj().decompress(data, expect)
+    except zlib.error:
+        if not rgba:
+            raise NoImage("TIFF: corrupt Deflate data (libtiff stops; OpenCV returns no "
+                          "image)") from None
+        # a capped zlib call that meets the error drops its output: the
+        # bytes inflate wrote before it stopped come from `_inflate_to_error`
+        out = _inflate_to_error(data)[:expect]
+        return out + bytes(expect - len(out)), True
+    return out + bytes(expect - len(out)), len(out) < expect
+
+
+def _code_bases(first: int, count: int, pair_from: int, per: int):
+    """RFC 1951's (base, extra bits) of `count` length or distance codes:
+    the extra bits grow by one every `per` codes from code `pair_from`."""
+    out, base = [], first
+    for i in range(count):
+        extra = max(0, (i - pair_from) // per)
+        out.append((base, extra))
+        base += 1 << extra
+    return out
+
+
+_LENGTHS = _code_bases(3, 28, 4, 4) + [(258, 0)]     # codes 257-285
+_DISTANCES = _code_bases(1, 30, 2, 2)                  # codes 0-29
+_CL_ORDER = (16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15)
+
+
+class _InflateStop(Exception):
+    """Where zlib's inflate stops: corrupt data, or no more input."""
+
+
+def _huffman(lengths, kind: str) -> Dict[Tuple[int, int], int]:
+    """(length, code) -> symbol of a canonical code, checked as zlib's
+    inflate_table checks it: an over-subscribed code stops it, so does an
+    incomplete one but a single 1-bit length or distance code; no code at
+    all is a table in which every code is invalid."""
+    count = [0] * 16
+    for n in lengths:
+        count[n] += 1
+    count[0] = 0
+    longest = max((n for n in range(1, 16) if count[n]), default=0)
+    if not longest:
+        return {}
+    left = 1
+    for n in range(1, 16):
+        left = 2 * left - count[n]
+        if left < 0:
+            raise _InflateStop
+    if left > 0 and (kind == "codes" or longest != 1):
+        raise _InflateStop
+    codes, code = {}, 0
+    for n in range(1, 16):
+        for sym, ln in enumerate(lengths):
+            if ln == n:
+                codes[(n, code)] = sym
+                code += 1
+        code <<= 1
+    return codes
+
+
+def _inflate_to_error(data: bytes) -> bytes:
+    """The bytes zlib's inflate writes from a zlib stream before it stops
+    at corrupt data (RFC 1950 / 1951 with zlib's checks: the header, block
+    type 3, stored lengths, too many length or distance codes, bad code
+    sets, a bad repeat, no end-of-block code, codes 286-287 and 30-31, a
+    distance past the output) or at the end of the data."""
+    out = bytearray()
+    pos, n = 0, 8 * len(data)
+
+    def bits(k: int) -> int:
+        nonlocal pos
+        if pos + k > n:
+            raise _InflateStop
+        v = 0
+        for i in range(k):
+            v |= ((data[(pos + i) >> 3] >> ((pos + i) & 7)) & 1) << i
+        pos += k
+        return v
+
+    def symbol(codes) -> int:
+        code = 0
+        for length in range(1, 16):
+            code = (code << 1) | bits(1)
+            if (length, code) in codes:
+                return codes[(length, code)]
+        raise _InflateStop                  # (only a table with no codes gets here)
+
+    try:
+        cmf, flg = bits(8), bits(8)
+        if ((cmf << 8) | flg) % 31 or cmf & 15 != 8 or cmf >> 4 > 7 or flg & 0x20:
+            return b""
+        final = 0
+        while not final:
+            final, kind = bits(1), bits(2)
+            if kind == 3:
+                break
+            if kind == 0:
+                pos = (pos + 7) & ~7
+                size, check = bits(16), bits(16)
+                if size != check ^ 0xFFFF:
+                    break
+                for _ in range(size):
+                    out.append(bits(8))
+                continue
+            if kind == 1:
+                lit = _huffman([8] * 144 + [9] * 112 + [7] * 24 + [8] * 8, "lens")
+                dist = _huffman([5] * 30, "dists")
+            else:
+                nlen, ndist, ncode = bits(5) + 257, bits(5) + 1, bits(4) + 4
+                if nlen > 286 or ndist > 30:
+                    break
+                cl = [0] * 19
+                for i in range(ncode):
+                    cl[_CL_ORDER[i]] = bits(3)
+                clc = _huffman(cl, "codes")
+                lens = []
+                while len(lens) < nlen + ndist:
+                    sym = symbol(clc)
+                    if sym < 16:
+                        lens.append(sym)
+                        continue
+                    if sym == 16 and not lens:
+                        raise _InflateStop
+                    value, count = (lens[-1], 3 + bits(2)) if sym == 16 else \
+                        (0, 3 + bits(3)) if sym == 17 else (0, 11 + bits(7))
+                    if len(lens) + count > nlen + ndist:
+                        raise _InflateStop
+                    lens += [value] * count
+                if not lens[256]:
+                    break
+                lit = _huffman(lens[:nlen], "lens")
+                dist = _huffman(lens[nlen:], "dists")
+            while True:
+                sym = symbol(lit)
+                if sym < 256:
+                    out.append(sym)
+                    continue
+                if sym == 256:
+                    break
+                if sym > 285:
+                    raise _InflateStop
+                base, extra = _LENGTHS[sym - 257]
+                length = base + bits(extra)
+                d = symbol(dist)
+                if d > 29:
+                    raise _InflateStop
+                base, extra = _DISTANCES[d]
+                d = base + bits(extra)
+                if d > len(out):
+                    raise _InflateStop
+                for _ in range(length):
+                    out.append(out[-d])
+    except _InflateStop:
+        pass
     return bytes(out)
 
 
-def _packbits(data: bytes) -> bytes:
+def _packbits(data: bytes, expect: int) -> Tuple[bytes, bool]:
+    """PackBits as libtiff decodes a strip or tile (PackBitsDecode): runs
+    and literals cut at `expect` bytes, 128 a no-op.  -> (`expect` bytes,
+    whether the data ended first: the rest zeros, as libtiff leaves it)."""
     out, i, n = bytearray(), 0, len(data)
-    while i < n:
+    while i < n and len(out) < expect:
         c = data[i]
         i += 1
-        if c < 128:
-            out += data[i:i + c + 1]
-            i += c + 1
-        elif c > 128:
-            out += data[i:i + 1] * (257 - c)
+        if c > 128:
+            if i >= n:
+                break
+            out += data[i:i + 1] * min(257 - c, expect - len(out))
             i += 1
-    return bytes(out)
+        elif c < 128:
+            take = min(c + 1, expect - len(out))
+            if n - i < take:
+                break
+            out += data[i:i + take]
+            i += take
+    return bytes(out) + bytes(expect - len(out)), len(out) < expect
 
 
 def _samples(raw: bytes, rows: int, cw: int, per: int, bps: int, end: str,
@@ -429,24 +643,38 @@ def read_tiff(data: bytes) -> np.ndarray:
             want = -(-cw // sub[0]) * -(-rows // sub[1]) * (sub[0] * sub[1] + 2)
         else:
             want = rows * ((cw * per * bps + 7) // 8)
-        raw = data[off:off + counts[k]] if counts else data[off:off + want]
+        size = counts[k] if counts else want
+        if off + size > len(data):
+            raise NoImage("TIFF: a strip or tile runs past the end of the file (libtiff stops; "
+                          "OpenCV returns no image)")
+        raw = data[off:off + size]
         if comp == 7:
             chunk = _jpeg(raw, t.get(347), space, rows, cw)
         else:
             if fill == 2:                            # least significant bit first
                 raw = raw.translate(BIT_REVERSED)
+            failed = False
             if comp in (2, 3, 4):
                 raw = decode_ccitt(raw, cw, rows, comp, one(292, 0)).tobytes()
             elif comp == 5:
-                raw = _lzw(raw, want)
+                raw, failed = _lzw(raw, want)
             elif comp in (8, 32946):
-                raw = zlib.decompress(raw)
+                raw, failed = _inflate(raw, want, rgba)
             elif comp == 32773:
-                raw = _packbits(raw)
+                raw, failed = _packbits(raw, want)
+            elif len(raw) < want:
+                # libtiff copies none of uncompressed data short of its rows
+                raw, failed = bytes(want), True
+            if failed and not rgba:
+                raise NoImage("TIFF: corrupt or short strip or tile data (libtiff stops; OpenCV "
+                              "returns no image)")
+            # a chunk libtiff failed to decode: the read goes on through the
+            # RGBA interface (OpenCV asks it not to stop on errors) with the
+            # chunk as decoded and zeros after, the predictor not applied
             if sub != (1, 1):
                 chunk = _subsampled(raw, rows, cw, *sub)
             else:
-                chunk = _samples(raw, rows, cw, per, bps, end, pred)
+                chunk = _samples(raw, rows, cw, per, bps, end, 1 if failed else pred)
         y0, x0 = cy * ch, cx * cw
         h, w = min(rows, H - y0), min(cw, W - x0)
         out[y0:y0 + h, x0:x0 + w, plane:plane + per] = chunk[:h, :w]

@@ -28,13 +28,22 @@ ALPH: raw or VP8L-coded (the green channel), with the none, horizontal,
 vertical and gradient filters; the pre-processing flag only asks for
 dithering, which libwebp's default decoder does not do.
 
+Damage: the image decoders get every byte after their chunk's header, to
+the end of the file, as libwebp hands them over; a VP8 partition that runs
+dry, a VP8L stream read past the end, a RIFF size past the file or any
+other error libwebp stops at raises WebPError, a NoImage.
+
 The constant tables are those of the VP8 format (RFC 6386: coefficient
 probabilities and their update probabilities, the 4x4 mode probabilities in
 libwebp's mode order, the quantiser steps) and of VP8L (its distance map).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
+
+from iron_tpu_torch.data.io import NoImage
 
 # ---------------------------------------------------------------------------
 # tables
@@ -145,9 +154,10 @@ DC_PRED, TM_PRED, V_PRED, H_PRED = 0, 1, 2, 3
 _CODE_LENGTH_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
 
 
-class WebPError(ValueError):
-    """A WebP file this decoder cannot read (OpenCV reads no image from it
-    either, or it is corrupt)."""
+class WebPError(NoImage):
+    """A WebP file OpenCV's libwebp reads no image from: a variant it
+    refuses, or damage it stops at (a cut file, a RIFF or chunk size past
+    the file, corrupt data a decoder meets)."""
 
 
 # ---------------------------------------------------------------------------
@@ -567,7 +577,18 @@ def decode_vp8l(data: bytes) -> np.ndarray:
     """A VP8L bitstream -> uint32 ARGB [H, W]."""
     width, height, _ = _vp8l_header(data)
     br = _Bits(data, 5)
-    return _decode_stream(br, width, height, True)
+    return _stream_in_data(br, width, height)
+
+
+def _stream_in_data(br: _Bits, width: int, height: int) -> np.ndarray:
+    """`_decode_stream` of the level-0 image, which must not have read
+    past the end of its data: libwebp's VP8L decoder sets its end-of-stream
+    flag once it has used more bits than the data holds, and then stops
+    with an error."""
+    out = _decode_stream(br, width, height, True)
+    if 8 * br.pos - br.n > 8 * len(br.data):
+        raise WebPError("VP8L: the image reads past the end of its data (libwebp stops)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -581,13 +602,23 @@ class _BoolDecoder:
     def __init__(self, data: bytes):
         self.data, self.pos = data, 0
         self.value, self.count, self.range = 0, -8, 255
+        self.eof = False
         self.load()
 
     def load(self) -> None:
+        """The next bytes, 7 at a time; past the end, 8 zero bits and the
+        eof flag, as libwebp's VP8LoadFinalBytes sets it when a decision
+        needs bits the partition has not got (libwebp then stops at the
+        end of the macroblock or of the row of modes)."""
         chunk = self.data[self.pos:self.pos + 7]
         self.pos += 7
-        self.value = (self.value << 56) | (int.from_bytes(chunk, "big") << (8 * (7 - len(chunk))))
-        self.count += 56
+        if not chunk:
+            self.eof = True
+            self.value <<= 8
+            self.count += 8
+            return
+        self.value = (self.value << (8 * len(chunk))) | int.from_bytes(chunk, "big")
+        self.count += 8 * len(chunk)
 
     def bit(self, prob: int) -> int:
         split = 1 + (((self.range - 1) * prob) >> 8)
@@ -875,14 +906,19 @@ def _edge(plane: np.ndarray, rows, cols, vertical_edge: bool, thresh: int, ithre
         plane[rows - 4:rows + 4, cols] = new.T
 
 
-def decode_vp8(data: bytes):
+def decode_vp8(data: bytes, size: Optional[int] = None):
     """A VP8 key frame -> (Y [H, W], U, V [(H + 1) // 2, (W + 1) // 2])
-    uint8, after the loop filter."""
+    uint8, after the loop filter.  `data` runs to the end of the file, as
+    libwebp reads it (its last token partition takes every byte left);
+    `size` is the chunk's (default: all of `data`)."""
+    size = len(data) if size is None else size
     if len(data) < 10:
         raise WebPError("VP8: truncated frame header")
     tag = data[0] | (data[1] << 8) | (data[2] << 16)
     if tag & 1:
         raise WebPError("VP8: not a key frame")
+    if (tag >> 1) & 7 > 3 or not (tag >> 4) & 1:
+        raise WebPError("VP8: a profile past 3 or a frame not shown (libwebp stops)")
     part0 = tag >> 5
     if data[3:6] != b"\x9d\x01\x2a":
         raise WebPError("VP8: bad start code")
@@ -890,7 +926,7 @@ def decode_vp8(data: bytes):
     height = (data[8] | (data[9] << 8)) & 0x3FFF
     if width == 0 or height == 0:
         raise WebPError("VP8: an empty frame")
-    if 10 + part0 > len(data):
+    if part0 >= size or 10 + part0 > len(data):
         raise WebPError("VP8: the first partition is truncated")
     br = _BoolDecoder(data[10:10 + part0])
     get = lambda n=1: br.literal(n)
@@ -907,6 +943,8 @@ def decode_vp8(data: bytes):
             seg_f = [br.maybe_signed(6) for _ in range(4)]
         if update_map:
             seg_probs = [get(8) if get() else 255 for _ in range(3)]
+    if br.eof:
+        raise WebPError("VP8: cannot parse the segment header (libwebp stops)")
     simple, level, sharpness = get(), get(6), get(3)
     ref_delta, mode_delta = [0] * 4, [0] * 4
     use_lf_delta = get()
@@ -915,6 +953,8 @@ def decode_vp8(data: bytes):
             for i in range(4):
                 if get():
                     d[i] = br.signed(6)
+    if br.eof:
+        raise WebPError("VP8: cannot parse the filter header (libwebp stops)")
     filter_type = 0 if level == 0 else 1 if simple else 2
     num_parts = 1 << get(2)
     rest = data[10 + part0:]
@@ -928,6 +968,8 @@ def decode_vp8(data: bytes):
         parts.append(_BoolDecoder(rest[start:start + size]))
         start += size
         left_size -= size
+    if start >= len(rest):
+        raise WebPError("VP8: the last token partition is empty (libwebp stops)")
     parts.append(_BoolDecoder(rest[start:]))
     base_q = get(7)
     dq_y1_dc, dq_y2_dc, dq_y2_ac, dq_uv_dc, dq_uv_ac = (br.maybe_signed(4) for _ in range(5))
@@ -1053,6 +1095,11 @@ def decode_vp8(data: bytes):
             res = _idct(np.asarray(coeffs[:384], np.int64).reshape(24, 16))   # [24, 4, 4]
             _reconstruct(Y, U, V, mb_x, mb_y, mb_w, is_i4, imodes,
                          intra_t[4 * mb_x] if not is_i4 else None, uvmode, res)
+    if br.eof or any(t.eof for t in parts):
+        # libwebp checks the first partition after each row of modes and a
+        # token partition after each macroblock; its flag never clears
+        raise WebPError("VP8: a partition ends before its macroblocks (libwebp stops: premature "
+                        "end of partition)")
     if filter_type:
         _loop_filter(Y, U, V, filters, filter_type)
     cw, ch = (width + 1) >> 1, (height + 1) >> 1
@@ -1204,7 +1251,7 @@ def decode_alpha(data: bytes, width: int, height: int) -> np.ndarray:
             raise WebPError("ALPH: the raw plane is truncated")
         a = np.frombuffer(data[1:1 + width * height], np.uint8).reshape(height, width)
     elif method == 1:
-        a = ((_decode_stream(_Bits(data, 1), width, height, True) >> 8) & 0xFF).astype(np.uint8)
+        a = ((_stream_in_data(_Bits(data, 1), width, height) >> 8) & 0xFF).astype(np.uint8)
     else:
         raise WebPError(f"ALPH: compression method {method}")
     if filt == 0:
@@ -1243,26 +1290,30 @@ def decode_alpha(data: bytes, width: int, height: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def _chunks(data: bytes, pos: int, end: int):
+    """(tag, body, the bytes from the body to the end of `data`) of each
+    chunk from pos to end: libwebp hands an image's decoder all the bytes
+    after the chunk's header, so a decoder that reads past its chunk reads
+    the padding byte and whatever follows."""
     while pos + 8 <= end:
         tag = data[pos:pos + 4]
         size = int.from_bytes(data[pos + 4:pos + 8], "little")
         if pos + 8 + size > end:
             raise WebPError(f"WebP: the {tag!r} chunk runs past the file")
-        yield tag, data[pos + 8:pos + 8 + size]
+        yield tag, data[pos + 8:pos + 8 + size], data[pos + 8:]
         pos += 8 + size + (size & 1)
 
 
 def _frame(chunks, use_alpha: bool) -> np.ndarray:
     """An image's chunks (ALPH + VP8, or VP8L) -> uint8 RGBA [h, w, 4]; a
     VP8 frame's alpha is its ALPH plane where `use_alpha`, else 255."""
-    alph = next((body for tag, body in chunks if tag == b"ALPH"), None)
-    for tag, body in chunks:
+    alph = next((body for tag, body, _ in chunks if tag == b"ALPH"), None)
+    for tag, body, tail in chunks:
         if tag == b"VP8L":
-            argb = decode_vp8l(body)
+            argb = decode_vp8l(tail)
             return np.stack([(argb >> 16) & 0xFF, (argb >> 8) & 0xFF, argb & 0xFF,
                              argb >> 24], -1).astype(np.uint8)
         if tag == b"VP8 ":
-            Y, U, V = decode_vp8(body)
+            Y, U, V = decode_vp8(tail, len(body))
             rgb = yuv_to_rgb(Y, U, V)
             h, w = Y.shape
             if alph is not None and use_alpha:
@@ -1279,11 +1330,15 @@ def decode_webp(data: bytes) -> np.ndarray:
     [H, W, 3]."""
     if len(data) < 20 or data[:4] != b"RIFF" or data[8:12] != b"WEBP":
         raise WebPError("not a WebP file")
-    end = min(len(data), 8 + int.from_bytes(data[4:8], "little"))
+    riff = int.from_bytes(data[4:8], "little")
+    if riff < 12 or riff > len(data) - 8:
+        raise WebPError("WebP: a RIFF size past the end of the file or too small for a chunk "
+                        "(libwebp stops)")
+    end = 8 + riff
     chunks = list(_chunks(data, 12, end))
     if not chunks:
         raise WebPError("WebP: no chunks")
-    tag, body = chunks[0]
+    tag, body, _ = chunks[0]
     if tag == b"VP8 ":
         return _frame(chunks[:1], False)[..., :3]
     if tag == b"VP8L":
@@ -1297,7 +1352,7 @@ def decode_webp(data: bytes) -> np.ndarray:
     cw = int.from_bytes(body[4:7], "little") + 1
     chh = int.from_bytes(body[7:10], "little") + 1
     if animated:
-        frame = next((b for t, b in chunks if t == b"ANMF"), None)
+        frame = next((b for t, b, _ in chunks if t == b"ANMF"), None)
         if frame is None or len(frame) < 16:
             raise WebPError("WebP: an animation without frames")
         fx = 2 * int.from_bytes(frame[0:3], "little")
@@ -1309,7 +1364,7 @@ def decode_webp(data: bytes) -> np.ndarray:
             raise WebPError("WebP: a frame outside the canvas")
         canvas[fy:fy + h, fx:fx + w] = img
     else:
-        image = [(t, b) for t, b in chunks[1:] if t in (b"ALPH", b"VP8 ", b"VP8L")]
+        image = [c for c in chunks[1:] if c[0] in (b"ALPH", b"VP8 ", b"VP8L")]
         canvas = _frame(image, alpha)
         if canvas.shape[:2] != (chh, cw):
             raise WebPError("WebP: the image's size differs from the canvas's")
