@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only-8m    # the build, then phase 8m alone (no result line)
     python3 chip_smoke.py --only-8n    # the build, then phase 8n alone (no result line)
     python3 chip_smoke.py --only-8o    # the build, then phase 8o alone (no result line)
+    python3 chip_smoke.py --only-8p    # the build, then phase 8p alone (no result line)
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, and drives the port's main
@@ -138,6 +139,12 @@ with the launch counts set to 0 just before it and read just after:
     the damaged files of every other format that OpenCV reads no image
     from refused (NoImage) and skipped by preprocess make-masks, view0's
     cut tail at 128/255 on the card, then the same 8 stage-1 steps;
+  * a stage-1 run from the TIFF corners (phase 8p, `tiff_wide_phase`):
+    tests/data_tiff_wide/ (12-bit RGB LZW strips, big-endian 10-bit RGB
+    Deflate tiles and LogLuv32 views; 16-bit gray of 3 samples, 14-bit
+    PackBits and 12-bit FillOrder 2 masks) decoded by the port bit-equal to
+    OpenCV's decode recorded beside it, then the same 8 stage-1 steps, and
+    both plots (cameras, Fresnel) drawn without matplotlib and read back;
 
 then times each kernel beside its plain version and its bound, and prints:
 
@@ -169,12 +176,13 @@ then times each kernel beside its plain version and its bound, and prints:
     launches, size, exactness and its .jp2 write and read times on the host;
   * one JSON line {"damaged": {...}}: phase 8o's decode times (the views,
     the refused files), step times, losses and launches;
+  * one JSON line {"tiff_wide": {...}}: phase 8p's decode times, step
+    times, losses, launches and the plots' sizes and write times;
   * one JSON line {"kernels": [...]} on the six kernels (launches: K1-K3
     from the default training run, K4 from the trace_pallas training run,
     K5 from the sweep; beside them each kernel's launches on phase 8f's
     paths, a rank's on phase 8g's and a step's on phase 8h's, a stage-1
-    replay's from the device trace, and phases 8j's, 8k's, 8l's, 8m's, 8n's
-    and 8o's);
+    replay's from the device trace, and phases 8j's to 8p's);
   * last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -3115,6 +3123,92 @@ def damaged_phase(args, dev, card, kernels) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 8p: the TIFF corners OpenCV reads and the plots, the port's sixteenth
+# slice
+# ---------------------------------------------------------------------------
+
+TIFF_WIDE_STEPS = 8  # phase 8p's stage-1 steps on the fixture scene
+
+
+def tiff_wide_phase(args, dev, card, kernels) -> dict:
+    """Phase 8p, a stage-1 run from TIFF files of the corners the port's
+    sixteenth slice reads, which the JAX package reads through OpenCV
+    (libtiff) and the port with its own decoder (this machine has no
+    OpenCV): tests/data_tiff_wide/ (scripts/make_tiff_wide_fixtures.py),
+    three 256x256 views of one camera named as the dataset lists them
+    (view0.jpg 12-bit RGB LZW in strips, view1.png big-endian 10-bit RGB
+    Deflate in 64^2 tiles, view2.png LogLuv32), their masks 16-bit gray of
+    3 samples, 14-bit gray PackBits and 12-bit gray with FillOrder 2:
+
+      (a) each file decoded by the port, its sha256 that of OpenCV's decode
+          (_decode_fixture); the masks' foregrounds equal, the views within
+          1/255 of each other on average;
+      (b), (c) RayDataset.from_folder(..., mask_dir=...) on the card and
+          8 stage-1 steps at Stage1Config()'s width (_stage1_on_fixture:
+          K3-fwd and K3-bwd once a step, a falling loss on a fixed batch);
+      (d) plot_cameras of the fixture's camera and a ring of 8, and
+          plot_fresnel_terms, drawn by the port without matplotlib, read
+          back by the port's PNG decoder: 960 x 960 and 1200 x 480, mostly
+          white, the frustums in tab10 red and the curves in the colour
+          cycle's first three colours."""
+    import tempfile
+    from iron_tpu_torch.data import io as tio
+    from iron_tpu_torch.utils import visualize as vis
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, "tests", "data_tiff_wide")
+    decode_ms, decoded = _decode_fixture(root)
+    masks = [v[..., 0] > 0.5 for k, v in sorted(decoded.items()) if k.startswith("mask/")]
+    assert all(np.array_equal(masks[0], m) for m in masks[1:]) and 0 < masks[0].mean() < 1
+    views = [v for k, v in sorted(decoded.items()) if k.startswith("image/")]
+    view_err = {f"view{i}": float(np.abs(views[i] - views[0]).mean() * 255) for i in (1, 2)}
+    assert all(e <= 1.0 for e in view_err.values()), view_err
+    log(f"phase 8p (a) decodes of tests/data_tiff_wide/ (host, ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items())
+        + f"; every array's sha256 is OpenCV's; the views' mean |difference| from view0 (of "
+        f"255): {view_err}; card {card}")
+    rec = {"card": card, "decode_ms": decode_ms, "view_mean_abs_err_255": view_err,
+           # phase 8i's initialisation and draws: the same scene, decoded from other files
+           **_stage1_on_fixture(args, dev, card, kernels, root,
+                                ["view0.jpg", "view1.png", "view2.png"], args.seed + 9,
+                                TIFF_WIDE_STEPS, "8p (c)")}
+    # (d) the plots, on this machine without matplotlib
+    with open(os.path.join(root, "cam_dict_norm.json")) as f:
+        fixture_cams = json.load(f)
+    Ks, W2Cs = ring_cameras(8, 256)
+    ring = {f"{i}.png": {"K": np.asarray(Ks[i]).ravel().tolist(),
+                         "W2C": np.asarray(W2Cs[i]).ravel().tolist(), "img_size": (256, 256)}
+            for i in range(8)}
+    plots = {}
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        for name, draw, shape in (
+                ("cameras", lambda p: vis.plot_cameras({"train": fixture_cams, "test": ring}, p),
+                 (960, 960, 3)),
+                ("fresnel", vis.plot_fresnel_terms, (480, 1200, 3))):
+            path = os.path.join(tmp, name + ".png")
+            t = time.perf_counter()
+            draw(path)
+            write_ms = (time.perf_counter() - t) * 1e3
+            with open(path, "rb") as f:
+                data = f.read()
+            img = tio.decode_image(data, path)
+            assert img.shape == shape and img.dtype == np.uint8, (name, img.shape)
+            white = float((img == 255).all(-1).mean())
+            colours = (("tab:red", "tab:blue") if name == "cameras" else
+                       ("tab:blue", "tab:orange", "tab:green"))
+            shown = {c: int((img == vis.TAB10[c]).all(-1).sum()) for c in colours}
+            assert white > 0.8 and all(n > 50 for n in shown.values()), (name, white, shown)
+            plots[name] = {"shape": list(img.shape), "bytes": len(data), "write_ms": write_ms,
+                           "white_share": white, "colour_pixels": shown}
+    log(f"phase 8p (d) plots drawn without matplotlib and read back: "
+        + ", ".join(f"{k} {v['shape']} {v['bytes']} bytes in {v['write_ms']:.1f} ms"
+                    for k, v in plots.items()))
+    rec["plots"] = plots
+    rec["wall_s"] = time.perf_counter() - t0
+    log(f"phase 8p: {rec['wall_s']:.1f} s")
+    return rec
+
+
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list tree, in key order."""
     if isinstance(tree, dict):
@@ -3157,6 +3251,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-8o", action="store_true",
                     help="build, then run phase 8o alone (damaged files; prints no result "
                          "line)")
+    ap.add_argument("--only-8p", action="store_true",
+                    help="build, then run phase 8p alone (the TIFF corners and the plots; "
+                         "prints no result line)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "iron_tpu_torch", "kernels", "csrc")):
@@ -3227,6 +3324,10 @@ def main(argv=None) -> int:
 
     if args.only_8o:
         log(json.dumps({"damaged": damaged_phase(args, dev, card, kernels)}))
+        return 0
+
+    if args.only_8p:
+        log(json.dumps({"tiff_wide": tiff_wide_phase(args, dev, card, kernels)}))
         return 0
 
     if args.only_8h:
@@ -4144,6 +4245,10 @@ def main(argv=None) -> int:
     # tests/data_damaged/ ----
     damaged = damaged_phase(args, dev, card, kernels)
 
+    # ---- 8p. the TIFF corners OpenCV reads: a stage-1 run from
+    # tests/data_tiff_wide/, and the plots without matplotlib ----
+    tiff_wide = tiff_wide_phase(args, dev, card, kernels)
+
     # ---- 9. timings at the slice's shapes ----
     kernel_rows = []
     work = sdf_work(cfg.sdf)
@@ -4411,7 +4516,8 @@ def main(argv=None) -> int:
              "tiff_launches": tiff["launches"].get(r[0], 0),
              "writers_launches": writers["launches"].get(r[0], 0),
              "writers2_launches": writers2["launches"].get(r[0], 0),
-             "damaged_launches": damaged["launches"].get(r[0], 0)}
+             "damaged_launches": damaged["launches"].get(r[0], 0),
+             "tiff_wide_launches": tiff_wide["launches"].get(r[0], 0)}
             for r in kernel_rows]
     log(json.dumps({"cli": cli}))
     log(json.dumps({"research": research}))
@@ -4424,6 +4530,7 @@ def main(argv=None) -> int:
     log(json.dumps({"writers": writers}))
     log(json.dumps({"writers2": writers2}))
     log(json.dumps({"damaged": damaged}))
+    log(json.dumps({"tiff_wide": tiff_wide}))
     log(json.dumps({"kernels": rows}))
     log(card)
     # ---- 11. result ----

@@ -26,9 +26,23 @@ A two-dimensional row codes its changing elements against the row above
 vertical modes; `_row_2d` keeps libtiff's bookkeeping of b1 on the reference
 line (it is advanced in pairs only once the row has a run, and moved back
 one element by a left vertical mode).  The bytes come most significant bit
-first (tiff.py reverses a FillOrder 2 strip's before).  Uncompressed mode
-(T4Options bit 1, the extension code) raises, as does a stream that ends
-before its rows do.
+first (tiff.py reverses a FillOrder 2 strip's before).
+
+Uncompressed mode is not decoded, as libtiff does not decode it: the
+T4Options bit that allows it changes nothing, and an extension code ends
+its row as libtiff ends it (Fax3Extension, then CLEANUP_RUNS, which every
+row goes through).  In a two-dimensional row the run at a0 takes the rest
+of the row; in a T.4 one-dimensional row, whose run tables have no such
+code, the code is a bad one, and libtiff ends the row white after any
+make-up length pending.  A T.4 strip then goes on at the next EOL, so a bad
+run code in a T.4 row ends its row the same way; a T.6 strip goes on
+decoding right after the 7-bit extension code, and there a vertical mode
+that moves back past a0 ends its row too (libtiff's check on VL), an EOL
+where a mode is due ends the strip.  Raised: a stream that ends before its
+rows do, a bad run code in a modified Huffman or T.6 strip (`CCITTError`,
+a ValueError), an EOL that ends a T.6 strip before its last row, and a
+two-dimensional code that reads past the reference row's changes (libtiff
+reads what earlier rows left in its run buffer there).
 """
 from __future__ import annotations
 
@@ -99,6 +113,15 @@ _BITS = tuple(format(b, "08b") for b in range(256))
 BIT_REVERSED = bytes(int(format(b, "08b")[::-1], 2) for b in range(256))
 
 
+class CCITTError(ValueError):
+    """A code that is in no table where a run code is due, at bit `at`;
+    `pending` holds the make-up lengths read before it in the same run."""
+
+    def __init__(self, msg: str, at: int, pending: int = 0):
+        super().__init__(msg)
+        self.at, self.pending = at, pending
+
+
 def _code(bits: str, pos: int, table: Dict[str, object], lengths) -> Tuple[object, int]:
     for n in lengths:
         v = table.get(bits[pos:pos + n])
@@ -106,7 +129,7 @@ def _code(bits: str, pos: int, table: Dict[str, object], lengths) -> Tuple[objec
             return v, pos + n
     if pos >= len(bits):
         raise ValueError("CCITT: the strip's data ends before its rows do")
-    raise ValueError(f"CCITT: no code at bit {pos} ({bits[pos:pos + 13]}...)")
+    raise CCITTError(f"CCITT: no code at bit {pos} ({bits[pos:pos + 13]}...)", pos)
 
 
 def _run(bits: str, pos: int, colour: int) -> Tuple[int, int]:
@@ -114,34 +137,84 @@ def _run(bits: str, pos: int, colour: int) -> Tuple[int, int]:
     terminating code."""
     total = 0
     while True:
-        n, pos = _code(bits, pos, _RUNS[colour], _LENGTHS[colour])
+        try:
+            n, pos = _code(bits, pos, _RUNS[colour], _LENGTHS[colour])
+        except CCITTError as e:
+            e.pending = total
+            raise
         total += n
         if n < 64:
             return total, pos
 
 
-def _row_1d(bits: str, pos: int, width: int) -> Tuple[List[int], int]:
-    """A one-dimensional row: its runs (white first) and the next bit."""
+def _cleanup(runs: List[int], a0: int, pending: int, width: int) -> List[int]:
+    """libtiff's CLEANUP_RUNS on a row that stopped at a0 (`pending` the
+    run length not yet set): the pending run set, then the row closed with
+    a white run to its end (a black run of 0 first if a white one is due),
+    or runs dropped from its end where a0 passed it."""
+    if pending:
+        runs.append(pending)
+    if a0 != width:
+        while a0 > width and runs:
+            a0 -= runs.pop()
+        if a0 < width:
+            a0 = max(a0, 0)
+            if len(runs) & 1:
+                runs.append(0)
+            runs.append(width - a0)
+        elif a0 > width:
+            runs += [width, 0]
+    return runs
+
+
+def _row_1d(bits: str, pos: int, width: int, t4: bool = False) -> Tuple[List[int], int]:
+    """A one-dimensional row: its runs (white first) and the next bit.  In
+    a T.4 strip (`t4`) a bad code ends the row as libtiff ends it, the next
+    bit left at the code (the next EOL is searched for from there)."""
     runs: List[int] = []
     a0 = 0
     while True:
         for colour in (0, 1):
-            n, pos = _run(bits, pos, colour)
+            try:
+                n, pos = _run(bits, pos, colour)
+            except CCITTError as e:
+                if not t4:
+                    raise
+                return _cleanup(runs, a0 + e.pending, e.pending, width), e.at
             runs.append(n)
             a0 += n
             if a0 >= width:
-                return runs, pos
+                return _cleanup(runs, a0, 0, width), pos
         if runs[-1] == 0 and runs[-2] == 0:      # libtiff drops an empty pair
             del runs[-2:]
 
 
-def _row_2d(bits: str, pos: int, width: int, ref: List[int]) -> Tuple[List[int], int]:
+def _row_2d(bits: str, pos: int, width: int, ref: List[int],
+            t4: bool = False) -> Tuple[List[int], int, bool]:
     """A two-dimensional row against the reference row's changing elements
-    `ref` ([0, the changes..., width, width, ...]): its runs and the next
-    bit."""
+    `ref` ([0, the changes..., width] and the imaginary change, width): its
+    runs, the next bit, and whether the row met an EOL.  An extension code
+    ends the row (Fax3Extension), as do an EOL and a vertical mode that
+    moves back past a0 (libtiff's check on VL); in a T.4 strip a bad run
+    code in horizontal mode ends it too."""
+    try:
+        return _row_2d_on(bits, pos, width, ref, t4)
+    except IndexError:
+        raise ValueError("CCITT: a two-dimensional code reads past the reference row's changes "
+                         "(libtiff reads what earlier rows left in its run buffer; not read by "
+                         "the port)") from None
+
+
+def _row_2d_on(bits: str, pos: int, width: int, ref: List[int], t4: bool):
     runs: List[int] = []
     a0, pending, k = 0, 0, 1                     # b1 is ref[k]
     while a0 < width:
+        if bits[pos:pos + 7] == "0000000":
+            # an EOL where a mode is due: libtiff gives the run at a0 the rest
+            # of the row and takes 11 bits; a T.4 strip goes on after the
+            # next 1 bit, a T.6 strip stops
+            runs.append(width - a0)
+            return _cleanup(runs, a0, pending, width), pos + 11, True
         mode, pos = _code(bits, pos, _MODES, _MODE_LENGTHS)
         if runs and mode != "horizontal":
             while ref[k] <= a0 and ref[k] < width:
@@ -153,24 +226,34 @@ def _row_2d(bits: str, pos: int, width: int, ref: List[int]) -> Tuple[List[int],
         elif mode == "horizontal":
             colour = len(runs) & 1
             for c in (colour, colour ^ 1):
-                n, pos = _run(bits, pos, c)
+                try:
+                    n, pos = _run(bits, pos, c)
+                except CCITTError as e:
+                    if not t4:
+                        raise
+                    # libtiff takes the bad code's bits: an EOL's 11 zeros,
+                    # so that the strip goes on at the EOL after it
+                    at = e.at + (11 if bits[e.at:e.at + 11] == "0" * 11 else 0)
+                    return (_cleanup(runs, a0 + e.pending, pending + e.pending, width), at,
+                            False)
                 runs.append(pending + n)
                 pending = 0
                 a0 += n
             while ref[k] <= a0 and ref[k] < width:
                 k += 2
         elif mode == "extension":
-            raise ValueError("CCITT: uncompressed mode is not read by the port")
+            # uncompressed mode, which libtiff does not decode: the run at
+            # a0 takes the rest of the row, then CLEANUP_RUNS
+            runs.append(width - a0)
+            return _cleanup(runs, a0, pending, width), pos, False
         else:
             a1 = ref[k] + mode
-            if a1 < a0:
-                raise ValueError(f"CCITT: a vertical mode moves back past a0 at {a0}")
+            if a1 < a0:                          # libtiff: a bad code, the row ends
+                return _cleanup(runs, a0, pending, width), pos, False
             runs.append(pending + a1 - a0)
             pending, a0 = 0, a1
             k += 1 if mode >= 0 else -1
-    if pending:
-        runs.append(pending)
-    return runs, pos
+    return _cleanup(runs, a0, pending, width), pos, False
 
 
 def _pixels(runs: List[int], width: int) -> np.ndarray:
@@ -186,13 +269,14 @@ def _pixels(runs: List[int], width: int) -> np.ndarray:
 
 def _reference(runs: List[int], width: int) -> List[int]:
     """A row's runs -> its changing elements for the next row (the runs cut
-    at the row's end, as libtiff's fill cuts them in place), with libtiff's
-    imaginary change and enough padding for b1 and b2."""
+    at the row's end, as libtiff's fill cuts them in place), then libtiff's
+    imaginary change.  Past it libtiff's run buffer holds what earlier rows
+    left there, which `_row_2d` refuses to read."""
     ref, x = [0], 0
     for n in runs:
         x = min(x + n, width)
         ref.append(x)
-    return ref + [width] * 6
+    return ref + [width]
 
 
 def decode_ccitt(data: bytes, width: int, rows: int, compression: int,
@@ -201,16 +285,15 @@ def decode_ccitt(data: bytes, width: int, rows: int, compression: int,
     a byte (1 bits black)."""
     if compression not in (2, 3, 4):
         raise ValueError(f"CCITT: compression {compression} is not a CCITT coding")
-    if compression == 3 and t4_options & 2:
-        raise ValueError("CCITT: T.4 uncompressed mode (T4Options bit 1) is not read by the "
-                         "port")
     bits = "".join(_BITS[b] for b in data)
     out = np.zeros((rows, width), np.uint8)
     ref = _reference([width], width)
-    pos = 0
+    pos, eol_read = 0, False
     for y in range(rows):
         if compression == 3:
-            eol = bits.find("0" * 11, pos)
+            # libtiff's SYNC_EOL: 11 zeros (unless the last row read them),
+            # any zeros after, then the 1
+            eol = pos if eol_read else bits.find("0" * 11, pos)
             one = bits.find("1", eol) if eol >= 0 else -1
             if one < 0:
                 raise ValueError(f"CCITT: no EOL before row {y} of a T.4 strip")
@@ -219,10 +302,14 @@ def decode_ccitt(data: bytes, width: int, rows: int, compression: int,
             pos += t4_options & 1
         else:
             two_d = compression == 4
+        eol_read = False
         if two_d:
-            runs, pos = _row_2d(bits, pos, width, ref)
+            runs, pos, eol_read = _row_2d(bits, pos, width, ref, compression == 3)
         else:
-            runs, pos = _row_1d(bits, pos, width)
+            runs, pos = _row_1d(bits, pos, width, compression == 3)
+        if eol_read and compression == 4 and y < rows - 1:
+            raise ValueError(f"CCITT: an EOL stops a T.6 strip in row {y} of {rows} (libtiff "
+                             f"leaves the rows after it unset; not read by the port)")
         if compression == 2:
             pos = -(-pos // 8) * 8
         out[y] = _pixels(runs, width)

@@ -6,8 +6,9 @@ its name.  `read_image` does the same (`decode_image`): PNG (here, on numpy
 and zlib: every colour type and bit depth, filters 0-4, Adam7), JPEG
 (`jpeg.py`: baseline, progressive, arithmetic-coded, lossless, 1/3/4
 components), TIFF (`tiff.py`: classic and BigTIFF; none, PackBits, LZW,
-Deflate, JPEG and CCITT (`ccitt.py`); gray, RGB(A), palette, CMYK, YCbCr,
-CIELab; 1- to 64-bit unsigned, signed and float samples), WebP
+Deflate, JPEG, CCITT (`ccitt.py`) and SGILOG; gray, RGB(A), palette, CMYK,
+YCbCr, CIELab, LogLuv; 1- to 64-bit unsigned, signed and float samples,
+10 to 14 bits among them), WebP
 (`webp.py`: lossy, lossless, alpha, an animation's first frame), BMP,
 PBM/PGM/PPM, PAM, PFM, Radiance HDR, Sun raster and GIF (`formats.py`), JPEG 2000 (`jp2.py`: .jp2 boxes and raw
 codestreams, EBCOT, the 5/3 and 9/7 wavelets), each bit-equal to OpenCV's

@@ -1166,11 +1166,10 @@ def decode_jpeg(data: bytes, space: Optional[str] = None) -> np.ndarray:
         if m in _UNREAD or (m in _FRAMES and frame is not None):
             if frame is not None:
                 raise NoImage("JPEG: a second frame header (libjpeg stops: JERR_SOF_DUPLICATE)")
-            # hierarchical files OpenCV refuses; whether it reads a valid
-            # arithmetic-coded lossless file is not known
-            err = NoImage if _UNREAD[m] == "hierarchical" else ValueError
-            raise err(f"JPEG: {_UNREAD[m]} files are not read (OpenCV's libjpeg-turbo "
-                      f"decodes no such file either)")
+            # OpenCV refuses both: libjpeg-turbo has no hierarchical decoder
+            # and no arithmetic decoder of lossless scans (JERR_ARITH_NOTIMPL)
+            raise NoImage(f"JPEG: {_UNREAD[m]} files are not read (OpenCV's libjpeg-turbo "
+                          f"decodes no such file either)")
         if m not in _FRAMES and m not in _SEGMENTS:
             raise NoImage(f"JPEG: marker {m:#04x} (libjpeg stops: JERR_UNKNOWN_MARKER or "
                           f"JERR_SOI_DUPLICATE)")

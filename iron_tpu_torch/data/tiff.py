@@ -7,17 +7,27 @@ tiles, chunky or planar samples, FillOrder 2 (every byte's bits reversed
 before the codec, as libtiff reverses them; JPEG ignores it).  Codecs: none,
 PackBits, LZW, Deflate, JPEG (`jpeg.py`, each strip or tile its own stream,
 JPEGTables spliced in front of an abbreviated one), CCITT modified Huffman,
-T.4 (1D and 2D) and T.6 (`ccitt.py`); the horizontal predictor (which
-libtiff applies with LZW and Deflate only, to 8- to 64-bit integers) and
-the floating-point one (bytes shuffled by significance, differenced).
+T.4 (1D and 2D) and T.6 (`ccitt.py`), SGILOG (LogLuv32 runs, 34676, and
+LogLuv24, 34677); the horizontal predictor (which libtiff applies with LZW
+and Deflate only, to 8- to 64-bit integers) and the floating-point one
+(bytes shuffled by significance, differenced).
 
 The result is cv2.imread(IMREAD_UNCHANGED)'s, bit for bit, channels in
 RGB(A) order.  OpenCV keeps 16-, 32- and 64-bit gray and RGB(A) samples as
 they are stored (uint16 / int16, uint32 / int32 / float32, uint64 / int64 /
-float64; min-is-white not inverted).  Everything else -- 8 bits and below,
-and any file with another photometric or a sample count other than 1, 3, 4
--- goes through libtiff's RGBA interface (TIFFReadRGBAStrip / Tile) to 8
-bits, and the reader does what that does:
+float64; min-is-white not inverted), and 10-, 12- and 14-bit ones as
+uint16 shifted up to 16 bits (a signed file saturated to int16).  Gray of
+3 or 4 samples at 10 to 16 bits is weighed to one channel in OpenCV's
+14-bit fixed point (0.299, 0.587, 0.114 of the first three samples, on
+their unsigned bits, before the shift); at 32 and 64 bits it is kept.
+LogLuv is libtiff's float XYZ (LogLuv32toXYZ / LogLuv24toXYZ in double,
+the 24-bit chroma index through uvcode.h's table, recovered from libtiff
+into logluv24_uv.json by scripts/probe_logluv_uv_table.py), turned by the
+Orientation field, then OpenCV's float32 XYZ -> BGR (`_xyz_to_rgb`).
+Everything else -- 8 bits and below, and any file with another
+photometric or a sample count other than 1, 3, 4 -- goes through
+libtiff's RGBA interface (TIFFReadRGBAStrip / Tile) to 8 bits, and the
+reader does what that does:
 - gray (min-is-black / -white, bilevel, 16-bit through its high byte) maps
   through the gray table, any alpha dropped: one channel;
 - palette: 16-bit entries shifted down 8 bits, three channels;
@@ -36,15 +46,20 @@ bits, and the reader does what that does:
 An 8-bit signed file comes out as int8, the same bytes.  The Orientation
 field mirrors (2), turns (3) or flips (4) the image, as OpenCV does.
 
-Raised, naming what was met: what OpenCV refuses (2- and 4-bit gray,
-16-bit palette, CMYK, YCbCr or RGB with two samples, float below 32 bits,
-two-sample files above 16 bits, more than 4 samples, old-style JPEG, LZMA
-and ZSTD, for which its libtiff is not built, and the floating-point
-predictor on integers, the orientations that swap the axes), what it
-misreads (planar files above 8 bits, taken as chunky; the word-aligned
-CCITT variant, 32771; 8-bit tiles mirrored or turned), and what the port has
-no decoder for (other photometrics and codecs, T.4 uncompressed mode,
-10- to 14-bit samples, 16-bit gray files of 3 or 4 samples).
+Raised, naming what was met: what OpenCV refuses (NoImage: 2- and 4-bit
+gray, depths other than 1, 8, 10, 12, 14, 16, 32 and 64, 10- to 14-bit
+files outside gray and RGB(A) or with the horizontal predictor, 16-bit
+palette, CMYK, YCbCr or RGB with two samples, float below 32 bits,
+two-sample files above 16 bits, more than 4 samples, photometrics libtiff's
+RGBA interface does not know (4, 9, 10, ...), LogL or LogLuv without
+SGILOG, SGILOG of other photometrics, LogL in 24 bits, planar LogLuv,
+old-style JPEG, LZMA and ZSTD, for which its libtiff is not built, the
+floating-point predictor on integers, the orientations that swap the
+axes), what it misreads (planar files above 8 bits, taken as chunky; the
+word-aligned CCITT variant, 32771; 8-bit tiles mirrored or turned; LogL,
+whose 8-bit gray it types int8), and what the port has no decoder for
+(other codecs, JPEG of other than 8 bits, LogLuv of other than 1 or 3
+samples, a broken SGILOG strip).
 
 A damaged file reads as cv2.imread reads it: a cut header or directory, or
 a strip or tile past the end of the file, gives no image (NoImage); a
@@ -377,6 +392,59 @@ def _packbits(data: bytes, expect: int) -> Tuple[bytes, bool]:
     return bytes(out) + bytes(expect - len(out)), len(out) < expect
 
 
+def _sgilog(data: bytes, rows: int, cw: int, comp: int) -> np.ndarray:
+    """An SGILOG strip or tile -> its LogLuv pixels, uint32 [rows, cw]
+    (tif_luv.c LogLuvDecode32 / LogLuvDecode24, a row at a time).  32-bit:
+    each row its four byte planes, most significant first, each a string of
+    runs (a byte b >= 128: b - 126 copies of the next byte) and literals (a
+    byte n < 128: the n bytes after it).  24-bit (34677): three bytes a
+    pixel, most significant first, no coding.  A row whose data runs out
+    raises: libtiff stops, and OpenCV leaves the rest of its image unset."""
+    out = np.zeros((rows, cw), np.uint32)
+    if comp == 34677:
+        n = rows * cw * 3
+        if len(data) < n:
+            raise ValueError("TIFF: an SGILOG24 strip or tile holds less data than its rows "
+                             "need (OpenCV leaves the rest unset; not read by the port)")
+        b = np.frombuffer(data[:n], np.uint8).reshape(rows, cw, 3).astype(np.uint32)
+        return (b[..., 0] << 16) | (b[..., 1] << 8) | b[..., 2]
+    pos, n = 0, len(data)
+    for y in range(rows):
+        for shift in (24, 16, 8, 0):
+            plane = bytearray()
+            while len(plane) < cw and pos < n:
+                c = data[pos]
+                if c >= 128:
+                    if pos + 1 >= n:
+                        break
+                    plane += data[pos + 1:pos + 2] * (c - 126)
+                    pos += 2
+                else:                               # a literal stops where the row does
+                    take = min(c, cw - len(plane), n - pos - 1)
+                    plane += data[pos + 1:pos + 1 + take]
+                    pos += 1 + take
+            if len(plane) < cw:
+                raise ValueError(f"TIFF: an SGILOG strip or tile ends in row {y} (libtiff stops; "
+                                 f"OpenCV leaves the rest unset; not read by the port)")
+            out[y] |= np.frombuffer(bytes(plane[:cw]), np.uint8).astype(np.uint32) << shift
+    return out
+
+
+def _xyz_to_rgb(xyz: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(COLOR_XYZ2BGR) on float32 [H, W, 3], channels then
+    reversed: OpenCV's sRGB D65 matrix in float32, a row's pixels in
+    vectors of 4 summed (Y + Z) + X, the last W % 4 one by one, (X + Y) + Z."""
+    x, y, z = (xyz[..., i] for i in range(3))
+    lanes = xyz.shape[1] - xyz.shape[1] % 4
+    out = []
+    for c in _XYZ2SRGB:
+        k0, k1, k2 = (_F(v) for v in c)
+        ch = (y * k1 + z * k2) + x * k0
+        ch[:, lanes:] = (x[:, lanes:] * k0 + y[:, lanes:] * k1) + z[:, lanes:] * k2
+        out.append(ch)
+    return np.stack(out, -1)
+
+
 def _samples(raw: bytes, rows: int, cw: int, per: int, bps: int, end: str,
              pred: int) -> np.ndarray:
     """A decoded strip or tile -> its samples [rows, cw, per] (unsigned, in
@@ -386,9 +454,10 @@ def _samples(raw: bytes, rows: int, cw: int, per: int, bps: int, end: str,
     if len(raw) < rows * row_bytes:
         raise ValueError("TIFF: a strip or tile holds less data than its rows need")
     chunk = np.frombuffer(raw[:rows * row_bytes], np.uint8).reshape(rows, row_bytes)
-    if bps < 8:
-        bits = np.unpackbits(chunk, axis=1).reshape(rows, -1, bps)
-        return bits.dot(1 << np.arange(bps - 1, -1, -1))[:, :cw, None].astype(np.uint8)
+    if bps % 8:                                      # a row's bits, most significant first
+        bits = np.unpackbits(chunk, axis=1)[:, :cw * per * bps].reshape(rows, cw, per, bps)
+        return bits.dot(1 << np.arange(bps - 1, -1, -1)).astype(np.uint8 if bps < 8 else
+                                                                 np.uint16)
     size = bps // 8
     if pred == 3:
         # the floating-point predictor: the row's bytes differenced a pixel's
@@ -467,6 +536,12 @@ def _ycbcr_to_rgb(ycc: np.ndarray, luma, refbw) -> np.ndarray:
 # and of black 1, 255 at white, gamma 2.4 (tif_getimage.c)
 _SRGB = ((3.2410, -1.5374, -0.4986), (-0.9692, 1.8760, 0.0416), (0.0556, -0.2040, 1.0570))
 _D50 = (96.4250, 100.0, 82.4680)
+# OpenCV's XYZ -> sRGB (D65) matrix, rows R, G, B (color_lab.cpp)
+_XYZ2SRGB = ((3.240479, -1.53715, -0.498535), (-0.969256, 1.875991, 0.041556),
+             (0.055648, -0.204043, 1.057311))
+# OpenCV's gray weights in 14-bit fixed point (R, G, B; icvCvt_BGR2Gray_16u)
+_GRAY_R, _GRAY_G = int(0.299 * (1 << 14) + 0.5), int(0.587 * (1 << 14) + 0.5)
+_GRAY_B = (1 << 14) - _GRAY_R - _GRAY_G
 
 
 def _cielab_to_rgb(lab: np.ndarray, bps: int, white) -> np.ndarray:
@@ -540,6 +615,83 @@ def _to_rgba8(out: np.ndarray, photo: int, bps: int, t: Dict[int, object]) -> np
     return np.concatenate([rgb, out[..., 3:4]], -1)
 
 
+# LogLuv (SGILOG, tif_luv.c): 32-bit pixels (a sign and 15 bits of log
+# luminance, 8-bit u' and v'), 24-bit ones (10 bits of log luminance, a
+# 14-bit index into uvcode.h's grid of (u', v') squares, rows of v')
+UV_SQSIZ = float(np.float32(0.0035))
+UV_VSTART = float(np.float32(0.01694))
+_U_NEU, _V_NEU = 0.210526316, 0.473684211
+_UV_TABLE: Optional[dict] = None
+_LN2 = 0.69314718055994530942
+
+
+def _uv_table() -> dict:
+    """uvcode.h's uv_row (the first u of each row as a float32, the count of
+    indices before it), recovered from libtiff by
+    scripts/probe_logluv_uv_table.py."""
+    global _UV_TABLE
+    if _UV_TABLE is None:
+        import json
+        import os
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "logluv24_uv.json")) as f:
+            rec = json.load(f)
+        _UV_TABLE = {"ustart": [np.float32(v) for v in rec["ustart"]], "ncum": rec["ncum"],
+                     "ndivs": rec["ndivs"]}
+    return _UV_TABLE
+
+
+def _log_y(le: np.ndarray, bits: int) -> np.ndarray:
+    """LogL16toY (`bits` 15: exp(ln2 / 256 (Le + .5) - 64 ln2)) or LogL10toY
+    (10: exp(ln2 / 64 (Le + .5) - 12 ln2)) in double, 0 for Le 0; each
+    distinct value through libm's exp, as libtiff computes it."""
+    import math
+    scale, bias = (256.0, 64.0) if bits == 15 else (64.0, 12.0)
+    vals, inv = np.unique(le, return_inverse=True)
+    y = np.array([math.exp(_LN2 / scale * (int(e) + .5) - _LN2 * bias) if e else 0.0
+                  for e in vals])
+    return y[inv].reshape(le.shape)
+
+
+def _uvl_to_xyz(L: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """The tail of LogLuv32toXYZ / LogLuv24toXYZ: (u', v') and Y in double
+    -> float32 XYZ [..., 3], all zero where Y <= 0."""
+    s = 1. / (6. * u - 16. * v + 12.)
+    x, y = 9. * u * s, 4. * v * s
+    xyz = np.stack([x / y * L, L, (1. - x - y) / y * L], -1).astype(_F)
+    xyz[L <= 0.] = 0
+    return xyz
+
+
+def logluv32_to_xyz(p: np.ndarray) -> np.ndarray:
+    """uint32 LogLuv32 pixels -> float32 XYZ [..., 3] (LogLuv32toXYZ)."""
+    p = p.astype(np.int64)
+    l16 = p >> 16
+    L = _log_y(l16 & 0x7FFF, 15)
+    L = np.where(l16 & 0x8000, -L, L)
+    u = 1. / 410. * (((p >> 8) & 0xFF) + .5)
+    v = 1. / 410. * ((p & 0xFF) + .5)
+    return _uvl_to_xyz(L, u, v)
+
+
+def logluv24_to_xyz(p: np.ndarray, table: Optional[dict] = None) -> np.ndarray:
+    """24-bit LogLuv pixels (in uint32) -> float32 XYZ [..., 3]
+    (LogLuv24toXYZ, uv_decode over `table`, libtiff's by default); an
+    index past the grid is the neutral (u', v')."""
+    table = table or _uv_table()
+    p = p.astype(np.int64)
+    L = _log_y((p >> 14) & 0x3FF, 10)
+    c = p & 0x3FFF
+    ncum = np.asarray(table["ncum"], np.int64)
+    vi = np.searchsorted(ncum, c, side="right") - 1
+    ustart = np.asarray(table["ustart"], _F).astype(np.float64)
+    u = ustart[vi] + (c - ncum[vi] + .5) * UV_SQSIZ
+    v = UV_VSTART + (vi + .5) * UV_SQSIZ
+    past = c >= table.get("ndivs", 1 << 14)
+    u, v = np.where(past, _U_NEU, u), np.where(past, _V_NEU, v)
+    return _uvl_to_xyz(L, u, v)
+
+
 def _refusal(bps: int, spp: int, photo: int, fmt: int, pred: int, comp: int, planar: int,
              rgba: bool, sub, inkset: int) -> Optional[ValueError]:
     """The error that says why OpenCV gives no image for such a file (a
@@ -550,26 +702,26 @@ def _refusal(bps: int, spp: int, photo: int, fmt: int, pred: int, comp: int, pla
         return NoImage(f"{spp} samples a pixel (OpenCV reads at most 4)")
     if fmt not in (1, 2, 3) or (fmt == 3 and (rgba or bps < 32)):
         return NoImage(f"{what} (OpenCV reads floats of 32 or 64 bits, 1, 3 or 4 a pixel)")
-    if pred not in (1, 2, 3) or (pred == 3 and fmt != 3) or (pred == 2 and bps < 8):
+    if pred not in (1, 2, 3) or (pred == 3 and fmt != 3) or (pred == 2 and bps % 8):
         return NoImage(f"predictor {pred} on {what} (libtiff refuses it)")
     if comp in (2, 3, 4) and (bps != 1 or spp != 1):
         return ValueError(f"CCITT coding of {what} (it codes 1-bit gray)")
     if comp == 7 and bps != 8:
         return ValueError(f"JPEG coding of {what}")
     if not rgba:
-        if bps not in (16, 32, 64):
-            return ValueError(f"{what} (the port reads 16, 32 and 64 bits above 8)")
+        if bps not in (10, 12, 14, 16, 32, 64):
+            return NoImage(f"{what} (OpenCV reads 1, 8, 10, 12, 14, 16, 32 and 64 bits)")
         if spp > 1 and planar == 2:
             return ValueError(f"planar {what} (OpenCV misreads them: it takes the first plane "
                               f"for interleaved samples)")
-        if bps == 16 and spp > 1 and photo in (0, 1):
-            return ValueError(f"{what} (OpenCV weighs them to one gray channel; not ported)")
         return None
     if bps > 16:
         return NoImage(f"{what} (libtiff's RGBA interface, which OpenCV reads them through, "
                        f"takes 16)")
     if photo in (0, 1) and bps not in (1, 8, 16):
-        return NoImage(f"{what}: below 8 bits OpenCV reads bilevel and palette files only")
+        return NoImage(f"{what} (libtiff's RGBA interface, which OpenCV reads them through, "
+                       f"takes gray of 1, 8 or 16 bits; below 8 bits OpenCV reads bilevel and "
+                       f"palette files only)")
     if photo == 2 and (bps != 8 or spp < 3):
         return NoImage(f"RGB {what} (libtiff's RGBA interface refuses them)")
     if photo == 3 and (bps > 8 or spp != 1):
@@ -584,8 +736,31 @@ def _refusal(bps: int, spp: int, photo: int, fmt: int, pred: int, comp: int, pla
         return NoImage(f"CIELab {what}, planar configuration {planar} (libtiff's RGBA "
                        f"interface refuses them)")
     if photo not in (0, 1, 2, 3, 5, 6, 8):
-        return ValueError(f"photometric {photo} (the port reads gray, RGB, palette, CMYK, YCbCr, "
-                          f"CIELab)")
+        return NoImage(f"photometric {photo} (libtiff's RGBA interface, which OpenCV reads it "
+                       f"through, refuses it)")
+    return None
+
+
+def _luv_refusal(comp: int, photo: int, spp: int, planar: int) -> Optional[ValueError]:
+    """The error for an SGILOG file or a LogL / LogLuv one that OpenCV
+    gives no image for, or misreads; None for LogLuv it reads (as float32
+    XYZ through libtiff, then to RGB)."""
+    if comp not in (34676, 34677):
+        return NoImage(f"photometric {photo} with compression {comp} (libtiff reads LogL and "
+                       f"LogLuv only through SGILOG compression)")
+    if photo == 32844:
+        if comp == 34677:
+            return NoImage("LogL with 24-bit SGILOG compression (libtiff refuses it)")
+        return ValueError("LogL (photometric 32844; OpenCV misreads it: libtiff's 8-bit gray, "
+                          "sqrt(Y) of 256, comes back as int8)")
+    if photo != 32845:
+        return NoImage(f"SGILOG compression of photometric {photo} (libtiff decodes LogL and "
+                       f"LogLuv only)")
+    if planar != 1:
+        return NoImage("planar LogLuv (libtiff's SGILOG codec refuses it)")
+    if spp not in (1, 3):
+        return ValueError(f"LogLuv of {spp} samples a pixel (not read by the port: libtiff "
+                          f"writes 3, or 1 in its raw data format)")
     return None
 
 
@@ -603,14 +778,18 @@ def read_tiff(data: bytes) -> np.ndarray:
     pred = one(317, 1) if comp in _PREDICTED else 1
     if comp in _REFUSED:
         raise (ValueError if comp == 32771 else NoImage)(f"TIFF: {_REFUSED[comp]}")
-    if comp not in _COMPRESSION:
+    luv = comp in (34676, 34677)
+    if comp not in _COMPRESSION and not luv:
         raise ValueError(f"TIFF: compression {comp} is not read by the port (none, PackBits, "
-                         f"LZW, Deflate, JPEG and CCITT 2-4 are)")
-    # OpenCV keeps wide gray and RGB(A) samples; the rest goes to 8 bits
-    # through libtiff's RGBA interface
-    rgba = bps <= 8 or photo not in (0, 1, 2) or spp not in (1, 3, 4)
+                         f"LZW, Deflate, JPEG, CCITT 2-4 and SGILOG are)")
+    # OpenCV keeps wide gray and RGB(A) samples and LogLuv's XYZ; the rest
+    # goes to 8 bits through libtiff's RGBA interface
+    rgba = not luv and (bps <= 8 or photo not in (0, 1, 2) or spp not in (1, 3, 4))
     sub = tuple(t.get(530, [2, 2])[:2]) if photo == 6 and comp != 7 else (1, 1)
-    why = _refusal(bps, spp, photo, fmt, pred, comp, planar, rgba, sub, one(332, 1))
+    if luv or photo in (32844, 32845):
+        why = _luv_refusal(comp, photo, spp, planar)
+    else:
+        why = _refusal(bps, spp, photo, fmt, pred, comp, planar, rgba, sub, one(332, 1))
     tiled = 322 in t
     orientation = one(274, 1)
     if orientation not in (1, 2, 3, 4):
@@ -632,7 +811,8 @@ def read_tiff(data: bytes) -> np.ndarray:
     per = spp // planes                              # samples a pixel within a chunk
     across, down = -(-W // cw), -(-H // ch)
     space = "ycc" if photo == 6 else "raw"           # JPEGCOLORMODE_RGB for YCbCr
-    out = np.zeros((H, W, spp), np.uint8 if bps <= 8 else f"u{bps // 8}")
+    out = np.zeros((H, W, spp), _F if luv else np.uint8 if bps <= 8 else
+                   np.uint16 if bps <= 16 else f"u{bps // 8}")
     for k, off in enumerate(offsets):
         plane, k2 = divmod(k, across * down)
         if plane >= planes:
@@ -648,11 +828,14 @@ def read_tiff(data: bytes) -> np.ndarray:
             raise NoImage("TIFF: a strip or tile runs past the end of the file (libtiff stops; "
                           "OpenCV returns no image)")
         raw = data[off:off + size]
+        if fill == 2 and comp != 7:                  # least significant bit first
+            raw = raw.translate(BIT_REVERSED)
         if comp == 7:
             chunk = _jpeg(raw, t.get(347), space, rows, cw)
+        elif luv:
+            p = _sgilog(raw, rows, cw, comp)
+            chunk = logluv32_to_xyz(p) if comp == 34676 else logluv24_to_xyz(p)
         else:
-            if fill == 2:                            # least significant bit first
-                raw = raw.translate(BIT_REVERSED)
             failed = False
             if comp in (2, 3, 4):
                 raw = decode_ccitt(raw, cw, rows, comp, one(292, 0)).tobytes()
@@ -678,14 +861,27 @@ def read_tiff(data: bytes) -> np.ndarray:
         y0, x0 = cy * ch, cx * cw
         h, w = min(rows, H - y0), min(cw, W - x0)
         out[y0:y0 + h, x0:x0 + w, plane:plane + per] = chunk[:h, :w]
+    flip = {1: (1, 1), 2: (1, -1), 3: (-1, -1), 4: (-1, 1)}[orientation]
+    if luv:                                          # OpenCV turns XYZ, then converts it
+        return _xyz_to_rgb(np.ascontiguousarray(out[::flip[0], ::flip[1]]))
     if not rgba:
-        img = out.view(f"{'uif'[fmt - 1]}{bps // 8}")
-        img = img[..., 0] if spp == 1 else img
+        if bps <= 16 and spp > 1 and photo in (0, 1):
+            # 3 or 4 gray samples: OpenCV weighs the first three to one in
+            # 14-bit fixed point (as R, G, B), on the unsigned bits
+            g = out[..., :3].astype(np.int64)
+            out = ((g[..., 0] * _GRAY_R + g[..., 1] * _GRAY_G + g[..., 2] * _GRAY_B
+                    + (1 << 13)) >> 14).astype(np.uint16)[..., None]
+        if bps < 16:
+            # 10, 12 or 14 bits: shifted up to 16, a signed file saturated
+            out = out << (16 - bps)
+            if fmt == 2:
+                out = np.minimum(out, 32767)
+        img = out.view(f"{'uif'[fmt - 1]}{out.dtype.itemsize}")
+        img = img[..., 0] if img.shape[-1] == 1 else img
     else:
         img = _to_rgba8(out, 2 if comp == 7 and photo == 6 else photo, bps, t)
         img = img.view(np.int8) if fmt == 2 else img
     # the Orientation field: OpenCV mirrors, turns or flips the image
-    flip = {1: (1, 1), 2: (1, -1), 3: (-1, -1), 4: (-1, 1)}[orientation]
     return np.ascontiguousarray(img[::flip[0], ::flip[1]]) if orientation != 1 else img
 
 

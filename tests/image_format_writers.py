@@ -415,6 +415,73 @@ def encode_gif(frames: Sequence[np.ndarray], palette: np.ndarray, screen: tuple,
 # TIFF
 # ---------------------------------------------------------------------------
 
+def pack_samples(a: np.ndarray, bps: int) -> np.ndarray:
+    """Integer samples [rows, ...] -> each row's samples `bps` bits each,
+    most significant bit first, the row padded to a byte (TIFF's packing
+    of 1- to 16-bit samples): uint8 [rows, bytes]."""
+    a = np.asarray(a).reshape(len(a), -1).astype(np.uint32)
+    bits = (a[..., None] >> np.arange(bps - 1, -1, -1)) & 1
+    return np.packbits(bits.astype(np.uint8).reshape(len(a), -1), axis=1)
+
+
+def _fax_run(n: int, colour: int) -> str:
+    """A T.4 run of `colour` (0 white, 1 black): make-up codes, then the
+    terminating code."""
+    from iron_tpu_torch.data import ccitt
+    term, makeup = ((ccitt._WHITE_TERM, ccitt._WHITE_MAKEUP) if colour == 0 else
+                    (ccitt._BLACK_TERM, ccitt._BLACK_MAKEUP))
+    out = ""
+    while n >= 2560:
+        out, n = out + ccitt._EXTENDED_MAKEUP[-1], n - 2560
+    if n >= 1792:
+        k = (n - 1792) // 64
+        out, n = out + ccitt._EXTENDED_MAKEUP[k], n - 1792 - 64 * k
+    elif n >= 64:
+        out, n = out + makeup[n // 64 - 1], n % 64
+    return out + term[n]
+
+
+# a stretch of T.4 uncompressed-mode data: WWWB, B, WWWWW, then the exit
+# code with its tag bit (next run white)
+FAX_UNCOMPRESSED = "0001" + "1" + "000001" + "00000001" + "0"
+
+
+def encode_fax(mask: np.ndarray, compression: int, two_d: Optional[bool] = None,
+               extension: Optional[tuple] = None) -> bytes:
+    """A bilevel image (1 black) as one CCITT strip, by hand: `compression`
+    3 (T.4, each row after an EOL, then a tag bit unless `two_d` is None:
+    0 for a 2D row if `two_d`, else 1) or 4 (T.6, then EOFB).  A 2D row is
+    coded in horizontal mode alone.  `extension` (row, k) puts an
+    uncompressed-mode extension code and FAX_UNCOMPRESSED before the k-th
+    run of that row (2D: 0000001111, where a mode is due when k is even;
+    1D: 000000001111), which libtiff does not decode; the rest of the row
+    is coded on."""
+    bits = []
+    d2 = bool(two_d) or compression == 4
+    for y, row in enumerate(np.asarray(mask)):
+        if compression == 3:
+            bits.append("000000000001" + ("" if two_d is None else "0" if two_d else "1"))
+        runs, colour, x = [], 0, 0
+        while x < len(row):
+            e = x
+            while e < len(row) and row[e] == colour:
+                e += 1
+            runs.append(e - x)
+            x, colour = e, colour ^ 1
+        if len(runs) % 2:
+            runs.append(0)
+        for i, n in enumerate(runs):
+            if extension is not None and tuple(extension) == (y, i):
+                bits.append(("0000001111" if d2 else "000000001111") + FAX_UNCOMPRESSED)
+            if d2 and i % 2 == 0:
+                bits.append("001")
+            bits.append(_fax_run(n, i & 1))
+    bits.append("000000000001" * (6 if compression == 3 else 2))
+    s = "".join(bits)
+    s += "0" * (-len(s) % 8)
+    return bytes(int(s[i:i + 8], 2) for i in range(0, len(s), 8))
+
+
 def tiff_lzw(data: bytes) -> bytes:
     """TIFF LZW as libtiff writes it: codes most significant bit first, 9
     to 12 bits (wider once the next entry passes the width), a clear code

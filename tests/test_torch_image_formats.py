@@ -547,7 +547,9 @@ def _scene(tmp_path) -> str:
     return str(root)
 
 
-def _assert_loaders_agree(root: str, n: int) -> None:
+def _assert_loaders_agree(root: str, n: int, mask_levels=(0.0, 1.0)) -> None:
+    """The port's and the JAX package's loaders of a scene folder give the
+    same arrays, its masks hold only `mask_levels` and some of each side."""
     mask_dir = os.path.join(root, "mask")
     jf, *jarrays = j_load_image_folder(root, mask_dir=mask_dir)
     f, *arrays = load_image_folder(root, mask_dir=mask_dir)
@@ -557,7 +559,7 @@ def _assert_loaders_agree(root: str, n: int) -> None:
         assert a.dtype == b.dtype and a.shape == b.shape
         assert np.array_equal(a, b)
     masks = arrays[-1]
-    assert set(np.unique(masks)) <= {0.0, 1.0} and 0 < masks.mean() < 1
+    assert set(np.unique(masks)) <= set(np.float32(mask_levels)) and 0 < masks.mean() < 1
     ds = RayDataset.from_folder(root, mask_dir=mask_dir, device="cpu")
     jds = JRayDataset.from_folder(root, mask_dir=mask_dir)
     for k in ("images", "masks", "Ks", "W2Cs"):

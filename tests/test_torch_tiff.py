@@ -268,17 +268,18 @@ def test_ccitt_every_run_length_reads_as_opencv(coding, tmp_path):
 
 def test_ccitt_decoder_alone():
     """decode_ccitt on one T.6 strip of libtiff's: the rows packed 8 pixels
-    a byte, 1 bits black; a truncated strip and uncompressed mode raise."""
-    data = _ccitt_lt(4, 0, rows=H)
-    im = Image.open(io.BytesIO(data))
-    off, n = im.tag_v2[273][0], im.tag_v2[279][0]
-    strip = data[off:off + n]
+    a byte, 1 bits black; a truncated strip raises.  A T.4 strip of
+    libtiff's with T4Options bit 1 (uncompressed mode allowed) decodes as
+    libtiff decodes it: the bit alone changes nothing."""
     want = np.packbits(MASK, axis=1)
-    assert np.array_equal(decode_ccitt(strip, Wd, H, 4), want)
-    with pytest.raises(ValueError, match="ends before"):
-        decode_ccitt(strip[:len(strip) // 2], Wd, H, 4)
-    with pytest.raises(ValueError, match="uncompressed mode"):
-        decode_ccitt(strip, Wd, H, 3, t4_options=2)
+    for comp, t4 in ((4, 0), (3, 2), (3, 3)):
+        data = _ccitt_lt(comp, 0, t4=t4, rows=H)
+        im = Image.open(io.BytesIO(data))
+        off, n = im.tag_v2[273][0], im.tag_v2[279][0]
+        strip = data[off:off + n]
+        assert np.array_equal(decode_ccitt(strip, Wd, H, comp, t4_options=t4), want)
+        with pytest.raises(ValueError, match="ends before|no EOL"):
+            decode_ccitt(strip[:len(strip) // 2], Wd, H, comp, t4_options=t4)
 
 
 def _with_short(data: bytes, tag: int, value: int) -> bytes:
@@ -318,6 +319,38 @@ REFUSED = {
         SIGNED[..., 0].astype(np.int32), "deflate", 3, sample_format=2), "predictor 3"),
     **{f"orientation {o}": ((lambda o=o: W.encode_tiff(IMG, "none", extra_tags=[(274, 3, [o])])),
                             f"orientation {o}") for o in (5, 6, 7, 8)},
+    # the corners of 10- to 14-bit samples, the other photometrics, SGILOG
+    "10-bit gray, horizontal predictor": (lambda: _lt(
+        [W.pack_samples(IMG[..., 0].astype(np.uint16) * 4, 10).tobytes()], 10, 1, 5, 1,
+        extra=[(317, 2)], raw=True), "predictor 2"),
+    "12-bit float": (lambda: _lt([W.pack_samples(IMG[..., 0], 12).tobytes()], 12, 1, 1, 1,
+                                 extra=[(339, 3)]), "12-bit samples of format 3"),
+    "12-bit palette": (lambda: _lt(
+        [W.pack_samples(IMG[..., 0], 12).tobytes()], 12, 1, 1, 3,
+        extra=[(320, *[np.arange(4096, dtype=np.uint16) * 16] * 3)]), "palette 12-bit"),
+    "12-bit gray + alpha": (lambda: _lt(
+        [W.pack_samples(IMG[..., :2], 12).tobytes()], 12, 2, 1, 1,
+        extra=[(338, 1, np.array([2], np.uint16))]), "12-bit samples of format 1, 2 a pixel"),
+    "12-bit CMYK": (lambda: _lt([W.pack_samples(CMYK, 12).tobytes()], 12, 4, 1, 5),
+                    "CMYK 12-bit"),
+    **{f"{b}-bit gray": ((lambda b=b: _lt([W.pack_samples(IMG[..., 0], b).tobytes()], b, 1, 1,
+                                          1)), f"{b}-bit samples")
+       for b in (9, 24)},
+    "photometric 4 (transparency mask)": (lambda: _lt([np.packbits(MASK, axis=1)], 1, 1, 1, 4),
+                                          "photometric 4"),
+    "photometric 9 (ICC Lab)": (lambda: _lt([IMG], 8, 3, 1, 9), "photometric 9"),
+    "photometric 9, 16-bit": (lambda: _lt([IMG.astype(np.uint16) * 257], 16, 3, 1, 9),
+                              "photometric 9"),
+    "photometric 10 (ITU Lab)": (lambda: _lt([IMG], 8, 3, 1, 10), "photometric 10"),
+    "LogL with 24-bit SGILOG": (lambda: _lt([FLOAT[..., 0]], 32, 1, 34677, 32844,
+                                            extra=[(65560, 0)]), "LogL with 24-bit"),
+    "LogLuv without SGILOG": (lambda: _lt([FLOAT], 32, 3, 1, 32845, extra=[(339, 3)]),
+                              "only through SGILOG"),
+    "SGILOG RGB": (lambda: _with_short(W.encode_tiff(IMG), 259, 34676),
+                   "SGILOG compression of photometric 2"),
+    "planar LogLuv": (lambda: _with_short(_lt([np.abs(FLOAT)], 32, 3, 34676, 32845,
+                                              extra=[(65560, 0), (284, 1)]), 284, 2),
+                      "planar LogLuv"),
 }
 
 
@@ -380,15 +413,20 @@ def test_committed_tiff_fixture_matches_the_jax_loader():
 
 
 def test_tiff_modules_import_without_opencv_or_pil():
-    """tiff.py, ccitt.py and jpeg.py import and decode the fixture with cv2,
-    PIL, jax and iron_tpu blocked: the card's machine has none of them."""
+    """tiff.py, ccitt.py, jpeg.py and utils/visualize.py import, and decode
+    the fixtures (tests/data_tiff/ and tests/data_tiff_wide/: 10- to
+    16-bit samples, gray of three, LogLuv), with cv2, PIL, matplotlib, jax
+    and iron_tpu blocked: the card's machine has none of them."""
     code = ("import sys\n"
-            "for m in ('cv2', 'PIL', 'jax', 'iron_tpu'):\n"
+            "for m in ('cv2', 'PIL', 'matplotlib', 'jax', 'iron_tpu'):\n"
             "    sys.modules[m] = None\n"
             "from iron_tpu_torch.data import io, tiff, ccitt, jpeg\n"
-            "for name in ('image/view0.jpg', 'image/view1.png', 'mask/view0.tif',\n"
-            "             'mask/view1.tif'):\n"
-            "    img = io.read_image('tests/data_tiff/' + name)\n"
+            "from iron_tpu_torch.utils import visualize\n"
+            "for name in ('data_tiff/image/view0.jpg', 'data_tiff/image/view1.png',\n"
+            "             'data_tiff/mask/view0.tif', 'data_tiff/mask/view1.tif',\n"
+            "             'data_tiff_wide/image/view0.jpg', 'data_tiff_wide/image/view2.png',\n"
+            "             'data_tiff_wide/mask/view0.tif', 'data_tiff_wide/mask/view2.tif'):\n"
+            "    img = io.read_image('tests/' + name)\n"
             "    assert img.shape == (256, 256, 3), (name, img.shape)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO, capture_output=True,

@@ -97,7 +97,9 @@ def test_frustum_lines_match_jax():
 
 
 def test_plots_write_images(tmp_path):
-    pytest.importorskip("matplotlib")
+    """Both plots write PNGs of matplotlib's sizes at dpi 120, with no
+    matplotlib (the port draws them itself)."""
+    from iron_tpu_torch.data.io import read_image
     cams = {"train": {f"{i}.png": {"K": np.eye(4).ravel().tolist(),
                                    "W2C": np.eye(4).ravel().tolist(), "img_size": (64, 48)}
                       for i in range(2)},
@@ -105,6 +107,7 @@ def test_plots_write_images(tmp_path):
                                "W2C": np.eye(4).ravel().tolist()}}}
     tvis.plot_cameras(cams, str(tmp_path / "cams.png"))
     tvis.plot_fresnel_terms(str(tmp_path / "fresnel.png"))
-    for name in ("cams.png", "fresnel.png"):
+    for name, shape in (("cams.png", (960, 960, 3)), ("fresnel.png", (480, 1200, 3))):
         with open(tmp_path / name, "rb") as f:
             assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+        assert read_image(str(tmp_path / name)).shape == shape
