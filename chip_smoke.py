@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only-8n    # the build, then phase 8n alone (no result line)
     python3 chip_smoke.py --only-8o    # the build, then phase 8o alone (no result line)
     python3 chip_smoke.py --only-8p    # the build, then phase 8p alone (no result line)
+    python3 chip_smoke.py --only-8q    # the build, then phase 8q alone (no result line)
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, and drives the port's main
@@ -145,6 +146,15 @@ with the launch counts set to 0 just before it and read just after:
     PackBits and 12-bit FillOrder 2 masks) decoded by the port bit-equal to
     OpenCV's decode recorded beside it, then the same 8 stage-1 steps, and
     both plots (cameras, Fresnel) drawn without matplotlib and read back;
+  * a stage-1 run from damaged headers (phase 8q, `header_phase`):
+    tests/data_header/ (a JPEG whose JFIF segment is damaged, a lossless
+    WebP whose chunk size is short, a Deflate TIFF whose one strip's byte
+    count is 0; masks of a short uncompressed strip and a Group 3 strip
+    that lost its last EOL) decoded by the port bit-equal to OpenCV's
+    decode recorded beside it, a header-damaged file of every format that
+    OpenCV refuses raising NoImage and skipped by preprocess make-masks,
+    the views and masks on the card bit for bit the host's, then the same
+    8 stage-1 steps;
 
 then times each kernel beside its plain version and its bound, and prints:
 
@@ -178,11 +188,13 @@ then times each kernel beside its plain version and its bound, and prints:
     the refused files), step times, losses and launches;
   * one JSON line {"tiff_wide": {...}}: phase 8p's decode times, step
     times, losses, launches and the plots' sizes and write times;
+  * one JSON line {"header": {...}}: phase 8q's decode times (the views and
+    masks, the refused files), step times, losses, launches and wall time;
   * one JSON line {"kernels": [...]} on the six kernels (launches: K1-K3
     from the default training run, K4 from the trace_pallas training run,
     K5 from the sweep; beside them each kernel's launches on phase 8f's
     paths, a rank's on phase 8g's and a step's on phase 8h's, a stage-1
-    replay's from the device trace, and phases 8j's to 8p's);
+    replay's from the device trace, and phases 8j's to 8q's);
   * last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -2492,6 +2504,41 @@ def _decode_fixture(root: str):
     return decode_ms, decoded
 
 
+def _refuse_and_skip(root: str, views: dict):
+    """decode_image on each file of a fixture folder that OpenCV reads no
+    image from (a null entry of its opencv_sha256.json) raises NoImage,
+    timed on the host; then preprocess make-masks over a copy of refused/
+    with the views beside it (`views`: a view's path in the fixture -> its
+    name in the copy) -> (decode ms by refused file, the masks make-masks
+    wrote)."""
+    import shutil
+    import tempfile
+    from iron_tpu_torch.cli import preprocess
+    from iron_tpu_torch.data import io as tio
+    with open(os.path.join(root, "opencv_sha256.json")) as f:
+        refused = sorted(k for k, v in json.load(f).items() if v is None)
+    assert len(refused) >= 10, refused
+    refused_ms = {}
+    for key in refused:
+        with open(os.path.join(root, key), "rb") as f:
+            data = f.read()
+        t = time.perf_counter()
+        try:
+            tio.decode_image(data, key)
+        except tio.NoImage:
+            refused_ms[key] = (time.perf_counter() - t) * 1e3
+        else:
+            raise AssertionError(f"{key}: decoded, where OpenCV reads no image")
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        folder = os.path.join(tmp, "image")
+        shutil.copytree(os.path.join(root, "refused"), folder)
+        for src, name in views.items():
+            shutil.copy(os.path.join(root, src), os.path.join(folder, name))
+        preprocess.main(["make-masks", "--image_dir", folder])
+        made = sorted(os.listdir(os.path.join(tmp, "masks")))
+    return refused_ms, made
+
+
 def _stage1_on_fixture(args, dev, card, kernels, root: str, names: list, seed: int,
                        steps: int, label: str) -> dict:
     """RayDataset.from_folder(root, mask_dir=root/mask) on the card (its
@@ -3065,37 +3112,14 @@ def damaged_phase(args, dev, card, kernels) -> dict:
           128/255 there, bit for bit the host's decode;
       (d) 8 stage-1 steps at Stage1Config()'s width (_stage1_on_fixture:
           K3-fwd and K3-bwd once a step, a falling loss on a fixed batch)."""
-    import shutil
-    import tempfile
     import torch
-    from iron_tpu_torch.cli import preprocess
-    from iron_tpu_torch.data import io as tio
     from iron_tpu_torch.data.dataset import RayDataset
     t0 = time.perf_counter()
     root = os.path.join(HERE, "tests", "data_damaged")
     decode_ms, decoded = _decode_fixture(root)
-    with open(os.path.join(root, "opencv_sha256.json")) as f:
-        refused = sorted(k for k, v in json.load(f).items() if v is None)
-    assert len(refused) >= 10, refused
-    refused_ms = {}
-    for key in refused:
-        with open(os.path.join(root, key), "rb") as f:
-            data = f.read()
-        t = time.perf_counter()
-        try:
-            tio.decode_image(data, key)
-        except tio.NoImage:
-            refused_ms[key] = (time.perf_counter() - t) * 1e3
-        else:
-            raise AssertionError(f"{key}: decoded, where OpenCV reads no image")
-    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
-        folder = os.path.join(tmp, "image")
-        shutil.copytree(os.path.join(root, "refused"), folder)
-        for name in ("view0", "view1", "view2"):
-            shutil.copy(os.path.join(root, "image", name + ".jpg"),
-                        os.path.join(folder, name + ".png"))
-        preprocess.main(["make-masks", "--image_dir", folder])
-        made = sorted(os.listdir(os.path.join(tmp, "masks")))
+    refused_ms, made = _refuse_and_skip(root, {f"image/view{i}.jpg": f"view{i}.png"
+                                               for i in range(3)})
+    refused = list(refused_ms)
     assert made == ["view0.png", "view1.png", "view2.png"], made
     log(f"phase 8o (a) decodes of tests/data_damaged/ (host, ms): "
         + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items())
@@ -3209,6 +3233,67 @@ def tiff_wide_phase(args, dev, card, kernels) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 8q: damaged headers as cv2.imread reads them, the port's seventeenth
+# slice
+# ---------------------------------------------------------------------------
+
+HEADER_STEPS = 8     # phase 8q's stage-1 steps on the fixture scene
+
+
+def header_phase(args, dev, card, kernels) -> dict:
+    """Phase 8q, a stage-1 run from files whose headers are damaged where
+    OpenCV still reads them, which the JAX package reads through OpenCV and
+    the port with its own decoders (this machine has no OpenCV):
+    tests/data_header/ (scripts/make_header_fixtures.py), three 256x256
+    views of one camera named as the dataset lists them (view0.png a JPEG
+    whose JFIF segment is damaged, view1.png a lossless WebP whose VP8L
+    chunk size is short, view2.png a Deflate TIFF of one strip whose byte
+    count is 0), their masks a 1-bit TIFF whose one strip's byte count is
+    short, a Group 3 TIFF whose last EOL is broken and a PNG, and refused/,
+    a header-damaged file of each format that OpenCV reads no image from:
+
+      (a) each view and mask decoded by the port, its sha256 that of
+          OpenCV's decode (_decode_fixture);
+      (b) decode_image raises NoImage on every refused file, and preprocess
+          make-masks over a copy of refused/ with the three views beside
+          them writes the views' masks and no other;
+      (c) RayDataset.from_folder(..., mask_dir=...) on the card, its images
+          and masks bit for bit the host's decodes;
+      (d) 8 stage-1 steps at Stage1Config()'s width (_stage1_on_fixture:
+          K3-fwd and K3-bwd once a step, a falling loss on a fixed batch)."""
+    import torch
+    from iron_tpu_torch.data.dataset import RayDataset
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, "tests", "data_header")
+    names = ["view0.png", "view1.png", "view2.png"]
+    decode_ms, decoded = _decode_fixture(root)
+    refused_ms, made = _refuse_and_skip(root, {f"image/{n}": n for n in names})
+    refused = list(refused_ms)
+    assert made == names, made
+    log(f"phase 8q (a) decodes of tests/data_header/ (host, ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items())
+        + f"; every array's sha256 is OpenCV's; (b) NoImage on all {len(refused)} refused "
+        f"files (host, ms: " + ", ".join(f"{k} {v:.1f}" for k, v in refused_ms.items())
+        + f"), make-masks skipped them and wrote {made}; card {card}")
+    # (c) the dataset on the card: the host's decodes, bit for bit
+    ds = RayDataset.from_folder(root, mask_dir=os.path.join(root, "mask"), device=dev)
+    assert ds.images.device.type == dev.type
+    for i, name in enumerate(names):
+        assert torch.equal(ds.images[i].cpu(), torch.from_numpy(decoded[f"image/{name}"]))
+        assert torch.equal(ds.masks[i].cpu(),
+                           torch.from_numpy(decoded[f"mask/{name}"][..., :1].copy()))
+    log("phase 8q (c) RayDataset.from_folder on the card: the views and masks bit for bit "
+        "the host's decodes")
+    rec = {"card": card, "decode_ms": decode_ms, "refused_ms": refused_ms,
+           "refused": len(refused),
+           **_stage1_on_fixture(args, dev, card, kernels, root, names, args.seed + 9,
+                                HEADER_STEPS, "8q (d)"),
+           "wall_s": time.perf_counter() - t0}
+    log(f"phase 8q: {rec['wall_s']:.1f} s")
+    return rec
+
+
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list tree, in key order."""
     if isinstance(tree, dict):
@@ -3254,6 +3339,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-8p", action="store_true",
                     help="build, then run phase 8p alone (the TIFF corners and the plots; "
                          "prints no result line)")
+    ap.add_argument("--only-8q", action="store_true",
+                    help="build, then run phase 8q alone (damaged headers; prints no result "
+                         "line)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "iron_tpu_torch", "kernels", "csrc")):
@@ -3328,6 +3416,10 @@ def main(argv=None) -> int:
 
     if args.only_8p:
         log(json.dumps({"tiff_wide": tiff_wide_phase(args, dev, card, kernels)}))
+        return 0
+
+    if args.only_8q:
+        log(json.dumps({"header": header_phase(args, dev, card, kernels)}))
         return 0
 
     if args.only_8h:
@@ -4249,6 +4341,10 @@ def main(argv=None) -> int:
     # tests/data_tiff_wide/, and the plots without matplotlib ----
     tiff_wide = tiff_wide_phase(args, dev, card, kernels)
 
+    # ---- 8q. damaged headers as cv2.imread reads them: a stage-1 run from
+    # tests/data_header/ ----
+    header = header_phase(args, dev, card, kernels)
+
     # ---- 9. timings at the slice's shapes ----
     kernel_rows = []
     work = sdf_work(cfg.sdf)
@@ -4517,7 +4613,8 @@ def main(argv=None) -> int:
              "writers_launches": writers["launches"].get(r[0], 0),
              "writers2_launches": writers2["launches"].get(r[0], 0),
              "damaged_launches": damaged["launches"].get(r[0], 0),
-             "tiff_wide_launches": tiff_wide["launches"].get(r[0], 0)}
+             "tiff_wide_launches": tiff_wide["launches"].get(r[0], 0),
+             "header_launches": header["launches"].get(r[0], 0)}
             for r in kernel_rows]
     log(json.dumps({"cli": cli}))
     log(json.dumps({"research": research}))
@@ -4531,6 +4628,7 @@ def main(argv=None) -> int:
     log(json.dumps({"writers2": writers2}))
     log(json.dumps({"damaged": damaged}))
     log(json.dumps({"tiff_wide": tiff_wide}))
+    log(json.dumps({"header": header}))
     log(json.dumps({"kernels": rows}))
     log(card)
     # ---- 11. result ----

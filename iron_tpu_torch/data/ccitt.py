@@ -2,8 +2,8 @@
 decoder of TIFF compressions 2, 3 and 4 as libtiff's fax3 codec
 (tif_fax3.c) reads them, which is how OpenCV reads such a TIFF.
 
-    decode_ccitt(data, width, rows, compression, t4_options=0)
-        -> uint8 [rows, ceil(width / 8)]
+    decode_ccitt(data, width, rows, compression, t4_options=0, state=None)
+        -> (uint8 [rows, ceil(width / 8)], whether libtiff reports an error)
 
 The result is the strip's rows packed 8 pixels a byte, most significant bit
 first, as libtiff hands them on: a white run gives 0 bits and a black run 1
@@ -31,22 +31,24 @@ first (tiff.py reverses a FillOrder 2 strip's before).
 Uncompressed mode is not decoded, as libtiff does not decode it: the
 T4Options bit that allows it changes nothing, and an extension code ends
 its row as libtiff ends it (Fax3Extension, then CLEANUP_RUNS, which every
-row goes through).  In a two-dimensional row the run at a0 takes the rest
-of the row; in a T.4 one-dimensional row, whose run tables have no such
-code, the code is a bad one, and libtiff ends the row white after any
-make-up length pending.  A T.4 strip then goes on at the next EOL, so a bad
-run code in a T.4 row ends its row the same way; a T.6 strip goes on
-decoding right after the 7-bit extension code, and there a vertical mode
-that moves back past a0 ends its row too (libtiff's check on VL), an EOL
-where a mode is due ends the strip.  Raised: a stream that ends before its
-rows do, a bad run code in a modified Huffman or T.6 strip (`CCITTError`,
-a ValueError), an EOL that ends a T.6 strip before its last row, and a
-two-dimensional code that reads past the reference row's changes (libtiff
-reads what earlier rows left in its run buffer there).
+row goes through).  The decoder follows libtiff's fax3 macros on its bit
+reader (`_Bits`: bytes loaded as codes need them, zero bits once the data
+is loaded, the end of data only where no bit at all is left) and its run
+arrays (`_Row`): a bad code or an EOL ends its row (an EOL's 11 zeros
+taken), a T.4 strip goes on at its next EOL and a modified Huffman one at
+its next byte, a T.6 strip after the code; a vertical mode that moves back
+past a0 ends the row (libtiff's check on VL); the reference row's b1 walks
+the array as libtiff walks it, past the row's changes into what earlier
+rows left there; a run array that would overflow stops the strip.  The
+data's end keeps the rows decoded (the row it ends in after CLEANUP_RUNS),
+an EOL ends a T.6 strip, and a T.4 strip whose EOL search finds the zeros
+but no 1 is decoded again from its start without EOLs into the rows left
+(RETRY_WITHOUT_EOL); rows not reached are 0 bits, as libtiff's zeroed
+buffer leaves them.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 import numpy as np
 
@@ -113,205 +115,329 @@ _BITS = tuple(format(b, "08b") for b in range(256))
 BIT_REVERSED = bytes(int(format(b, "08b")[::-1], 2) for b in range(256))
 
 
-class CCITTError(ValueError):
-    """A code that is in no table where a run code is due, at bit `at`;
-    `pending` holds the make-up lengths read before it in the same run."""
-
-    def __init__(self, msg: str, at: int, pending: int = 0):
-        super().__init__(msg)
-        self.at, self.pending = at, pending
+class _EndOfData(Exception):
+    """libtiff's bit reader needs bits and has none left (its eof labels)."""
 
 
-def _code(bits: str, pos: int, table: Dict[str, object], lengths) -> Tuple[object, int]:
-    for n in lengths:
-        v = table.get(bits[pos:pos + n])
-        if v is not None:
-            return v, pos + n
-    if pos >= len(bits):
-        raise ValueError("CCITT: the strip's data ends before its rows do")
-    raise CCITTError(f"CCITT: no code at bit {pos} ({bits[pos:pos + 13]}...)", pos)
+class _NoEOL(Exception):
+    """SYNC_EOL found 11 zero bits and then no 1 before the data ends."""
 
 
-def _run(bits: str, pos: int, colour: int) -> Tuple[int, int]:
-    """One run of `colour` (0 white, 1 black): its make-up codes and the
-    terminating code."""
-    total = 0
+class _Overflow(Exception):
+    """libtiff's run-array bound check: the decode stops at once, the row
+    unfilled (its "Buffer overflow")."""
+
+
+def _i32(v: int) -> int:
+    v &= 0xFFFFFFFF
+    return v - (1 << 32) if v >> 31 else v
+
+
+class _Bits:
+    """libtiff's fax3 bit reader over a strip: bytes loaded as codes need
+    them (NeedBits8 / NeedBits16); once the data is loaded, a need is met
+    with zero bits unless no bit at all is left, which is the end of data."""
+
+    def __init__(self, data: bytes):
+        self.s = "".join(_BITS[b] for b in data)
+        self.end, self.pos, self.avail = len(self.s), 0, 0
+
+    def need(self, n: int, wide: bool = False) -> None:
+        if self.avail - self.pos >= n:
+            return
+        if self.avail >= self.end:
+            if self.avail == self.pos:
+                raise _EndOfData
+            self.avail = self.pos + n                # padded with zeros
+            return
+        self.avail += 8
+        if wide and self.avail - self.pos < n:
+            self.avail = self.pos + n if self.avail >= self.end else self.avail + 8
+
+    def peek(self, n: int) -> str:
+        return self.s[self.pos:self.pos + n].ljust(n, "0")
+
+    def lookup(self, table: Dict[str, object], lengths, width: int):
+        """LOOKUP8 / LOOKUP16 of `width` bits: (the code's value, "EOL", or
+        None for a pattern in no table; the bits it takes are taken)."""
+        self.need(width, width > 8)
+        bits = self.peek(width)
+        for n in lengths:
+            v = table.get(bits[:n])
+            if v is not None:
+                self.pos += n
+                return v
+        if width > 8 and bits[:11] == "0" * 11:
+            self.pos += 11
+            return "EOL"
+        return None
+
+
+class _Row:
+    """A row being decoded into libtiff's run array (`runs[at:at + n]`):
+    pa, a0 and RunLength, SETVALUE and CLEANUP_RUNS."""
+
+    def __init__(self, runs: List[int], at: int, n: int, width: int):
+        self.runs, self.at, self.n, self.w = runs, at, n, width
+        self.pa = self.a0 = self.run = 0
+
+    def set(self, x: int) -> None:
+        if self.pa >= self.n:
+            raise _Overflow
+        self.runs[self.at + self.pa] = (self.run + x) & 0xFFFFFFFF
+        self.pa += 1
+        self.a0 = _i32(self.a0 + x)
+        self.run = 0
+
+    def cleanup(self) -> None:
+        if self.run:
+            self.set(0)
+        if self.a0 != self.w:
+            while self.a0 > self.w and self.pa > 0:
+                self.pa -= 1
+                self.a0 = _i32(self.a0 - self.runs[self.at + self.pa])
+            if self.a0 < self.w:
+                self.a0 = max(self.a0, 0)
+                if self.pa & 1:
+                    self.set(0)
+                self.set(self.w - self.a0)
+            elif self.a0 > self.w:
+                self.set(self.w)
+                self.set(0)
+
+    def fill(self, out: np.ndarray) -> None:
+        """_TIFFFax3fillruns: the runs white then black from x = 0, each cut
+        at the row's end in the array itself."""
+        end = self.pa
+        if end & 1:
+            self.runs[self.at + end] = 0
+            end += 1
+        x = 0
+        for i in range(end):
+            run = self.runs[self.at + i]
+            if x + run > self.w or run > self.w:
+                run = self.runs[self.at + i] = self.w - x
+            if run:
+                if i & 1:
+                    out[x:x + run] = 1
+                x += run
+
+
+def _expand1d(rd: _Bits, row: _Row) -> bool:
+    """EXPAND1D: white and black runs to the row's end; an EOL (then
+    -> True) or a bad code ends the row early.  CLEANUP_RUNS after."""
+    w, eol = row.w, False
+    try:
+        while True:
+            for colour in (0, 1):
+                while True:
+                    v = rd.lookup(_RUNS[colour], _LENGTHS[colour], 12 + colour)
+                    if v is None or v == "EOL":
+                        eol = v == "EOL"
+                        raise StopIteration
+                    if v < 64:
+                        row.set(v)
+                        break
+                    row.a0 = _i32(row.a0 + v)
+                    row.run += v
+                if row.a0 >= w:
+                    raise StopIteration
+            if row.runs[row.at + row.pa - 1] == 0 and row.runs[row.at + row.pa - 2] == 0:
+                row.pa -= 2
+    except StopIteration:
+        pass
+    except _EndOfData:
+        row.cleanup()
+        raise
+    row.cleanup()
+    return eol
+
+
+def _expand2d(rd: _Bits, row: _Row, ref: int) -> bool:
+    """EXPAND2D against the reference row at `runs[ref:]` (b1 walked over
+    the array as libtiff walks it, past the reference row's changes into
+    what earlier rows left there): -> whether an EOL ended the row.
+    CLEANUP_RUNS after; a bad code or an extension code ends the row."""
+    runs, n, w = row.runs, row.n, row.w
+
+    def at(k: int) -> int:
+        if not 0 <= ref + k < len(runs):
+            raise ValueError("CCITT: a two-dimensional code reads outside libtiff's run arrays "
+                             "(memory no file holds; not read by the port)")
+        return runs[ref + k]
+
+    pb, b1 = 1, _i32(at(0))
+    eol = False
+
+    def check_b1():
+        nonlocal pb, b1
+        if row.pa:
+            while b1 <= row.a0 and b1 < w:
+                if pb + 1 >= n:
+                    raise _Overflow
+                b1 = _i32(b1 + at(pb) + at(pb + 1))
+                pb += 2
+
+    try:
+        while row.a0 < w:
+            if row.pa >= n:
+                raise _Overflow
+            mode = rd.lookup(_MODES, _MODE_LENGTHS, 7)
+            if mode == "pass":
+                check_b1()
+                if pb >= n:
+                    raise _Overflow
+                b1 = _i32(b1 + at(pb))
+                row.run += b1 - row.a0
+                row.a0 = b1
+                b1 = _i32(b1 + at(pb + 1))
+                pb += 2
+            elif mode == "horizontal":
+                for colour in ((1, 0) if row.pa & 1 else (0, 1)):
+                    while True:
+                        v = rd.lookup(_RUNS[colour], _LENGTHS[colour], 12 + colour)
+                        if v is None or v == "EOL":
+                            raise StopIteration
+                        if v < 64:
+                            row.set(v)
+                            break
+                        row.a0 = _i32(row.a0 + v)
+                        row.run += v
+                check_b1()
+            elif mode == "extension" or mode is None and rd.peek(7) == "0000000":
+                # S_Ext, S_EOL: the run at a0 takes the rest of the row
+                if row.pa >= n:
+                    raise _Overflow
+                runs[row.at + row.pa] = (w - row.a0) & 0xFFFFFFFF
+                row.pa += 1
+                if mode != "extension":
+                    rd.pos += 7
+                    rd.need(4)
+                    rd.pos += 4
+                    eol = True
+                raise StopIteration
+            elif mode is None:
+                raise StopIteration
+            elif mode >= 0:
+                check_b1()
+                row.set(b1 - row.a0 + mode)
+                if pb >= n:
+                    raise _Overflow
+                b1 = _i32(b1 + at(pb))
+                pb += 1
+            else:
+                check_b1()
+                if b1 < row.a0 - mode:
+                    raise StopIteration
+                row.set(b1 - row.a0 + mode)
+                pb -= 1
+                b1 = _i32(b1 - at(pb))
+        if row.run:
+            if row.run + row.a0 < w:
+                rd.need(1)
+                if rd.peek(1) == "0":
+                    raise StopIteration
+                rd.pos += 1
+            row.set(0)
+    except StopIteration:
+        pass
+    except _EndOfData:
+        row.cleanup()
+        raise
+    row.cleanup()
+    return eol
+
+
+def _sync_eol(rd: _Bits, eol_read: bool) -> None:
+    """SYNC_EOL: 11 zero bits (unless the row before read its EOL), any
+    zero bytes after, then the 1."""
+    if not eol_read:
+        while True:
+            rd.need(11, True)
+            if rd.peek(11) == "0" * 11:
+                break
+            rd.pos += 1
     while True:
         try:
-            n, pos = _code(bits, pos, _RUNS[colour], _LENGTHS[colour])
-        except CCITTError as e:
-            e.pending = total
-            raise
-        total += n
-        if n < 64:
-            return total, pos
-
-
-def _cleanup(runs: List[int], a0: int, pending: int, width: int) -> List[int]:
-    """libtiff's CLEANUP_RUNS on a row that stopped at a0 (`pending` the
-    run length not yet set): the pending run set, then the row closed with
-    a white run to its end (a black run of 0 first if a white one is due),
-    or runs dropped from its end where a0 passed it."""
-    if pending:
-        runs.append(pending)
-    if a0 != width:
-        while a0 > width and runs:
-            a0 -= runs.pop()
-        if a0 < width:
-            a0 = max(a0, 0)
-            if len(runs) & 1:
-                runs.append(0)
-            runs.append(width - a0)
-        elif a0 > width:
-            runs += [width, 0]
-    return runs
-
-
-def _row_1d(bits: str, pos: int, width: int, t4: bool = False) -> Tuple[List[int], int]:
-    """A one-dimensional row: its runs (white first) and the next bit.  In
-    a T.4 strip (`t4`) a bad code ends the row as libtiff ends it, the next
-    bit left at the code (the next EOL is searched for from there)."""
-    runs: List[int] = []
-    a0 = 0
-    while True:
-        for colour in (0, 1):
-            try:
-                n, pos = _run(bits, pos, colour)
-            except CCITTError as e:
-                if not t4:
-                    raise
-                return _cleanup(runs, a0 + e.pending, e.pending, width), e.at
-            runs.append(n)
-            a0 += n
-            if a0 >= width:
-                return _cleanup(runs, a0, 0, width), pos
-        if runs[-1] == 0 and runs[-2] == 0:      # libtiff drops an empty pair
-            del runs[-2:]
-
-
-def _row_2d(bits: str, pos: int, width: int, ref: List[int],
-            t4: bool = False) -> Tuple[List[int], int, bool]:
-    """A two-dimensional row against the reference row's changing elements
-    `ref` ([0, the changes..., width] and the imaginary change, width): its
-    runs, the next bit, and whether the row met an EOL.  An extension code
-    ends the row (Fax3Extension), as do an EOL and a vertical mode that
-    moves back past a0 (libtiff's check on VL); in a T.4 strip a bad run
-    code in horizontal mode ends it too."""
-    try:
-        return _row_2d_on(bits, pos, width, ref, t4)
-    except IndexError:
-        raise ValueError("CCITT: a two-dimensional code reads past the reference row's changes "
-                         "(libtiff reads what earlier rows left in its run buffer; not read by "
-                         "the port)") from None
-
-
-def _row_2d_on(bits: str, pos: int, width: int, ref: List[int], t4: bool):
-    runs: List[int] = []
-    a0, pending, k = 0, 0, 1                     # b1 is ref[k]
-    while a0 < width:
-        if bits[pos:pos + 7] == "0000000":
-            # an EOL where a mode is due: libtiff gives the run at a0 the rest
-            # of the row and takes 11 bits; a T.4 strip goes on after the
-            # next 1 bit, a T.6 strip stops
-            runs.append(width - a0)
-            return _cleanup(runs, a0, pending, width), pos + 11, True
-        mode, pos = _code(bits, pos, _MODES, _MODE_LENGTHS)
-        if runs and mode != "horizontal":
-            while ref[k] <= a0 and ref[k] < width:
-                k += 2
-        if mode == "pass":
-            pending += ref[k + 1] - a0
-            a0 = ref[k + 1]
-            k += 2
-        elif mode == "horizontal":
-            colour = len(runs) & 1
-            for c in (colour, colour ^ 1):
-                try:
-                    n, pos = _run(bits, pos, c)
-                except CCITTError as e:
-                    if not t4:
-                        raise
-                    # libtiff takes the bad code's bits: an EOL's 11 zeros,
-                    # so that the strip goes on at the EOL after it
-                    at = e.at + (11 if bits[e.at:e.at + 11] == "0" * 11 else 0)
-                    return (_cleanup(runs, a0 + e.pending, pending + e.pending, width), at,
-                            False)
-                runs.append(pending + n)
-                pending = 0
-                a0 += n
-            while ref[k] <= a0 and ref[k] < width:
-                k += 2
-        elif mode == "extension":
-            # uncompressed mode, which libtiff does not decode: the run at
-            # a0 takes the rest of the row, then CLEANUP_RUNS
-            runs.append(width - a0)
-            return _cleanup(runs, a0, pending, width), pos, False
-        else:
-            a1 = ref[k] + mode
-            if a1 < a0:                          # libtiff: a bad code, the row ends
-                return _cleanup(runs, a0, pending, width), pos, False
-            runs.append(pending + a1 - a0)
-            pending, a0 = 0, a1
-            k += 1 if mode >= 0 else -1
-    return _cleanup(runs, a0, pending, width), pos, False
-
-
-def _pixels(runs: List[int], width: int) -> np.ndarray:
-    row = np.zeros(width, np.uint8)
-    x = 0
-    for i, n in enumerate(runs):
-        n = min(n, width - x)
-        if i & 1:
-            row[x:x + n] = 1
-        x += n
-    return row
-
-
-def _reference(runs: List[int], width: int) -> List[int]:
-    """A row's runs -> its changing elements for the next row (the runs cut
-    at the row's end, as libtiff's fill cuts them in place), then libtiff's
-    imaginary change.  Past it libtiff's run buffer holds what earlier rows
-    left there, which `_row_2d` refuses to read."""
-    ref, x = [0], 0
-    for n in runs:
-        x = min(x + n, width)
-        ref.append(x)
-    return ref + [width]
+            rd.need(8)
+        except _EndOfData:
+            raise _NoEOL from None
+        if rd.peek(8) != "0" * 8:
+            break
+        rd.pos += 8
+    rd.pos += rd.peek(8).index("1") + 1
 
 
 def decode_ccitt(data: bytes, width: int, rows: int, compression: int,
-                 t4_options: int = 0) -> np.ndarray:
-    """One strip or tile of a CCITT-coded TIFF -> its rows, packed 8 pixels
-    a byte (1 bits black)."""
+                 t4_options: int = 0, state: dict = None):
+    """One strip or tile of a CCITT-coded TIFF, decoded as libtiff's fax3
+    codec decodes it into its zeroed buffer -> (its rows, packed 8 pixels a
+    byte, 1 bits black; whether libtiff reports an error).  The row the
+    data ends in holds its runs so far after CLEANUP_RUNS (a T.4 row whose
+    EOL is not found: white), an EOL ends a T.6 strip, a run array that
+    would overflow stops the strip (that row unfilled), and the rows after
+    are 0 bits.  A T.4 strip whose
+    EOL search finds the zeros but no 1 before the data ends is decoded
+    again from its start without EOLs, into the rows not yet filled, as
+    libtiff retries (FAXMODE_NOEOL, kept for the TIFF's later strips).
+    `state` holds what a TIFF's strips share in libtiff: its pair of run
+    arrays (zeros at first), in which the two-dimensional decoder walks the
+    reference row past its changes into what earlier rows left, and that
+    mode."""
     if compression not in (2, 3, 4):
         raise ValueError(f"CCITT: compression {compression} is not a CCITT coding")
-    bits = "".join(_BITS[b] for b in data)
+    two_d_opt = compression == 4 or (compression == 3 and t4_options & 1)
+    n = -(-(width + 1) // 32) * 32 * (2 if two_d_opt else 1)
+    state = {} if state is None else state
+    if len(state.setdefault("runs", [])) != 2 * n:
+        state["runs"] = [0] * (2 * n)
+    runs = state["runs"]
+    cur, ref = 0, n
+    runs[n], runs[n + 1] = width, 0                  # Fax3PreDecode: a white reference row
+    rd = _Bits(data)
     out = np.zeros((rows, width), np.uint8)
-    ref = _reference([width], width)
-    pos, eol_read = 0, False
-    for y in range(rows):
-        if compression == 3:
-            # libtiff's SYNC_EOL: 11 zeros (unless the last row read them),
-            # any zeros after, then the 1
-            eol = pos if eol_read else bits.find("0" * 11, pos)
-            one = bits.find("1", eol) if eol >= 0 else -1
-            if one < 0:
-                raise ValueError(f"CCITT: no EOL before row {y} of a T.4 strip")
-            pos = one + 1
-            two_d = t4_options & 1 and bits[pos:pos + 1] == "0"
-            pos += t4_options & 1
-        else:
-            two_d = compression == 4
-        eol_read = False
-        if two_d:
-            runs, pos, eol_read = _row_2d(bits, pos, width, ref, compression == 3)
-        else:
-            runs, pos = _row_1d(bits, pos, width, compression == 3)
-        if eol_read and compression == 4 and y < rows - 1:
-            raise ValueError(f"CCITT: an EOL stops a T.6 strip in row {y} of {rows} (libtiff "
-                             f"leaves the rows after it unset; not read by the port)")
+    eol_read, failed = False, False
+    y = 0
+    while y < rows:
+        row = _Row(runs, cur, n, width)
+        try:
+            try:
+                if compression == 3:
+                    if not state.get("noeol"):
+                        _sync_eol(rd, eol_read)
+                    eol_read = False
+                    if t4_options & 1:
+                        rd.need(1)
+                        two_d = rd.peek(1) == "0"
+                        rd.pos += 1
+                    else:
+                        two_d = False
+                else:
+                    two_d = compression == 4
+            except _EndOfData:                       # SYNC_EOL's eof: CLEANUP_RUNS of a0 = 0
+                row.cleanup()
+                raise
+            eol_read = _expand2d(rd, row, ref) if two_d else _expand1d(rd, row)
+        except _NoEOL:
+            state["noeol"] = True                    # RETRY_WITHOUT_EOL: from the strip's start
+            rd, eol_read = _Bits(data), False
+            continue
+        except _EndOfData:
+            row.fill(out[y])
+            failed = True
+            break
+        except _Overflow:
+            failed = True
+            break
+        if compression == 4 and eol_read:            # Fax4Decode: an EOL ends the strip
+            row.fill(out[y])
+            break
+        row.fill(out[y])
+        if two_d_opt:
+            if compression == 4 or row.pa < n:
+                row.set(0)                           # the imaginary change
+            cur, ref = ref, cur
         if compression == 2:
-            pos = -(-pos // 8) * 8
-        out[y] = _pixels(runs, width)
-        ref = _reference(runs, width)
-    return np.packbits(out, axis=1)
+            rd.pos = -(-rd.pos // 8) * 8
+        y += 1
+    return np.packbits(out, axis=1), failed

@@ -26,7 +26,7 @@ from typing import List
 
 import numpy as np
 
-from iron_tpu_torch.data.io import NoImage
+from iron_tpu_torch.data.io import NoImage, c_int, c_strtol, check_size
 
 
 def _gray(bgr: np.ndarray) -> np.ndarray:
@@ -143,55 +143,73 @@ def read_bmp(data: bytes) -> np.ndarray:
     alpha, 32 bits without drop it."""
     if data[:2] != b"BM":
         raise ValueError("not a BMP file")
-    size = struct.unpack("<I", data[14:18])[0] if len(data) >= 18 else 0
-    if len(data) < 14 + max(size, 12):
-        raise NoImage("BMP: the file ends in its header (OpenCV returns no image)")
-    offset = struct.unpack("<I", data[10:14])[0]
+
+    def need(n: int) -> None:                # OpenCV's stream throws at the file's end
+        if len(data) < n:
+            raise NoImage("BMP: the file ends in its header (OpenCV returns no image)")
+
+    need(18)
+    offset, size = struct.unpack("<ii", data[10:18])
     color, bitfields = False, False
+    if size <= 0:
+        raise NoImage(f"BMP: an info header size of {size} (OpenCV asserts it is positive; no "
+                      f"image)")
     if size >= 36:
-        W, H, planes_bpp, comp = struct.unpack("<iiII", data[18:34])
+        need(50)
+        W, H, planes_bpp, comp = struct.unpack("<iiIi", data[18:34])
         bpp = planes_bpp >> 16
-        clrused = struct.unpack("<I", data[46:50])[0]
+        clrused = struct.unpack("<i", data[46:50])[0]
+        if not 0 <= comp <= 3:
+            raise NoImage(f"BMP: compression {comp} (OpenCV asserts 0 to 3; no image)")
         ok = (((bpp in (1, 4, 8, 16, 24, 32)) and comp == 0) or (bpp in (16, 32) and comp == 3)
               or (bpp == 4 and comp == 2) or (bpp == 8 and comp == 1))
         if not (W > 0 and H != 0 and ok):
-            raise ValueError(f"BMP: {bpp} bits a pixel with compression {comp} is not read "
-                             f"(OpenCV reads 1/4/8/16/24/32 bits, RLE4 / RLE8, 16 / 32-bit "
-                             f"bit fields)")
+            raise NoImage(f"BMP: a {W} x {H} image of {bpp} bits a pixel with compression "
+                          f"{comp} (OpenCV reads 1/4/8/16/24/32 bits, RLE4 / RLE8, 16 / 32-bit bit "
+                          f"fields; no image)")
         color = True
-        pal_at = 14 + size
+        pal_at = 14 + size                   # OpenCV skips the rest of the header
         if bpp <= 8:
-            if clrused > 256:
-                raise ValueError("BMP: more than 256 palette entries")
+            if not 0 <= clrused <= 256:
+                raise NoImage(f"BMP: {clrused} palette entries (OpenCV asserts 0 to 256; no "
+                              f"image)")
             count = clrused or 1 << bpp
+            need(pal_at + 4 * count)
             palette = np.zeros((256, 4), np.uint8)
-            raw = np.frombuffer(data[pal_at:pal_at + 4 * count], np.uint8)
-            palette[:len(raw) // 4] = raw[:len(raw) // 4 * 4].reshape(-1, 4)
+            palette[:count] = np.frombuffer(data[pal_at:pal_at + 4 * count],
+                                            np.uint8).reshape(-1, 4)
             palette = palette[:, :3]
             color = _is_color(palette[:1 << bpp])
         elif bpp == 16 and comp == 3:
             # OpenCV reads the masks from just past the header, wherever the
             # header keeps them
+            need(pal_at + 12)
             r, g, b = struct.unpack("<III", data[pal_at:pal_at + 12])
             if (b, g, r) == (0x1F, 0x3E0, 0x7C00):
                 bpp = 15
             elif (b, g, r) != (0x1F, 0x7E0, 0xF800):
-                raise ValueError("BMP: 16-bit bit fields other than 5-5-5 and 5-6-5")
+                raise NoImage("BMP: 16-bit bit fields other than 5-5-5 and 5-6-5 (OpenCV returns "
+                              "no image)")
         elif bpp == 16:
             bpp = 15
         bitfields = comp == 3
     elif size == 12:
+        need(26)
         W, H, planes_bpp = struct.unpack("<HHI", data[18:26])
         bpp = planes_bpp >> 16
         comp = 0
         if not (W > 0 and H != 0 and bpp in (1, 4, 8, 24, 32)):
-            raise ValueError(f"BMP: OS/2 file with {bpp} bits a pixel")
+            raise NoImage(f"BMP: OS/2 file with {bpp} bits a pixel (OpenCV returns no image)")
         if bpp <= 8:
+            need(26 + 3 * (1 << bpp))
             raw = np.frombuffer(data[26:26 + 3 * (1 << bpp)], np.uint8).reshape(-1, 3)
             palette = np.zeros((256, 3), np.uint8)
             palette[:len(raw)] = raw
     else:
-        raise ValueError(f"BMP: an info header of {size} bytes")
+        raise NoImage(f"BMP: an info header of {size} bytes (OpenCV returns no image)")
+    check_size(W, abs(H), "BMP")
+    if offset < 0:
+        raise NoImage(f"BMP: pixel data at offset {offset} (OpenCV returns no image)")
     top_down, H = H < 0, abs(H)
     pitch = ((W * (16 if bpp == 15 else bpp) + 7) // 8 + 3) & ~3
     if comp in (1, 2):
@@ -288,10 +306,13 @@ class _Tokens:
                 while c in b" \t\n\v\f\r":
                     c = self.byte()
             else:
-                raise ValueError(f"PNM: unexpected byte {c:#x} where a number should be")
+                raise NoImage(f"PNM: unexpected byte {c:#x} where a number should be (OpenCV "
+                              f"returns no image)")
         val, digits = 0, 0
         while True:
             val = 10 * val + c - 48
+            if val > 2 ** 31 - 1:
+                raise NoImage("PNM: a number past INT_MAX (OpenCV returns no image)")
             digits += 1
             if maxdigits and digits >= maxdigits:
                 break
@@ -317,7 +338,8 @@ def read_pnm(data: bytes) -> np.ndarray:
     W, H = tok.number(), tok.number()
     maxval = 1 if bpp == 1 else tok.number()
     if W <= 0 or H <= 0 or not 0 < maxval <= 65535:
-        raise ValueError(f"PNM: a {W}x{H} image with maxval {maxval}")
+        raise NoImage(f"PNM: a {W}x{H} image with maxval {maxval} (OpenCV returns no image)")
+    check_size(W, H, "PNM")
     C = 3 if bpp == 24 else 1
     wide = maxval > 255
     if bpp == 1:
@@ -381,31 +403,52 @@ def write_pnm(img: np.ndarray, kind: str) -> bytes:
 # PFM (OpenCV's grfmt_pfm.cpp)
 # ---------------------------------------------------------------------------
 
+_C_FLOAT = None
+
+
+def _c_atof(field: bytes) -> float:
+    """C's atof on the C string `field` (it ends at a NUL): the longest
+    leading decimal number, inf or nan; 0.0 where there is none."""
+    import re
+    global _C_FLOAT
+    if _C_FLOAT is None:
+        _C_FLOAT = re.compile(rb"[+-]?(?:(?:\d+\.?\d*|\.\d+)(?:[eE][+-]?\d+)?|inf(?:inity)?|nan)",
+                              re.IGNORECASE)
+    m = _C_FLOAT.match(field.split(b"\0", 1)[0])
+    return float(m.group()) if m else 0.0
+
+
 def read_pfm(data: bytes) -> np.ndarray:
     """Portable float map: "PF" (three channels) or "Pf" (one), rows bottom
     first, little-endian when the scale is negative.  As OpenCV: the
-    samples come out multiplied by the float 1 / |scale|."""
-    if len(data) < 3 or data[:2] not in (b"PF", b"Pf") or data[2:3] not in b" \t\n\v\f\r":
-        raise ValueError("not a PFM file")
+    samples come out multiplied by the float 1 / |scale|.  OpenCV's header:
+    a line break after "PF", then three fields, each ending at one blank
+    (a byte above 127 in one gives no image), read by atoi, atoi and atof
+    (so "5f" is 5 and "x" is 0); a scale of 0 or NaN gives no image."""
+    if len(data) < 3 or data[:2] not in (b"PF", b"Pf") or data[2:3] != b"\n":
+        raise NoImage("PFM: no line break after 'PF' (OpenCV returns no image)")
     C = 3 if data[1:2] == b"F" else 1
     pos, fields = 3, []
     for _ in range(3):                       # each field ends at one blank
         end = pos
-        while end < len(data) and data[end] not in b" \t\n\v\f\r":
+        while end < len(data) and data[end] not in b" \t\n\v\f\r" and end - pos < 2048:
+            if data[end] > 127:
+                raise NoImage("PFM: a header byte above 127 (OpenCV's read_number asserts; no "
+                              "image)")
             end += 1
-        fields.append(data[pos:end].decode("ascii", "replace"))
-        pos = end + 1
-    if pos > len(data):
-        raise NoImage("PFM: the file ends in its header (OpenCV returns no image)")
-    try:
-        W, H, scale = int(fields[0]), int(fields[1]), float(fields[2])
-    except ValueError:
-        raise ValueError(f"PFM: a bad header {fields}") from None
-    if W <= 0 or H <= 0 or scale == 0:
-        raise ValueError(f"PFM: a {W}x{H} image with scale {scale}")
+        if end >= len(data):
+            raise NoImage("PFM: the file ends in its header (OpenCV returns no image)")
+        fields.append(data[pos:end])
+        pos = end + (end - pos < 2048)
+    (W, _, _), (H, _, _) = c_strtol(fields[0]), c_strtol(fields[1])
+    W, H = (c_int(max(min(v, 2 ** 63 - 1), -2 ** 63)) for v in (W, H))
+    check_size(W, H, "PFM")
+    scale = _c_atof(fields[2])
     n = W * H * C * 4
     if pos + n > len(data):
         raise NoImage("PFM: the pixel data ends before the image (OpenCV returns no image)")
+    if not abs(scale) > 0:
+        raise NoImage(f"PFM: a scale of {scale} (OpenCV asserts |scale| > 0; no image)")
     img = np.frombuffer(data[pos:pos + n], "<f4" if scale < 0 else ">f4").astype(np.float32)
     img = img.reshape(H, W, C)[::-1] * np.float32(1.0 / abs(scale))
     return img[..., 0] if C == 1 else np.ascontiguousarray(img)
@@ -443,6 +486,30 @@ def _rgbe_float(rgbe: np.ndarray) -> np.ndarray:
     return np.where((e > 0)[..., None], out, np.float32(0)).astype(np.float32)
 
 
+def _scan_size(line: bytes):
+    """sscanf(line, "-Y %d +X %d", &H, &W) as rgbe.c calls it: (H, W), or
+    None where fewer than two numbers convert (a blank in the format takes
+    any run of blanks, none too; %d skips blanks, takes a sign and the
+    digits after it; the line ends at a NUL)."""
+    line = line.split(b"\0", 1)[0]
+    pos, out = 0, []
+    for part in (b"-Y", b" ", b"%d", b" ", b"+X", b" ", b"%d"):
+        if part == b" ":
+            while pos < len(line) and line[pos] in b" \t\n\v\f\r":
+                pos += 1
+        elif part == b"%d":
+            v, ok, end = c_strtol(line[pos:])
+            if not ok:
+                return None
+            out.append(c_int(v))
+            pos += end
+        elif line[pos:pos + 2] != part:
+            return None
+        else:
+            pos += 2
+    return tuple(out)
+
+
 def read_hdr(data: bytes) -> np.ndarray:
     """Radiance RGBE ("#?RADIANCE" / "#?RGBE", FORMAT=32-bit_rle_rgbe,
     "-Y H +X W") -> float32 [H, W, 3] (RGB), flat or with the new-style
@@ -467,13 +534,17 @@ def read_hdr(data: bytes) -> np.ndarray:
                       "header (OpenCV reads no other)")
     end = data.find(b"\n", pos, pos + 127)
     end = pos + 127 if end < 0 else end + 1
-    size = data[pos:end].decode("ascii", "replace").split()
+    size = _scan_size(data[pos:end])
     pos = end
     if pos >= len(data):
         raise NoImage("HDR: the file ends in its header (OpenCV returns no image)")
-    if len(size) < 4 or size[0] != "-Y" or size[2] != "+X":
-        raise ValueError(f"HDR: an image size other than '-Y H +X W': {size}")
-    H, W = int(size[1]), int(size[3])
+    if size is None:
+        raise NoImage(f"HDR: no '-Y H +X W' line (rgbe.c's sscanf fails; OpenCV returns no "
+                      f"image)")
+    H, W = size
+    if W <= 0 or H <= 0:
+        raise NoImage(f"HDR: an image of {W} x {H} pixels (OpenCV's reader returns no image)")
+    check_size(W, H, "HDR")
     out = np.zeros((H * W, 4), np.uint8)
     row = 0
     if 8 <= W <= 0x7FFF:
@@ -625,15 +696,18 @@ def read_sunras(data: bytes) -> np.ndarray:
         raise ValueError("not a Sun raster file")
     if len(data) < 32:
         raise NoImage("Sun raster: the file ends in its header (OpenCV returns no image)")
-    W, H, bpp, _, enc, maptype, maplen = struct.unpack(">7I", data[4:32])
+    W, H, bpp, _, enc, maptype, maplen = struct.unpack(">3i4I", data[4:32])
     if enc in (2, 3):
         raise NoImage(f"Sun raster: {('byte-encoded (RLE)', 'RGB-order')[enc - 2]} files are "
                       f"not read (OpenCV returns no image for them)")
     if not (W > 0 and H > 0 and bpp in (1, 8, 24, 32) and enc in (0, 1) and
             ((maptype == 0 and maplen == 0) or
              (maptype == 1 and 0 < maplen <= 3 * (1 << bpp) and bpp <= 8))):
-        raise ValueError(f"Sun raster: {bpp} bits, type {enc}, map type {maptype} "
-                         f"({maplen} bytes) is not read")
+        raise NoImage(f"Sun raster: a {W} x {H} image of {bpp} bits, type {enc}, map type "
+                      f"{maptype} ({maplen} bytes): OpenCV's header check fails (no image)")
+    if 32 + maplen > len(data):
+        raise NoImage("Sun raster: the file ends in its colour map (OpenCV returns no image)")
+    check_size(W, H, "Sun raster")
     pos = 32 + maplen
     rowlen = (W * bpp + 7) // 8
     pitch = (rowlen + 1) & ~1
@@ -804,7 +878,17 @@ def read_gif(data: bytes) -> np.ndarray:
         if block == 0x21:                    # an extension
             label = data[pos + 1]
             pos += 2
-            if label == 0xF9 and data[pos] >= 4 and data[pos + 1] & 1:
+            # OpenCV reads a graphic control and an application extension as
+            # fixed blocks: the control's 4 bytes (a disposal method up to 3),
+            # NETSCAPE2.0's 3, each then a 0 byte
+            if label == 0xF9 and (data[pos] != 4 or data[pos + 1] & 0x10 or data[pos + 5]):
+                raise NoImage("GIF: a graphic control extension OpenCV does not take (it returns "
+                              "no image)")
+            if label == 0xFF and (data[pos:pos + 12] != b"\x0bNETSCAPE2.0" or data[pos + 12] != 3
+                                  or data[pos + 16]):
+                raise NoImage("GIF: an application extension other than NETSCAPE2.0's (OpenCV "
+                              "returns no image)")
+            if label == 0xF9 and data[pos + 1] & 1:
                 transparent = data[pos + 4]
             while data[pos]:
                 pos += 1 + data[pos]
@@ -817,6 +901,7 @@ def read_gif(data: bytes) -> np.ndarray:
     pos += 10
     if left + w > SW or top + h > SH:
         raise NoImage("GIF: a frame past the logical screen (OpenCV returns no image)")
+    check_size(SW, SH, "GIF")
     table = gct
     if iflags & 0x80:
         n = 2 << (iflags & 7)
@@ -977,10 +1062,14 @@ _SPACE = b" \t\n\v\f\r"
 
 
 def _pam_line(data: bytes, pos: int):
-    """OpenCV's ReadPAMHeaderLine: (identifier or None for a comment,
-    value, position after the line).  Blanks before the identifier are
-    skipped, newlines too; the identifier ends at a blank, the value at the
-    first CR or LF, which is consumed, and loses its trailing blanks."""
+    """OpenCV's ReadPAMHeaderLine: (identifier, or None for a comment;
+    value; position after the line).  Blanks before the identifier
+    are skipped, newlines too; the identifier (at most 8 bytes, matched up
+    to a NUL as C compares it) ends at a blank;
+    ENDHDR ends there; otherwise the blanks after it are skipped (newlines
+    too) and the value runs to the first CR or LF (at most 255 bytes),
+    which is consumed, and loses its trailing blanks.  A line OpenCV does
+    not take ends its header: no image."""
     def byte(i):
         if i >= len(data):
             raise NoImage("PAM: the file ends before ENDHDR (OpenCV returns no image)")
@@ -988,31 +1077,37 @@ def _pam_line(data: bytes, pos: int):
     while byte(pos) in _SPACE:
         pos += 1
     if data[pos] == ord("#"):
+        pos += 1
         while byte(pos) not in b"\r\n":
             pos += 1
         return None, b"", pos + 1
     start = pos
     while byte(pos) not in _SPACE and pos - start < 8:
         pos += 1
-    ident = data[start:pos]
+    ident = data[start:pos].split(b"\0", 1)[0]
     if byte(pos) not in _SPACE or ident not in _PAM_FIELDS:
-        raise ValueError(f"PAM: header field {ident!r}")
-    if data[pos] in b"\r\n":
-        return ident, b"", pos + 1
+        raise NoImage(f"PAM: a header line {data[start:pos + 1]!r} OpenCV does not take (it "
+                      f"returns no image)")
+    pos += 1
+    if ident == b"ENDHDR":
+        return ident, b"", pos
     while byte(pos) in _SPACE:
         pos += 1
     start = pos
     while byte(pos) not in b"\r\n" and pos - start < 255:
         pos += 1
     if data[pos] not in b"\r\n":
-        raise ValueError("PAM: a header value over 255 bytes")
-    return ident, data[start:pos].rstrip(_SPACE), pos + 1
+        raise NoImage("PAM: a header value over 255 bytes (OpenCV returns no image)")
+    return ident, data[start:pos].split(b"\0", 1)[0].rstrip(_SPACE), pos + 1
 
 
 def _pam_int(value: bytes, what: str) -> int:
+    """OpenCV's ParseInt: an optional '-', then decimal digits to the end
+    of the value (it ends at a NUL), below 2^31 - 1; anything else gives no
+    image."""
     digits = value[1:] if value[:1] == b"-" else value
     if not digits or not digits.isdigit() or int(digits) >= 2 ** 31 - 1:
-        raise ValueError(f"PAM: {what} {value!r} is not a number")
+        raise NoImage(f"PAM: {what} {value!r} is not a number (OpenCV returns no image)")
     return -int(digits) if value[:1] == b"-" else int(digits)
 
 
@@ -1029,7 +1124,7 @@ def read_pam(data: bytes) -> np.ndarray:
     like every other reader's (so an RGB file's R and B trade places, as in
     the JAX package's read_image); two channels stay as they are."""
     if data[:2] != b"P7" or len(data) < 3 or data[2] not in b"\r\n":
-        raise ValueError("PAM: not a P7 header")
+        raise NoImage("PAM: not a P7 header (OpenCV returns no image)")
     pos, seen = 3, {}
     while True:
         ident, value, pos = _pam_line(data, pos)
@@ -1038,19 +1133,19 @@ def read_pam(data: bytes) -> np.ndarray:
         if ident == b"ENDHDR":
             break
         if ident in seen and ident != b"TUPLTYPE":
-            raise ValueError(f"PAM: {ident.decode()} given twice")
+            raise NoImage(f"PAM: {ident.decode()} given twice (OpenCV returns no image)")
         if ident == b"TUPLTYPE":
             if value not in _PAM_TUPLTYPES:
-                raise ValueError(f"PAM: TUPLTYPE {value!r}")
+                raise NoImage(f"PAM: TUPLTYPE {value!r} (OpenCV returns no image)")
             seen[ident] = value
         else:
             seen[ident] = _pam_int(value, ident.decode())
+        if ident == b"MAXVAL" and seen[ident] > 65535:
+            raise NoImage(f"PAM: MAXVAL {seen[ident]} (OpenCV returns no image)")
     missing = [f.decode() for f in _PAM_FIELDS[:4] if f not in seen]
     if missing:
-        raise ValueError(f"PAM: the header lacks {', '.join(missing)}")
+        raise NoImage(f"PAM: the header lacks {', '.join(missing)} (OpenCV returns no image)")
     W, H, C, maxval = (seen[f] for f in _PAM_FIELDS[:4])
-    if maxval > 65535:
-        raise ValueError(f"PAM: MAXVAL {maxval}")
     tupltype = seen.get(b"TUPLTYPE")
     if tupltype is None:
         if C == 1 and maxval < 256:
@@ -1058,11 +1153,13 @@ def read_pam(data: bytes) -> np.ndarray:
         elif C == 3 and maxval < 256:
             tupltype = b"RGB"
         else:
-            raise ValueError(f"PAM: no TUPLTYPE for DEPTH {C}, MAXVAL {maxval}")
+            raise NoImage(f"PAM: no TUPLTYPE for DEPTH {C}, MAXVAL {maxval} (OpenCV returns no "
+                          f"image)")
+    if not 1 <= C <= 4:
+        raise NoImage(f"PAM: DEPTH {C} (OpenCV reads 1 to 4 channels)")
+    check_size(W, H, "PAM")
     if _PAM_TUPLTYPES[tupltype] != C:
         raise ValueError(f"PAM: TUPLTYPE {tupltype.decode()} with DEPTH {C}")
-    if W <= 0 or H <= 0:
-        raise ValueError(f"PAM: a {W}x{H} image")
     wide = maxval > 255
     n = W * H * C * (2 if wide else 1)
     if pos + n > len(data):

@@ -45,9 +45,17 @@ corrupt compressed data, a GIF without its trailer, a truncated JPEG 2000
 codestream -- raises NoImage, and what they read past (trailing bytes, a
 BMP's file-size field, an 8-bit TIFF strip whose LZW, Deflate or
 PackBits data breaks off, which libtiff's RGBA interface reads with zeros
-after) gives OpenCV's array (tests/test_torch_damaged.py).  A damage
-class the port did not reproduce would raise a plain ValueError naming
-it; the sweep of scripts/sweep_damaged.py found none.
+after) gives OpenCV's array (tests/test_torch_damaged.py).  A damaged
+header reads as the library under OpenCV reads it: TIFF directories as
+libtiff's TIFFReadDirectory, JPEG 2000 boxes and main headers as
+OpenJPEG, and BMP, PNM, PAM, PFM, Radiance, Sun raster, GIF and WebP
+fields as OpenCV's own readers parse them (tests/test_torch_header.py).
+A size past OpenCV's limits raises ImageSizeError (`check_size`, which
+each decoder calls before it allocates), where cv2.imread raises and the
+JAX package stops.  The few cases where OpenCV's library reads memory no
+file holds raise a plain ValueError naming them
+(tests/damage_cases.py::UNREPRODUCIBLE); the sweep of
+scripts/sweep_damaged.py reads no other case differently.
 """
 from __future__ import annotations
 
@@ -70,9 +78,57 @@ class NoImage(ValueError):
     """A file cv2.imread(IMREAD_UNCHANGED) returns no image for (the JAX
     package then gets None): no format OpenCV reads is recognised in it, it
     is a variant OpenCV refuses, or it is damaged where OpenCV's decoder
-    stops (each class probed against cv2.imread).  Other ValueErrors of the
-    port's decoders name a variant or a damage class OpenCV reads and the
-    port does not."""
+    stops, in its data or its header (each class probed against
+    cv2.imread).  The port's decoders give one of three outcomes, as
+    cv2.imread does: OpenCV's array, NoImage where it gives None, or
+    ImageSizeError where it raises cv2.error on a size past its limits.
+    Any other ValueError names a variant the port does not read, or a case
+    where OpenCV's library reads memory no file holds."""
+
+
+class ImageSizeError(ValueError):
+    """An image whose header gives a size past OpenCV's limits: a side of 0
+    or above 2^20 pixels, or more than 2^30 pixels in all
+    (CV_IO_MAX_IMAGE_WIDTH / HEIGHT / PIXELS).  cv2.imread asserts them
+    after the decoder read the header, outside its try, so it raises
+    cv2.error and the JAX package stops on the file; so does the port
+    (this is not a NoImage, which `preprocess` would skip)."""
+
+
+def check_size(width: int, height: int, what: str) -> None:
+    """Raise ImageSizeError for a size cv2.imread refuses after the decoder
+    read the header (validateInputImageSize): a side not above 0 or above
+    2^20, or more than 2^30 pixels.  Decoders call it before they allocate."""
+    if width <= 0 or height <= 0:
+        raise ImageSizeError(f"{what}: an image of {width} x {height} pixels (OpenCV asserts "
+                             f"that both sides are positive: cv2.imread raises)")
+    if width > 1 << 20 or height > 1 << 20 or width * height > 1 << 30:
+        raise ImageSizeError(f"{what}: an image of {width} x {height} pixels, past OpenCV's "
+                             f"limits of 2^20 a side and 2^30 pixels (cv2.imread raises)")
+
+
+def c_strtol(s: bytes):
+    """C's strtol in base 10 on the C string `s` (it ends at a NUL): blanks,
+    a sign, the digits -> (value, whether any digit was read, the index
+    after the number)."""
+    s = s.split(b"\0", 1)[0]
+    i = 0
+    while i < len(s) and s[i] in b" \t\n\v\f\r":
+        i += 1
+    sign = 1
+    if i < len(s) and s[i] in b"+-":
+        sign = -1 if s[i] == ord("-") else 1
+        i += 1
+    start = i
+    while i < len(s) and 48 <= s[i] <= 57:
+        i += 1
+    return sign * int(s[start:i] or b"0"), i > start, i
+
+
+def c_int(v: int) -> int:
+    """A C long cast to a 32-bit int (two's complement wrap)."""
+    v &= 0xFFFFFFFF
+    return v - (1 << 32) if v >= 1 << 31 else v
 
 
 def to8b(x: np.ndarray) -> np.ndarray:
@@ -151,6 +207,18 @@ def read_png(path: str) -> np.ndarray:
         return read_png_bytes(f.read(), path)
 
 
+def _png_header_check(header: tuple, path: str) -> None:
+    """What png_read_info checks of IHDR before the first IDAT chunk (a
+    side of 0 or above libpng's user limit of 1,000,000, a bad depth,
+    colour type or interlace: no image), then OpenCV's size limits."""
+    W, H, depth, color, _, _, interlace = header
+    if not (0 < W <= 1000000 and 0 < H <= 1000000) or color not in _PNG_DEPTHS \
+            or depth not in _PNG_DEPTHS[color] or interlace not in (0, 1):
+        raise NoImage(f"{path}: a PNG IHDR of {W} x {H} pixels, bit depth {depth}, colour type "
+                      f"{color}, interlace {interlace} (libpng stops; OpenCV returns no image)")
+    check_size(W, H, path)
+
+
 def read_png_bytes(data: bytes, path: str = "PNG") -> np.ndarray:
     """`read_png` of the file's bytes (`path` names it in errors).  Damage
     raises NoImage where OpenCV's libpng gives no image: no IEND chunk (a
@@ -179,6 +247,8 @@ def read_png_bytes(data: bytes, path: str = "PNG") -> np.ndarray:
                 raise NoImage(f"{path}: the PNG {ctype!r} chunk fails its CRC (libpng stops)")
             continue                # libpng drops an ancillary chunk with a bad CRC
         if ctype == b"IDAT":
+            if not idat and header is not None:
+                _png_header_check(header, path)
             if after_idat:
                 raise NoImage(f"{path}: a PNG IDAT chunk after another chunk that follows IDAT "
                               f"(libpng stops)")
@@ -194,13 +264,12 @@ def read_png_bytes(data: bytes, path: str = "PNG") -> np.ndarray:
         elif critical:
             raise NoImage(f"{path}: an unknown critical PNG chunk {ctype!r} (libpng stops)")
     if header is None:
-        raise ValueError(f"PNG without IHDR: {path}")
+        raise NoImage(f"{path}: a PNG without IHDR (libpng stops; OpenCV returns no image)")
     W, H, depth, color, _, _, interlace = header
-    if color not in _PNG_DEPTHS or depth not in _PNG_DEPTHS[color] or interlace not in (0, 1):
-        raise ValueError(f"{path}: PNG with bit depth {depth}, colour type {color}, interlace "
-                         f"{interlace} is not a valid PNG")
+    _png_header_check(header, path)
     if color == 3 and palette is None:
-        raise ValueError(f"{path}: palette PNG without a PLTE chunk")
+        raise NoImage(f"{path}: a palette PNG without a PLTE chunk (libpng stops; OpenCV "
+                      f"returns no image)")
     C = _PNG_CHANNELS[color]
     bpp = max(1, C * depth // 8)                 # the filters' byte distance
     try:

@@ -21,21 +21,36 @@ lifting and the inverse 9/7 in float32 with OpenJPEG 2.5's constants, in its
 order; the inverse RCT or ICT; the DC level shift (the 9/7 path rounds to
 nearest even first), and the clip to [0, 2^prec - 1].
 
-The JP2 boxes: the signature, `ftyp`, `jp2h` (`ihdr`, `colr`, `cdef`,
-`res `), `jp2c`; any other box is skipped.
+The JP2 boxes, read and checked as OpenJPEG's opj_jp2_read_header_procedure
+reads them: the signature box first, `ftyp` second (a multiple of 4 bytes),
+`jp2h` before `jp2c` with `ihdr` among its boxes (14 bytes, 1 to 16384
+components, the size SIZ gives where it gives one), `colr` and `cdef` as
+OpenJPEG takes them, a `cmap` with no `pclr` before it refused, other boxes
+skipped; `jp2c`'s length is not read, its codestream runs to the end of the
+file.  The main header as opj_j2k_read_header_procedure reads it: SIZ
+first, an unknown marker skipped two bytes at a time, a known one out of
+place refused, SIZ, COD, COC, QCD, QCC and the other markers' fields
+checked as OpenJPEG checks them, COD and QCD required; a quantization
+style above 2 is read as expounded, a sub-band with no step size gets
+OpenJPEG's zeroed one.  Then OpenCV's checks and its size limits
+(io.check_size), before any tile-part is read.  In tier 2 a packet header
+past its tile's data reads as 0 bits (empty packets, as OpenJPEG's opj_bio
+reads them), SOP and EPH markers are taken where present, and a tile the
+codestream lacks is left at 0.
 
 OpenCV's output: one component gives [H, W], three BGR (returned here as
 RGB, as every decoder of `io.decode_image` returns), four BGRA (RGBA here); a
 largest precision of 8 bits gives uint8 and of 9-16 bits uint16, the
-values as decoded (no scaling).  Where OpenCV gives no image this raises a
-ValueError naming the variant: two components, signed samples, an image
+values as decoded (no scaling).  Where OpenCV gives no image this raises
+JP2NoImage naming the variant: two components, signed samples, an image
 offset other than 0, sub-sampled components, a precision below 8 or above
-16 bits, a palette (`pclr` / `cmap`), an sYCC, CMYK or e-YCC colour space.
-Features no writer here makes raise naming them: POC, PPM, PPT, RGN, CRG,
-code-block styles other than 0 (BYPASS, RESET, TERMALL, VSC, PTERM,
-SEGSYM), Part 2 and HTJ2K codestreams.  A truncated codestream (a cut
-file, a missing EOC), a marker segment too short for its fields or a
-missing marker raises NoImage: OpenCV gives no image for them.
+16 bits, a header OpenJPEG refuses.  Features no writer here makes raise a
+JP2Error naming them: a palette (`pclr`), the sYCC, CMYK and e-YCC colour
+spaces, POC, PPM, PPT, RGN, CRG and the Part 2 markers, code-block styles
+other than 0 (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM, HT).  A
+truncated codestream (a cut file, a missing EOC), a marker segment too
+short for its fields or a missing marker raises JP2NoImage: OpenCV gives
+no image for them.
 """
 from __future__ import annotations
 
@@ -43,7 +58,7 @@ import struct
 
 import numpy as np
 
-from iron_tpu_torch.data.io import NoImage
+from iron_tpu_torch.data.io import NoImage, check_size
 from iron_tpu_torch.data.jp2_t1 import decode_block
 
 JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
@@ -54,7 +69,16 @@ _SOT, _SOD, _COD, _COC, _QCD, _QCC = 0xFF90, 0xFF93, 0xFF52, 0xFF53, 0xFF5C, 0xF
 _REFUSED = {0xFF5E: "RGN (region of interest)", 0xFF5F: "POC (progression order change)",
             0xFF60: "PPM (packed packet headers)", 0xFF61: "PPT (packed packet headers)",
             0xFF63: "CRG (component registration)", 0xFF50: "CAP (HTJ2K capabilities)",
-            0xFF59: "CPF (corresponding profile)"}
+            0xFF59: "CPF (corresponding profile)", 0xFF74: "MCT (Part 2 transform)",
+            0xFF75: "MCC (Part 2 transform)", 0xFF77: "MCO (Part 2 transform)",
+            0xFF78: "CBD (Part 2 component depths)"}
+# the markers OpenJPEG 2.5 knows (j2k_memory_marker_handler_tab) -> where it
+# takes them: "M" the main header, "T" a tile-part header, "S" only as the
+# main header's first; any other is skipped two bytes at a time
+_KNOWN = {0xFF90: "MT", 0xFF52: "MT", 0xFF53: "MT", 0xFF5E: "MT", 0xFF5C: "MT", 0xFF5D: "MT",
+          0xFF5F: "MT", 0xFF51: "S", 0xFF55: "M", 0xFF57: "M", 0xFF58: "T", 0xFF60: "M",
+          0xFF61: "T", 0xFF91: "", 0xFF63: "M", 0xFF64: "MT", 0xFF74: "MT", 0xFF78: "M",
+          0xFF50: "M", 0xFF59: "M", 0xFF75: "MT", 0xFF77: "MT"}
 _PROGRESSIONS = ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL")
 _CBLK_STYLES = ((0x01, "BYPASS"), (0x02, "RESET"), (0x04, "TERMALL"), (0x08, "VSC"),
                 (0x10, "PTERM"), (0x20, "SEGSYM"), (0x40, "HT"))
@@ -102,43 +126,49 @@ class _Reader:
 
 def _coding_style(r: _Reader, with_precincts: bool) -> dict:
     """SPcod / SPcoc: decomposition levels, code-block size and style, the
-    wavelet, the precinct sizes (PPx, PPy) of each resolution."""
+    wavelet, the precinct sizes (PPx, PPy) of each resolution; checked as
+    OpenJPEG's opj_j2k_read_SPCod_SPCoc checks them (no image where it
+    fails)."""
     levels, xcb, ycb, style, wavelet = r.take("BBBBB")
     if levels > 32 or xcb > 8 or ycb > 8 or xcb + ycb > 8:
-        raise JP2Error(f"JPEG 2000: {levels} decomposition levels and code-blocks of "
-                       f"2^{xcb + 2} x 2^{ycb + 2} are not a valid {r.name}")
+        raise JP2NoImage(f"JPEG 2000: {levels} decomposition levels and code-blocks of "
+                         f"2^{xcb + 2} x 2^{ycb + 2} are not a valid {r.name} (OpenJPEG stops)")
+    if style & 0x80:
+        raise JP2NoImage("JPEG 2000: mixed HT code-blocks (OpenJPEG does not decode them)")
+    if wavelet > 1:
+        raise JP2NoImage(f"JPEG 2000: wavelet transform {wavelet} (OpenJPEG stops)")
+    if with_precincts:
+        pp = [r.take("B") for _ in range(levels + 1)]
+        if any(not (b & 15 and b >> 4) for b in pp[1:]):
+            raise JP2NoImage("JPEG 2000: a precinct of size 1 at a resolution above 0 (OpenJPEG "
+                             "stops)")
+        precincts = [(b & 15, b >> 4) for b in pp]
+    else:
+        precincts = [(15, 15)] * (levels + 1)
     if style:
         names = [n for bit, n in _CBLK_STYLES if style & bit] or [f"0x{style:02x}"]
         raise JP2Error(f"JPEG 2000: code-block style {' + '.join(names)}: the port decodes "
                        f"only the default style (0)")
-    if wavelet not in (0, 1):
-        raise JP2Error(f"JPEG 2000: wavelet transform {wavelet} (Part 2) is not decoded")
-    if with_precincts:
-        pp = [r.take("B") for _ in range(levels + 1)]
-        precincts = [(b & 15, b >> 4) for b in pp]
-    else:
-        precincts = [(15, 15)] * (levels + 1)
     return {"levels": levels, "cbw": xcb + 2, "cbh": ycb + 2, "reversible": wavelet == 1,
             "precincts": precincts}
 
 
 def _quantization(r: _Reader) -> dict:
     """SQcd / SPqcd (or SQcc / SPqcc): guard bits and the (exponent,
-    mantissa) of each sub-band, derived ones as OpenJPEG derives them."""
+    mantissa) of each sub-band, derived ones as OpenJPEG derives them
+    (opj_j2k_read_SQcd_SQcc: a style above 2 is read as expounded), the
+    segment's bytes all taken."""
     sq = r.take("B")
     style, guard = sq & 31, sq >> 5
-    steps = []
+    left = len(r.body) - r.pos
     if style == 0:
-        while r.pos < len(r.body):
-            steps.append((r.take("B") >> 3, 0))
-    elif style in (1, 2):
-        while r.pos + 2 <= len(r.body):
-            v = r.take("H")
-            steps.append((v >> 11, v & 0x7FF))
-            if style == 1:
-                break
+        steps = [(r.take("B") >> 3, 0) for _ in range(left)]
     else:
-        raise JP2Error(f"JPEG 2000: quantization style {style} is not valid")
+        steps = [(v >> 11, v & 0x7FF) for v in (r.take("H") for _ in range(
+            1 if style == 1 else left // 2))]
+    if r.pos != len(r.body):
+        raise JP2NoImage(f"JPEG 2000: the {r.name} marker segment has bytes its quantization "
+                         f"does not take (OpenJPEG stops)")
     if not steps:
         raise JP2Error(f"JPEG 2000: the {r.name} marker segment has no step sizes")
     if style == 1:
@@ -150,7 +180,7 @@ def _quantization(r: _Reader) -> dict:
 def _component_index(r: _Reader, ncomps: int) -> int:
     c = r.take("B" if ncomps < 257 else "H")
     if c >= ncomps:
-        raise JP2Error(f"JPEG 2000: {r.name} names component {c} of {ncomps}")
+        raise JP2NoImage(f"JPEG 2000: {r.name} names component {c} of {ncomps} (OpenJPEG stops)")
     return c
 
 
@@ -168,16 +198,23 @@ class _Params:
         r = _Reader(body, name)
         if marker == _COD:
             scod, prog, layers, mct = r.take("BBHB")
+            if scod & ~7 or layers == 0 or mct > 1:
+                raise JP2NoImage(f"JPEG 2000: a COD of style {scod}, {layers} layers, component "
+                                 f"transform {mct} (OpenJPEG stops)")
             if prog > 4:
-                raise JP2Error(f"JPEG 2000: progression order {prog} is not valid")
-            if layers == 0:
-                raise JP2Error("JPEG 2000: a COD with 0 quality layers")
+                raise JP2NoImage(f"JPEG 2000: progression order {prog} (OpenJPEG decodes no "
+                                 f"packet of it)")
+            cod = _coding_style(r, bool(scod & 1))
+            if r.pos != len(r.body):
+                raise JP2NoImage("JPEG 2000: a COD longer than its fields (OpenJPEG stops)")
             self.cod = {"sop": bool(scod & 2), "eph": bool(scod & 4), "order": prog,
-                        "layers": layers, "mct": mct, **_coding_style(r, bool(scod & 1))}
+                        "layers": layers, "mct": mct, **cod}
             self.coc = {}               # a tile's COD overrides the main header's COCs
         elif marker == _COC:
             c = _component_index(r, ncomps)
             self.coc[c] = _coding_style(r, bool(r.take("B") & 1))
+            if r.pos != len(r.body):
+                raise JP2NoImage("JPEG 2000: a COC longer than its fields (OpenJPEG stops)")
         elif marker == _QCD:
             self.qcd = _quantization(r)
             self.qcc = {}
@@ -218,41 +255,121 @@ def _check_marker(marker: int, where: str) -> None:
                        f"not decode it")
 
 
-def parse_codestream(cs: bytes) -> dict:
-    """The image and tile geometry, the parameters in force and each tile's
-    data (its tile-parts' bytes, joined in order) of a J2K codestream."""
-    if cs[:4] != J2K_SOC_SIZ:
-        raise JP2Error("JPEG 2000: the codestream does not start with SOC and SIZ")
-    n = struct.unpack_from(">H", cs, 4)[0]
-    r = _Reader(cs[6:4 + n], "SIZ")
-    rsiz, X1, Y1, X0, Y0, TW, TH, TX0, TY0, C = r.take("HIIIIIIIIH")
-    if rsiz & 0x8000 or rsiz & 0x4000:
-        raise JP2Error(f"JPEG 2000: capabilities 0x{rsiz:04x} (Part 2 or HTJ2K) are not "
-                       f"decoded")
+def _siz(body: bytes) -> dict:
+    """The SIZ segment, checked as OpenJPEG's opj_j2k_read_siz checks it (no
+    image where it fails)."""
+    if len(body) < 36 or (len(body) - 36) % 3 or (len(body) - 36) // 3 > 16384:
+        raise JP2NoImage(f"JPEG 2000: a SIZ segment of {len(body) + 2} bytes (OpenJPEG stops)")
+    r = _Reader(body, "SIZ")
+    _, X1, Y1, X0, Y0, TW, TH, TX0, TY0, C = r.take("HIIIIIIIIH")     # Rsiz unread
     comps = [r.take("BBB") for _ in range(C)]
-    if not C or X1 <= X0 or Y1 <= Y0 or not TW or not TH or TX0 > X0 or TY0 > Y0 \
-            or TX0 + TW <= X0 or TY0 + TH <= Y0:
-        raise JP2Error(f"JPEG 2000: SIZ with image [{X0}, {X1}) x [{Y0}, {Y1}), tiles "
-                       f"{TW} x {TH} at ({TX0}, {TY0}) and {C} components is not valid")
+    if C == 0 or C > 16384 or C != (len(body) - 36) // 3 or X0 >= X1 or Y0 >= Y1 or not TW \
+            or not TH or TX0 > X0 or TY0 > Y0 or min(TX0 + TW, 2 ** 32 - 1) <= X0 \
+            or min(TY0 + TH, 2 ** 32 - 1) <= Y0:
+        raise JP2NoImage(f"JPEG 2000: SIZ with image [{X0}, {X1}) x [{Y0}, {Y1}), tiles "
+                         f"{TW} x {TH} at ({TX0}, {TY0}) and {C} components (OpenJPEG stops)")
     info = {"X0": X0, "Y0": Y0, "X1": X1, "Y1": Y1, "TW": TW, "TH": TH, "TX0": TX0,
             "TY0": TY0, "prec": [(s & 0x7F) + 1 for s, _, _ in comps],
             "signed": [bool(s & 0x80) for s, _, _ in comps],
             "sub": [(dx, dy) for _, dx, dy in comps]}
-    if any(dx == 0 or dy == 0 for dx, dy in info["sub"]) or max(info["prec"]) > 38:
-        raise JP2Error(f"JPEG 2000: SIZ with components of {info['prec']} bits and "
-                       f"sub-sampling {info['sub']} is not valid")
-    main = _Params()
-    pos = 4 + n
-    for marker, body, pos in _segments(cs, pos, len(cs)):
+    if any(dx == 0 or dy == 0 for dx, dy in info["sub"]) or max(info["prec"]) > 31:
+        raise JP2NoImage(f"JPEG 2000: SIZ with components of {info['prec']} bits and "
+                         f"sub-sampling {info['sub']} (OpenJPEG stops)")
+    ntx, nty = _ceildiv(X1 - TX0, TW), _ceildiv(Y1 - TY0, TH)
+    if ntx * nty > 65535:
+        raise JP2NoImage(f"JPEG 2000: {ntx} x {nty} tiles (OpenJPEG takes at most 65535)")
+    return info
+
+
+def _marker_check(marker: int, body: bytes, ncomps: int) -> None:
+    """The size checks OpenJPEG's readers of the other main-header markers
+    make (no image where one fails), then the features the port does not
+    decode (a JP2Error naming them)."""
+    room = 1 if ncomps <= 256 else 2
+    bad = {0xFF5E: len(body) != 2 + room or body[0 if room == 1 else 1] >= ncomps,
+           0xFF5F: not body or len(body) % (5 + 2 * room) != 0,
+           0xFF60: len(body) < 2, 0xFF63: len(body) != 4 * ncomps,
+           0xFF55: len(body) < 2, 0xFF57: len(body) < 1}.get(marker, False)
+    if bad:
+        raise JP2NoImage(f"JPEG 2000: a {_REFUSED.get(marker, f'0x{marker:04x}')} marker "
+                         f"segment OpenJPEG does not take (it stops; no image)")
+    if marker in _REFUSED:
+        raise JP2Error(f"JPEG 2000: {_REFUSED[marker]} marker in the main header: the port does "
+                       f"not decode it")
+
+
+def _main_header(cs: bytes):
+    """The main header as OpenJPEG's opj_j2k_read_header_procedure reads it:
+    SOC, SIZ first, then marker segments to the first SOT; an unknown marker
+    is skipped two bytes at a time to the next known one, a known one out of
+    place, a length under 2 or a segment past the end gives no image; SIZ,
+    COD and QCD are required.  -> (the image and tile geometry with the
+    parameters in force, the first SOT's position)."""
+    if cs[:4] != J2K_SOC_SIZ:
+        raise JP2NoImage("JPEG 2000: the codestream does not start with SOC and SIZ (OpenJPEG "
+                         "stops)")
+    info, main, seen = None, _Params(), set()
+    pos = 2
+    while True:
+        if pos + 2 > len(cs):
+            raise JP2NoImage("JPEG 2000: truncated codestream (the main header runs past the "
+                             "end)")
+        marker = struct.unpack_from(">H", cs, pos)[0]
+        pos += 2
+        if marker not in _KNOWN:                     # opj_j2k_read_unk
+            if marker < 0xFF00:
+                raise JP2NoImage(f"JPEG 2000: a marker expected at byte {pos - 2}, found "
+                                 f"0x{marker:04x} (OpenJPEG stops)")
+            while marker not in _KNOWN:
+                if pos + 2 > len(cs):
+                    raise JP2NoImage("JPEG 2000: truncated codestream (the main header runs "
+                                     "past the end)")
+                marker = struct.unpack_from(">H", cs, pos)[0]
+                pos += 2
         if marker == _SOT:
+            if info is None:
+                raise JP2NoImage("JPEG 2000: SOT before SIZ (OpenJPEG stops)")
             break
-        if marker == _SOD:
-            raise JP2Error("JPEG 2000: SOD in the main header")
-        _check_marker(marker, "main header")
+        if ("S" if info is None else "M") not in _KNOWN[marker]:
+            raise JP2NoImage(f"JPEG 2000: marker 0x{marker:04x} out of place in the main header "
+                             f"(OpenJPEG stops)")
+        if pos + 2 > len(cs):
+            raise JP2NoImage("JPEG 2000: truncated codestream (the main header runs past the end)")
+        n = struct.unpack_from(">H", cs, pos)[0]
+        if n < 2 or pos + n > len(cs):
+            raise JP2NoImage(f"JPEG 2000: truncated codestream (marker 0x{marker:04x} at byte "
+                             f"{pos - 2} runs past the end)")
+        body = cs[pos + 2:pos + n]
+        pos += n
+        seen.add(marker)
+        if marker == 0xFF51:
+            info = _siz(body)
+            continue
+        C = len(info["prec"])
         if marker in (_COD, _COC, _QCD, _QCC):
             main.read(marker, body, C, "main header's marker")
+        else:
+            _marker_check(marker, body, C)
+    if not {_COD, _QCD} <= seen:
+        raise JP2NoImage("JPEG 2000: a main header without COD or QCD (OpenJPEG stops)")
+    info["main"] = main
+    return info, pos - 2
+
+
+def parse_codestream(cs: bytes) -> dict:
+    """The image and tile geometry, the parameters in force and each tile's
+    data (its tile-parts' bytes, joined in order) of a J2K codestream."""
+    info, pos = _main_header(cs)
+    return _tile_parts(cs, info, pos)
+
+
+def _tile_parts(cs: bytes, info: dict, pos: int) -> dict:
+    """The tile-parts from the first SOT at `pos`: each tile's parameters
+    and data (their bytes, joined in order) -> info["tiles"]."""
+    X1, Y1, TW, TH, TX0, TY0 = (info[k] for k in ("X1", "Y1", "TW", "TH", "TX0", "TY0"))
+    C, main = len(info["prec"]), info["main"]
     ntx, nty = _ceildiv(X1 - TX0, TW), _ceildiv(Y1 - TY0, TH)
-    info.update(ntx=ntx, nty=nty, main=main)
+    info.update(ntx=ntx, nty=nty)
     tiles = {}
     while pos + 2 <= len(cs) and struct.unpack_from(">H", cs, pos)[0] == _SOT:
         if pos + 12 > len(cs):
@@ -280,10 +397,9 @@ def parse_codestream(cs: bytes) -> dict:
     if cs[pos:pos + 2] != b"\xff\xd9":
         raise JP2NoImage(f"JPEG 2000: truncated codestream (no EOC marker after the last "
                          f"tile-part, at byte {pos} of {len(cs)})")
-    if len(tiles) < ntx * nty:
-        missing = next(t for t in range(ntx * nty) if t not in tiles)
-        raise JP2NoImage(f"JPEG 2000: truncated codestream (no data for tile {missing} of "
-                         f"{ntx * nty})")
+    if not tiles:
+        raise JP2NoImage("JPEG 2000: a codestream without tiles (OpenCV returns no image)")
+    # a tile the codestream lacks is left as OpenJPEG zeroes the image: 0
     info["tiles"] = {t: (v["params"], b"".join(v["data"])) for t, v in tiles.items()}
     return info
 
@@ -293,7 +409,8 @@ def parse_codestream(cs: bytes) -> dict:
 # ---------------------------------------------------------------------------
 
 class _Bits:
-    """Packet-header bits, with the stuffed 0 bit after each 0xFF byte."""
+    """Packet-header bits, with the stuffed 0 bit after each 0xFF byte; 0
+    bits past the end (opj_bio_bytein)."""
 
     def __init__(self, data: bytes, pos: int, end: int, where: str):
         self.data, self.pos, self.end, self.where = data, pos, end, where
@@ -309,9 +426,8 @@ class _Bits:
         return False
 
     def bit(self) -> int:
-        if self.ct == 0 and not self._byte():
-            raise JP2NoImage(f"JPEG 2000: truncated codestream (a packet header of {self.where} "
-                             f"reads past the tile's data)")
+        if self.ct == 0:
+            self._byte()                # past the tile's data, OpenJPEG's opj_bio reads 0 bits
         self.ct -= 1
         return (self.buf >> self.ct) & 1
 
@@ -392,7 +508,7 @@ def _read_packet(data: bytes, pos: int, end: int, bands, layer: int, sop: bool, 
                  where: str) -> int:
     """Read one packet at `pos` into the precinct's code-blocks; returns the
     position after it."""
-    if sop and data[pos:pos + 2] == b"\xff\x91":
+    if sop and data[pos:pos + 2] == b"\xff\x91" and end - pos >= 6:
         pos += 6
     bits = _Bits(data, pos, end, where)
     entries = []
@@ -421,14 +537,12 @@ def _read_packet(data: bytes, pos: int, end: int, bands, layer: int, sop: bool, 
                     blk.lenbits += 1
                 nbits = blk.lenbits + n.bit_length() - 1
                 if nbits > 32:
-                    raise JP2Error(f"JPEG 2000: corrupted packet header in {where} (a "
-                                   f"{nbits}-bit segment length)")
+                    raise JP2NoImage(f"JPEG 2000: corrupted packet header in {where} (a "
+                                     f"{nbits}-bit segment length; OpenJPEG stops)")
                 entries.append((blk, n, bits.bits(nbits)))
     pos = bits.align()
-    if eph:
-        if data[pos:pos + 2] != b"\xff\x92":
-            raise JP2Error(f"JPEG 2000: corrupted packet header in {where} (no EPH marker)")
-        pos += 2
+    if eph and data[pos:pos + 2] == b"\xff\x92" and pos + 2 <= end:
+        pos += 2                        # OpenJPEG only warns where the EPH marker is missing
     for blk, n, length in entries:
         if pos + length > end:
             raise JP2NoImage(f"JPEG 2000: truncated codestream or corrupted packet header (a "
@@ -479,10 +593,9 @@ def _resolutions(tc: tuple, cp: dict, prec: int):
                 bx1 = _ceildiv(x1 - (ox << lvl), 1 << (lvl + 1))
                 by1 = _ceildiv(y1 - (oy << lvl), 1 << (lvl + 1))
                 step_index = 3 * (r - 1) + b
-            if step_index >= len(cp["steps"]):
-                raise JP2Error(f"JPEG 2000: the quantization marker has no step size for "
-                               f"sub-band {step_index}")
-            expn, mant = cp["steps"][step_index]
+            # a sub-band the quantization marker gives no step size keeps
+            # OpenJPEG's zeroed one
+            expn, mant = cp["steps"][step_index] if step_index < len(cp["steps"]) else (0, 0)
             bands.append({"bandno": b, "x0": bx0, "y0": by0, "x1": bx1, "y1": by1,
                           "numbps": expn + cp["guard"] - 1,
                           "step": np.float32((1.0 + mant / 2048.0) * 2.0 ** (prec - expn))})
@@ -654,9 +767,7 @@ def _decode_tile(info: dict, t: int):
     cod = cps[0]
     pos = 0
     for lay, r, c, prc in _packet_order(cod["order"], cod["layers"], comps, tx0, ty0):
-        if pos >= len(data):
-            raise JP2NoImage(f"JPEG 2000: truncated codestream (tile {t}'s data ends before "
-                             f"its packet of layer {lay}, resolution {r}, component {c})")
+        # past the tile's data a packet header reads as 0 bits: an empty packet
         pos = _read_packet(data, pos, len(data), comps[c][r]["precincts"][prc], lay,
                            cod["sop"], cod["eph"],
                            f"tile {t} (layer {lay}, resolution {r}, component {c})")
@@ -681,32 +792,43 @@ def _decode_tile(info: dict, t: int):
     return shifted, (tx0, ty0)
 
 
-def decode_codestream(cs: bytes):
+def decode_codestream(cs: bytes, ihdr=None):
     """A J2K codestream -> (its components, int64 [H, W] each; their
     precisions), for 1, 3 or 4 components of unsigned samples of at most 16
     bits, the largest of at least 8, at offset 0 without sub-sampling
-    (anything else raises, as OpenCV reads no image from it)."""
-    info = parse_codestream(cs)
-    if len(info["prec"]) not in (1, 3, 4):
+    (anything else raises, as OpenCV reads no image from it).  Its main
+    header is read first, as opj_read_header reads it within OpenCV's
+    readHeader (with a JP2 file's `ihdr` (width, height): SIZ must agree),
+    then OpenCV's checks and its size limits, then the tile-parts."""
+    info, pos = _main_header(cs)
+    if ihdr is not None and all(ihdr) and \
+            ihdr != (info["X1"] - info["X0"], info["Y1"] - info["Y0"]):
+        raise JP2NoImage(f"JPEG 2000: the 'ihdr' box gives {ihdr[0]} x {ihdr[1]} pixels and SIZ "
+                         f"{info['X1'] - info['X0']} x {info['Y1'] - info['Y0']} (OpenJPEG stops)")
+    if len(info["prec"]) not in (1, 2, 3, 4):
         raise JP2NoImage(f"JPEG 2000 with {len(info['prec'])} components: OpenCV reads no image "
                          f"from it (it takes 1, 3 or 4)")
     if any(info["signed"]):
         raise JP2NoImage("JPEG 2000 with signed samples: OpenCV reads no image from it")
+    top = max(info["prec"])
+    if top < 8:
+        raise JP2NoImage(f"JPEG 2000 with {top}-bit samples: OpenCV reads no image from it")
+    check_size(info["X1"] - info["X0"], info["Y1"] - info["Y0"], "JPEG 2000")
+    if len(info["prec"]) == 2:
+        raise JP2NoImage("JPEG 2000 with 2 components: OpenCV reads no image from it (it takes "
+                         "1, 3 or 4)")
     if info["X0"] or info["Y0"]:
         raise JP2NoImage(f"JPEG 2000 with an image offset of ({info['X0']}, {info['Y0']}): "
                          f"OpenCV reads no image from it")
     if any(s != (1, 1) for s in info["sub"]):
         raise JP2NoImage(f"JPEG 2000 with sub-sampled components {info['sub']}: OpenCV reads no "
                          f"image from it")
-    top = max(info["prec"])
-    if top < 8 or top > 16:
+    if top > 16:
         raise JP2NoImage(f"JPEG 2000 with {top}-bit samples: OpenCV reads no image from it")
+    info = _tile_parts(cs, info, pos)
     H, W = info["Y1"], info["X1"]
-    if W > 1 << 20 or H > 1 << 20 or W * H > 1 << 30:
-        raise JP2NoImage(f"JPEG 2000 image of {W} x {H} pixels: past OpenCV's limits "
-                         f"(2^20 a side, 2^30 in all), so OpenCV reads no image from it")
     comps = [np.zeros((H, W), np.int64) for _ in info["prec"]]
-    for t in range(info["ntx"] * info["nty"]):
+    for t in sorted(info["tiles"]):
         tile, (x0, y0) = _decode_tile(info, t)
         for dst, a in zip(comps, tile):
             dst[y0:y0 + a.shape[0], x0:x0 + a.shape[1]] = a
@@ -717,50 +839,133 @@ def decode_codestream(cs: bytes):
 # the JP2 file format
 # ---------------------------------------------------------------------------
 
-def _boxes(data: bytes, pos: int, end: int):
-    """(type, body) of the boxes in data[pos:end]."""
-    while pos + 8 <= end:
+def _read_jp2(data: bytes):
+    """The codestream and the colour information of a JP2 file, its boxes
+    read as OpenJPEG's opj_jp2_read_header_procedure reads them: the
+    signature box first, `ftyp` second, `jp2h` before `jp2c` (whose
+    codestream runs to the end of the file, whatever its length says),
+    `jp2h`'s boxes each inside it with `ihdr` among them, boxes OpenJPEG
+    does not know skipped; what it refuses gives no image (JP2NoImage).
+    -> (codestream, colour space, cdef entries, ihdr's (width, height))."""
+    def bad(what: str):
+        return JP2NoImage(f"JPEG 2000: {what} (OpenJPEG stops; OpenCV returns no image)")
+
+    state, pos = set(), 0
+    colour, cdef, ihdr = None, None, None
+    while True:
+        if pos + 8 > len(data):
+            raise bad("no codestream ('jp2c' box)")
         n, kind = struct.unpack_from(">I4s", data, pos)
         head = 8
         if n == 1:
-            if pos + 16 > end:
-                break
-            n, head = struct.unpack_from(">Q", data, pos + 8)[0], 16
+            if pos + 16 > len(data):
+                raise bad("a box header past the end of the file")
+            hi, n = struct.unpack_from(">II", data, pos + 8)
+            if hi:
+                raise bad("a box of 2^32 bytes or more")
+            head = 16
         elif n == 0:
-            n = end - pos
-        if n < head or pos + n > end:
-            raise JP2NoImage(f"JPEG 2000: the '{kind.decode('latin-1')}' box runs past the "
-                             f"end of the file")
-        yield kind, data[pos + head:pos + n]
+            n = len(data) - pos
+        if kind == b"jp2c":
+            if "jp2h" not in state:
+                raise bad("a codestream box before the header box")
+            return data[pos + head:], colour, cdef, ihdr
+        if n == 0 or n < head:
+            raise bad(f"a '{kind.decode('latin-1')}' box of {n} bytes")
+        body = data[pos + head:pos + n]
+        if kind in (b"jP  ", b"ftyp", b"jp2h") or kind in _JP2H_BOXES:
+            if kind in _JP2H_BOXES:                  # misplaced, outside jp2h
+                if "jp2h" not in state:
+                    pos += n
+                    if pos > len(data):
+                        raise bad("a box past the end of the file")
+                    continue
+            if pos + n > len(data):
+                raise bad(f"the '{kind.decode('latin-1')}' box runs past the end of the file")
+            if kind == b"jP  ":
+                if state or len(body) != 4 or body != b"\r\n\x87\n":
+                    raise bad("a bad signature box")
+                state.add("jP")
+            elif kind == b"ftyp":
+                if state != {"jP"} or len(body) < 8 or len(body) % 4:
+                    raise bad("the file type box is not the second box, or of a bad size")
+                state.add("ftyp")
+            elif kind == b"jp2h":
+                if "ftyp" not in state:
+                    raise bad("the header box before the file type box")
+                colour, cdef, ihdr = _jp2h(body, colour, cdef, ihdr, bad)
+                state.add("jp2h")
+            else:
+                colour, cdef, ihdr = _jp2h_box(kind, body, colour, cdef, ihdr, bad)
+        elif "jP" not in state or "ftyp" not in state:
+            raise bad("a first box other than the signature or a second other than 'ftyp'")
+        elif pos + n > len(data):
+            raise bad(f"the '{kind.decode('latin-1')}' box runs past the end of the file")
         pos += n
 
 
-def _read_jp2(data: bytes):
-    """The codestream and the colour information of a JP2 file."""
-    colour, cdef, cs = None, None, None
-    for kind, body in _boxes(data, 12, len(data)):
-        if kind == b"jp2h":
-            for sub, sb in _boxes(body, 0, len(body)):
-                if sub in (b"pclr", b"cmap"):
-                    raise JP2Error(f"JPEG 2000 with a palette ('{sub.decode()}' box): the port "
-                                   f"does not apply palettes")
-                if sub == b"colr" and colour is None and len(sb) >= 3:
-                    colour = struct.unpack_from(">I", sb, 3)[0] if sb[0] == 1 and \
-                        len(sb) >= 7 else 0
-                elif sub == b"cdef" and len(sb) >= 2:
-                    n = struct.unpack_from(">H", sb)[0]
-                    if len(sb) < 2 + 6 * n:
-                        raise JP2Error("JPEG 2000: a truncated 'cdef' box")
-                    cdef = [struct.unpack_from(">HHH", sb, 2 + 6 * i) for i in range(n)]
-        elif kind == b"jp2c":
-            cs = body
-            break
-    if cs is None:
-        raise JP2NoImage("JPEG 2000: a JP2 file without a codestream ('jp2c' box)")
-    if colour in (12, 18, 24):
-        raise JP2Error(f"JPEG 2000 in the {({12: 'CMYK', 18: 'sYCC', 24: 'e-YCC'})[colour]} "
-                       f"colour space: OpenCV converts it and the port does not")
-    return cs, colour, cdef
+# the boxes OpenJPEG reads inside 'jp2h' (opj_jp2_img_find_handler)
+_JP2H_BOXES = (b"ihdr", b"colr", b"bpcc", b"pclr", b"cmap", b"cdef")
+
+
+def _jp2h(body: bytes, colour, cdef, ihdr, bad):
+    """The header box's boxes (opj_jp2_read_jp2h): each complete, 'ihdr'
+    among them."""
+    pos, has_ihdr = 0, False
+    while pos < len(body):
+        if len(body) - pos < 8:
+            raise bad("a box of less than 8 bytes in the header box")
+        n, kind = struct.unpack_from(">I4s", body, pos)
+        head = 8
+        if n == 1:
+            if len(body) - pos < 16:
+                raise bad("an XL box of less than 16 bytes in the header box")
+            hi, n = struct.unpack_from(">II", body, pos + 8)
+            if hi:
+                raise bad("a box of 2^32 bytes or more")
+            head = 16
+        if n == 0 or n < head or n > len(body) - pos:
+            raise bad(f"a '{kind.decode('latin-1')}' box of {n} bytes in the header box")
+        if kind in _JP2H_BOXES:
+            colour, cdef, ihdr = _jp2h_box(kind, body[pos + head:pos + n], colour, cdef, ihdr,
+                                           bad)
+        has_ihdr |= kind == b"ihdr"
+        pos += n
+    if not has_ihdr:
+        raise bad("a header box without 'ihdr'")
+    return colour, cdef, ihdr
+
+
+def _jp2h_box(kind: bytes, sb: bytes, colour, cdef, ihdr, bad):
+    """One of the header's boxes, checked as OpenJPEG's handler checks it."""
+    if kind == b"ihdr" and ihdr is None:
+        if len(sb) != 14:
+            raise bad("an 'ihdr' box of a bad size")
+        h, w, nc = struct.unpack_from(">IIH", sb)
+        if not 1 <= nc <= 16384:
+            raise bad(f"an 'ihdr' box of {nc} components")
+        ihdr = (w, h)
+    elif kind == b"colr" and colour is None:
+        if len(sb) < 3 or (sb[0] == 1 and len(sb) < 7):
+            raise bad("a 'colr' box of a bad size")
+        if sb[0] == 1:
+            colour = struct.unpack_from(">I", sb, 3)[0]
+        elif sb[0] == 2:
+            colour = 0
+    elif kind == b"cdef":
+        if cdef is not None:
+            raise bad("a second 'cdef' box")
+        n = struct.unpack_from(">H", sb)[0] if len(sb) >= 2 else 0
+        if n == 0 or len(sb) < 2 + 6 * n:
+            raise bad("a 'cdef' box of no or too few channel descriptions")
+        cdef = [struct.unpack_from(">HHH", sb, 2 + 6 * i) for i in range(n)]
+    elif kind == b"cmap":
+        raise JP2NoImage("JPEG 2000 with a palette's 'cmap' box and no 'pclr' before it "
+                         "(OpenJPEG needs the PCLR box first; OpenCV returns no image)")
+    elif kind == b"pclr":
+        raise JP2Error("JPEG 2000 with a palette ('pclr' box): the port does not apply "
+                       "palettes")
+    return colour, cdef, ihdr
 
 
 def _apply_cdef(comps: list, cdef) -> list:
@@ -786,13 +991,22 @@ def decode_jp2(data: bytes) -> np.ndarray:
     cv2.imread(IMREAD_UNCHANGED) gives, channels in RGB(A) order (module
     docstring)."""
     if data[:12] == JP2_SIGNATURE:
-        cs, colour, cdef = _read_jp2(data)
+        cs, colour, cdef, ihdr = _read_jp2(data)
     elif data[:4] == J2K_SOC_SIZ:
-        cs, colour, cdef = data, None, None
+        cs, colour, cdef, ihdr = data, None, None, None
     else:
         raise JP2Error("JPEG 2000: neither a JP2 signature nor a codestream's SOC and SIZ")
-    comps, prec = decode_codestream(cs)
+    comps, prec = decode_codestream(cs, ihdr)
+    if colour in (12, 18, 24):
+        raise JP2Error(f"JPEG 2000 in the {({12: 'CMYK', 18: 'sYCC', 24: 'e-YCC'})[colour]} "
+                       f"colour space: OpenCV converts it and the port does not")
     if cdef:
+        # opj_jp2_check_color: every channel index in range, each defined
+        n = len(comps)
+        if any(cn >= n or (asoc not in (0, 65535) and asoc - 1 >= n) for cn, _, asoc in cdef) \
+                or any(c not in {cn for cn, _, _ in cdef} for c in range(n)):
+            raise JP2NoImage("JPEG 2000: a 'cdef' box with channels out of range or missing "
+                             "(OpenJPEG stops; OpenCV returns no image)")
         comps = _apply_cdef(comps, cdef)
     if colour == 17 and len(comps) == 4:
         raise JP2NoImage("JPEG 2000 with 4 components in the gray colour space: OpenCV reads "

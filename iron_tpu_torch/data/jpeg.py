@@ -40,7 +40,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from iron_tpu_torch.data.io import NoImage
+from iron_tpu_torch.data.io import NoImage, check_size
 
 # zigzag scan order: ZIGZAG[k] is the natural (row-major) index of the k-th
 # coefficient in the stream
@@ -1193,6 +1193,11 @@ def decode_jpeg(data: bytes, space: Optional[str] = None) -> np.ndarray:
                 raise NoImage("JPEG: a frame too large or with bad sampling factors (libjpeg "
                               "stops)")
             frame = (H, W, comps, prec)
+            p += n                          # libjpeg's get_sof reads the segment by its length
+            if W * H > 1 << 30:
+                # past OpenCV's limit: cv2.imread raises once libjpeg's
+                # jpeg_read_header reaches the first scan; nothing is allocated
+                continue
             hmax = max(c[1] for c in comps)
             vmax = max(c[2] for c in comps)
             unit = 1 if coding == "lossless" else 8
@@ -1208,6 +1213,7 @@ def decode_jpeg(data: bytes, space: Optional[str] = None) -> np.ndarray:
             if frame is None:
                 raise NoImage("JPEG: a scan before the frame header (libjpeg stops: "
                               "JERR_SOS_NO_SOF)")
+            check_size(frame[1], frame[0], "JPEG")
             marker, p, good, ns = _scan(src, p, frame, coding, progressive, restart, scans,
                                         dc_t, ac_t, qt, qlatch, cond_dc, cond_ac, coefs, grids,
                                         samples, bits_now, bits_prev, scanned)

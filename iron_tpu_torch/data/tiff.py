@@ -55,18 +55,35 @@ RGBA interface does not know (4, 9, 10, ...), LogL or LogLuv without
 SGILOG, SGILOG of other photometrics, LogL in 24 bits, planar LogLuv,
 old-style JPEG, LZMA and ZSTD, for which its libtiff is not built, the
 floating-point predictor on integers, the orientations that swap the
-axes), what it misreads (planar files above 8 bits, taken as chunky; the
-word-aligned CCITT variant, 32771; 8-bit tiles mirrored or turned; LogL,
-whose 8-bit gray it types int8), and what the port has no decoder for
-(other codecs, JPEG of other than 8 bits, LogLuv of other than 1 or 3
-samples, a broken SGILOG strip).
+axes, a broken SGILOG strip), what it misreads (planar files above 8
+bits, taken as chunky; the word-aligned CCITT variant, 32771; 8-bit tiles
+mirrored or turned; LogL, whose 8-bit gray it types int8), and what the
+port has no decoder for (NeXT, ThunderScan and PixarLog, 12-bit JPEG,
+LogLuv of other than 3 samples).
 
-A damaged file reads as cv2.imread reads it: a cut header or directory, or
-a strip or tile past the end of the file, gives no image (NoImage); a
-strip whose LZW, Deflate or PackBits data breaks off decodes as libtiff
-decodes it (its bytes up to the error, zeros after, the predictor not
-applied), which OpenCV keeps through the RGBA interface and refuses for
-the samples it reads itself.
+A damaged file reads as cv2.imread reads it.  The directory is read as
+libtiff 4.7's TIFFReadDirectory reads it (`_directory`): each field
+through TIFFReadDirEntry's type, count and range rules, a repeated tag
+ignored; an error in a field it needs (SamplesPerPixel, Compression, the
+dimensions, RowsPerStrip 0, PlanarConfiguration, ExtraSamples, the
+per-sample fields, the strip arrays) fails it, any other field is dropped;
+the strips counted from ImageLength and RowsPerStrip, their offsets and
+byte counts padded with zeros to that count, StripByteCounts estimated
+where it is missing or, for a single strip, looks bad (an uncompressed one
+short of its rows among them), a single uncompressed strip chopped into
+strips of about 8 KB; a zero scanline or strip fails it.  Then OpenCV's
+checks (a Photometric field, the depths it reads, its size limits through
+io.check_size, strips or tiles of at most 2^24 a side and under 1 GB),
+then each strip as libtiff's TIFFFillStrip takes it (no bytes, or bytes
+past the end of the file, give no image) and decodes it: a strip whose
+LZW, Deflate or PackBits data breaks off decodes as libtiff decodes it
+(its bytes up to the error, zeros after, the predictor not applied),
+which OpenCV keeps through the RGBA interface and refuses for the samples
+it reads itself; a compression libtiff does not know decodes to zeros
+there.  A cut header or directory gives no image.  One case reads memory
+no file holds and raises naming it: wide RGB samples without a
+SamplesPerPixel field, or LogLuv of one sample (OpenCV copies more
+samples a pixel than libtiff decoded).
 """
 from __future__ import annotations
 
@@ -77,7 +94,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from iron_tpu_torch.data.ccitt import BIT_REVERSED, decode_ccitt
-from iron_tpu_torch.data.io import NoImage
+from iron_tpu_torch.data.io import NoImage, check_size
 
 # field type -> struct code (integers and floats); 5 / 10 (rationals) are
 # read as libtiff reads them into float fields, 2 / 7 (ASCII, UNDEFINED) as
@@ -92,7 +109,6 @@ _REFUSED = {6: "old-style JPEG (compression 6), which OpenCV returns no image fo
             32771: "the word-aligned CCITT coding (32771), which OpenCV's libtiff misreads",
             34925: "LZMA compression, which OpenCV's libtiff is built without",
             50000: "ZSTD compression, which OpenCV's libtiff is built without"}
-_PREDICTED = (5, 8, 32946)                       # the codecs libtiff applies a predictor in
 # YCbCrSubsampling (horizontal, vertical) libtiff's RGBA interface reads
 _SUBSAMPLING = {(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)}
 _F = np.float32
@@ -114,38 +130,376 @@ def _header(data: bytes):
     raise ValueError("not a TIFF file")
 
 
-def _ifd(data: bytes, end: str, big: bool, off: int) -> Dict[int, object]:
-    """An image file directory: tag -> a list of its values (integers or
-    floats), or bytes for ASCII and UNDEFINED fields."""
-    count_fmt, entry_fmt, entry, inline = ("Q", "HHQ", 20, 8) if big else ("H", "HHI", 12, 4)
+class _Bad(Exception):
+    """A TIFFReadDirEntry error: the field is not read."""
+
+
+# field types libtiff's integer readers take, with struct codes
+_INTS = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 13: "I", 16: "Q", 17: "q", 18: "Q"}
+# the tags TIFFReadDirectory reads with no recovery: an error in one of them
+# fails the directory (its first and second passes)
+_FIRST_PASS = (256, 257, 32997, 322, 323, 32998, 284, 278, 338)
+_PER_SAMPLE = (280, 281, 258, 32996, 339)
+# codec-specific tags (_TIFFCheckFieldIsValidForCodec) -> the codecs they
+# are read with
+_CODEC_TAGS = {317: (5, 8, 32946, 32909), 347: (7,), 292: (3,), 293: (4,)}
+# the codecs OpenCV's libtiff is built with; any other known one is
+# NotConfigured (no image), an unknown one decodes nothing
+_CONFIGURED = (1, 2, 3, 4, 5, 6, 7, 8, 32766, 32771, 32773, 32809, 32909, 32946, 34676, 34677)
+_NOT_CONFIGURED = (34661, 34712, 34887, 34925, 50000, 50001, 50002)
+
+
+class _Dir:
+    """The raw entries of a directory and TIFFReadDirEntry's readers."""
+
+    def __init__(self, data: bytes, end: str, big: bool, entries):
+        self.data, self.end, self.big, self.entries = data, end, big, entries
+
+    def values(self, e, kinds=_INTS, limit=None) -> list:
+        """The entry's values as numbers (TIFFReadDirEntryArray): an
+        unknown type, a count past 2 GB of data or data past the end of
+        the file is an error."""
+        tag, typ, count, raw = e
+        size = _SIZES.get(typ, 0)
+        if typ not in kinds or not size:
+            raise _Bad
+        n = count if limit is None else min(count, limit)
+        if not n:
+            return []
+        if n * size > 2 ** 31 - 1:
+            raise _Bad
+        inline = 8 if self.big else 4
+        if count * size <= inline:
+            body = raw[:n * size]
+        else:
+            at = struct.unpack(self.end + ("Q" if self.big else "I"), raw)[0]
+            if at + n * size > len(self.data):
+                raise _Bad
+            body = self.data[at:at + n * size]
+        if typ in (5, 10):
+            v = struct.unpack(f"{self.end}{2 * n}{'I' if typ == 5 else 'i'}", body)
+            return [float(_F(v[k]) / _F(v[k + 1])) if v[k + 1] else 0.0
+                    for k in range(0, 2 * n, 2)]
+        if typ in (2, 7):
+            return list(body)
+        return list(struct.unpack(f"{self.end}{n}{_TYPES[typ]}", body))
+
+    def ints(self, e, top: int, one: bool = False, limit=None) -> list:
+        """TIFFReadDirEntryShort / Long (`one`: a count of 1) or their
+        arrays: integer types, every value in [0, top]."""
+        if one and e[2] != 1:
+            raise _Bad
+        v = self.values(e, limit=limit)
+        if any(not 0 <= x <= top for x in v):
+            raise _Bad
+        return v
+
+    def per_sample(self, e, spp: int) -> int:
+        """TIFFReadDirEntryShort, else TIFFReadDirEntryPersampleShort: one
+        value, or at least `spp` of which the first `spp` agree."""
+        if e[2] == 1:
+            return self.ints(e, 0xFFFF, True)[0]
+        if e[2] < spp:
+            raise _Bad
+        v = self.ints(e, 0xFFFF)
+        if len(set(v[:spp])) > 1:
+            raise _Bad
+        return v[0]
+
+
+def _entries(data: bytes, end: str, big: bool, off: int):
+    """TIFFFetchDirectory on a mapped file: the entries (tag, type, count,
+    the raw value or offset bytes) of the directory at `off`; more than
+    4096 entries, or a count or entries past the end of the file, fail it."""
+    count_fmt, entry, inline = ("Q", 20, 8) if big else ("H", 12, 4)
     first = off + struct.calcsize(count_fmt)
-    if first > len(data):
+    if off == 0 or first > len(data):
         raise NoImage("TIFF: the first directory lies past the end of the file (libtiff stops; "
                       "OpenCV returns no image)")
     (n,) = struct.unpack(end + count_fmt, data[off:first])
+    if n > 4096:
+        raise NoImage(f"TIFF: a directory of {n} entries (libtiff's sanity check fails; OpenCV "
+                      f"returns no image)")
     if first + entry * n > len(data):
         raise NoImage("TIFF: the directory runs past the end of the file (libtiff stops; "
                       "OpenCV returns no image)")
-    tags: Dict[int, object] = {}
+    fmt = end + ("HHQ" if big else "HHI")
+    out = []
     for i in range(n):
         e = first + entry * i
-        tag, typ, count = struct.unpack(end + entry_fmt, data[e:e + entry - inline])
-        size = _SIZES.get(typ, 1) * count
-        at = e + entry - inline
-        if size > inline:
-            (at,) = struct.unpack(end + ("Q" if big else "I"), data[at:at + inline])
-            if at + size > len(data):
-                raise NoImage("TIFF: a field's values lie past the end of the file (OpenCV "
-                              "returns no image)")
-        if typ in _TYPES:
-            tags[tag] = list(struct.unpack(f"{end}{count}{_TYPES[typ]}", data[at:at + size]))
-        elif typ in (5, 10):
-            v = struct.unpack(f"{end}{2 * count}{'I' if typ == 5 else 'i'}", data[at:at + size])
-            tags[tag] = [float(_F(v[k]) / _F(v[k + 1])) if v[k + 1] else 0.0
-                         for k in range(0, 2 * count, 2)]
-        elif typ in (2, 7):
-            tags[tag] = data[at:at + size]
-    return tags
+        tag, typ, count = struct.unpack(fmt, data[e:e + entry - inline])
+        out.append((tag, typ, count, data[e + entry - inline:e + entry]))
+    return out
+
+
+def _howmany(x: int, y: int) -> int:
+    """TIFFhowmany_32: ceil(x / y), 0 where x + y - 1 overflows 32 bits."""
+    return (x + y - 1) // y if x < 0xFFFFFFFF - (y - 1) else 0
+
+
+def _directory(data: bytes) -> Dict[object, object]:
+    """TIFFReadDirectory on the first directory, as libtiff 4.7 reads it
+    for OpenCV (a mapped file): tag -> its values as libtiff keeps them
+    (the fields it set; a field it could not read or that failed its check
+    is left out, a codec-specific one under another codec too), and
+    "offsets", "counts" (the strips or tiles, padded with zeros to their
+    number, StripByteCounts estimated where libtiff estimates it, a single
+    uncompressed strip chopped), "rps" (rows a strip), "tiled".  Where
+    libtiff fails the directory, NoImage."""
+    end, big, off = _header(data)
+    d = _Dir(data, end, big, _entries(data, end, big, off))
+    first = {}
+    for e in d.entries:                              # a repeated tag is ignored
+        first.setdefault(e[0], e)
+    t: Dict[object, object] = {}
+
+    def bad(what: str):
+        return NoImage(f"TIFF: {what} (libtiff fails the directory; OpenCV returns no image)")
+
+    spp = 1
+    if 277 in first:
+        try:
+            spp = d.ints(first[277], 0xFFFF, True)[0]
+        except _Bad:
+            raise bad("SamplesPerPixel is not readable") from None
+        if spp == 0:
+            raise bad("SamplesPerPixel 0")
+        t[277] = [spp]
+    comp = 1
+    if 259 in first:
+        try:
+            comp = d.per_sample(first[259], spp)
+        except _Bad:
+            raise bad("Compression is not readable") from None
+    t[259] = [comp]
+    for e in d.entries:
+        tag = e[0]
+        if first[tag] is not e or tag not in _FIRST_PASS:
+            continue
+        try:
+            if tag == 284:
+                v = d.ints(e, 0xFFFF, True)
+                if v[0] not in (1, 2):
+                    raise _Bad
+            elif tag == 338:
+                v = d.ints(e, 0xFFFF)
+                if len(v) > spp or any(x > 2 and x != 999 for x in v):
+                    raise _Bad
+                v = [1 if x == 999 else x for x in v]
+            else:
+                v = d.ints(e, 0xFFFFFFFF, True)
+                if tag == 278 and v[0] == 0:
+                    raise _Bad
+        except _Bad:
+            raise bad(f"field {tag} is not readable or not valid") from None
+        t[tag] = v
+    if 256 not in t and 257 not in t:
+        raise bad("no ImageWidth or ImageLength")
+    W, H = t.get(256, [0])[0], t.get(257, [0])[0]
+    planar = t.get(284, [1])[0]
+    tiled = 322 in t or 323 in t
+    rps = t.get(278, [0xFFFFFFFF])[0]
+    if not tiled:
+        nstrips = 1 if rps == 0xFFFFFFFF else _howmany(H, rps)
+        cw, ch = W, rps
+    else:
+        cw, ch = t.get(322, [0])[0], t.get(323, [0])[0]
+        depth = t.get(32997, [1])[0]
+        nstrips = 0 if not (cw and ch) else \
+            (_howmany(W, cw) if W else 0) * (_howmany(H, ch) if H else 0) * \
+            (_howmany(depth, t.get(32998, [1])[0]) if depth else 0)
+    if planar == 2:
+        nstrips *= spp
+    if not 0 < nstrips < 1 << 32:
+        raise bad(f"no {'tiles' if tiled else 'strips'}")
+    offsets_e = counts_e = None
+    for e in d.entries:                              # the last of strips' and tiles' wins
+        if first[e[0]] is e and e[0] in (273, 324):
+            offsets_e = e
+        if first[e[0]] is e and e[0] in (279, 325):
+            counts_e = e
+    if offsets_e is None:
+        raise bad("no StripOffsets or TileOffsets")
+    bps_read = False
+    for e in d.entries:
+        tag = e[0]
+        if first[tag] is not e or tag in _FIRST_PASS or tag in (259, 277, 273, 279, 324, 325):
+            continue
+        if tag in _PER_SAMPLE:
+            try:
+                v = d.per_sample(e, spp)
+            except _Bad:
+                raise bad(f"field {tag} is not readable") from None
+            if tag == 339 and not 1 <= v <= 6:
+                raise bad(f"SampleFormat {v}")
+            if tag == 32996:                         # DataType, as a SampleFormat
+                if v not in (0, 1, 2, 3):
+                    raise bad(f"DataType {v}")
+                tag, v = 339, {0: 4, 1: 2, 2: 1, 3: 3}[v]
+            t[tag] = [v]
+            bps_read |= tag == 258
+            continue
+        if tag in (340, 341):
+            try:
+                if e[2] != spp:
+                    raise _Bad
+                d.values(e, kinds=tuple(_SIZES))
+            except _Bad:
+                raise bad(f"field {tag} is not readable") from None
+            continue
+        if tag in _CODEC_TAGS and comp not in _CODEC_TAGS[tag]:
+            continue
+        try:
+            if tag == 320:                           # ColorMap, once BitsPerSample is read
+                b = t.get(258, [1])[0]
+                if not bps_read or b > 24 or e[2] != 3 << b:
+                    continue
+                t[tag] = d.ints(e, 0xFFFF)
+            elif tag in (262, 266, 274, 317, 332):
+                v = d.ints(e, 0xFFFF, True)
+                if (tag == 266 and v[0] not in (1, 2)) or (tag == 274 and not 1 <= v[0] <= 8):
+                    continue
+                t[tag] = v
+            elif tag == 292:
+                t[tag] = d.ints(e, 0xFFFFFFFF, True)
+            elif tag in (530, 529, 532, 318):        # counts 2, 3, 6, 2
+                if e[2] != {530: 2, 529: 3, 532: 6, 318: 2}[tag]:
+                    continue
+                t[tag] = d.ints(e, 0xFFFF) if tag == 530 else \
+                    d.values(e, kinds=(1, 3, 4, 5, 6, 8, 9, 10, 11, 12, 16, 17))
+            elif tag == 347:
+                t[tag] = bytes(d.values(e, kinds=(2, 7)) if e[1] in (2, 7) else d.ints(e, 255))
+        except _Bad:
+            continue
+    photo = t.get(262, [0])[0]
+    bps = t.get(258, [1])[0]
+    # non-colour channels become extra samples
+    colour = {0: 1, 1: 1, 3: 1, 4: 1, 32844: 1, 2: 3, 6: 3, 8: 3, 9: 3, 10: 3,
+              32845: 3, 5: 4}.get(photo, 0)
+    extra = list(t.get(338, []))
+    if colour and spp - len(extra) > colour:
+        extra = extra + [0] * (spp - colour - len(extra))
+    if extra:
+        t[338] = extra
+    if photo == 3 and 320 not in t:                  # a palette without its map
+        if bps >= 8:
+            t[262] = [2 if spp == 3 else 1]
+        else:
+            raise bad("a palette image without a ColorMap")
+    try:
+        offsets = d.ints(offsets_e, 2 ** 63 - 1, limit=nstrips)
+        counts = d.ints(counts_e, 2 ** 63 - 1, limit=nstrips) if counts_e else None
+    except _Bad:
+        raise bad("the strip or tile offsets or byte counts are not readable") from None
+    if nstrips > len(offsets) and nstrips > 1000000:
+        raise bad("too many strips")
+    offsets += [0] * (nstrips - len(offsets))
+    if counts is not None:
+        counts += [0] * (nstrips - len(counts))
+    scan = _scanline_size(W, spp if planar == 1 else 1, bps, photo, comp, t)
+    def estimate():
+        """EstimateStripByteCounts."""
+        if comp != 1:
+            space = (16 + 8 + 20 * len(d.entries) + 8) if big else (8 + 2 + 12 * len(d.entries) + 4)
+            for e in d.entries:
+                w = _SIZES.get(e[1], 0)
+                if not w:
+                    raise bad(f"an entry of unknown type {e[1]}")
+                size = w * e[2]
+                space += size if size > (8 if big else 4) else 0
+            space = len(data) if len(data) < space else len(data) - space
+            if planar == 2:
+                space //= spp
+            est = [space] * nstrips
+            if offsets[-1] + est[-1] > len(data):
+                est[-1] = 0 if offsets[-1] >= len(data) else len(data) - offsets[-1]
+            return est
+        if tiled:
+            return [_tile_size(cw, ch, spp if planar == 1 else 1, bps, photo, comp, t)] * nstrips
+        per_plane = nstrips // spp if planar == 2 else nstrips
+        return [scan * (H // per_plane)] * nstrips
+    if counts is None:
+        if (planar == 1 and nstrips > 1) or (planar == 2 and nstrips != spp):
+            raise bad("no StripByteCounts")
+        counts = estimate()
+        if 278 not in t:
+            rps = H
+    elif nstrips == 1 and not tiled and (
+            (counts[0] == 0 and offsets[0] != 0) or
+            (comp == 1 and (offsets[0] > (len(data) - counts[0]) % 2 ** 64 or
+                            counts[0] > (len(data) - offsets[0]) % 2 ** 64)) or
+            (comp == 1 and counts[0] < scan * H)):
+        counts = estimate()                          # BYTECOUNTLOOKSBAD
+        if 278 not in t:
+            rps = H
+    elif planar == 1 and nstrips > 2 and comp == 1 and counts[0] != counts[1] and \
+            counts[0] and counts[1]:
+        counts = estimate()
+        if 278 not in t:
+            rps = H
+    if planar == 1 and nstrips == 1 and comp == 1 and not tiled:
+        # ChopUpSingleUncompressedStrip: strips of about 8 KB
+        block = 1 if photo != 6 else t.get(530, [2, 2])[1]
+        block_bytes = _strip_size(block, W, spp, bps, photo, comp, t)
+        if block_bytes > 8192:
+            chop_rows, chop_bytes = block, block_bytes
+        elif block_bytes > 0:
+            chop_rows, chop_bytes = 8192 // block_bytes * block, 8192 // block_bytes * block_bytes
+        else:
+            chop_rows = 0
+        if 0 < chop_rows < rps:
+            n = _howmany(H, chop_rows)
+            if n and not (n > 1000000 and (offsets[0] >= len(data) or
+                                           chop_bytes > (len(data) - offsets[0]) // (n - 1))):
+                left, at = counts[0], offsets[0]
+                offsets, counts = [], []
+                for _ in range(n):
+                    take = min(chop_bytes, left)
+                    counts.append(take)
+                    offsets.append(at if take else 0)
+                    at, left = at + take, left - take
+                rps, nstrips = chop_rows, n
+                t[278] = [rps]
+    if not scan:
+        raise bad("a scanline of 0 bytes")
+    if (_tile_size(cw, ch, spp if planar == 1 else 1, bps, photo, comp, t) if tiled else
+            _strip_size(min(rps, H), W, spp if planar == 1 else 1, bps, photo, comp, t)) == 0:
+        raise bad(f"a {'tile' if tiled else 'strip'} of 0 bytes")
+    t.update(offsets=offsets, counts=counts, rps=rps, tiled=tiled, nstrips=nstrips)
+    return t
+
+
+def _ycbcr_block(photo: int, comp: int, spp: int, t) -> Optional[Tuple[int, int]]:
+    """The YCbCr sampling block of a chunky file libtiff sizes by blocks
+    (not JPEG, which libtiff up-samples), or None."""
+    if photo != 6 or spp != 3 or comp == 7:
+        return None
+    return tuple(t.get(530, [2, 2])[:2])
+
+
+def _scanline_size(W: int, per: int, bps: int, photo: int, comp: int, t) -> int:
+    """TIFFScanlineSize64 (0 where libtiff refuses the subsampling)."""
+    blk = _ycbcr_block(photo, comp, per, t)
+    if blk:
+        if blk[0] not in (1, 2, 4) or blk[1] not in (1, 2, 4):
+            return 0
+        return ((-(-W // blk[0]) * (blk[0] * blk[1] + 2) * bps + 7) // 8) // blk[1]
+    return (W * per * bps + 7) // 8
+
+
+def _strip_size(rows: int, W: int, per: int, bps: int, photo: int, comp: int, t) -> int:
+    """TIFFVStripSize64 of `rows` rows."""
+    blk = _ycbcr_block(photo, comp, per, t)
+    if blk:
+        if blk[0] not in (1, 2, 4) or blk[1] not in (1, 2, 4):
+            return 0
+        return ((-(-W // blk[0]) * -(-rows // blk[1]) * (blk[0] * blk[1] + 2) * bps + 7) // 8)
+    return rows * _scanline_size(W, per, bps, photo, comp, t)
+
+
+def _tile_size(cw: int, ch: int, per: int, bps: int, photo: int, comp: int, t) -> int:
+    """TIFFTileSize64."""
+    return _strip_size(ch, cw, per, bps, photo, comp, t)
 
 
 def _lzw(data: bytes, expect: int) -> Tuple[bytes, bool]:
@@ -399,13 +753,13 @@ def _sgilog(data: bytes, rows: int, cw: int, comp: int) -> np.ndarray:
     runs (a byte b >= 128: b - 126 copies of the next byte) and literals (a
     byte n < 128: the n bytes after it).  24-bit (34677): three bytes a
     pixel, most significant first, no coding.  A row whose data runs out
-    raises: libtiff stops, and OpenCV leaves the rest of its image unset."""
+    gives no image: libtiff's decode fails, and OpenCV's read of the strip."""
     out = np.zeros((rows, cw), np.uint32)
     if comp == 34677:
         n = rows * cw * 3
         if len(data) < n:
-            raise ValueError("TIFF: an SGILOG24 strip or tile holds less data than its rows "
-                             "need (OpenCV leaves the rest unset; not read by the port)")
+            raise NoImage("TIFF: an SGILOG24 strip or tile holds less data than its rows need "
+                          "(libtiff's decode fails; OpenCV returns no image)")
         b = np.frombuffer(data[:n], np.uint8).reshape(rows, cw, 3).astype(np.uint32)
         return (b[..., 0] << 16) | (b[..., 1] << 8) | b[..., 2]
     pos, n = 0, len(data)
@@ -424,8 +778,8 @@ def _sgilog(data: bytes, rows: int, cw: int, comp: int) -> np.ndarray:
                     plane += data[pos + 1:pos + 1 + take]
                     pos += 1 + take
             if len(plane) < cw:
-                raise ValueError(f"TIFF: an SGILOG strip or tile ends in row {y} (libtiff stops; "
-                                 f"OpenCV leaves the rest unset; not read by the port)")
+                raise NoImage(f"TIFF: an SGILOG strip or tile ends in row {y} (libtiff's decode "
+                              f"fails; OpenCV returns no image)")
             out[y] |= np.frombuffer(bytes(plane[:cw]), np.uint8).astype(np.uint32) << shift
     return out
 
@@ -488,13 +842,22 @@ def _jpeg(raw: bytes, tables: Optional[bytes], space: str, rows: int, cw: int) -
     """A JPEG-coded strip or tile (its abbreviated stream after the
     JPEGTables field's tables) -> [rows, cw, components]."""
     from iron_tpu_torch.data.jpeg import decode_jpeg
-    if tables and raw[:2] == b"\xff\xd8":
+    if raw[:2] != b"\xff\xd8":
+        raise NoImage("TIFF: a JPEG strip or tile without an SOI marker (libjpeg stops in "
+                      "libtiff's JPEGPreDecode; OpenCV returns no image)")
+    if tables is not None and tables[:2] != b"\xff\xd8":
+        raise NoImage("TIFF: a JPEGTables field that is not a JPEG stream (libtiff's "
+                      "JPEGSetupDecode stops; OpenCV returns no image)")
+    if tables:
         raw = (tables[:-2] if tables[-2:] == b"\xff\xd9" else tables) + raw[2:]
     img = decode_jpeg(raw, space)
-    if img.shape[1] != cw or img.shape[0] < rows:
-        raise ValueError(f"TIFF: a JPEG strip or tile of {img.shape[1]}x{img.shape[0]} where "
-                         f"{cw}x{rows} was expected")
-    return img[:rows]
+    if img.shape[1] > cw or img.shape[0] > rows:
+        raise NoImage(f"TIFF: a JPEG strip or tile of {img.shape[1]}x{img.shape[0]} where "
+                      f"{cw}x{rows} was expected (libtiff's JPEGPreDecode stops; no image)")
+    # a smaller one fills the start of each row it has, the rest as zeroed
+    out = np.zeros((rows, cw, img.shape[2]), img.dtype)
+    out[:img.shape[0], :img.shape[1]] = img
+    return out
 
 
 def _fix(x) -> int:
@@ -706,8 +1069,10 @@ def _refusal(bps: int, spp: int, photo: int, fmt: int, pred: int, comp: int, pla
         return NoImage(f"predictor {pred} on {what} (libtiff refuses it)")
     if comp in (2, 3, 4) and (bps != 1 or spp != 1):
         return ValueError(f"CCITT coding of {what} (it codes 1-bit gray)")
-    if comp == 7 and bps != 8:
+    if comp == 7 and bps == 12:
         return ValueError(f"JPEG coding of {what}")
+    if comp == 7 and bps != 8:
+        return NoImage(f"JPEG coding of {what} (libtiff's JPEG codec takes 8 bits)")
     if not rgba:
         if bps not in (10, 12, 14, 16, 32, 64):
             return NoImage(f"{what} (OpenCV reads 1, 8, 10, 12, 14, 16, 32 and 64 bits)")
@@ -758,9 +1123,13 @@ def _luv_refusal(comp: int, photo: int, spp: int, planar: int) -> Optional[Value
                        f"LogLuv only)")
     if planar != 1:
         return NoImage("planar LogLuv (libtiff's SGILOG codec refuses it)")
-    if spp not in (1, 3):
+    if spp == 1:
+        return ValueError("LogLuv of 1 sample a pixel (OpenCV asks libtiff for float XYZ, 12 "
+                          "bytes a pixel, in rows of 4 bytes a pixel, and reads the rest of each "
+                          "row from memory no file holds; not read by the port)")
+    if spp != 3:
         return ValueError(f"LogLuv of {spp} samples a pixel (not read by the port: libtiff "
-                          f"writes 3, or 1 in its raw data format)")
+                          f"writes 3)")
     return None
 
 
@@ -768,18 +1137,30 @@ def read_tiff(data: bytes) -> np.ndarray:
     """A TIFF (the first image) as cv2.imread(IMREAD_UNCHANGED) reads it:
     [H, W] or [H, W, 3 / 4], channels in RGB(A) order; uint8 (int8) through
     libtiff's RGBA interface, 16- to 64-bit gray and RGB(A) as stored."""
-    end, big, off = _header(data)
-    t = _ifd(data, end, big, off)
+    t = _directory(data)
+    end = "<" if data[:1] == b"I" else ">"
     one = lambda tag, default: t.get(tag, [default])[0]
     W, H = one(256, 0), one(257, 0)
     spp, bps, comp = one(277, 1), one(258, 1), one(259, 1)
-    photo = one(262, 1 if spp < 3 else 2)
+    if 262 not in t:
+        raise NoImage("TIFF: no Photometric field (OpenCV asserts one; no image)")
+    photo = t[262][0]
     planar, fmt, fill = one(284, 1), one(339, 1), one(266, 1)
-    pred = one(317, 1) if comp in _PREDICTED else 1
+    pred = one(317, 1)
+    # OpenCV's readHeader: the depths it takes, integer samples at 1 and 8
+    # bits; then imread's size limits
+    if bps not in (1, 2, 4, 8, 10, 12, 14, 16, 32, 64) or (bps in (1, 8) and fmt not in (1, 2)):
+        raise NoImage(f"TIFF: {bps}-bit samples of format {fmt} (OpenCV reads 1, 2, 4, 8, 10, "
+                      f"12, 14, 16, 32 and 64 bits, integers at 1 and 8; no image)")
+    check_size(W, H, "TIFF")
     if comp in _REFUSED:
         raise (ValueError if comp == 32771 else NoImage)(f"TIFF: {_REFUSED[comp]}")
+    if comp in _NOT_CONFIGURED:
+        raise NoImage(f"TIFF: compression {comp}, which OpenCV's libtiff is built without (no "
+                      f"image)")
     luv = comp in (34676, 34677)
-    if comp not in _COMPRESSION and not luv:
+    known = comp in _COMPRESSION or luv
+    if not known and comp in _CONFIGURED:
         raise ValueError(f"TIFF: compression {comp} is not read by the port (none, PackBits, "
                          f"LZW, Deflate, JPEG, CCITT 2-4 and SGILOG are)")
     # OpenCV keeps wide gray and RGB(A) samples and LogLuv's XYZ; the rest
@@ -790,7 +1171,7 @@ def read_tiff(data: bytes) -> np.ndarray:
         why = _luv_refusal(comp, photo, spp, planar)
     else:
         why = _refusal(bps, spp, photo, fmt, pred, comp, planar, rgba, sub, one(332, 1))
-    tiled = 322 in t
+    tiled = t["tiled"]
     orientation = one(274, 1)
     if orientation not in (1, 2, 3, 4):
         why = NoImage(f"orientation {orientation} (OpenCV gives no image: its imread check "
@@ -801,18 +1182,33 @@ def read_tiff(data: bytes) -> np.ndarray:
                          f"once)")
     if why:
         raise type(why)(f"TIFF: {why}")
+    # OpenCV's readData: a tile or strip of at most 2^24 rows and columns
+    # and under 1 GB
+    ncn = one(277, 1 if photo in (0, 1) else 3)
+    if not rgba and not luv and ncn != spp:
+        raise ValueError(f"TIFF: {bps}-bit samples, photometric {photo}, without a "
+                         f"SamplesPerPixel field (libtiff decodes one sample a pixel, OpenCV "
+                         f"copies {ncn} a pixel from its buffer and reads the rest from memory "
+                         f"no file holds; not read by the port)")
+    tw, th = (one(322, 0), one(323, 0)) if tiled else (W, one(278, 0))
+    tw = tw or W
+    th = H if th == 0 or (not tiled and th == 0xFFFFFFFF) else th
+    if not (0 < tw <= 1 << 24 and 0 < th <= 1 << 24) or \
+            tw * th * ncn * max(1, bps // 8) >= 1 << 30:
+        raise NoImage(f"TIFF: {'tiles' if tiled else 'strips'} of {tw} x {th} pixels (OpenCV "
+                      f"asserts at most 2^24 a side and under 1 GB; no image)")
     if tiled:
         cw, ch = one(322, 0), one(323, 0)
-        offsets, counts = t[324], t.get(325)
     else:
-        cw, ch = W, min(one(278, 2 ** 32 - 1), H)
-        offsets, counts = t[273], t.get(279)
+        cw, ch = W, min(t["rps"], H)
+    offsets, counts = t["offsets"], t["counts"]
     planes = spp if planar == 2 else 1
     per = spp // planes                              # samples a pixel within a chunk
     across, down = -(-W // cw), -(-H // ch)
     space = "ycc" if photo == 6 else "raw"           # JPEGCOLORMODE_RGB for YCbCr
     out = np.zeros((H, W, spp), _F if luv else np.uint8 if bps <= 8 else
                    np.uint16 if bps <= 16 else f"u{bps // 8}")
+    fax: dict = {}                                   # libtiff's fax3 state the strips share
     for k, off in enumerate(offsets):
         plane, k2 = divmod(k, across * down)
         if plane >= planes:
@@ -823,10 +1219,19 @@ def read_tiff(data: bytes) -> np.ndarray:
             want = -(-cw // sub[0]) * -(-rows // sub[1]) * (sub[0] * sub[1] + 2)
         else:
             want = rows * ((cw * per * bps + 7) // 8)
-        size = counts[k] if counts else want
-        if off + size > len(data):
-            raise NoImage("TIFF: a strip or tile runs past the end of the file (libtiff stops; "
-                          "OpenCV returns no image)")
+        size = counts[k]
+        if size > 1 << 20 and (size - 4096) // 10 > _strip_size(ch, cw, per, bps, photo, comp, t):
+            size = _strip_size(ch, cw, per, bps, photo, comp, t) * 10 + 4096
+        if size == 0 or off + size > len(data):
+            raise NoImage("TIFF: a strip or tile of no bytes or past the end of the file "
+                          "(libtiff's TIFFFillStrip stops; OpenCV returns no image)")
+        if not known:
+            # a codec libtiff does not know: the strip decodes to nothing, and
+            # the RGBA interface goes on with zeros
+            if not rgba:
+                raise NoImage(f"TIFF: compression {comp}, which libtiff does not know (OpenCV "
+                              f"returns no image)")
+            continue
         raw = data[off:off + size]
         if fill == 2 and comp != 7:                  # least significant bit first
             raw = raw.translate(BIT_REVERSED)
@@ -838,7 +1243,8 @@ def read_tiff(data: bytes) -> np.ndarray:
         else:
             failed = False
             if comp in (2, 3, 4):
-                raw = decode_ccitt(raw, cw, rows, comp, one(292, 0)).tobytes()
+                raw, failed = decode_ccitt(raw, cw, rows, comp, one(292, 0), state=fax)
+                raw = raw.tobytes()
             elif comp == 5:
                 raw, failed = _lzw(raw, want)
             elif comp in (8, 32946):

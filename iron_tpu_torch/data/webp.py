@@ -1335,16 +1335,24 @@ def decode_webp(data: bytes) -> np.ndarray:
         raise WebPError("WebP: a RIFF size past the end of the file or too small for a chunk "
                         "(libwebp stops)")
     end = 8 + riff
+    tag = data[12:16]
+    if tag in (b"VP8 ", b"VP8L"):
+        # a simple file: libwebp's ParseVP8Header checks the chunk's size
+        # against the RIFF size and the file and reads no chunk after it
+        size = int.from_bytes(data[16:20], "little")
+        if size > riff - 12 or size > len(data) - 20:
+            raise WebPError(f"WebP: the {tag!r} chunk runs past the RIFF size or the file "
+                            f"(libwebp stops)")
+        chunks = [(tag, data[20:20 + size], data[20:])]
+        if tag == b"VP8 ":
+            return _frame(chunks, False)[..., :3]
+        alpha = _vp8l_header(chunks[0][1])[2]
+        rgba = _frame(chunks, True)
+        return rgba if alpha else rgba[..., :3]
     chunks = list(_chunks(data, 12, end))
     if not chunks:
         raise WebPError("WebP: no chunks")
     tag, body, _ = chunks[0]
-    if tag == b"VP8 ":
-        return _frame(chunks[:1], False)[..., :3]
-    if tag == b"VP8L":
-        alpha = _vp8l_header(body)[2]
-        rgba = _frame(chunks[:1], True)
-        return rgba if alpha else rgba[..., :3]
     if tag != b"VP8X" or len(body) < 10:
         raise WebPError(f"WebP: first chunk {tag!r}")
     flags = body[0]

@@ -17,14 +17,21 @@ extension, and the span of its coded data.  DAMAGE, the damage classes:
          stands for it: WebP's RIFF size off by a seeded amount, BMP's
          file-size field set to a seeded value, a TIFF whose last strip is
          cut (PIL's, its directory first), a PPM without its last byte;
-  trail  seeded bytes after the end of the file.
+  trail  seeded bytes after the end of the file;
+  header one byte of its header set to a seeded value: TIFF, in the first
+         directory's entries; JPEG 2000, the boxes before `jp2c` and the
+         main header up to the first SOT (a raw codestream: from SIZ);
+         every other format, the bytes before its coded data.
 
 `outcome` writes the file and reads it with cv2.imread (by its path, as the
 JAX package reads it) and with the port's decode_image; `verdict` holds the
-port to one of two outcomes: OpenCV's array exactly, or NoImage where
-cv2.imread gives None.  (A damage class the port could not reproduce
-would raise a ValueError naming it and be listed in ROADMAP.md section 3;
-there is none.)
+port to one of three outcomes: OpenCV's array exactly (a float image by
+its bytes, since NaN is not equal to NaN), NoImage where cv2.imread gives
+None, or the port's ImageSizeError where cv2.imread raises cv2.error (a
+size past OpenCV's limits, which its imread asserts outside its try).
+A case the port cannot reproduce, because OpenCV's library reads memory
+that no file holds there, raises a ValueError naming it and is listed by
+(format, class, seed) in UNREPRODUCIBLE.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ import numpy as np
 import image_format_writers as W
 from iron_tpu_torch.data import io as tio
 
-DAMAGE = ("cut", "byte", "end", "trail")
+DAMAGE = ("cut", "byte", "end", "trail", "header")
 
 
 def image(seed: int, H: int = 40, W_: int = 56, C: int = 3) -> np.ndarray:
@@ -73,9 +80,9 @@ def _webp_span(d: bytes) -> Tuple[int, int]:
 
 
 def _tiff_span(d: bytes) -> Tuple[int, int]:
-    from iron_tpu_torch.data.tiff import _header, _ifd
-    t = _ifd(d, *_header(d))
-    return min(t[273]), max(o + n for o, n in zip(t[273], t[279]))
+    from iron_tpu_torch.data.tiff import _directory
+    t = _directory(d)
+    return min(t["offsets"]), max(o + n for o, n in zip(t["offsets"], t["counts"]))
 
 
 def _pnm_span(d: bytes) -> Tuple[int, int]:
@@ -130,11 +137,52 @@ def _one_scan_a_component(img: np.ndarray) -> bytes:
     return b"".join(out) + b"\xff\xd9"
 
 
-def _pil_tiff(img: np.ndarray) -> bytes:
+def _pil_file(img: np.ndarray, fmt: str, **opts) -> bytes:
+    """`img` (BGR, gray or a bool bitmap) written by PIL (its libtiff and
+    OpenJPEG)."""
     from PIL import Image
     f = io.BytesIO()
-    Image.fromarray(np.ascontiguousarray(img[..., ::-1])).save(f, "TIFF")
+    pil = Image.fromarray(img) if img.ndim == 2 else \
+        Image.fromarray(np.ascontiguousarray(img[..., ::-1]))
+    pil.save(f, fmt, **opts)
     return f.getvalue()
+
+
+def _bitmap(seed: int) -> np.ndarray:
+    """A bilevel image: the seeded image's blobs."""
+    return image(seed, C=1) > 128
+
+
+def _sgilog(seed: int) -> bytes:
+    """LogLuv32 (SGILOG, 34676) from the seeded image's linear RGB as XYZ,
+    over decades, written by the system's libtiff without dither."""
+    rgb = (image(seed)[..., ::-1].astype(np.float32) / 255) ** 2.2
+    m = np.array([[0.412453, 0.357580, 0.180423], [0.212671, 0.715160, 0.072169],
+                  [0.019334, 0.119193, 0.950227]], np.float32)
+    g = np.random.default_rng(seed)
+    xyz = (rgb @ m.T * np.float32(10.0) ** g.uniform(-2, 2, rgb.shape[:2] + (1,))).astype(
+        np.float32)
+    H, W_ = xyz.shape[:2]
+    return W.libtiff_encode([xyz], [(256, W_), (257, H), (277, 3), (262, 32845), (259, 34676),
+                                    (65560, 0), (65561, 0), (278, H)])
+
+
+def _after(token: bytes, count: int = 1):
+    """The span from after the `count`-th `token` to the end of the file."""
+    def span(d: bytes) -> Tuple[int, int]:
+        at = -1
+        for _ in range(count):
+            at = d.index(token, at + 1)
+        return at + len(token), len(d)
+    return span
+
+
+def _hdr_span(d: bytes) -> Tuple[int, int]:
+    return d.index(b"\n", d.index(b"-Y ")) + 1, len(d)
+
+
+def _ras_span(d: bytes) -> Tuple[int, int]:
+    return 32 + struct.unpack(">I", d[28:32])[0], len(d)
 
 
 # name -> (the file from a seed, extension, the span of its coded data)
@@ -181,7 +229,47 @@ FORMATS: Dict[str, Tuple[Callable[[int], bytes], str, Callable]] = {
     "ppm": (lambda s: _cv2(".ppm", image(s)), ".ppm", _pnm_span),
     "gif": (lambda s: _cv2(".gif", image(s)), ".gif", _gif_span),
     "jp2": (lambda s: _cv2(".jp2", image(s)), ".jp2", _jp2_span),
+    "bmp gray": (lambda s: _cv2(".bmp", image(s, C=1)), ".bmp", lambda d: (struct.unpack(
+        "<I", d[10:14])[0], len(d))),
+    "pgm 16-bit": (lambda s: _cv2(".pgm", image(s, C=1).astype(np.uint16) * 257), ".pgm",
+                   _after(b"\n", 3)),
+    "tiff packbits": (lambda s: _pil_file(image(s), "TIFF", compression="packbits"), ".tif",
+                      _tiff_span),
+    "tiff jpeg": (lambda s: _pil_file(image(s), "TIFF", compression="jpeg"), ".tif",
+                  _tiff_span),
+    "tiff g3": (lambda s: _pil_file(_bitmap(s), "TIFF", compression="group3"), ".tif",
+                _tiff_span),
+    "tiff g4": (lambda s: _pil_file(_bitmap(s), "TIFF", compression="group4"), ".tif",
+                _tiff_span),
+    "tiff 16-bit": (lambda s: _cv2(".tif", image(s).astype(np.uint16) * 257), ".tif",
+                    _tiff_span),
+    "tiff float": (lambda s: _cv2(".tif", image(s).astype(np.float32) / 255), ".tif",
+                   _tiff_span),
+    "tiff sgilog": (_sgilog, ".tif", _tiff_span),
+    "pam": (lambda s: _cv2(".pam", image(s)), ".pam", _after(b"ENDHDR\n")),
+    "pfm": (lambda s: _cv2(".pfm", image(s).astype(np.float32) / 255), ".pfm",
+            _after(b"\n", 3)),
+    "hdr": (lambda s: _cv2(".hdr", image(s).astype(np.float32) / 255), ".hdr", _hdr_span),
+    "sun raster": (lambda s: _cv2(".ras", image(s)), ".ras", _ras_span),
+    "j2k 9/7": (lambda s: _pil_file(image(s), "JPEG2000", no_jp2=True, irreversible=True),
+                ".j2k", _jp2_span),
+    "jp2 3 layers": (lambda s: _pil_file(image(s), "JPEG2000", quality_mode="rates",
+                                         quality_layers=[40, 20, 10]), ".jp2", _jp2_span),
 }
+
+
+def _header_span(name: str, d: bytes) -> Tuple[int, int]:
+    """Where the `header` class sets its byte: a TIFF's first directory's
+    entries; a JPEG 2000 file's boxes before the codestream and its main
+    header up to the first SOT (a raw codestream's from SIZ); the bytes
+    before any other format's coded data."""
+    if name.startswith("tiff"):
+        from iron_tpu_torch.data.tiff import _header
+        end, _, off = _header(d)
+        return off + 2, off + 2 + 12 * struct.unpack(end + "H", d[off:off + 2])[0]
+    if name.startswith(("jp2", "j2k")):
+        return (2 if d[:2] == b"\xff\x4f" else 0), d.index(b"\xff\x90")
+    return 0, FORMATS[name][2](d)[0]
 
 
 def damaged(name: str, kind: str, seed: int) -> bytes:
@@ -198,7 +286,11 @@ def damaged(name: str, kind: str, seed: int) -> bytes:
         return d[:at] + bytes([int(g.integers(0, 256))]) + d[at + 1:]
     if kind == "trail":
         return d + g.integers(0, 256, int(g.integers(1, 64))).astype(np.uint8).tobytes()
-    if name.startswith("jpeg") or name == "jp2":
+    if kind == "header":
+        lo, hi = _header_span(name, d)
+        at = int(g.integers(lo, hi))
+        return d[:at] + bytes([int(g.integers(0, 256))]) + d[at + 1:]
+    if name.startswith(("jpeg", "jp2", "j2k")):
         return d[:-2]                           # EOI / EOC
     if name == "png":
         return d[:-12]                          # the IEND chunk
@@ -207,19 +299,19 @@ def damaged(name: str, kind: str, seed: int) -> bytes:
     if name.startswith("webp"):
         riff = struct.unpack("<I", d[4:8])[0] + int(g.choice([-1, 1]) * g.integers(1, 17))
         return d[:4] + struct.pack("<I", riff) + d[8:]
-    if name == "bmp":
+    if name.startswith("bmp"):
         return d[:2] + struct.pack("<I", int(g.integers(0, 1 << 32))) + d[6:]
-    if name.startswith("tiff"):
-        d = _pil_tiff(image(seed))
+    if name in ("tiff lzw", "tiff deflate"):
+        d = _pil_file(image(seed), "TIFF")
         lo, hi = _tiff_span(d)
         return d[:int(g.integers(lo, hi))]
-    return d[:-1]                               # a PNM's last byte
+    return d[:-1]                               # the last byte (a TIFF's: of its directory)
 
 
 def seeded(name: str, kind: str) -> bool:
     """Whether the damage depends on its seed (an end marker dropped does
     not)."""
-    return kind != "end" or name.startswith(("webp", "tiff")) or name == "bmp"
+    return kind != "end" or name.startswith(("webp", "tiff", "bmp"))
 
 
 def outcome(path: str, data: bytes):
@@ -228,8 +320,11 @@ def outcome(path: str, data: bytes):
     raised) for `data` written to `path`."""
     with open(path, "wb") as f:
         f.write(data)
-    ref = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-    if ref is not None and ref.ndim == 3:
+    try:
+        ref = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    except cv2.error as e:                  # imread's size assertion, outside its try
+        ref = e
+    if isinstance(ref, np.ndarray) and ref.ndim == 3:
         ref = np.ascontiguousarray(ref[..., [2, 1, 0, 3][:ref.shape[2]]])
     try:
         got = tio.decode_image(data, path)
@@ -239,13 +334,46 @@ def outcome(path: str, data: bytes):
 
 
 def verdict(ref, got) -> str:
-    """'equal' (OpenCV's array), 'refused' (None and NoImage), or what went
+    """'equal' (OpenCV's array: dtype, shape and bytes), 'refused' (None and
+    NoImage), 'too large' (cv2.error and ImageSizeError), or what went
     wrong."""
+    if isinstance(ref, cv2.error):
+        return "too large" if isinstance(got, tio.ImageSizeError) else \
+            f"OpenCV: cv2.error, port: {got!r:.200}"
     if ref is None:
         return "refused" if isinstance(got, tio.NoImage) else f"OpenCV: None, port: {got!r:.200}"
     if isinstance(got, Exception):
         return f"OpenCV: an image, port: {got!r:.200}"
-    if got.dtype == ref.dtype and got.shape == ref.shape and np.array_equal(got, ref):
+    if got.dtype == ref.dtype and got.shape == ref.shape and got.tobytes() == ref.tobytes():
         return "equal"
     return "OpenCV: an image, port: a different one"
+
+
+OUTCOMES = ("equal", "refused", "too large")
+
+# (format, class, seed) -> what OpenCV's library reads there from memory no
+# file holds; the port raises a ValueError naming it
+UNREPRODUCIBLE: Dict[Tuple[str, str, int], str] = {
+    # SamplesPerPixel lost: LogLuv of one sample, which libtiff decodes as
+    # float XYZ (12 bytes a pixel) into rows sized for 4 bytes a pixel
+    ("tiff sgilog", "header", 1): "LogLuv of 1 sample a pixel",
+    ("tiff sgilog", "header", 8): "LogLuv of 1 sample a pixel",
+    ("tiff sgilog", "header", 199): "LogLuv of 1 sample a pixel",
+    # SamplesPerPixel lost from an RGB file of wide samples: libtiff decodes
+    # one sample a pixel, OpenCV copies three a pixel from its buffer
+    **{(fmt, "header", seed): "without a SamplesPerPixel field"
+       for fmt, seeds in (("tiff 16-bit", (64, 103, 151)), ("tiff float", (116, 147)))
+       for seed in seeds},
+}
+
+
+def classify(name: str, kind: str, seed: int, ref, got) -> str:
+    """The verdict's outcome, 'unreproducible' for a case of UNREPRODUCIBLE
+    that the port refuses with a named ValueError, else 'wrong'."""
+    v = verdict(ref, got)
+    if v in OUTCOMES:
+        return v
+    if (name, kind, seed) in UNREPRODUCIBLE and type(got) is ValueError:
+        return "unreproducible"
+    return "wrong"
 

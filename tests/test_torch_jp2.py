@@ -414,7 +414,10 @@ def test_files_opencv_refuses_raise_in_both(case, tmp_path):
 
 UNDECODED = {
     # features no writer here makes: the port raises naming them (ROADMAP.md
-    # section 3); OpenCV decodes them
+    # section 1).  These files set a flag on a stream coded without it, so
+    # OpenCV decodes some and not others: the TERMALL, PPM marker and palette
+    # ('cmap' with no 'pclr') files give None from cv2.imread, the others an
+    # image; a palette without 'pclr' is NoImage in the port too
     **{f"code-block style {name}": (lambda bit=bit: _cod_style(_gray_j2k(), bit), name)
        for bit, name in ((0x01, "BYPASS"), (0x02, "RESET"), (0x04, "TERMALL"), (0x08, "VSC"),
                          (0x10, "PTERM"), (0x20, "SEGSYM"))},
