@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only-8o    # the build, then phase 8o alone (no result line)
     python3 chip_smoke.py --only-8p    # the build, then phase 8p alone (no result line)
     python3 chip_smoke.py --only-8q    # the build, then phase 8q alone (no result line)
+    python3 chip_smoke.py --only-8r    # the build, then phase 8r alone (no result line)
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, and drives the port's main
@@ -155,6 +156,12 @@ with the launch counts set to 0 just before it and read just after:
     OpenCV refuses raising NoImage and skipped by preprocess make-masks,
     the views and masks on the card bit for bit the host's, then the same
     8 stage-1 steps;
+  * a stage-1 run from the JPEG 2000 corners (phase 8r,
+    `jp2_corners_phase`): tests/data_jp2_corners/ (views of code-block
+    style 0x3F with a POC and tile-parts, 9/7 with RGN and PPM, sYCC; masks
+    of BYPASS + TERMALL, a palette and PPT) decoded by the port bit-equal
+    to OpenCV's decode recorded beside it, the views and masks on the card
+    bit for bit the host's, then the same 8 stage-1 steps;
 
 then times each kernel beside its plain version and its bound, and prints:
 
@@ -190,11 +197,13 @@ then times each kernel beside its plain version and its bound, and prints:
     times, losses, launches and the plots' sizes and write times;
   * one JSON line {"header": {...}}: phase 8q's decode times (the views and
     masks, the refused files), step times, losses, launches and wall time;
+  * one JSON line {"jp2_corners": {...}}: phase 8r's decode times, step
+    times, losses, launches and wall time;
   * one JSON line {"kernels": [...]} on the six kernels (launches: K1-K3
     from the default training run, K4 from the trace_pallas training run,
     K5 from the sweep; beside them each kernel's launches on phase 8f's
     paths, a rank's on phase 8g's and a step's on phase 8h's, a stage-1
-    replay's from the device trace, and phases 8j's to 8q's);
+    replay's from the device trace, and phases 8j's to 8r's);
   * last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -3294,6 +3303,58 @@ def header_phase(args, dev, card, kernels) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 8r: the JPEG 2000 corners OpenCV reads, the port's eighteenth slice
+# ---------------------------------------------------------------------------
+
+JP2_CORNER_STEPS = 8     # phase 8r's stage-1 steps on the fixture scene
+
+
+def jp2_corners_phase(args, dev, card, kernels) -> dict:
+    """Phase 8r, a stage-1 run from JPEG 2000 files of the corners OpenCV
+    reads, which the JAX package reads through OpenCV and the port with its
+    own decoder (this machine has no OpenCV): tests/data_jp2_corners/
+    (scripts/make_jp2_corner_fixtures.py, written by OpenJPEG), three
+    256x256 views of one camera named as the dataset lists them (view0.png
+    5/3 of code-block style 0x3F with a POC and tile-parts, view1.jpg 9/7
+    with an RGN shift and its packet headers in PPM markers, view2.png in
+    the sYCC colour space), their masks BYPASS + TERMALL, a palette
+    ('pclr' + 'cmap') and packet headers in PPT markers:
+
+      (a) each view and mask decoded by the port, its sha256 that of
+          OpenCV's decode (_decode_fixture), the masks binary;
+      (b) RayDataset.from_folder(..., mask_dir=...) on the card, its images
+          and masks bit for bit the host's decodes;
+      (c) 8 stage-1 steps at Stage1Config()'s width (_stage1_on_fixture:
+          K3-fwd and K3-bwd once a step, a falling loss on a fixed batch)."""
+    import torch
+    from iron_tpu_torch.data.dataset import RayDataset
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, "tests", "data_jp2_corners")
+    names = ["view0.png", "view1.jpg", "view2.png"]
+    decode_ms, decoded = _decode_fixture(root)
+    assert len(decoded) == 6, sorted(decoded)
+    for name in names:
+        assert set(np.unique(decoded[f"mask/{name[:-4]}.png"]).tolist()) == {0.0, 1.0}
+    log(f"phase 8r (a) decodes of tests/data_jp2_corners/ (host, ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items())
+        + f"; every array's sha256 is OpenCV's; card {card}")
+    ds = RayDataset.from_folder(root, mask_dir=os.path.join(root, "mask"), device=dev)
+    assert ds.images.device.type == dev.type
+    for i, name in enumerate(names):
+        assert torch.equal(ds.images[i].cpu(), torch.from_numpy(decoded[f"image/{name}"]))
+        assert torch.equal(ds.masks[i].cpu(), torch.from_numpy(
+            decoded[f"mask/{name[:-4]}.png"][..., :1].copy()))
+    log("phase 8r (b) RayDataset.from_folder on the card: the views and masks bit for bit "
+        "the host's decodes")
+    rec = {"card": card, "decode_ms": decode_ms,
+           **_stage1_on_fixture(args, dev, card, kernels, root, names, args.seed + 10,
+                                JP2_CORNER_STEPS, "8r (c)"),
+           "wall_s": time.perf_counter() - t0}
+    log(f"phase 8r: {rec['wall_s']:.1f} s")
+    return rec
+
+
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list tree, in key order."""
     if isinstance(tree, dict):
@@ -3342,6 +3403,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-8q", action="store_true",
                     help="build, then run phase 8q alone (damaged headers; prints no result "
                          "line)")
+    ap.add_argument("--only-8r", action="store_true",
+                    help="build, then run phase 8r alone (the JPEG 2000 corners; prints no "
+                         "result line)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "iron_tpu_torch", "kernels", "csrc")):
@@ -3420,6 +3484,10 @@ def main(argv=None) -> int:
 
     if args.only_8q:
         log(json.dumps({"header": header_phase(args, dev, card, kernels)}))
+        return 0
+
+    if args.only_8r:
+        log(json.dumps({"jp2_corners": jp2_corners_phase(args, dev, card, kernels)}))
         return 0
 
     if args.only_8h:
@@ -4345,6 +4413,10 @@ def main(argv=None) -> int:
     # tests/data_header/ ----
     header = header_phase(args, dev, card, kernels)
 
+    # ---- 8r. the JPEG 2000 corners OpenCV reads: a stage-1 run from
+    # tests/data_jp2_corners/ ----
+    jp2_corners = jp2_corners_phase(args, dev, card, kernels)
+
     # ---- 9. timings at the slice's shapes ----
     kernel_rows = []
     work = sdf_work(cfg.sdf)
@@ -4614,7 +4686,8 @@ def main(argv=None) -> int:
              "writers2_launches": writers2["launches"].get(r[0], 0),
              "damaged_launches": damaged["launches"].get(r[0], 0),
              "tiff_wide_launches": tiff_wide["launches"].get(r[0], 0),
-             "header_launches": header["launches"].get(r[0], 0)}
+             "header_launches": header["launches"].get(r[0], 0),
+             "jp2_corners_launches": jp2_corners["launches"].get(r[0], 0)}
             for r in kernel_rows]
     log(json.dumps({"cli": cli}))
     log(json.dumps({"research": research}))
@@ -4629,6 +4702,7 @@ def main(argv=None) -> int:
     log(json.dumps({"damaged": damaged}))
     log(json.dumps({"tiff_wide": tiff_wide}))
     log(json.dumps({"header": header}))
+    log(json.dumps({"jp2_corners": jp2_corners}))
     log(json.dumps({"kernels": rows}))
     log(card)
     # ---- 11. result ----

@@ -2,7 +2,8 @@
 passes of one code-block (ISO/IEC 15444-1 Annexes C and D), giving the
 coefficients as OpenJPEG's code-block decoder leaves them.
 
-    decode_block(data, passes, w, h, numbps, orient) -> int64 [h, w]
+    decode_block(segments, w, h, numbps, orient, style=0, roishift=0)
+        -> int64 [h, w]
 
 The values carry one extra bit, as OpenJPEG's do: a coefficient that turns
 significant at bit-plane p is set to 3 * 2^p (the "one plus half" midpoint of
@@ -11,11 +12,23 @@ toward the half of the interval its bit names.  The caller halves them
 (reversible, truncating toward zero) or multiplies them by half the step
 size (irreversible).
 
-Only the default code-block style is decoded (no BYPASS, RESET, TERMALL,
-VSC, PTERM or SEGSYM; jp2.py raises naming them), so all passes of a block
-form one MQ codeword segment.  The decoder follows C.3: BYTEIN with the bit
-stuffing after 0xFF, and past the segment's end the 0xFF 0xFF that OpenJPEG
-appends, which feeds 1-bits.
+The passes come in codeword segments, (bytes, pass count) each, as tier 2
+splits them (jp2.py): one segment under the default style, one a pass under
+TERMALL, and under BYPASS ten passes, then (raw significance + refinement)
+and (MQ cleanup) in turn.  Each code-block style decodes as OpenJPEG 2.5's
+opj_t1_decode_cblk decodes it: BYPASS reads a segment's significance and
+refinement passes as raw bits (opj_mqc_raw_decode: a byte after 0xFF gives
+7 bits, 0xFF followed by a byte above 0x8F gives 1-bits without moving on)
+where the segment starts at bpno + 1 <= numbps - 4 (with ROI's shift in
+bpno and not in numbps); RESET resets the contexts after every MQ pass;
+VSC keeps a stripe's first row from marking the row above (so its last row
+sees no neighbour below); SEGSYM decodes four symbols in the uniform
+context after each cleanup pass and ignores them; PTERM changes nothing in
+the decoder.  An MQ segment follows C.3: BYTEIN with the bit stuffing after
+0xFF, and past the segment's end the 0xFF 0xFF that OpenJPEG appends, which
+feeds 1-bits.  With an RGN shift s the block's first pass is at plane
+s + numbps - 1, and magnitudes of at least 2^s are shifted down by s after
+the passes (opj_t1_clbl_decode_processor).
 
 The neighbourhood state is kept per sample in flat lists with a one-sample
 border (stride w + 2): `nb` holds 15 h + 5 v + d, the counts of significant
@@ -104,11 +117,12 @@ def _scan(w: int, h: int):
     return tuple(cols), tuple(i for col in cols for i in col)
 
 
-def decode_block(data: bytes, passes: int, w: int, h: int, numbps: int,
-                 orient: int) -> np.ndarray:
-    """Decode `passes` coding passes of a w x h code-block whose first is the
-    cleanup pass at bit-plane numbps - 1, from its codeword segment `data`.
-    Returns OpenJPEG's doubled coefficients (module docstring), int64."""
+def decode_block(segments, w: int, h: int, numbps: int, orient: int, style: int = 0,
+                 roishift: int = 0) -> np.ndarray:
+    """Decode the codeword segments [(bytes, passes)] of a w x h code-block
+    whose first pass is the cleanup pass at bit-plane roishift + numbps - 1,
+    under code-block style `style` (module docstring).  Returns OpenJPEG's
+    doubled coefficients (module docstring), int64."""
     stride = w + 2
     size = (h + 2) * stride
     cols, order = _scan(w, h)
@@ -121,28 +135,16 @@ def decode_block(data: bytes, passes: int, w: int, h: int, numbps: int,
     sc = [12] * size            # hsum = vsum = 0
     val = [0] * size
     mu = [0] * size
+    # VSC: a sample in a stripe's first row does not mark the row above
+    north = _vsc_rows(w, h) if style & 0x08 else None
 
-    buf = bytes(data) + b"\xff\xff"
     cx = [0] * 19
-    cx[0], cx[_AGG], cx[_UNI] = 2 * 4, 2 * 3, 2 * 46
-    # INITDEC (C.3.5)
-    bp = 0
-    c = (buf[0] << 16) if data else 0xFF << 16
-    if buf[0] == 0xFF:
-        if buf[1] > 0x8F:
-            c += 0xFF00
-            ct = 8
-        else:
-            bp = 1
-            c += buf[1] << 9
-            ct = 7
-    else:
-        bp = 1
-        c += buf[1] << 8
-        ct = 8
-    c = (c << 7) & 0xFFFFFFFF
-    ct -= 7
-    a = 0x8000
+    a = c = ct = bp = 0
+    buf = b""
+
+    def reset():
+        cx[:] = [0] * 19
+        cx[0], cx[_AGG], cx[_UNI] = 2 * 4, 2 * 3, 2 * 46
 
     def dec(k):
         """DECODE (C.3.2) in context k."""
@@ -188,74 +190,139 @@ def decode_block(data: bytes, passes: int, w: int, h: int, numbps: int,
             if a & 0x8000:
                 return d
 
+    def raw():
+        """opj_mqc_raw_decode: one raw bit."""
+        nonlocal c, ct, bp
+        if ct == 0:
+            if c == 0xFF:
+                if buf[bp] > 0x8F:
+                    ct = 8
+                else:
+                    c = buf[bp]
+                    bp += 1
+                    ct = 7
+            else:
+                c = buf[bp]
+                bp += 1
+                ct = 8
+        ct -= 1
+        return (c >> ct) & 1
+
     def significant(i, neg, v):
         val[i] = -v if neg else v
         sig[i] = 1
-        nb[i - stride - 1] += 1
-        nb[i - stride + 1] += 1
         nb[i + stride - 1] += 1
         nb[i + stride + 1] += 1
         nb[i - 1] += 15
         nb[i + 1] += 15
-        nb[i - stride] += 5
         nb[i + stride] += 5
         if neg:
             sc[i - 1] -= 5
             sc[i + 1] -= 5
-            sc[i - stride] -= 1
             sc[i + stride] -= 1
         else:
             sc[i - 1] += 5
             sc[i + 1] += 5
-            sc[i - stride] += 1
             sc[i + stride] += 1
+        if north is None or north[i]:
+            nb[i - stride - 1] += 1
+            nb[i - stride + 1] += 1
+            nb[i - stride] += 5
+            sc[i - stride] += -1 if neg else 1
 
-    bpno = numbps - 1
+    reset()
+    bpno1 = roishift + numbps               # OpenJPEG's bpno_plus_one
     ptype = 2                               # the first pass is a cleanup pass
     vis = [0] * size                        # coded in this plane's significance pass
-    for _ in range(passes):
-        if bpno < 0:
-            break
-        half = 1 << bpno
-        oph = 3 * half
-        if ptype == 0:                      # significance propagation
-            vis = [0] * size
-            for i in order:
-                if sig[i] or not nb[i]:
-                    continue
-                vis[i] = 1
-                if dec(zc[nb[i]]):
-                    k, x = sc_lut[sc[i]]
-                    significant(i, dec(k) ^ x, oph)
-        elif ptype == 1:                    # magnitude refinement
-            for i in order:
-                if sig[i] and not vis[i]:
-                    v = dec(16 if mu[i] else (15 if nb[i] else 14))
-                    x = val[i]
-                    val[i] = x + half if v ^ (x < 0) else x - half
-                    mu[i] = 1
-        else:                               # cleanup, with run-length coding
-            for col in cols:
-                if len(col) == 4:
-                    i0, i1, i2, i3 = col
-                    if not (sig[i0] or sig[i1] or sig[i2] or sig[i3] or vis[i0] or vis[i1]
-                            or vis[i2] or vis[i3] or nb[i0] or nb[i1] or nb[i2] or nb[i3]):
-                        if not dec(_AGG):
-                            continue
-                        r = dec(_UNI) << 1
-                        r |= dec(_UNI)
-                        i = col[r]
-                        k, x = sc_lut[sc[i]]
-                        significant(i, dec(k) ^ x, oph)
-                        col = col[r + 1:]
-                for i in col:
-                    if sig[i] or vis[i]:
+    for data, passes in segments:
+        is_raw = style & 0x01 and ptype < 2 and bpno1 <= numbps - 4
+        buf = bytes(data) + b"\xff\xff"
+        bp = 0
+        if is_raw:                          # opj_mqc_raw_init_dec
+            c = ct = 0
+        else:                               # INITDEC (C.3.5)
+            c = (buf[0] << 16) if data else 0xFF << 16
+            if buf[0] == 0xFF:
+                if buf[1] > 0x8F:
+                    c += 0xFF00
+                    ct = 8
+                else:
+                    bp = 1
+                    c += buf[1] << 9
+                    ct = 7
+            else:
+                bp = 1
+                c += buf[1] << 8
+                ct = 8
+            c = (c << 7) & 0xFFFFFFFF
+            ct -= 7
+            a = 0x8000
+        for _ in range(passes):
+            if bpno1 < 1:
+                break
+            half = 1 << (bpno1 - 1)
+            oph = 3 * half
+            if ptype == 0:                  # significance propagation
+                vis = [0] * size
+                for i in order:
+                    if sig[i] or not nb[i]:
                         continue
-                    if dec(zc[nb[i]]):
+                    vis[i] = 1
+                    if is_raw:
+                        if raw():
+                            significant(i, raw(), oph)
+                    elif dec(zc[nb[i]]):
                         k, x = sc_lut[sc[i]]
                         significant(i, dec(k) ^ x, oph)
-        ptype += 1
-        if ptype == 3:
-            ptype = 0
-            bpno -= 1
-    return np.asarray(val, np.int64).reshape(h + 2, stride)[1:-1, 1:-1]
+            elif ptype == 1:                # magnitude refinement
+                for i in order:
+                    if sig[i] and not vis[i]:
+                        v = raw() if is_raw else dec(16 if mu[i] else (15 if nb[i] else 14))
+                        x = val[i]
+                        val[i] = x + half if v ^ (x < 0) else x - half
+                        mu[i] = 1
+            else:                           # cleanup, with run-length coding
+                for col in cols:
+                    if len(col) == 4:
+                        i0, i1, i2, i3 = col
+                        if not (sig[i0] or sig[i1] or sig[i2] or sig[i3] or vis[i0] or vis[i1]
+                                or vis[i2] or vis[i3] or nb[i0] or nb[i1] or nb[i2] or nb[i3]):
+                            if not dec(_AGG):
+                                continue
+                            r = dec(_UNI) << 1
+                            r |= dec(_UNI)
+                            i = col[r]
+                            k, x = sc_lut[sc[i]]
+                            significant(i, dec(k) ^ x, oph)
+                            col = col[r + 1:]
+                    for i in col:
+                        if sig[i] or vis[i]:
+                            continue
+                        if dec(zc[nb[i]]):
+                            k, x = sc_lut[sc[i]]
+                            significant(i, dec(k) ^ x, oph)
+                if style & 0x20:            # SEGSYM: four symbols, not checked
+                    for _ in range(4):
+                        dec(_UNI)
+            if style & 0x02 and not is_raw:
+                reset()
+            ptype += 1
+            if ptype == 3:
+                ptype = 0
+                bpno1 -= 1
+    out = np.asarray(val, np.int64).reshape(h + 2, stride)[1:-1, 1:-1]
+    if roishift:
+        if roishift >= 31:
+            return np.zeros_like(out)
+        mag = np.abs(out)
+        out = np.where(mag >= 1 << roishift, np.sign(out) * (mag >> roishift), out)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _vsc_rows(w: int, h: int):
+    """1 at the flat index of each sample not in a stripe's first row (under
+    VSC only those mark the row above)."""
+    stride = w + 2
+    return tuple(int(i // stride - 1 > 0 and (i // stride - 1) % 4 != 0)
+                 for i in range((h + 2) * stride))

@@ -697,7 +697,13 @@ def _arith_interval(data: bytes, units, mode: int, ss: int, se: int, al: int,
     does once it meets a marker.  A magnitude or spectral overflow (corrupt
     data) leaves the rest of the interval as it is, the block being decoded
     with what it had, as libjpeg's jdarith.c does.  -> False (the
-    arithmetic decoder has no out-of-data flag)."""
+    arithmetic decoder has no out-of-data flag).  A sequential scan ignores
+    its header's Ss, Se, Ah and Al (jdarith.c only warns,
+    JWRN_NOT_SEQUENTIAL, and its decode_mcu codes coefficients 1 to 63
+    unshifted), as it does where a file cut inside the SOS segment leaves
+    them to the fake EOI markers libjpeg reads past the end."""
+    if mode == _SEQUENTIAL:
+        al = 0
     n = len(data)
     pos, c, a, ct = 0, 0, 0, -16
     dc_stats: Dict[int, List[int]] = {}

@@ -255,6 +255,12 @@ FORMATS: Dict[str, Tuple[Callable[[int], bytes], str, Callable]] = {
                 ".j2k", _jp2_span),
     "jp2 3 layers": (lambda s: _pil_file(image(s), "JPEG2000", quality_mode="rates",
                                          quality_layers=[40, 20, 10]), ".jp2", _jp2_span),
+    # the system's OpenJPEG: 5/3 with RCT, every code-block style but HT, one
+    # POC (in the tile-part header), two layers
+    "jp2 styles": (lambda s: W.openjpeg_encode(image(s)[..., ::-1], mct=1, mode=0x3F,
+                                               rates=(8, 1), resolutions=4,
+                                               pocs=[(0, 0, 2, 4, 3, "RLCP", 1)]),
+                   ".jp2", _jp2_span),
 }
 
 

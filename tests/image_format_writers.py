@@ -1010,3 +1010,237 @@ def vp8_recode(webp_file: bytes, partitions_log2: Optional[int] = None,
     body = (struct.pack("<I", tag)[:3] + frame[3:10] + part0
             + b"".join(struct.pack("<I", len(s))[:3] for s in streams[:-1]) + b"".join(streams))
     return _riff_webp([webp_chunk(b"VP8 ", body)])
+
+
+# ---------------------------------------------------------------------------
+# JPEG 2000 through the system's OpenJPEG (openjpeg.h, libopenjp2.so.7, 2.5)
+# ---------------------------------------------------------------------------
+
+# byte offsets in opj_cparameters_t (sizeof 18720), found by filling the
+# struct with a sentinel around opj_set_default_encoder_parameters;
+# tests/test_torch_jp2_corners.py holds the defaults at these places
+OPJ_CPARAMETERS_SIZE = 18720
+OPJ_CP = {"tile_size_on": 0, "cp_tx0": 4, "cp_ty0": 8, "cp_tdx": 12, "cp_tdy": 16,
+          "cp_disto_alloc": 20, "csty": 48, "prog_order": 52, "POC": 56, "numpocs": 4792,
+          "tcp_numlayers": 4796, "tcp_rates": 4800, "numresolution": 5600,
+          "cblockw_init": 5604, "cblockh_init": 5608, "mode": 5612, "irreversible": 5616,
+          "roi_compno": 5620, "roi_shift": 5624, "res_spec": 5628, "prcw_init": 5632,
+          "prch_init": 5764, "subsampling_dx": 18196, "subsampling_dy": 18200,
+          "tp_on": 18696, "tp_flag": 18697, "tcp_mct": 18698}
+_OPJ_POC_SIZE = 148             # opj_poc_t: resno0 +0, compno0 +4, layno1 +8, resno1 +12,
+_OPJ_POC = {"resno0": 0, "compno0": 4, "layno1": 8, "resno1": 12, "compno1": 16, "prg1": 32,
+            "tile": 48}         # compno1 +16, prg1 +32, tile (1-based) +48
+_OPJ_PROG = {"LRCP": 0, "RLCP": 1, "RPCL": 2, "PCRL": 3, "CPRL": 4}
+_OPJ_SPACE = {"unknown": -1, "unspecified": 0, "srgb": 1, "gray": 2, "sycc": 3, "eycc": 4,
+              "cmyk": 5}
+
+
+def libopenjp2():
+    """The system's OpenJPEG 2.5 (libopenjp2.so.7), its encoder's entry points
+    typed."""
+    lib = ctypes.CDLL(ctypes.util.find_library("openjp2") or "libopenjp2.so.7")
+    vp = ctypes.c_void_p
+    for name, res, args in (
+            ("opj_set_default_encoder_parameters", None, [vp]),
+            ("opj_image_create", vp, [ctypes.c_uint32, vp, ctypes.c_int]),
+            ("opj_create_compress", vp, [ctypes.c_int]),
+            ("opj_setup_encoder", ctypes.c_int, [vp, vp, vp]),
+            ("opj_stream_create_default_file_stream", vp, [ctypes.c_char_p, ctypes.c_int]),
+            ("opj_start_compress", ctypes.c_int, [vp, vp, vp]),
+            ("opj_encode", ctypes.c_int, [vp, vp]),
+            ("opj_end_compress", ctypes.c_int, [vp, vp]),
+            ("opj_stream_destroy", None, [vp]), ("opj_destroy_codec", None, [vp]),
+            ("opj_image_destroy", None, [vp]),
+            ("opj_set_MCT", ctypes.c_int, [vp, vp, vp, ctypes.c_uint32])):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    return lib
+
+
+def openjpeg_encode(comps, *, j2k: bool = False, prec: int = 8, sub=None,
+                    space: str = "srgb", irreversible: bool = False, mct: int = 0,
+                    mode: int = 0, resolutions: int = 6, cblk=(64, 64), rates=(0,),
+                    order: str = "LRCP", pocs=(), tile=None, tile_parts: str = "",
+                    roi=None, precincts=None, sop: bool = False, eph: bool = False,
+                    mct_matrix=None) -> bytes:
+    """A JPEG 2000 file (.jp2, or a raw codestream with `j2k`) written by the
+    system's OpenJPEG through ctypes, as its opj_compress sets it up.
+
+    comps: an [H, W] or [H, W, C] array of unsigned samples, or a list of
+    2-D arrays (components sub-sampled by `sub`, [(dx, dy)] each);
+    `space` the image's colour space (JP2's 'colr' box: srgb 16, gray 17,
+    sycc 18; OpenJPEG writes 0 for cmyk and eycc); `mode` the code-block
+    style bits (1 BYPASS, 2 RESET, 4 TERMALL, 8 VSC, 16 PTERM, 32 SEGSYM);
+    `rates` the layers' compression ratios (0 lossless); `pocs` the
+    progression order changes, (resno0, compno0, layno1, resno1, compno1,
+    order, tile) each with the tile 1-based; `tile` (width, height);
+    `tile_parts` "R", "L" or "C" splits each tile's parts by resolution,
+    layer or component; `roi` (component, shift) writes an RGN;
+    `precincts` [(log2 width, log2 height)] from the top resolution down;
+    `mct_matrix` a C x C float matrix for opj_set_MCT (Part 2)."""
+    import os
+    import tempfile
+    if isinstance(comps, np.ndarray):
+        comps = [comps] if comps.ndim == 2 else [comps[..., c] for c in range(comps.shape[2])]
+    comps = [np.ascontiguousarray(c, np.int32) for c in comps]
+    sub = sub or [(1, 1)] * len(comps)
+    H, W = comps[0].shape[0] * sub[0][1], comps[0].shape[1] * sub[0][0]
+    lib = libopenjp2()
+    params = ctypes.create_string_buffer(OPJ_CPARAMETERS_SIZE)
+    lib.opj_set_default_encoder_parameters(params)
+
+    def put(field, fmt, value, at=0):
+        struct.pack_into("<" + fmt, params, OPJ_CP[field] + at, value)
+
+    put("tcp_numlayers", "i", len(rates))
+    for i, r in enumerate(rates):
+        put("tcp_rates", "f", float(r), 4 * i)
+    put("cp_disto_alloc", "i", 1)
+    put("numresolution", "i", resolutions)
+    put("cblockw_init", "i", cblk[0])
+    put("cblockh_init", "i", cblk[1])
+    put("mode", "i", mode)
+    put("irreversible", "i", int(irreversible))
+    put("prog_order", "i", _OPJ_PROG[order])
+    put("tcp_mct", "b", mct)
+    put("csty", "i", (2 if sop else 0) | (4 if eph else 0) | (1 if precincts else 0))
+    if precincts:
+        put("res_spec", "i", len(precincts))
+        for i, (pw, ph) in enumerate(precincts):
+            put("prcw_init", "i", 1 << pw, 4 * i)
+            put("prch_init", "i", 1 << ph, 4 * i)
+    if tile:
+        put("tile_size_on", "i", 1)
+        put("cp_tdx", "i", tile[0])
+        put("cp_tdy", "i", tile[1])
+    if tile_parts:
+        put("tp_on", "b", 1)
+        put("tp_flag", "b", ord(tile_parts))
+    if roi:
+        put("roi_compno", "i", roi[0])
+        put("roi_shift", "i", roi[1])
+    put("numpocs", "I", len(pocs))
+    for i, (r0, c0, l1, r1, c1, prg, t) in enumerate(pocs):
+        base = _OPJ_POC_SIZE * i
+        for k, v in zip(("resno0", "compno0", "layno1", "resno1", "compno1", "prg1", "tile"),
+                        (r0, c0, l1, r1, c1, _OPJ_PROG[prg], t)):
+            put("POC", "I", v, base + _OPJ_POC[k])
+    keep = []
+    if mct_matrix is not None:
+        m = np.ascontiguousarray(mct_matrix, np.float32)
+        shift = np.zeros(len(comps), np.int32)
+        keep += [m, shift]
+        if not lib.opj_set_MCT(params, m.ctypes.data, shift.ctypes.data, len(comps)):
+            raise ValueError("opj_set_MCT failed")
+    cparms = (ctypes.c_uint32 * (9 * len(comps)))()
+    for i, (c, (dx, dy)) in enumerate(zip(comps, sub)):
+        cparms[9 * i:9 * i + 9] = [dx, dy, c.shape[1], c.shape[0], 0, 0, prec, prec, 0]
+    image = lib.opj_image_create(len(comps), cparms, _OPJ_SPACE[space])
+    if not image:
+        raise ValueError("opj_image_create failed")
+    fd, path = tempfile.mkstemp(suffix=".j2k" if j2k else ".jp2")
+    os.close(fd)
+    codec = stream = None
+    try:
+        ctypes.memmove(image, struct.pack("<IIII", 0, 0, W, H), 16)
+        comp_at = ctypes.c_void_p.from_address(image + 24).value
+        for i, c in enumerate(comps):
+            data = ctypes.c_void_p.from_address(comp_at + 64 * i + 48).value
+            ctypes.memmove(data, c.ctypes.data, c.nbytes)
+        codec = lib.opj_create_compress(0 if j2k else 2)
+        if not lib.opj_setup_encoder(codec, params, image):
+            raise ValueError("opj_setup_encoder failed")
+        stream = lib.opj_stream_create_default_file_stream(path.encode(), 0)
+        if not (lib.opj_start_compress(codec, image, stream) and lib.opj_encode(codec, stream)
+                and lib.opj_end_compress(codec, stream)):
+            raise ValueError("OpenJPEG failed to encode")
+        lib.opj_stream_destroy(stream)
+        stream = None
+        with open(path, "rb") as f:
+            return f.read()
+    finally:
+        if stream:
+            lib.opj_stream_destroy(stream)
+        if codec:
+            lib.opj_destroy_codec(codec)
+        lib.opj_image_destroy(image)
+        os.remove(path)
+
+
+# ---------------------------------------------------------------------------
+# JPEG 2000 packet headers moved into PPM / PPT markers
+# ---------------------------------------------------------------------------
+
+def _packet_spans(cs: bytes):
+    """{tile: (its data, [(start, header end, end)])} of the packets in each
+    tile's data (the tile-parts' bytes joined), read with the port's tier-2
+    parser (the files built from them are judged by OpenCV)."""
+    from iron_tpu_torch.data import jp2 as J
+    info = J.parse_codestream(cs)
+    out = {}
+    align, read = J._Bits.align, J._read_packet
+    for t in sorted(info["tiles"]):
+        heads, spans = [], []
+
+        def recording_align(bits):
+            heads.append(align(bits))
+            return heads[-1]
+
+        def recording_read(buf, pos, *a):
+            spans.append((pos, read(buf, pos, *a)))
+            return spans[-1][1]
+
+        J._Bits.align, J._read_packet = recording_align, recording_read
+        try:
+            J._decode_tile(info, t)
+        finally:
+            J._Bits.align, J._read_packet = align, read
+        out[t] = (info["tiles"][t][1], [(a, h, b) for (a, b), h in zip(spans, heads)])
+    return info, out
+
+
+def _one_part_tiles(cs: bytes):
+    """(main header, [(tile, its tile-part header markers, data)]) of a
+    codestream of one tile-part a tile, in tile order."""
+    pos = cs.index(b"\xff\x90")
+    main, parts = cs[:pos], []
+    while cs[pos:pos + 2] == b"\xff\x90":
+        isot, psot = struct.unpack_from(">HI", cs, pos + 4)
+        sod = cs.index(b"\xff\x93", pos)
+        parts.append((isot, cs[pos + 12:sod], cs[sod + 2:pos + psot]))
+        pos += psot
+    return main, parts
+
+
+def pack_packet_headers(cs: bytes, kind: str, chunk: int = 0) -> bytes:
+    """The codestream with its packet headers moved into PPM markers (main
+    header; Nppm before each tile-part's headers) or PPT markers (each
+    tile-part header), cut into markers of at most `chunk` bytes where
+    given; the tiles' data keep the packets' bodies."""
+    _, spans = _packet_spans(cs)
+    main, parts = _one_part_tiles(cs)
+    heads, bodies = {}, {}
+    for t, (data, packets) in spans.items():
+        heads[t] = b"".join(data[a:h] for a, h, _ in packets)
+        bodies[t] = b"".join(data[h:b] for _, h, b in packets)
+
+    def cut(payload: bytes):
+        size = chunk or 65000
+        return [payload[i:i + size] for i in range(0, len(payload), size)] or [b""]
+
+    def markers(code: int, pieces) -> bytes:
+        return b"".join(struct.pack(">HHB", code, 3 + len(p), z) + p
+                        for z, p in enumerate(pieces))
+
+    if kind == "PPM":               # an Nppm field is never cut (OpenJPEG stops there)
+        pieces = []
+        for t, _, _ in parts:
+            run = cut(heads[t])
+            pieces += [struct.pack(">I", len(heads[t])) + run[0]] + run[1:]
+        main += markers(0xFF60, pieces)
+    out = [main]
+    for t, marks, _ in parts:
+        marks += markers(0xFF61, cut(heads[t])) if kind == "PPT" else b""
+        out.append(struct.pack(">HHHIBB", 0xFF90, 10, t, 14 + len(marks) + len(bodies[t]), 0, 1)
+                   + marks + b"\xff\x93" + bodies[t])
+    return b"".join(out) + b"\xff\xd9"

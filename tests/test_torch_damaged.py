@@ -336,3 +336,62 @@ def test_preprocess_skips_damaged_files_as_the_jax_package(tmp_path):
             else:
                 assert (j / d / name).read_bytes() == (t / d / name).read_bytes()
     shutil.rmtree(tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# regressions: the arithmetic SOS cut, JPEG 2000 header damage, CMYK / e-YCC
+# ---------------------------------------------------------------------------
+
+_JPEGS = sorted(n for n in D.FORMATS if n.startswith("jpeg"))
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("fmt", _JPEGS)
+def test_jpeg_cut_inside_its_sos_segment(fmt, seed, tmp_path):
+    """Every JPEG variant cut at every byte of its first SOS segment: the
+    fields the cut removes are read from libjpeg's fake EOI markers (an
+    arithmetic-coded sequential scan then ignores the Ss, Se, Ah and Al it
+    read, as jdarith.c does), and each file reads as cv2.imread reads it."""
+    data = D.FORMATS[fmt][0](seed)
+    i = data.index(b"\xff\xda")
+    n = struct.unpack_from(">H", data, i + 2)[0]
+    path = str(tmp_path / ("f" + D.FORMATS[fmt][1]))
+    for k in range(1, n + 3):
+        ref, got = D.outcome(path, data[:i + k])
+        assert D.classify(fmt, "cut", seed, ref, got) in D.OUTCOMES, \
+            (fmt, seed, k, D.verdict(ref, got))
+
+
+@pytest.mark.parametrize("fmt", ["jp2", "jp2 3 layers"])
+def test_jp2_header_damage_sets_code_block_styles(fmt, tmp_path):
+    """Header seed 126 sets code-block style 0x33 (BYPASS, RESET, PTERM,
+    SEGSYM) on a stream coded with style 0: OpenCV decodes it, and the port
+    gives its image."""
+    data = D.damaged(fmt, "header", 126)
+    k = data.index(b"\xff\x52")
+    assert data[k + 12] == 0x33
+    ref, got = D.outcome(str(tmp_path / "f.jp2"), data)
+    assert D.verdict(ref, got) == "equal"
+
+
+def _jp2_colour(img: np.ndarray, enum: int) -> bytes:
+    """A .jp2 from the system's OpenJPEG with its 'colr' set to `enum`."""
+    data = W.openjpeg_encode(img, resolutions=3)
+    k = data.index(b"colr")
+    return data[:k + 7] + struct.pack(">I", enum) + data[k + 11:]
+
+
+def test_preprocess_skips_cmyk_and_eycc_jp2_as_the_jax_package(tmp_path):
+    """A CMYK .jp2 (4 components, 'colr' 12) and an e-YCC one (3
+    components, 'colr' 24) named .png, which cv2.imread gives no image for:
+    the port raises NoImage for both, and its make-masks skips them as the
+    JAX package's does."""
+    files = {"cmyk.png": _jp2_colour(np.dstack([D.image(14), D.image(15, C=1)]), 12),
+             "eycc.png": _jp2_colour(D.image(16), 24),
+             "rgb.png": D._cv2(".png", D.image(17))}
+    for name in ("cmyk.png", "eycc.png"):
+        ref, got = D.outcome(str(tmp_path / name), files[name])
+        assert ref is None and isinstance(got, tio.NoImage), name
+    j, t = _preprocess_both(tmp_path, files)
+    assert sorted(os.listdir(t / "masks")) == sorted(os.listdir(j / "masks")) == ["rgb.png"]
+    shutil.rmtree(tmp_path)

@@ -11,11 +11,12 @@ writer (reversible 5/3 without a colour transform, cut at a rate below
 1000); some are then edited: tile-parts split and interleaved, a 'cdef' box
 that swaps channels, a gray 'colr' over three components, other sample
 precisions.  The variants OpenCV refuses raise in the JAX package (IOError)
-and in the port (a ValueError naming the variant), as do the features no
-writer here makes (ROADMAP.md section 3).  The committed fixture
-tests/data_jp2 (scripts/make_jp2_fixtures.py) decodes to its recorded
-hashes, also in a process where cv2, PIL, glymur, jax and iron_tpu cannot
-be imported."""
+and in the port (a ValueError naming the variant); flags set on a stream
+coded without them decode as OpenCV decodes them, and only HT code-blocks
+raise naming them (the corners themselves: test_torch_jp2_corners.py).
+The committed fixtures tests/data_jp2 (scripts/make_jp2_fixtures.py) and
+tests/data_jp2_corners decode to their recorded hashes, also in a process
+where cv2, PIL, glymur, jax and iron_tpu cannot be imported."""
 import hashlib
 import io
 import json
@@ -413,29 +414,40 @@ def test_files_opencv_refuses_raise_in_both(case, tmp_path):
 
 
 UNDECODED = {
-    # features no writer here makes: the port raises naming them (ROADMAP.md
-    # section 1).  These files set a flag on a stream coded without it, so
-    # OpenCV decodes some and not others: the TERMALL, PPM marker and palette
-    # ('cmap' with no 'pclr') files give None from cv2.imread, the others an
-    # image; a palette without 'pclr' is NoImage in the port too
-    **{f"code-block style {name}": (lambda bit=bit: _cod_style(_gray_j2k(), bit), name)
+    # flags set on a stream coded without them, and features added by hand:
+    # OpenCV decodes some (the port gives its image bit for bit) and not
+    # others (the TERMALL, PPM marker and 'cmap' without 'pclr' files: the
+    # port raises NoImage).  Only HT code-blocks, which no writer here makes,
+    # raise a JP2Error naming them.
+    **{f"code-block style {name}": (lambda bit=bit: _cod_style(_gray_j2k(), bit), None)
        for bit, name in ((0x01, "BYPASS"), (0x02, "RESET"), (0x04, "TERMALL"), (0x08, "VSC"),
                          (0x10, "PTERM"), (0x20, "SEGSYM"))},
+    "code-block style HT": (lambda: _cod_style(_gray_j2k(), 0x40), "HT"),
     "POC marker": (lambda: _insert_main(_gray_j2k(), b"\xff\x5f\x00\x09\x00\x00\x00\x01\x03\x00"
-                                        b"\x00"), "POC"),
-    "PPM marker": (lambda: _insert_main(_gray_j2k(), b"\xff\x60\x00\x03\x00"), "PPM"),
-    "RGN marker": (lambda: _insert_main(_gray_j2k(), b"\xff\x5e\x00\x05\x00\x00\x02"), "RGN"),
+                                        b"\x00"), None),
+    "PPM marker": (lambda: _insert_main(_gray_j2k(), b"\xff\x60\x00\x03\x00"), None),
+    "RGN marker": (lambda: _insert_main(_gray_j2k(), b"\xff\x5e\x00\x05\x00\x00\x02"), None),
     "palette": (lambda: _with_jp2h_box(_pil(_photo(32, 40)[..., 0]),
-                                       b"\x00\x00\x00\x0ccmap\x00\x00\x01\x00"), "palette"),
-    "sYCC colour space": (lambda: _with_colour(_pil(_photo(32, 40, seed=13)), 18), "sYCC"),
+                                       b"\x00\x00\x00\x0ccmap\x00\x00\x01\x00"), None),
+    "sYCC colour space": (lambda: _with_colour(_pil(_photo(32, 40, seed=13)), 18), None),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNDECODED))
-def test_undecoded_features_raise_naming_them(case):
+def test_undecoded_features_raise_naming_them(case, tmp_path):
+    """Each file decodes to OpenCV's image (read_image to the JAX package's
+    floats) or raises NoImage where OpenCV gives none; HT code-blocks raise
+    a JP2Error naming them."""
     make, what = UNDECODED[case]
-    with pytest.raises(ValueError, match=what):
-        decode_jp2(make())
+    data = make()
+    if what:
+        with pytest.raises(ValueError, match=what):
+            decode_jp2(data)
+    elif _ref(data) is None:
+        with pytest.raises(tio.NoImage):
+            decode_jp2(data)
+    else:
+        _check(data, tmp_path, ".j2k" if data[:2] == b"\xff\x4f" else ".jp2")
 
 
 # ---------------------------------------------------------------------------
@@ -476,9 +488,9 @@ def test_fixture_decodes_to_its_recorded_hashes():
 
 def test_decoder_runs_without_opencv_pil_jax_or_the_jax_package():
     """Where cv2, PIL, glymur, jax and iron_tpu cannot be imported, as on the
-    card's machine, decode_jp2 and read_image decode the fixture to its
-    recorded hashes, and the writer (jp2_enc.py) writes a mask that decodes
-    back exactly."""
+    card's machine, decode_jp2 and read_image decode both fixtures
+    (tests/data_jp2, tests/data_jp2_corners) to their recorded hashes, and
+    the writer (jp2_enc.py) writes a mask that decodes back exactly."""
     code = f"""
 import sys, json, hashlib
 for m in ('cv2', 'PIL', 'glymur', 'jax', 'iron_tpu'):
@@ -486,14 +498,16 @@ for m in ('cv2', 'PIL', 'glymur', 'jax', 'iron_tpu'):
 import numpy as np
 from iron_tpu_torch.data import io as tio
 from iron_tpu_torch.data.jp2 import decode_jp2
-root = {FIXTURE!r}
-expected = json.load(open(root + "/opencv_sha256.json"))
 ok = {{}}
-for key, want in expected.items():
-    img = np.ascontiguousarray(decode_jp2(open(root + "/" + key, "rb").read()))
-    ok[key] = [list(img.shape), str(img.dtype), hashlib.sha256(img.tobytes()).hexdigest()] == [
-        want["shape"], want["dtype"], want["sha256"]]
-    ok[key] = ok[key] and tio.read_image(root + "/" + key).shape == (256, 256, 3)
+for root in ({FIXTURE!r}, {FIXTURE + "_corners"!r}):
+    expected = json.load(open(root + "/opencv_sha256.json"))
+    for key, want in expected.items():
+        img = np.ascontiguousarray(decode_jp2(open(root + "/" + key, "rb").read()))
+        ok[root + key] = [list(img.shape), str(img.dtype),
+                          hashlib.sha256(img.tobytes()).hexdigest()] == [
+            want["shape"], want["dtype"], want["sha256"]]
+        ok[root + key] &= tio.read_image(root + "/" + key).shape == (256, 256, 3)
+root = {FIXTURE!r}
 from iron_tpu_torch.data.jp2_enc import encode_jp2
 mask = decode_jp2(open(root + "/mask/view0.jp2", "rb").read())
 ok["encoder"] = bool(np.array_equal(decode_jp2(encode_jp2(mask)), mask))
@@ -505,4 +519,4 @@ print(json.dumps(ok))
                          cwd=REPO, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got.pop("blocked") == [] and len(got) == 7 and all(got.values()), got
+    assert got.pop("blocked") == [] and len(got) == 13 and all(got.values()), got
