@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only-8p    # the build, then phase 8p alone (no result line)
     python3 chip_smoke.py --only-8q    # the build, then phase 8q alone (no result line)
     python3 chip_smoke.py --only-8r    # the build, then phase 8r alone (no result line)
+    python3 chip_smoke.py --only-8s    # the build, then phase 8s alone (no result line)
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, and drives the port's main
@@ -162,6 +163,14 @@ with the launch counts set to 0 just before it and read just after:
     of BYPASS + TERMALL, a palette and PPT) decoded by the port bit-equal
     to OpenCV's decode recorded beside it, the views and masks on the card
     bit for bit the host's, then the same 8 stage-1 steps;
+  * the quality path (phase 8s, `quality_phase`), through its three entry
+    points in process: `python -m iron_tpu_torch.eval.e2e_validation --fast
+    --independent_gt --silhouette_weight 0.3` on the blobby scene (300 + 150
+    steps at 64x64, the held-out views, the materials and the recovered
+    mesh against the GT mesh), then `psnr_decomposition --res 64` and
+    `relight_eval --res 64 --export_res 64` on its run directory: every
+    number of the three reports finite, each stage's loss lower at its last
+    logged step than at its first, K1, K2, K3-fwd and K3-bwd launched;
 
 then times each kernel beside its plain version and its bound, and prints:
 
@@ -199,11 +208,15 @@ then times each kernel beside its plain version and its bound, and prints:
     masks, the refused files), step times, losses, launches and wall time;
   * one JSON line {"jp2_corners": {...}}: phase 8r's decode times, step
     times, losses, launches and wall time;
+  * one JSON line {"quality": {...}}: phase 8s's headline numbers of the
+    three reports (held-out PSNR and SSIM, chamfer, light and materials; D,
+    B and A; the relit PSNR), the logged losses, the launches of each entry
+    point, the walls and the card;
   * one JSON line {"kernels": [...]} on the six kernels (launches: K1-K3
     from the default training run, K4 from the trace_pallas training run,
     K5 from the sweep; beside them each kernel's launches on phase 8f's
     paths, a rank's on phase 8g's and a step's on phase 8h's, a stage-1
-    replay's from the device trace, and phases 8j's to 8r's);
+    replay's from the device trace, and phases 8j's to 8s's);
   * last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -3355,6 +3368,139 @@ def jp2_corners_phase(args, dev, card, kernels) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 8s: the quality path (e2e validation, PSNR decomposition, relighting
+# eval), the port's nineteenth slice
+# ---------------------------------------------------------------------------
+
+class _Tee:
+    """A text stream that writes to stdout and keeps a copy."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, s):
+        self.parts.append(s)
+        return sys.__stdout__.write(s)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def _logged_losses(text: str, stage: str) -> list:
+    """(step, loss) of every `[<stage> <step>] loss=...` line a trainer's run
+    printed."""
+    import re
+    return [(int(m.group(1)), float(m.group(2)))
+            for m in re.finditer(rf"^\[{stage} (\d+)\] loss=(\S+)", text, re.M)]
+
+
+def _non_finite(tree, path="") -> list:
+    """(path, value) of every number in a JSON tree that is not finite."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _non_finite(v, f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in _non_finite(v, f"{path}/{i}")]
+    if isinstance(tree, (int, float)) and not isinstance(tree, bool) and \
+            not np.isfinite(tree):
+        return [(path, tree)]
+    return []
+
+
+def quality_phase(args, dev, card, kernels) -> dict:
+    """Phase 8s, the port's quality path through its three entry points, in
+    process on the card (each `main(argv)` as `python -m` runs it):
+
+      (a) `iron_tpu_torch.eval.e2e_validation --fast --independent_gt
+          --silhouette_weight 0.3` on the blobby scene (the independent
+          renderer's 14 views at 64x64, 300 stage-1 steps in replayed chunks
+          of 16, 150 stage-2 steps, the held-out views, the materials, the
+          recovered mesh against the GT mesh);
+      (b) `psnr_decomposition --scene blobby --res 64` on that run
+          directory (D, B, A on the held-out views);
+      (c) `relight_eval --scene blobby --res 64 --export_res 64` on it (the
+          export, then the novel flash against the independent renderer).
+
+    Holds: every number of the three reports finite (but the best step and
+    its PSNR, null without a 5,000-step validation, as in the JAX script);
+    the loss of each stage lower at its last logged step than at its first;
+    K1, K2, K3-fwd and K3-bwd launched at least once over the three entry
+    points by the wrappers' counters (stage 1's replays run no wrapper: its
+    warm-up step and capture count).  Returns the {"quality"} line's record:
+    the headline numbers of the three reports, the walls, the launches and
+    the card."""
+    import contextlib
+    import tempfile
+    import torch
+    from iron_tpu_torch.eval import e2e_validation, psnr_decomposition, relight_eval
+
+    t_phase = time.perf_counter()
+    rec = {"card": card, "wall_s": {}, "launches": {}}
+    reports, logs = {}, {}
+    with tempfile.TemporaryDirectory(dir=HERE) as run_dir:
+        calls = [("e2e", e2e_validation, ["--out_dir", run_dir, "--fast", "--independent_gt",
+                                          "--silhouette_weight", "0.3", "--scene", "blobby"]),
+                 ("decomposition", psnr_decomposition,
+                  ["--run_dir", run_dir, "--scene", "blobby", "--res", "64"]),
+                 ("relight", relight_eval, ["--run_dir", run_dir, "--scene", "blobby",
+                                            "--res", "64", "--export_res", "64"])]
+        for name, module, argv in calls:
+            tee = _Tee()
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(tee):
+                reports[name] = module.main(argv + ["--device", "cuda"])
+            torch.cuda.synchronize()
+            rec["wall_s"][name] = time.perf_counter() - t
+            rec["launches"][name] = kernels.launch_counts()
+            logs[name] = tee.text()
+            log(f"phase 8s ({name}) python -m {module.__name__} {' '.join(argv)}: "
+                f"{rec['wall_s'][name]:.1f} s, launches {rec['launches'][name]}")
+    e2e, dec, rel = reports["e2e"], reports["decomposition"], reports["relight"]
+    for name, rep in reports.items():
+        bad = _non_finite({k: v for k, v in rep.items()
+                               if not (name == "e2e" and k in ("best_step", "best_heldout_psnr")
+                                       and v is None)})
+        assert not bad, (name, bad)
+        assert rep["device"] == card, (name, rep["device"], card)
+    assert e2e["best_step"] is None and e2e["best_heldout_psnr"] is None
+    losses = {}
+    for stage in ("stage1", "stage2"):
+        logged = _logged_losses(logs["e2e"], stage)
+        assert len(logged) == 10, (stage, logged)
+        losses[stage] = logged
+        assert logged[-1][1] < logged[0][1], (stage, logged)
+    total = {k: sum(r[k] for r in rec["launches"].values()) for k in kernels.KERNELS}
+    for k in ("coarse_march", "sdf_only_bf16", "sdf_value_feat_grad",
+              "sdf_value_feat_grad_bwd"):
+        assert total[k] >= 1, (k, rec["launches"])
+    rec["launches"]["total"] = total
+    rec["e2e"] = {k: e2e[k] for k in ("test_psnr", "test_ssim", "chamfer", "light")}
+    rec["e2e"]["materials"] = {k: e2e["materials"][k] for k in (
+        "light_diffuse_product_rel_err", "roughness_mean", "roughness_abs_err")}
+    rec["e2e"]["stage1"] = {k: e2e["stage1"][k] for k in ("wall_s", "iters_per_s", "run_mode")}
+    rec["e2e"]["stage2"] = {k: e2e["stage2"][k] for k in ("wall_s", "rays_per_s")}
+    rec["e2e"]["total_wall_s"] = e2e["total_wall_s"]
+    rec["decomposition"] = {k: dec["configs"][k]["psnr"] for k in ("D", "B", "A")}
+    rec["decomposition"]["psnr_in_mask"] = {k: dec["configs"][k]["psnr_in_mask"]
+                                            for k in ("D", "B", "A")}
+    rec["relight"] = {"relight_psnr": rel["relight_psnr"], "per_view": rel["per_view"]}
+    rec["losses_logged"] = losses
+    rec["wall_s"]["phase"] = time.perf_counter() - t_phase
+    log(f"phase 8s: PSNR {e2e['test_psnr']:.2f}, SSIM {e2e['test_ssim']:.4f}, chamfer "
+        f"{e2e['chamfer']:.5f}; D / B / A {rec['decomposition']['D']:.2f} / "
+        f"{rec['decomposition']['B']:.2f} / {rec['decomposition']['A']:.2f} dB; relight "
+        f"{rel['relight_psnr']:.2f} dB; losses first -> last logged: stage 1 "
+        f"{losses['stage1'][0][1]:.4f} -> {losses['stage1'][-1][1]:.4f}, stage 2 "
+        f"{losses['stage2'][0][1]:.4f} -> {losses['stage2'][-1][1]:.4f}; launches {total}; "
+        f"{rec['wall_s']['phase']:.1f} s; card {card}")
+    return rec
+
+
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list tree, in key order."""
     if isinstance(tree, dict):
@@ -3405,6 +3551,9 @@ def main(argv=None) -> int:
                          "line)")
     ap.add_argument("--only-8r", action="store_true",
                     help="build, then run phase 8r alone (the JPEG 2000 corners; prints no "
+                         "result line)")
+    ap.add_argument("--only-8s", action="store_true",
+                    help="build, then run phase 8s alone (the quality path; prints no "
                          "result line)")
     args = ap.parse_args(argv)
 
@@ -3488,6 +3637,10 @@ def main(argv=None) -> int:
 
     if args.only_8r:
         log(json.dumps({"jp2_corners": jp2_corners_phase(args, dev, card, kernels)}))
+        return 0
+
+    if args.only_8s:
+        log(json.dumps({"quality": quality_phase(args, dev, card, kernels)}))
         return 0
 
     if args.only_8h:
@@ -4417,6 +4570,10 @@ def main(argv=None) -> int:
     # tests/data_jp2_corners/ ----
     jp2_corners = jp2_corners_phase(args, dev, card, kernels)
 
+    # ---- 8s. the quality path: e2e validation, the PSNR decomposition and
+    # the relighting eval on the blobby scene ----
+    quality = quality_phase(args, dev, card, kernels)
+
     # ---- 9. timings at the slice's shapes ----
     kernel_rows = []
     work = sdf_work(cfg.sdf)
@@ -4687,7 +4844,8 @@ def main(argv=None) -> int:
              "damaged_launches": damaged["launches"].get(r[0], 0),
              "tiff_wide_launches": tiff_wide["launches"].get(r[0], 0),
              "header_launches": header["launches"].get(r[0], 0),
-             "jp2_corners_launches": jp2_corners["launches"].get(r[0], 0)}
+             "jp2_corners_launches": jp2_corners["launches"].get(r[0], 0),
+             "quality_launches": {k: v[r[0]] for k, v in quality["launches"].items()}}
             for r in kernel_rows]
     log(json.dumps({"cli": cli}))
     log(json.dumps({"research": research}))
@@ -4703,6 +4861,7 @@ def main(argv=None) -> int:
     log(json.dumps({"tiff_wide": tiff_wide}))
     log(json.dumps({"header": header}))
     log(json.dumps({"jp2_corners": jp2_corners}))
+    log(json.dumps({"quality": quality}))
     log(json.dumps({"kernels": rows}))
     log(card)
     # ---- 11. result ----
