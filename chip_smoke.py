@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only-8q    # the build, then phase 8q alone (no result line)
     python3 chip_smoke.py --only-8r    # the build, then phase 8r alone (no result line)
     python3 chip_smoke.py --only-8s    # the build, then phase 8s alone (no result line)
+    python3 chip_smoke.py --only-8t    # the build, then phase 8t alone (no result line)
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, and drives the port's main
@@ -171,6 +172,16 @@ with the launch counts set to 0 just before it and read just after:
     `relight_eval --res 64 --export_res 64` on its run directory: every
     number of the three reports finite, each stage's loss lower at its last
     logged step than at its first, K1, K2, K3-fwd and K3-bwd launched;
+  * the research scripts (phase 8t, `scripts_phase`), through the six
+    entry points of iron_tpu_torch/scripts/ in process:
+    `singleview_demo --iters 64 --patch 64` (the SDF fitted to the photo of
+    tests/data_singleview/), `tracer_budget_coverage --res 64 128`,
+    `diag_torus_stage1 200 40`, `diag_torus_stage2 40 2 64` (its regression
+    fit cut to 1,000 steps), `silhouette_ab --res 64` with 200 + 40 steps
+    and a checkpoint every 20, and `torus_resume_experiment --arm clip
+    --iters 20` from the A/B's last checkpoint (its independent-GT torus
+    cut to 128x128 views and meshes at 192): every number finite, the
+    files written, K1, K2, K3-fwd and K3-bwd launched;
 
 then times each kernel beside its plain version and its bound, and prints:
 
@@ -212,11 +223,15 @@ then times each kernel beside its plain version and its bound, and prints:
     three reports (held-out PSNR and SSIM, chamfer, light and materials; D,
     B and A; the relit PSNR), the logged losses, the launches of each entry
     point, the walls and the card;
+  * one JSON line {"scripts": {...}}: phase 8t's headline numbers of each
+    module (the IoU, the coverage shares, the torus diagnostics, the A/B
+    trajectories, the resumed chamfers), each module's wall and launches,
+    the cuts and the card;
   * one JSON line {"kernels": [...]} on the six kernels (launches: K1-K3
     from the default training run, K4 from the trace_pallas training run,
     K5 from the sweep; beside them each kernel's launches on phase 8f's
     paths, a rank's on phase 8g's and a step's on phase 8h's, a stage-1
-    replay's from the device trace, and phases 8j's to 8s's);
+    replay's from the device trace, and phases 8j's to 8t's);
   * last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -3501,6 +3516,139 @@ def quality_phase(args, dev, card, kernels) -> dict:
     return rec
 
 
+# phase 8t's cuts of what the research scripts hard-wire: the regression
+# fit's steps (4,000 in diag_torus_stage2), and the independent-GT torus of
+# torus_resume_experiment (256x256 views with the GT mesh at 384, the
+# chamfer's GT mesh at 256); the resume checkpoints every 10 steps (5,000)
+SCRIPTS_FIT_STEPS = 1000
+SCRIPTS_RESUME_RES, SCRIPTS_RESUME_MESH = 128, 192
+SCRIPTS_RESUME_SAVE = 10
+
+
+def scripts_phase(args, dev, card, kernels) -> dict:
+    """Phase 8t, the JAX package's research scripts on the port, each
+    module's entry point in process on the card at small sizes:
+
+      (a) `singleview_demo --iters 64 --patch 64 --log_every 32` (the photo
+          of tests/data_singleview/, full-width SDF, K3 in the loss);
+      (b) `tracer_budget_coverage --res 64 128`;
+      (c) `diag_torus_stage1 200 40`;
+      (d) `diag_torus_stage2 40 2 64`, its regression fit cut to
+          SCRIPTS_FIT_STEPS steps, its SDF saved into the phase's directory;
+      (e) `silhouette_ab --res 64 --stage1_iters 200 --stage2_iters 40
+          --ckpt_every 20`;
+      (f) `torus_resume_experiment --arm clip --iters 20` from (e)'s last
+          silhouette-arm checkpoint, on the independent GT torus at
+          SCRIPTS_RESUME_RES^2 with its meshes at SCRIPTS_RESUME_MESH, a
+          checkpoint every SCRIPTS_RESUME_SAVE steps.
+
+    Holds: every number each returns finite and every record's device the
+    card; the mosaics, checkpoints and report files written; the GT torus's
+    SDF at the hole 0.24; every stage-2 run at its step count; K1, K2,
+    K3-fwd and K3-bwd launched at least once over the phase by the
+    wrappers' counters (stage 1's replays run no wrapper: its warm-up step
+    and capture count).  Returns the {"scripts"} line's record: each
+    module's headline numbers, wall and launches, and the cuts."""
+    import tempfile
+    import torch
+    from iron_tpu_torch.fields.sdf import SDFConfig
+    from iron_tpu_torch.scripts import (diag_torus_stage1, diag_torus_stage2, silhouette_ab,
+                                        singleview_demo, torus_resume_experiment,
+                                        tracer_budget_coverage)
+
+    t_phase = time.perf_counter()
+    rec = {"card": card, "wall_s": {}, "launches": {},
+           "cuts": {"diag_torus_stage2_fit_steps": [SCRIPTS_FIT_STEPS, 4000],
+                    "torus_resume_data": [[SCRIPTS_RESUME_RES, SCRIPTS_RESUME_MESH], [256, 384]],
+                    "torus_resume_gt_mesh": [SCRIPTS_RESUME_MESH, 256],
+                    "torus_resume_save_freq": [SCRIPTS_RESUME_SAVE, 5000]}}
+    out = {}
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        sv_dir, ab_dir = os.path.join(tmp, "singleview"), os.path.join(tmp, "ab")
+        resume_args = torus_resume_experiment.arg_parser().parse_args(
+            ["--arm", "clip", "--iters", "20", "--out_dir", os.path.join(tmp, "resume"),
+             "--from_ckpt", os.path.join(ab_dir, "stage2_silhouette", "ckpt_0000040.pkl"),
+             "--device", "cuda"])
+        calls = [
+            ("singleview_demo", lambda: singleview_demo.main(
+                ["--iters", "64", "--patch", "64", "--log_every", "32", "--out_dir", sv_dir,
+                 "--device", "cuda"])),
+            ("tracer_budget_coverage", lambda: tracer_budget_coverage.main(
+                ["--res", "64", "128", "--device", "cuda"])),
+            ("diag_torus_stage1", lambda: diag_torus_stage1.main(["200", "40", "--device",
+                                                                  "cuda"])),
+            ("diag_torus_stage2", lambda: diag_torus_stage2.run(
+                40, 2, 64, dev, fit_steps=SCRIPTS_FIT_STEPS,
+                sdf_path=os.path.join(tmp, "diag_torus_s2_sdf.npy"))),
+            ("silhouette_ab", lambda: silhouette_ab.main(
+                ["--out_dir", ab_dir, "--res", "64", "--stage1_iters", "200",
+                 "--stage2_iters", "40", "--ckpt_every", "20", "--device", "cuda"])),
+            ("torus_resume_experiment", lambda: torus_resume_experiment.run(
+                resume_args, dataclasses.replace(
+                    torus_resume_experiment.stage2_config("clip", resume_args.clip),
+                    save_freq=SCRIPTS_RESUME_SAVE), dev,
+                data=torus_resume_experiment.make_data(SCRIPTS_RESUME_RES,
+                                                       SCRIPTS_RESUME_MESH),
+                gt_mesh_resolution=SCRIPTS_RESUME_MESH)),
+        ]
+        for name, call in calls:
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out[name] = call()
+            torch.cuda.synchronize()
+            rec["wall_s"][name] = time.perf_counter() - t
+            rec["launches"][name] = kernels.launch_counts()
+            log(f"phase 8t ({name}): {rec['wall_s'][name]:.1f} s, launches "
+                f"{rec['launches'][name]}")
+        assert sorted(os.listdir(sv_dir)) == ["ckpt_0000064.pkl", "logim_000032.png",
+                                              "logim_000064.png"], os.listdir(sv_dir)
+        assert os.path.exists(os.path.join(ab_dir, "report.json"))
+        sdf_tree = np.load(os.path.join(tmp, "diag_torus_s2_sdf.npy"), allow_pickle=True).item()
+        assert [sorted(l) for l in sdf_tree["layers"]] == \
+            [["b", "g", "v"]] * (len(SDFConfig().dims) - 1), sdf_tree
+    for name, r in out.items():
+        bad = _non_finite(r)
+        assert not bad, (name, bad)
+    sv, cov, t1, t2, ab, rs = (out[n] for n, _ in calls)
+    cards = ([sv["device"], t1["stage1"]["device"], t1["stage2"]["device"], ab["device"]]
+             + [r["device"] for r in cov] + [r["device"] for r in t2["reports"]]
+             + [r["device"] for r in t2["edge_coverage"]])
+    assert set(cards) == {card}, set(cards)
+    assert sv["iters"] == 64 and 0 <= sv["iou"] <= 1
+    assert [r["res"] for r in cov] == [64, 128]
+    assert all(0 < r["accurate_only"] <= 1 and 0 < r["coarse_to_fine"] <= 1 for r in cov)
+    assert abs(t1["stage1"]["gt_sdf_at_hole"] - 0.24) < 1e-6, t1["stage1"]
+    assert isinstance(t1["stage1"]["euler_gt"], int)
+    assert [r["tag"] for r in t2["reports"]] == ["fitted_init", "after_20", "after_40"]
+    assert [r["edge_coverage_at"] for r in t2["edge_coverage"]] == [256, 512]
+    for arm in ("control", "silhouette"):
+        assert list(ab["arms"][arm]["trajectory"]) == [20, 40], ab["arms"][arm]
+        assert ab["arms"][arm]["rays_per_s"] > 0
+    assert [r["ckpt"] for r in rs] == ["ckpt_0035010.pkl", "ckpt_0035020.pkl"], rs
+    total = {k: sum(r[k] for r in rec["launches"].values()) for k in kernels.KERNELS}
+    for k in ("coarse_march", "sdf_only_bf16", "sdf_value_feat_grad",
+              "sdf_value_feat_grad_bwd"):
+        assert total[k] >= 1, (k, rec["launches"])
+    rec["launches"]["total"] = total
+    rec["singleview_demo"] = sv
+    rec["tracer_budget_coverage"] = cov
+    rec["diag_torus_stage1"] = t1
+    rec["diag_torus_stage2"] = {"fit": t2["fit"], "reports": t2["reports"],
+                                "light": t2["light"], "edge_coverage": t2["edge_coverage"],
+                                "stage2_wall_s": t2["stage2_wall_s"]}
+    rec["silhouette_ab"] = {arm: ab["arms"][arm] for arm in ab["arms"]}
+    rec["torus_resume_experiment"] = rs
+    rec["wall_s"]["phase"] = time.perf_counter() - t_phase
+    log(f"phase 8t: single-view IoU {sv['iou']:.4f} after 64 steps; coverage "
+        + ", ".join(f"{r['res']}^2 {r['accurate_only']:.4f} / {r['coarse_to_fine']:.4f}"
+                    for r in cov)
+        + f"; torus stage 1 Euler {t1['stage1']['euler_largest']} (GT "
+        f"{t1['stage1']['euler_gt']}), SDF at the hole {t1['stage1']['sdf_at_hole']:.4f}; "
+        f"launches {total}; {rec['wall_s']['phase']:.1f} s; card {card}")
+    return rec
+
+
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list tree, in key order."""
     if isinstance(tree, dict):
@@ -3554,6 +3702,9 @@ def main(argv=None) -> int:
                          "result line)")
     ap.add_argument("--only-8s", action="store_true",
                     help="build, then run phase 8s alone (the quality path; prints no "
+                         "result line)")
+    ap.add_argument("--only-8t", action="store_true",
+                    help="build, then run phase 8t alone (the research scripts; prints no "
                          "result line)")
     args = ap.parse_args(argv)
 
@@ -3641,6 +3792,10 @@ def main(argv=None) -> int:
 
     if args.only_8s:
         log(json.dumps({"quality": quality_phase(args, dev, card, kernels)}))
+        return 0
+
+    if args.only_8t:
+        log(json.dumps({"scripts": scripts_phase(args, dev, card, kernels)}))
         return 0
 
     if args.only_8h:
@@ -4574,6 +4729,11 @@ def main(argv=None) -> int:
     # the relighting eval on the blobby scene ----
     quality = quality_phase(args, dev, card, kernels)
 
+    # ---- 8t. the research scripts: the single-view fit, the tracer's
+    # coverage, the torus diagnostics, the resume experiment and the
+    # silhouette A/B ----
+    scripts = scripts_phase(args, dev, card, kernels)
+
     # ---- 9. timings at the slice's shapes ----
     kernel_rows = []
     work = sdf_work(cfg.sdf)
@@ -4845,7 +5005,8 @@ def main(argv=None) -> int:
              "tiff_wide_launches": tiff_wide["launches"].get(r[0], 0),
              "header_launches": header["launches"].get(r[0], 0),
              "jp2_corners_launches": jp2_corners["launches"].get(r[0], 0),
-             "quality_launches": {k: v[r[0]] for k, v in quality["launches"].items()}}
+             "quality_launches": {k: v[r[0]] for k, v in quality["launches"].items()},
+             "scripts_launches": {k: v[r[0]] for k, v in scripts["launches"].items()}}
             for r in kernel_rows]
     log(json.dumps({"cli": cli}))
     log(json.dumps({"research": research}))
@@ -4862,6 +5023,7 @@ def main(argv=None) -> int:
     log(json.dumps({"header": header}))
     log(json.dumps({"jp2_corners": jp2_corners}))
     log(json.dumps({"quality": quality}))
+    log(json.dumps({"scripts": scripts}))
     log(json.dumps({"kernels": rows}))
     log(card)
     # ---- 11. result ----
