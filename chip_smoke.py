@@ -15,6 +15,7 @@
     python3 chip_smoke.py --only-8r    # the build, then phase 8r alone (no result line)
     python3 chip_smoke.py --only-8s    # the build, then phase 8s alone (no result line)
     python3 chip_smoke.py --only-8t    # the build, then phase 8t alone (no result line)
+    python3 chip_smoke.py --only-8u    # the build, then phase 8u alone (no result line)
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card, and drives the port's main
@@ -182,6 +183,16 @@ with the launch counts set to 0 just before it and read just after:
     --iters 20` from the A/B's last checkpoint (its independent-GT torus
     cut to 128x128 views and meshes at 192): every number finite, the
     files written, K1, K2, K3-fwd and K3-bwd launched;
+  * a stage-1 run from ThunderScan TIFF files and the quality rounds'
+    runner (phase 8u, `thunderscan_phase`): tests/data_thunderscan/
+    (4-bit palette ThunderScan views and masks in strips, FillOrder 2,
+    big-endian, an 8-bit colormap, Orientation 3 and 4) decoded by the port
+    bit-equal to OpenCV's decode recorded beside it, the files OpenCV
+    refuses (PixarLog, NeXT, a 2-bit palette, ThunderScan of gray and of 8
+    bits) raising NoImage and skipped by preprocess make-masks, the dataset
+    on the card, the same 8 stage-1 steps; then format_results on results/,
+    quality_runs' watchdog at polls of 0.1 s and round r5's arm sharing
+    with a stand-in child;
 
 then times each kernel beside its plain version and its bound, and prints:
 
@@ -227,11 +238,14 @@ then times each kernel beside its plain version and its bound, and prints:
     module (the IoU, the coverage shares, the torus diagnostics, the A/B
     trajectories, the resumed chamfers), each module's wall and launches,
     the cuts and the card;
+  * one JSON line {"thunderscan": {...}}: phase 8u's decode times (the
+    views and masks, the refused files), step times, losses, launches, the
+    tables' rows and times, the watchdog's kill times and wall time;
   * one JSON line {"kernels": [...]} on the six kernels (launches: K1-K3
     from the default training run, K4 from the trace_pallas training run,
     K5 from the sweep; beside them each kernel's launches on phase 8f's
     paths, a rank's on phase 8g's and a step's on phase 8h's, a stage-1
-    replay's from the device trace, and phases 8j's to 8t's);
+    replay's from the device trace, and phases 8j's to 8u's);
   * last, {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
@@ -3649,6 +3663,152 @@ def scripts_phase(args, dev, card, kernels) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 8u: ThunderScan TIFF as cv2.imread reads it, and the quality rounds'
+# runner and tables, the port's twenty-first slice
+# ---------------------------------------------------------------------------
+
+THUNDER_STEPS = 8    # phase 8u's stage-1 steps on the fixture scene
+THUNDER_POLL_S = 0.1  # the cut watchdog's poll (a minute in the rounds)
+
+
+def thunderscan_phase(args, dev, card, kernels) -> dict:
+    """Phase 8u, a stage-1 run from ThunderScan TIFF files, which the JAX
+    package reads through OpenCV (libtiff) and the port with its own
+    decoder (this machine has no OpenCV), then the quality rounds' tables
+    and runner: tests/data_thunderscan/
+    (scripts/make_thunderscan_fixtures.py), three 256x256 views of one
+    camera named as the dataset lists them (4-bit palette ThunderScan:
+    view0.png in strips of 16 rows, view1.jpg in strips of 7 with FillOrder
+    2, big-endian, view2.png one strip with an 8-bit colormap and
+    Orientation 3), their masks 2-entry ThunderScan palettes, and refused/,
+    files OpenCV reads no image from (PixarLog, NeXT, a 2-bit palette,
+    ThunderScan of gray and of 8 bits):
+
+      (a) each view and mask decoded by the port, its sha256 that of
+          OpenCV's decode (_decode_fixture), the masks binary;
+      (b) decode_image raises NoImage on every refused file, and preprocess
+          make-masks over a copy of refused/ with the three views beside
+          them writes the views' masks and no other;
+      (c) RayDataset.from_folder(..., mask_dir=...) on the card, its images
+          and masks bit for bit the host's decodes;
+      (d) 8 stage-1 steps at Stage1Config()'s width (_stage1_on_fixture:
+          K3-fwd and K3-bwd once a step, a falling loss on a fixed batch);
+      (e) format_results' r4 and r5 tables of results/, the JAX record: a
+          row for each report;
+      (f) quality_runs' watchdog at polls of THUNDER_POLL_S: a child that
+          stops writing is killed after 3 polls, one that writes on after
+          8; then round r5 with a stand-in child (it writes stage1/ and
+          report.json at once): each sil arm launched with its control
+          arm's stage1/ copied beside it, byte for byte, the eight reports
+          and mosaics copied under the JAX record's names."""
+    import shutil
+    import tempfile
+    import torch
+    from iron_tpu_torch.data.dataset import RayDataset
+    from iron_tpu_torch.scripts import format_results, quality_runs
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, "tests", "data_thunderscan")
+    names = ["view0.png", "view1.jpg", "view2.png"]
+    decode_ms, decoded = _decode_fixture(root)
+    assert len(decoded) == 6, sorted(decoded)
+    for i in range(3):
+        assert set(np.unique(decoded[f"mask/view{i}.png"]).tolist()) == {0.0, 1.0}
+    # preprocess reads *.png: view1.jpg goes in as view1.png
+    refused_ms, made = _refuse_and_skip(root, {f"image/{n}": f"view{i}.png"
+                                               for i, n in enumerate(names)})
+    assert made == ["view0.png", "view1.png", "view2.png"], made
+    log(f"phase 8u (a) decodes of tests/data_thunderscan/ (host, ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items())
+        + f"; every array's sha256 is OpenCV's; (b) NoImage on all {len(refused_ms)} refused "
+        f"files (host, ms: " + ", ".join(f"{k} {v:.1f}" for k, v in refused_ms.items())
+        + f"), make-masks skipped them and wrote {made}; card {card}")
+    ds = RayDataset.from_folder(root, mask_dir=os.path.join(root, "mask"), device=dev)
+    assert ds.images.device.type == dev.type
+    for i, name in enumerate(names):
+        assert torch.equal(ds.images[i].cpu(), torch.from_numpy(decoded[f"image/{name}"]))
+        assert torch.equal(ds.masks[i].cpu(), torch.from_numpy(
+            decoded[f"mask/view{i}.png"][..., :1].copy()))
+    log("phase 8u (c) RayDataset.from_folder on the card: the views and masks bit for bit "
+        "the host's decodes")
+    rec = {"card": card, "decode_ms": decode_ms, "refused_ms": refused_ms,
+           "refused": len(refused_ms),
+           **_stage1_on_fixture(args, dev, card, kernels, root, names, args.seed + 11,
+                                THUNDER_STEPS, "8u (d)")}
+
+    # (e) the tables
+    t = time.perf_counter()
+    record = os.path.join(HERE, "results")
+    r4, r5 = format_results.r4_table(record), format_results.r5_table(record)
+    n_r4 = len([n for n in os.listdir(record) if n.endswith("_r4_independent.json")])
+    n_r5 = len([n for n in os.listdir(record) if "_r5_" in n and n.startswith("quality_")
+                and n.endswith(".json")])
+    assert len(r4) == 2 + n_r4 and n_r4 >= 2, r4
+    rows_r5 = [ln for ln in r5 if ln.startswith("| ") and "| arm |" not in ln]
+    assert len(rows_r5) == n_r5 and n_r5 >= 6, r5
+    assert sum(" trajectory: " in ln for ln in r5) == n_r5, r5
+    tables_ms = (time.perf_counter() - t) * 1e3
+    log(f"phase 8u (e) format_results on results/: r4 {n_r4} rows, r5 {n_r5} rows and "
+        f"trajectories ({tables_ms:.1f} ms)")
+
+    # (f) the runner, cut to seconds
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        stall = [sys.executable, "-c", "import time; print('once', flush=True); time.sleep(60)"]
+        chatty = [sys.executable, "-c", "import time\nwhile True:\n print('x', flush=True)\n"
+                  " time.sleep(0.02)"]
+        ts = time.perf_counter()
+        assert quality_runs.watch(stall, os.path.join(tmp, "stall.log"), stall=3, overrun=100,
+                                  poll_s=THUNDER_POLL_S, label="a child that stops writing")
+        stall_s = time.perf_counter() - ts
+        ts = time.perf_counter()
+        assert quality_runs.watch(chatty, os.path.join(tmp, "chatty.log"), stall=3, overrun=8,
+                                  poll_s=THUNDER_POLL_S, label="a child that writes on")
+        overrun_s = time.perf_counter() - ts
+        assert 2 * THUNDER_POLL_S < stall_s < 60 and 7 * THUNDER_POLL_S < overrun_s < 60
+        stand_in = os.path.join(tmp, "child.py")
+        with open(stand_in, "w") as fh:
+            fh.write("import json, os, sys\n"
+                     "out = sys.argv[sys.argv.index('--out_dir') + 1]\n"
+                     "seen = os.path.isdir(os.path.join(out, 'stage1'))\n"
+                     "os.makedirs(os.path.join(out, 'stage1'), exist_ok=True)\n"
+                     "if not seen:\n"
+                     "    open(os.path.join(out, 'stage1', 'ckpt.pkl'), 'wb').write(os.urandom(64))\n"
+                     "json.dump({'out': out, 'stage1_found': seen, 'argv': sys.argv[1:]},\n"
+                     "          open(os.path.join(out, 'report.json'), 'w'))\n"
+                     "open(os.path.join(out, 'testviews.png'), 'wb').write(b'png')\n")
+        exp = os.path.join(tmp, "exp")
+        os.makedirs(exp)
+        copied = quality_runs.run_round("r5", (), os.path.join(tmp, "results"), exp,
+                                        child=(sys.executable, stand_in),
+                                        poll_s=THUNDER_POLL_S, log_dir=tmp)
+        assert len(copied) == 8, copied
+        for scene in ("torus", "sphere"):
+            with open(os.path.join(tmp, "results", f"quality_{scene}_r5_sil.json")) as fh:
+                sil = json.load(fh)
+            with open(os.path.join(tmp, "results", f"quality_{scene}_r5_control.json")) as fh:
+                ctrl = json.load(fh)
+            assert sil["stage1_found"] and not ctrl["stage1_found"], (sil, ctrl)
+            assert sil["argv"][-5:] == ["0.3", "--out_dir", f"exp_r5_{scene}_sil", "--device",
+                                        "cuda"], sil["argv"]
+            with open(os.path.join(exp, f"exp_r5_{scene}_control", "stage1", "ckpt.pkl"),
+                      "rb") as a, \
+                    open(os.path.join(exp, f"exp_r5_{scene}_sil", "stage1", "ckpt.pkl"),
+                         "rb") as b:
+                assert a.read() == b.read()
+        shutil.rmtree(exp)
+    rounds_s = time.perf_counter() - t
+    log(f"phase 8u (f) quality_runs: a stalled child killed after {stall_s:.2f} s, an "
+        f"overrunning one after {overrun_s:.2f} s (polls of {THUNDER_POLL_S} s); round r5 with a "
+        f"stand-in child: each sil arm resumed from its control arm's stage1/, {len(copied)} "
+        f"files copied ({rounds_s:.1f} s)")
+    rec.update({"tables_ms": tables_ms, "tables": {"r4_rows": n_r4, "r5_rows": n_r5},
+                "watchdog_s": {"stall": stall_s, "overrun": overrun_s},
+                "rounds_s": rounds_s, "wall_s": time.perf_counter() - t0})
+    log(f"phase 8u: {rec['wall_s']:.1f} s")
+    return rec
+
+
 def _leaves(tree) -> list:
     """The arrays of a nested dict / list tree, in key order."""
     if isinstance(tree, dict):
@@ -3706,6 +3866,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-8t", action="store_true",
                     help="build, then run phase 8t alone (the research scripts; prints no "
                          "result line)")
+    ap.add_argument("--only-8u", action="store_true",
+                    help="build, then run phase 8u alone (ThunderScan and the quality rounds' "
+                         "runner; prints no result line)")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "iron_tpu_torch", "kernels", "csrc")):
@@ -3796,6 +3959,10 @@ def main(argv=None) -> int:
 
     if args.only_8t:
         log(json.dumps({"scripts": scripts_phase(args, dev, card, kernels)}))
+        return 0
+
+    if args.only_8u:
+        log(json.dumps({"thunderscan": thunderscan_phase(args, dev, card, kernels)}))
         return 0
 
     if args.only_8h:
@@ -4734,6 +4901,10 @@ def main(argv=None) -> int:
     # silhouette A/B ----
     scripts = scripts_phase(args, dev, card, kernels)
 
+    # ---- 8u. ThunderScan TIFF as cv2.imread reads it: a stage-1 run from
+    # tests/data_thunderscan/; the quality rounds' tables and runner ----
+    thunderscan = thunderscan_phase(args, dev, card, kernels)
+
     # ---- 9. timings at the slice's shapes ----
     kernel_rows = []
     work = sdf_work(cfg.sdf)
@@ -5006,7 +5177,8 @@ def main(argv=None) -> int:
              "header_launches": header["launches"].get(r[0], 0),
              "jp2_corners_launches": jp2_corners["launches"].get(r[0], 0),
              "quality_launches": {k: v[r[0]] for k, v in quality["launches"].items()},
-             "scripts_launches": {k: v[r[0]] for k, v in scripts["launches"].items()}}
+             "scripts_launches": {k: v[r[0]] for k, v in scripts["launches"].items()},
+             "thunderscan_launches": thunderscan["launches"].get(r[0], 0)}
             for r in kernel_rows]
     log(json.dumps({"cli": cli}))
     log(json.dumps({"research": research}))
@@ -5024,6 +5196,7 @@ def main(argv=None) -> int:
     log(json.dumps({"jp2_corners": jp2_corners}))
     log(json.dumps({"quality": quality}))
     log(json.dumps({"scripts": scripts}))
+    log(json.dumps({"thunderscan": thunderscan}))
     log(json.dumps({"kernels": rows}))
     log(card)
     # ---- 11. result ----

@@ -8,7 +8,8 @@ before the codec, as libtiff reverses them; JPEG ignores it).  Codecs: none,
 PackBits, LZW, Deflate, JPEG (`jpeg.py`, each strip or tile its own stream,
 JPEGTables spliced in front of an abbreviated one), CCITT modified Huffman,
 T.4 (1D and 2D) and T.6 (`ccitt.py`), SGILOG (LogLuv32 runs, 34676, and
-LogLuv24, 34677); the horizontal predictor (which libtiff applies with LZW
+LogLuv24, 34677), ThunderScan (`thunder.py`, 4-bit palette strips); the
+horizontal predictor (which libtiff applies with LZW
 and Deflate only, to 8- to 64-bit integers) and the floating-point one
 (bytes shuffled by significance, differenced).
 
@@ -30,7 +31,9 @@ libtiff's RGBA interface (TIFFReadRGBAStrip / Tile) to 8 bits, and the
 reader does what that does:
 - gray (min-is-black / -white, bilevel, 16-bit through its high byte) maps
   through the gray table, any alpha dropped: one channel;
-- palette: 16-bit entries shifted down 8 bits, three channels;
+- palette: 16-bit entries shifted down 8 bits (entries that all fit in 8
+  bits taken as they are), three channels; a 1-bit palette's colours
+  weighed to gray as OpenCV weighs them, one channel;
 - RGB: an unassociated alpha premultiplies the colour ((c a + 127) / 255),
   no alpha gives three channels;
 - CMYK (8-bit, InkSet CMYK): R = (255 - K)(255 - C) / 255, and so G, B,
@@ -46,20 +49,23 @@ reader does what that does:
 An 8-bit signed file comes out as int8, the same bytes.  The Orientation
 field mirrors (2), turns (3) or flips (4) the image, as OpenCV does.
 
-Raised, naming what was met: what OpenCV refuses (NoImage: 2- and 4-bit
-gray, depths other than 1, 8, 10, 12, 14, 16, 32 and 64, 10- to 14-bit
-files outside gray and RGB(A) or with the horizontal predictor, 16-bit
-palette, CMYK, YCbCr or RGB with two samples, float below 32 bits,
+Raised, naming what was met: what OpenCV refuses (NoImage: 2-bit samples
+in every photometric and 4-bit ones outside a palette, as its readHeader
+refuses them; depths other than 1, 4, 8, 10, 12, 14, 16, 32 and 64, 10- to
+14-bit files outside gray and RGB(A) or with the horizontal predictor,
+16-bit palette, CMYK, YCbCr or RGB with two samples, float below 32 bits,
 two-sample files above 16 bits, more than 4 samples, photometrics libtiff's
 RGBA interface does not know (4, 9, 10, ...), LogL or LogLuv without
 SGILOG, SGILOG of other photometrics, LogL in 24 bits, planar LogLuv,
-old-style JPEG, LZMA and ZSTD, for which its libtiff is not built, the
-floating-point predictor on integers, the orientations that swap the
-axes, a broken SGILOG strip), what it misreads (planar files above 8
-bits, taken as chunky; the word-aligned CCITT variant, 32771; 8-bit tiles
-mirrored or turned; LogL, whose 8-bit gray it types int8), and what the
-port has no decoder for (NeXT, ThunderScan and PixarLog, 12-bit JPEG,
-LogLuv of other than 3 samples).
+old-style JPEG; PixarLog, LZMA, ZSTD and the other codecs its libtiff is
+built without; NeXT, whose libtiff decoder takes only the 2-bit samples
+OpenCV refuses; ThunderScan of other than 4-bit samples, the one depth
+libtiff's decoder takes; the floating-point predictor on integers, the
+orientations that swap the axes, a broken SGILOG strip), what it misreads
+(planar files above 8 bits, taken as chunky; the word-aligned CCITT
+variant, 32771; 8-bit tiles mirrored or turned; LogL, whose 8-bit gray it
+types int8), and what the port has no decoder for (12-bit JPEG, LogLuv of
+other than 3 samples).
 
 A damaged file reads as cv2.imread reads it.  The directory is read as
 libtiff 4.7's TIFFReadDirectory reads it (`_directory`): each field
@@ -94,6 +100,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from iron_tpu_torch.data.ccitt import BIT_REVERSED, decode_ccitt
+from iron_tpu_torch.data.thunder import decode_thunderscan
 from iron_tpu_torch.data.io import NoImage, check_size
 
 # field type -> struct code (integers and floats); 5 / 10 (rationals) are
@@ -104,7 +111,8 @@ _TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 11: "f", 12: "d", 13: 
 _SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4,
           16: 8, 17: 8, 18: 8}
 _COMPRESSION = {1: "none", 2: "CCITT modified Huffman", 3: "CCITT T.4", 4: "CCITT T.6",
-                5: "LZW", 7: "JPEG", 8: "Deflate", 32946: "Deflate", 32773: "PackBits"}
+                5: "LZW", 7: "JPEG", 8: "Deflate", 32946: "Deflate", 32773: "PackBits",
+                32809: "ThunderScan"}
 _REFUSED = {6: "old-style JPEG (compression 6), which OpenCV returns no image for",
             32771: "the word-aligned CCITT coding (32771), which OpenCV's libtiff misreads",
             34925: "LZMA compression, which OpenCV's libtiff is built without",
@@ -142,11 +150,12 @@ _FIRST_PASS = (256, 257, 32997, 322, 323, 32998, 284, 278, 338)
 _PER_SAMPLE = (280, 281, 258, 32996, 339)
 # codec-specific tags (_TIFFCheckFieldIsValidForCodec) -> the codecs they
 # are read with
-_CODEC_TAGS = {317: (5, 8, 32946, 32909), 347: (7,), 292: (3,), 293: (4,)}
-# the codecs OpenCV's libtiff is built with; any other known one is
-# NotConfigured (no image), an unknown one decodes nothing
-_CONFIGURED = (1, 2, 3, 4, 5, 6, 7, 8, 32766, 32771, 32773, 32809, 32909, 32946, 34676, 34677)
-_NOT_CONFIGURED = (34661, 34712, 34887, 34925, 50000, 50001, 50002)
+# (Predictor is PixarLog's too in a libtiff built with it; OpenCV's is not)
+_CODEC_TAGS = {317: (5, 8, 32946), 347: (7,), 292: (3,), 293: (4,)}
+# the codecs libtiff knows and OpenCV's libtiff is built without: no image;
+# one libtiff does not know decodes nothing
+_NOT_CONFIGURED = {32909: "PixarLog", 34661: "JBIG", 34712: "JPEG 2000", 34887: "LERC",
+                   34925: "LZMA", 50000: "ZSTD", 50001: "WebP", 50002: "JPEG XL"}
 
 
 class _Dir:
@@ -1147,22 +1156,28 @@ def read_tiff(data: bytes) -> np.ndarray:
     photo = t[262][0]
     planar, fmt, fill = one(284, 1), one(339, 1), one(266, 1)
     pred = one(317, 1)
-    # OpenCV's readHeader: the depths it takes, integer samples at 1 and 8
-    # bits; then imread's size limits
-    if bps not in (1, 2, 4, 8, 10, 12, 14, 16, 32, 64) or (bps in (1, 8) and fmt not in (1, 2)):
-        raise NoImage(f"TIFF: {bps}-bit samples of format {fmt} (OpenCV reads 1, 2, 4, 8, 10, "
-                      f"12, 14, 16, 32 and 64 bits, integers at 1 and 8; no image)")
+    # OpenCV's readHeader: the depths it takes (4 bits in palette files
+    # only), integer samples at 1 and 8 bits; then imread's size limits
+    if bps not in (1, 4, 8, 10, 12, 14, 16, 32, 64) or (bps in (1, 8) and fmt not in (1, 2)):
+        raise NoImage(f"TIFF: {bps}-bit samples of format {fmt} (OpenCV reads 1, 4, 8, 10, 12, "
+                      f"14, 16, 32 and 64 bits, integers at 1 and 8; no image)")
+    if bps == 4 and photo != 3:
+        raise NoImage(f"TIFF: 4-bit samples of photometric {photo} (OpenCV reads 4 bits in "
+                      f"palette files only; no image)")
     check_size(W, H, "TIFF")
     if comp in _REFUSED:
         raise (ValueError if comp == 32771 else NoImage)(f"TIFF: {_REFUSED[comp]}")
     if comp in _NOT_CONFIGURED:
-        raise NoImage(f"TIFF: compression {comp}, which OpenCV's libtiff is built without (no "
-                      f"image)")
+        raise NoImage(f"TIFF: {_NOT_CONFIGURED[comp]} compression ({comp}), which OpenCV's "
+                      f"libtiff is built without (no image)")
+    if comp == 32766:
+        raise NoImage("TIFF: NeXT compression (32766), which libtiff decodes at 2 bits a "
+                      "sample only, a depth OpenCV refuses (no image)")
+    if comp == 32809 and bps != 4:
+        raise NoImage(f"TIFF: ThunderScan compression of {bps}-bit samples (libtiff's "
+                      f"ThunderScan decoder takes 4; no image)")
     luv = comp in (34676, 34677)
     known = comp in _COMPRESSION or luv
-    if not known and comp in _CONFIGURED:
-        raise ValueError(f"TIFF: compression {comp} is not read by the port (none, PackBits, "
-                         f"LZW, Deflate, JPEG, CCITT 2-4 and SGILOG are)")
     # OpenCV keeps wide gray and RGB(A) samples and LogLuv's XYZ; the rest
     # goes to 8 bits through libtiff's RGBA interface
     rgba = not luv and (bps <= 8 or photo not in (0, 1, 2) or spp not in (1, 3, 4))
@@ -1176,7 +1191,7 @@ def read_tiff(data: bytes) -> np.ndarray:
     if orientation not in (1, 2, 3, 4):
         why = NoImage(f"orientation {orientation} (OpenCV gives no image: its imread check "
                       f"fails)")
-    elif rgba and tiled and orientation in (2, 3):
+    elif rgba and tiled and orientation in (2, 3) and comp != 32809:
         why = ValueError(f"orientation {orientation} in tiles read through libtiff's RGBA "
                          f"interface (OpenCV misreads them: the tiles flipped twice, the image "
                          f"once)")
@@ -1225,9 +1240,10 @@ def read_tiff(data: bytes) -> np.ndarray:
         if size == 0 or off + size > len(data):
             raise NoImage("TIFF: a strip or tile of no bytes or past the end of the file "
                           "(libtiff's TIFFFillStrip stops; OpenCV returns no image)")
-        if not known:
-            # a codec libtiff does not know: the strip decodes to nothing, and
-            # the RGBA interface goes on with zeros
+        if not known or (comp == 32809 and tiled):
+            # a codec libtiff does not know, or ThunderScan tiles, which it
+            # has no decoder for: the chunk decodes to nothing, and the RGBA
+            # interface goes on with zeros
             if not rgba:
                 raise NoImage(f"TIFF: compression {comp}, which libtiff does not know (OpenCV "
                               f"returns no image)")
@@ -1251,6 +1267,8 @@ def read_tiff(data: bytes) -> np.ndarray:
                 raw, failed = _inflate(raw, want, rgba)
             elif comp == 32773:
                 raw, failed = _packbits(raw, want)
+            elif comp == 32809:
+                raw, failed = decode_thunderscan(raw, cw, rows)
             elif len(raw) < want:
                 # libtiff copies none of uncompressed data short of its rows
                 raw, failed = bytes(want), True
@@ -1286,6 +1304,12 @@ def read_tiff(data: bytes) -> np.ndarray:
         img = img[..., 0] if img.shape[-1] == 1 else img
     else:
         img = _to_rgba8(out, 2 if comp == 7 and photo == 6 else photo, bps, t)
+        if bps == 1 and photo == 3:
+            # OpenCV reads a 1-bit file as gray: the palette's colours
+            # weighed to one channel in 14-bit fixed point
+            g = img.astype(np.int64)
+            img = ((g[..., 0] * _GRAY_R + g[..., 1] * _GRAY_G + g[..., 2] * _GRAY_B
+                    + (1 << 13)) >> 14).astype(np.uint8)
         img = img.view(np.int8) if fmt == 2 else img
     # the Orientation field: OpenCV mirrors, turns or flips the image
     return np.ascontiguousarray(img[::flip[0], ::flip[1]]) if orientation != 1 else img

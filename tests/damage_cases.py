@@ -10,7 +10,8 @@ extension, and the span of its coded data.  DAMAGE, the damage classes:
   byte   one byte of its coded data set to a seeded value (JPEG: from its
          first scan to EOI; PNG: the IDAT data; WebP: the VP8 / VP8L data
          after the frame header; TIFF: the strips (LZW from OpenCV,
-         Deflate with the horizontal predictor); BMP, PPM: the pixels;
+         Deflate with the horizontal predictor, ThunderScan); BMP, PPM:
+         the pixels;
          GIF: the LZW sub-blocks; JPEG 2000: from the first SOD to EOC);
   end    the end marker dropped (JPEG's EOI, PNG's IEND chunk, GIF's
          trailer, the codestream's EOC); where the format has none, what
@@ -167,6 +168,19 @@ def _sgilog(seed: int) -> bytes:
                                     (65560, 0), (65561, 0), (278, H)])
 
 
+def _thunderscan(seed: int) -> bytes:
+    """ThunderScan (32809), a 4-bit palette of 16-bit entries, in strips
+    of 8 rows: the seeded image times 5 modulo 16 levels, which needs every
+    code kind, coded by thunderscan_encode and stored raw."""
+    idx = (image(seed, C=1).astype(np.int64) * 5 >> 4) % 16
+    H, W_ = idx.shape
+    g = np.random.default_rng(seed)
+    cmap = g.integers(0, 65536, (3, 16)).astype(np.uint16)
+    strips = [W.thunderscan_encode(idx[y:y + 8]) for y in range(0, H, 8)]
+    return W.libtiff_encode(strips, [(256, W_), (257, H), (258, 4), (277, 1), (262, 3),
+                                     (259, 32809), (278, 8), (320, *cmap)], raw=True)
+
+
 def _after(token: bytes, count: int = 1):
     """The span from after the `count`-th `token` to the end of the file."""
     def span(d: bytes) -> Tuple[int, int]:
@@ -246,6 +260,7 @@ FORMATS: Dict[str, Tuple[Callable[[int], bytes], str, Callable]] = {
     "tiff float": (lambda s: _cv2(".tif", image(s).astype(np.float32) / 255), ".tif",
                    _tiff_span),
     "tiff sgilog": (_sgilog, ".tif", _tiff_span),
+    "tiff thunderscan": (_thunderscan, ".tif", _tiff_span),
     "pam": (lambda s: _cv2(".pam", image(s)), ".pam", _after(b"ENDHDR\n")),
     "pfm": (lambda s: _cv2(".pfm", image(s).astype(np.float32) / 255), ".pfm",
             _after(b"\n", 3)),

@@ -733,7 +733,8 @@ def _libtiff():
     lib = ctypes.CDLL(ctypes.util.find_library("tiff"))
     lib.TIFFOpen.restype = ctypes.c_void_p
     lib.TIFFOpen.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
-    for name in ("TIFFWriteEncodedStrip", "TIFFWriteEncodedTile", "TIFFWriteRawStrip"):
+    for name in ("TIFFWriteEncodedStrip", "TIFFWriteEncodedTile", "TIFFWriteRawStrip",
+                 "TIFFWriteRawTile"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_char_p, ctypes.c_ssize_t]
         fn.restype = ctypes.c_ssize_t
@@ -772,7 +773,7 @@ def libtiff_encode(chunks: Sequence, fields: Sequence[tuple], mode: str = "w",
                     args.append(ctypes.c_int(v))
             if lib.TIFFSetField(ctypes.c_void_p(t), ctypes.c_uint32(tag), *args) != 1:
                 raise ValueError(f"TIFFSetField({tag}, {vals}) failed")
-        write = (lib.TIFFWriteRawStrip if raw else
+        write = ((lib.TIFFWriteRawTile if tiled else lib.TIFFWriteRawStrip) if raw else
                  lib.TIFFWriteEncodedTile if tiled else lib.TIFFWriteEncodedStrip)
         for i, c in enumerate(chunks):
             buf = c if isinstance(c, bytes) else np.ascontiguousarray(c).tobytes()
@@ -783,6 +784,58 @@ def libtiff_encode(chunks: Sequence, fields: Sequence[tuple], mode: str = "w",
             return f.read()
     finally:
         os.remove(path)
+
+
+def thunderscan_encode(idx: np.ndarray) -> bytes:
+    """The ThunderScan (TIFF compression 32809) codes of a strip: `idx`
+    [rows, W] of 4-bit values, each row coded from a last pixel of 0 (the
+    decoder's start), with every code kind: a run (0x00) where the last
+    pixel repeats twice or more; three 2-bit deltas (0x40) where the next
+    pixels step by -1, 0 or +1 modulo 16, with skip codes (2) for a pair
+    of such steps (in the middle or the last place, by turns) and at a
+    row's end; two 3-bit deltas (0x80) for steps of -3 to +3, a skip code
+    (4) where only the first fits; a raw pixel (0xC0) otherwise."""
+    two = {0: 0, 1: 1, 15: 3}
+    three = {0: 0, 1: 1, 2: 2, 3: 3, 13: 5, 14: 6, 15: 7}
+    out, turn = bytearray(), 0
+    for row in np.asarray(idx, np.int64):
+        last, x, width = 0, 0, len(row)
+        while x < width:
+            run = 0
+            while x + run < width and row[x + run] == last and run < 63:
+                run += 1
+            if run >= 2:
+                out.append(run)
+                x += run
+                continue
+            steps, prev = [], last
+            for v in row[x:x + 3]:
+                steps.append((int(v) - prev) % 16)
+                prev = int(v)
+            m = 0
+            while m < len(steps) and steps[m] in two:
+                m += 1
+            if m == 3 or (m and x + m == width) or m == 2:
+                codes = [two[d] for d in steps[:m]]
+                if m == 2 and x + m < width:
+                    turn ^= 1
+                    codes.insert(1 + turn, 2)
+                codes += [2] * (3 - len(codes))
+                out.append(0x40 | codes[0] << 4 | codes[1] << 2 | codes[2])
+                x += m
+                last = int(row[x - 1])
+                continue
+            if steps[0] in three:
+                k = 2 if len(steps) > 1 and steps[1] in three else 1
+                codes = [three[d] for d in steps[:k]] + [4] * (2 - k)
+                out.append(0x80 | codes[0] << 3 | codes[1])
+                x += k
+                last = int(row[x - 1])
+                continue
+            last = int(row[x])
+            out.append(0xC0 | last)
+            x += 1
+    return bytes(out)
 
 
 # ---------------------------------------------------------------------------

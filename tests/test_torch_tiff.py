@@ -356,6 +356,22 @@ REFUSED = {
     "planar LogLuv": (lambda: _with_short(_lt([np.abs(FLOAT)], 32, 3, 34676, 32845,
                                               extra=[(65560, 0), (284, 1)]), 284, 2),
                       "planar LogLuv"),
+    # 2 bits in any photometric (OpenCV's readHeader), PixarLog (OpenCV's
+    # libtiff is built without it), NeXT (libtiff decodes it at 2 bits
+    # only), ThunderScan at other than a 4-bit palette
+    "2-bit palette": (lambda: _lt([W.pack_samples(IMG[..., 0] >> 6, 2).tobytes()], 2, 1, 1, 3,
+                                  extra=[(320, *[np.arange(4, dtype=np.uint16) * 21845] * 3)]),
+                      "2-bit samples"),
+    "PixarLog RGB": (lambda: _lt([IMG], 8, 3, 32909), "PixarLog"),
+    "PixarLog 16-bit gray": (lambda: _lt([IMG[..., 0].astype(np.uint16) * 257], 16, 1, 32909,
+                                         1), "PixarLog"),
+    "NeXT 8-bit gray": (lambda: _lt([IMG[..., 0].tobytes()], 8, 1, 32766, 1, raw=True), "NeXT"),
+    "ThunderScan 4-bit gray": (lambda: _lt([bytes([0xC5, 36] * H)], 4, 1, 32809, 1, raw=True),
+                               "4-bit samples of photometric 1"),
+    "ThunderScan 8-bit palette": (lambda: _lt(
+        [bytes([0xC5, 36] * H)], 8, 1, 32809, 3, raw=True,
+        extra=[(320, *[np.arange(256, dtype=np.uint16) * 257] * 3)]),
+        "ThunderScan compression of 8-bit"),
 }
 
 
